@@ -1,0 +1,675 @@
+"""Drive the PyTorch port's serving path on one NVIDIA GPU.
+
+Run from the repository root, with one CUDA card visible:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from the sources in the checkout, holds
+each kernel against its plain PyTorch version at the shapes the LLaMA-7B
+serving path gives it, serves requests through ``LLMEngine`` at LLaMA-7B
+width (2 layers in float32, all 32 layers in bfloat16, random weights from
+a seed), checks the float32 run's tokens against the dense ``generate()``
+forward and holds the kernel to its plain version at every launch of the
+bfloat16 run, and shows through the kernels' launch counters that the
+engine's attention went through the kernel.  Each phase prints one JSON
+line; the line before the last two is the kernel record, then the card's
+name and power limit as nvidia-smi gives them, then ``{"ok": true, ...}``.
+
+It exits non-zero, and prints no result, when no CUDA device is present,
+when the port cannot be imported (the script alone, outside the
+repository), or when any phase fails.  It imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+SEED = 0
+DEV = "cuda"
+H, D, BS = 32, 128, 16                   # LLaMA-7B attention, engine pages
+MAX_MODEL_LEN = 2048
+NBLK = MAX_MODEL_LEN // BS
+# kernel against plain version, three measures of out - ref: the largest
+# absolute error; the largest over tokens of max|out_t - ref_t| over
+# max|ref_t| (a long decode row's outputs are ~0.04, so an absolute bound
+# alone would be loose there); and ||out - ref|| / ||ref||.  bf16: both
+# sides round the output to bf16 (one ulp is 2^-7 of the binade), and the
+# kernel also rounds q * scale and p to bf16, so single elements may differ
+# by an ulp or two; the norm ratio averages that out (<= 4e-3 measured,
+# kernel phase and engine launches) and catches a fault that shifts every
+# output by 1% (1.05e-2).
+TOLERANCE = {"float32": {"abs": 1e-4, "token_rel": 1e-4, "l2_rel": 1e-5},
+             "bfloat16": {"abs": 2e-2, "token_rel": 2e-2, "l2_rel": 6e-3}}
+# H100 SXM data-sheet peaks (dense): HBM bytes/s; f32 off the tensor cores
+# and bf16 on them, flop/s
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> list:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    return [ln.strip() for ln in r.stdout.splitlines() if ln.strip()]
+
+
+def errors(out, ref) -> dict:
+    """The three measures of TOLERANCE for one [Tq, H, D] output."""
+    d = (out.float() - ref.float()).flatten(1)
+    r = ref.float().flatten(1)
+    tok = d.abs().amax(1) / r.abs().amax(1).clamp_min(1e-12)
+    return {"abs": float(d.abs().max()), "token_rel": float(tok.max()),
+            "l2_rel": float(d.norm() / r.norm().clamp_min(1e-12))}
+
+
+def within(errs: dict, dtype_name: str, keys=None) -> bool:
+    tol = TOLERANCE[dtype_name]
+    return all(errs[k] <= tol[k] for k in keys or tol)
+
+
+def time_ms(fn, reps=30, warm=3) -> float:
+    """Median CUDA-event time of one call, after warm-up."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# kernel phase: ragged paged attention against its plain version
+# ---------------------------------------------------------------------------
+
+def decode_lens(rng):
+    return [100, 2000] + [int(x) for x in rng.integers(100, 2001, 6)]
+
+
+def attention_case(kind, Hkv, dtype, rng, gen):
+    """An engine-shaped launch on the card: 8 rows, a [9, NBLK] table whose
+    last row is the null row.  ``decode``: one token per row at kv lengths
+    100..2000.  ``mixed``: a 512-token prefill chunk resuming at position
+    188 (kv length 700) plus 7 decode rows, padded to the 576-token bucket
+    the engine would launch."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import paged_attention as pa
+    lens = decode_lens(rng)
+    if kind == "decode":
+        rows = [(1, kv) for kv in lens]
+        Tq = 8
+    else:
+        rows = [(512, 700)] + [(1, kv) for kv in lens[1:]]
+        Tq = 576
+    B = len(rows)
+    num_blocks = 1 + B * NBLK
+    cu = np.zeros(B + 1, np.int32)
+    cu[1:] = np.cumsum([q for q, _ in rows])
+    kvl = np.asarray([kv for _, kv in rows], np.int32)
+    bt = np.zeros((B + 1, NBLK), np.int32)
+    pages = rng.permutation(np.arange(1, num_blocks))
+    used = 0
+    for r, (_, kv) in enumerate(rows):
+        n = -(-kv // BS)
+        bt[r, :n] = pages[used:used + n]
+        used += n
+    dev = torch.device(DEV)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q = randn(Tq, H, D)
+    kc = randn(num_blocks, Hkv, BS, D)
+    vc = randn(num_blocks, Hkv, BS, D)
+    bt_d = torch.from_numpy(bt).to(dev)
+    seg, rel = pa.ragged_segments(torch.from_numpy(cu).to(dev),
+                                  torch.from_numpy(kvl).to(dev), Tq)
+    return dict(q=q, kc=kc, vc=vc, bt=bt_d, seg=seg, rel=rel, kvl=kvl,
+                rows=rows, Tq=Tq)
+
+
+def plain(c, chunk=64):
+    """The plain version, a few tokens at a time (each token's row of the
+    output depends on its own (seg, rel) only; one dense gather of a whole
+    576-token launch would not fit the card)."""
+    import torch
+    from paddle_tpu_torch.ops import paged_attention as pa
+    return torch.cat([pa.ragged_paged_reference_segrel(
+        c["q"][i:i + chunk], c["kc"], c["vc"], c["bt"],
+        c["seg"][i:i + chunk], c["rel"][i:i + chunk])
+        for i in range(0, c["Tq"], chunk)])
+
+
+def kernel(c):
+    from paddle_tpu_torch.ops import paged_attention as pa
+    return pa._launch_kernel(c["q"], c["kc"], c["vc"], c["bt"], c["seg"],
+                             c["rel"])
+
+
+def bound(c, dtype_name):
+    """Least time for this launch: the bytes it must move (live K/V pages
+    once, q, out, table rows, seg/rel) over HBM bandwidth, and its
+    flops (QK and PV over each token's keys) over the dtype's peak."""
+    import numpy as np
+    isz = c["q"].element_size()
+    Hkv = c["kc"].shape[1]
+    live_keys = int(sum(kv for _, kv in c["rows"]))
+    pages = int(sum(-(-kv // BS) for _, kv in c["rows"]))
+    nbytes = (2 * pages * BS * Hkv * D * isz + 2 * c["q"].numel() * isz
+              + pages * 4 + 8 * c["Tq"])
+    keys_per_token = c["rel"].cpu().numpy().astype(np.int64) + 1
+    flops = 4 * int(keys_per_token.sum()) * H * D
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, flops, live_keys)
+
+
+def library(c):
+    """Yardstick only (the port never calls it): PyTorch's
+    scaled_dot_product_attention on the decode launch, K/V already gathered
+    dense per row with a length mask."""
+    import torch
+    import torch.nn.functional as F
+    B = len(c["rows"])
+    Smax = NBLK * BS
+    pages = c["bt"][:B].long()
+    k = c["kc"][pages].permute(0, 2, 1, 3, 4).reshape(B, -1, Smax, D)
+    v = c["vc"][pages].permute(0, 2, 1, 3, 4).reshape(B, -1, Smax, D)
+    kvl = torch.as_tensor(c["kvl"], device=k.device)
+    mask = (torch.arange(Smax, device=k.device)[None, :]
+            < kvl[:, None])[:, None, None, :]
+    q = c["q"][:B, :, None, :]
+    fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask)
+    return fn, fn()[:, :, 0, :]
+
+
+def phase_kernel(state):
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    errs, timing, ok = {}, {}, True
+    for kind, Hkv in (("decode", H), ("mixed", H), ("mixed_gqa", H // 4)):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            c = attention_case("decode" if kind == "decode" else "mixed",
+                               Hkv, dtype, np.random.default_rng(SEED), gen)
+            out = kernel(c)
+            ref = plain(c)
+            err = errors(out, ref)
+            finite = bool(torch.isfinite(out).all())
+            errs[f"{kind}_{name}"] = err
+            ok &= finite and within(err, name)
+            if kind == "decode":
+                lib_fn, lib_out = library(c)
+                b_ms, b_by, nbytes, flops, keys = bound(c, name)
+                timing[name] = {
+                    "ms": time_ms(lambda: kernel(c)),
+                    "plain_ms": time_ms(lambda: plain(c), reps=20),
+                    "library_ms": time_ms(lib_fn),
+                    "library_max_abs_err": float(
+                        (lib_out.float() - ref.float()).abs().max()),
+                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                    "flops": flops, "live_keys": keys}
+            del c, out, ref
+    torch.cuda.empty_cache()
+    state["kernel"] = {"errors": errs, "timing": timing}
+    emit({"phase": "kernel", "ok": ok, "tolerance": TOLERANCE,
+          "shapes": {"H": H, "D": D, "bs": BS, "nblk": NBLK,
+                     "decode": "Tq=8, kv lens 100..2000",
+                     "mixed": "Tq=576: 512-token chunk at kv 700 + 7 "
+                              "decode rows + 57 pad tokens",
+                     "mixed_gqa": "mixed with H_kv=8"},
+          "errors": errs, "decode_timing": timing,
+          "bound_peaks": {"bytes_per_s": PEAK_BYTES,
+                          "flops_per_s": PEAK_FLOPS}})
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# engine phases: the main path through LLMEngine
+# ---------------------------------------------------------------------------
+
+def serve(model, requests, attention=None, sampler=None):
+    """Serve the requests through a fresh engine, counting kernel launches
+    over exactly that run.  ``attention`` swaps another function in for
+    the engine's attention entry during the run, ``sampler`` another for
+    its sampler (the gate's reference and control runs).  Returns (engine,
+    outputs, seconds, launches, peak device memory of the run, weights
+    included)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference import LLMEngine, serving
+    from paddle_tpu_torch.ops import paged_attention as pa
+    torch.cuda.reset_peak_memory_stats()
+    eng = LLMEngine(model, device=DEV, max_num_seqs=8, block_size=BS,
+                    max_model_len=MAX_MODEL_LEN, max_prefill_tokens=512,
+                    prefill_token_bucket=64)
+    rids = [eng.add_request(p, max_new_tokens=mx, **opts)
+            for p, mx, opts in requests]
+    assert rids == list(range(len(requests)))
+    entry = pa.ragged_paged_attention_segrel_packed
+    sample = serving.sample_tokens
+    if attention is not None:
+        pa.ragged_paged_attention_segrel_packed = attention
+    if sampler is not None:
+        serving.sample_tokens = sampler
+        step = eng._ragged_step
+
+        def counted_step(Tq, toks, cu, *rest):
+            # live rows lead the launch; the rest are padding whose logits
+            # come from pad tokens that race on the null page
+            sampler.live = int((np.diff(cu) > 0).sum())
+            return step(Tq, toks, cu, *rest)
+        eng._ragged_step = counted_step
+    try:
+        torch.cuda.synchronize()
+        pa.launch_count = 0
+        t0 = time.perf_counter()
+        outs = eng.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = pa.launch_count
+    finally:
+        pa.ragged_paged_attention_segrel_packed = entry
+        serving.sample_tokens = sample
+    return eng, outs, seconds, launches, torch.cuda.max_memory_allocated()
+
+
+def plain_attention(q, kc, vc, bt, seg, rel):
+    """The engine's attention through the plain version (chunked)."""
+    return plain(dict(q=q, kc=kc, vc=vc, bt=bt, seg=seg, rel=rel,
+                      Tq=q.shape[0]))
+
+
+def held_to_plain(attention, log, run_on_plain=True):
+    """The engine's attention for a gate run: ``attention`` and the plain
+    version are called on the same inputs at every call, and the errors of
+    the one against the other are logged -- the kernel held to the plain
+    version on the engine's own activations, pages and tables.  The engine
+    goes on with the plain version's output, or with ``attention``'s when
+    ``run_on_plain`` is false (a control)."""
+    def fn(q, kc, vc, bt, seg, rel):
+        ref = plain_attention(q, kc, vc, bt, seg, rel)
+        out = attention(q, kc, vc, bt, seg, rel)
+        log.append(errors(out, ref))
+        return ref if run_on_plain else out
+    return fn
+
+
+def kernel_attention(q, kc, vc, bt, seg, rel):
+    from paddle_tpu_torch.ops import paged_attention as pa
+    return pa._launch_kernel(q, kc, vc, bt, seg, rel)
+
+
+def blind_attention(q, kc, vc, bt, seg, rel):
+    """A gross control: the kernel with every token (past position 0)
+    blind to its own key."""
+    import torch
+    rel = torch.clamp(rel - 1, min=0).to(torch.int32)
+    return kernel_attention(q, kc, vc, bt, seg, rel)
+
+
+def scaled_attention(q, kc, vc, bt, seg, rel):
+    """A subtle control: the kernel's output 1% too large, as a
+    normalisation fault would make it."""
+    return kernel_attention(q, kc, vc, bt, seg, rel) * 1.01
+
+
+CONTROLS = {"blind": blind_attention, "scaled_1pct": scaled_attention}
+
+
+def recording_sampler(log):
+    """The engine's sampler, logging each step's live logit rows, its
+    tokens and which live rows are greedy (``serve`` sets ``fn.live``)."""
+    from paddle_tpu_torch.inference import sampling
+
+    def fn(logits, samp):
+        tokens = sampling.sample_tokens(logits, samp)
+        log.append((logits[:fn.live].clone(), tokens.clone(),
+                    samp["temps"][:fn.live] <= 0.0))
+        return tokens
+    return fn
+
+
+def forced_sampler(script, log):
+    """Emit a recorded run's tokens step by step, logging this run's live
+    logit rows: the run then follows the recorded run's schedule, shapes
+    and GEMMs exactly, and differs from it only where its attention
+    does."""
+    steps = iter(script)
+
+    def fn(logits, samp):
+        _, tokens, greedy = next(steps)
+        log.append((logits[:fn.live].clone(), tokens, greedy))
+        return tokens
+    return fn
+
+
+def forced_gap(ref_log, log):
+    """Two runs forced along one recorded token stream: the largest gap,
+    over every step's live greedy rows, between the reference run's best
+    logit and its logit of the token the other run would pick there; the
+    largest live logit difference between the runs, over all steps and on
+    the first step alone (one forward from the same prompts); and the
+    largest reference logit, for scale."""
+    import torch
+    assert len(log) == len(ref_log), (len(log), len(ref_log))
+    gap = diff = 0.0
+    for (lg_ref, _, greedy), (lg, _, _) in zip(ref_log, log):
+        y = lg.argmax(-1)
+        rows = lg_ref.max(-1).values - lg_ref.gather(1, y[:, None])[:, 0]
+        g = torch.as_tensor(greedy, device=lg.device)
+        if bool(g.any()):
+            gap = max(gap, float(rows[g].max()))
+        diff = max(diff, float((lg_ref - lg).abs().max()))
+    return {"gap": gap, "max_logit_diff": diff,
+            "first_step_logit_diff": float(
+                (ref_log[0][0] - log[0][0]).abs().max()),
+            "max_abs_logit": max(float(lg.abs().max()) for lg, _, _ in
+                                 ref_log)}
+
+
+def worst(errs: list) -> dict:
+    return {k: max(e[k] for e in errs) for k in errs[0]}
+
+
+def teacher_forced(model, requests, outs):
+    """Largest gap, over every greedy token y the engine emitted, between
+    the dense forward's best logit and its logit of y at that position
+    (0 when the engine picked the dense argmax everywhere)."""
+    import torch
+    worst_gap, agree, total = 0.0, 0, 0
+    for rid, (prompt, _, opts) in enumerate(requests):
+        if opts.get("temperature", 0.0) > 0.0:
+            continue
+        gen = outs[rid].generated
+        seq = torch.tensor([prompt + gen[:-1]], device=model.device)
+        lg = model.forward_logits(seq)[0, len(prompt) - 1:]
+        y = torch.tensor(gen, device=lg.device)
+        gap = lg.max(-1).values - lg[torch.arange(len(gen),
+                                                  device=lg.device), y]
+        worst_gap = max(worst_gap, float(gap.max()))
+        agree += int((lg.argmax(-1) == y).sum())
+        total += len(gen)
+    return worst_gap, agree, total
+
+
+def engine_record(name, run, requests, checks: dict, **extra):
+    """One engine phase's JSON line; it passes when every request finished
+    with its count, none was quarantined, the kernel was launched once per
+    layer per step, and every entry of ``checks`` holds."""
+    eng, outs, seconds, launches, peak = run
+    s = eng.summary()
+    steps = s["engine_steps"]
+    layers = eng.config.num_hidden_layers
+    counts_ok = all(len(outs[r].generated) == requests[r][1]
+                    and outs[r].finish_reason == "length"
+                    for r in range(len(requests)))
+    gen_tokens = sum(len(o.generated) for o in outs.values())
+    checks = {"finished_with_right_count": counts_ok,
+              "none_quarantined": s["quarantined"] == 0,
+              "launches_equal_layers_x_steps": launches == layers * steps,
+              **checks}
+    rec = {"phase": name, "ok": all(checks.values()), "checks": checks,
+           "requests": len(requests), "layers": layers,
+           "dtype": str(eng._act_dtype).split(".")[-1],
+           "quarantined": s["quarantined"], "steps": steps,
+           "kernel_launches": launches, "launches_per_step": layers,
+           "generated_tokens": gen_tokens, "wall_s": seconds,
+           "tokens_per_s": gen_tokens / seconds,
+           "prefill_tokens": s["prefill_tokens"],
+           "decode_tokens_per_s": s["decode_tokens_per_s"],
+           "ttft_p50_ms": s["ttft_p50_ms"], "ttft_p99_ms": s["ttft_p99_ms"],
+           "itl_p50_ms": s["itl_p50_ms"], "itl_p99_ms": s["itl_p99_ms"],
+           "dispatch_ms_p50": s["dispatch_ms_p50"],
+           "block_ms_p50": s["block_ms_p50"],
+           "cache_hit_tokens": s["cache_hit_tokens"],
+           "preemptions": s["preemptions"],
+           "peak_memory_bytes": peak, **extra}
+    emit(rec)
+    return rec
+
+
+def phase_engine_f32(state):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama_7b()
+    cfg.num_hidden_layers = 2
+    model = LlamaForCausalLM(cfg, device=DEV, dtype=torch.float32,
+                             generator=SEED)
+    rng = np.random.default_rng(SEED + 1)
+    lens = [5, 300] + [int(x) for x in rng.integers(5, 301, 6)]
+    requests = [(rng.integers(0, cfg.vocab_size, n).tolist(), 16, {})
+                for n in lens]
+    run = serve(model, requests)
+    gap, agree, total = teacher_forced(model, requests, run[1])
+    rec = engine_record("engine_f32", run, requests,
+                        {"teacher_forced_gap_le_1e-3": gap <= 1e-3},
+                        teacher_forced_max_gap=gap,
+                        greedy_argmax_agreement=f"{agree}/{total}")
+    state["engine_f32"] = rec
+    del run, model
+    torch.cuda.empty_cache()
+    return rec["ok"]
+
+
+# the engine-level check takes the scale-free measures only: the engine's
+# activations are not N(0, 1), and an absolute bound means nothing there
+ENGINE_MEASURES = ("token_rel", "l2_rel")
+
+
+def phase_engine_bf16(state):
+    """32 layers in bf16, gated at the attention itself.  A second run
+    takes the plain version as its attention and launches the kernel beside
+    it at every call, so the kernel is held to the plain version, launch by
+    launch, on the engine's own activations, pages and tables, at the
+    kernel phase's scale-free tolerances.  Controls (wrong attentions run
+    the same way) must fail that check.
+
+    Token-level comparisons are reported, not gated: through 32 layers in
+    bf16 the kernel's TPU rounding (q * scale and p rounded to bf16) moves
+    the logits about as far as an attention output 1% too large does, so
+    no logit tolerance tells the two apart.  They are the dense generate()
+    forward's teacher-forced gap, and the plain attention forced along the
+    kernel run's tokens (same schedule, shapes and GEMMs; only the
+    attention differs).  The kernel run replayed along its own tokens must
+    give the same live logits bit for bit, which shows that the forced
+    runs differ from it only where their attention does."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama_7b()
+    model = LlamaForCausalLM(cfg, device=DEV, dtype=torch.bfloat16,
+                             generator=SEED)
+    rng = np.random.default_rng(SEED + 2)
+    V = cfg.vocab_size
+    shared = rng.integers(0, V, 256).tolist()
+    lens = [17, 700] + [int(x) for x in rng.integers(17, 701, 8)]
+    requests = [(rng.integers(0, V, n).tolist(),
+                 int(rng.integers(16, 65)), {}) for n in lens]
+    requests[5] = (requests[5][0], requests[5][1],
+                   {"temperature": 0.8, "top_p": 0.9, "seed": 7})
+    requests.insert(2, (shared + rng.integers(0, V, 40).tolist(), 64, {}))
+    # the second sharer queues behind the 8 slots, so it is admitted after
+    # the first has committed the shared pages: a prefix-cache hit
+    requests.append((shared + rng.integers(0, V, 90).tolist(), 32, {}))
+    script = []
+    run = serve(model, requests, sampler=recording_sampler(script))
+    dense_gap, agree, total = teacher_forced(model, requests, run[1])
+
+    def forced(attention=None, run_on_plain=True):
+        errs, log = [], []
+        serve(model, requests, attention and held_to_plain(
+            attention, errs, run_on_plain), forced_sampler(script, log))
+        return errs and worst(errs), log
+
+    _, replay = forced()
+    replay = forced_gap(script, replay)
+    per_launch, plain_log = forced(kernel_attention)
+    vs_plain = forced_gap(plain_log, script)
+    controls = {}
+    for name, attention in CONTROLS.items():
+        c_err, c_log = forced(attention, run_on_plain=False)
+        controls[name] = {"per_launch": c_err,
+                          "fails_gate": not within(c_err, "bfloat16",
+                                                   ENGINE_MEASURES),
+                          "forced_vs_plain": forced_gap(plain_log, c_log)}
+    rec = engine_record(
+        "engine_bf16", run, requests,
+        {"prefix_cache_hit": run[0].summary()["cache_hit_tokens"] >= 256,
+         "per_launch_kernel_vs_plain": within(per_launch, "bfloat16",
+                                              ENGINE_MEASURES),
+         "controls_fail": all(c["fails_gate"] for c in controls.values()),
+         "replay_bit_exact": replay["max_logit_diff"] == 0.0},
+        per_launch_errors=per_launch, per_launch_tolerance={
+            k: TOLERANCE["bfloat16"][k] for k in ENGINE_MEASURES},
+        controls=controls, replay=replay, forced_vs_plain=vs_plain,
+        dense_teacher_forced_gap=dense_gap,
+        dense_argmax_agreement=f"{agree}/{total}")
+    state["engine_bf16"] = rec
+    del run, script, plain_log
+    state["profile"] = profile_decode(model)
+    del model
+    torch.cuda.empty_cache()
+    return rec["ok"]
+
+
+def profile_decode(model):
+    """Where a step's time goes: 8 requests (128-token prompts, 32 new
+    tokens) served once unprofiled (wall time) and once under
+    torch.profiler (device time by kernel; the profiler slows the host, so
+    the idle share divides the kernels' sum by the unprofiled wall)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(SEED + 3)
+    requests = [(rng.integers(0, model.config.vocab_size, 128).tolist(), 32,
+                 {}) for _ in range(8)]
+    serve(model, requests[:2])                      # warm the allocator
+    eng, _, seconds, _, _ = serve(model, requests)
+    s = eng.summary()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve(model, requests)
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and not e.key.startswith("llm_engine.")]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    rec = {"phase": "profile", "requests": 8, "prompt_tokens": 128,
+           "new_tokens": 32, "steps": s["engine_steps"],
+           "wall_ms": seconds * 1e3, "device_busy_ms": busy_ms,
+           "device_idle_share": (1 - busy_ms / (seconds * 1e3))
+           if busy_ms else "not measured",
+           "kernel_launches_per_step": sum(e.count for e in kernels)
+           / s["engine_steps"],
+           "dispatch_ms_p50": s["dispatch_ms_p50"],
+           "block_ms_p50": s["block_ms_p50"], "itl_p50_ms": s["itl_p50_ms"],
+           "top_kernels": [{"name": e.key[:90], "ms": dev_us(e) / 1e3,
+                            "calls": e.count} for e in top]}
+    emit(rec)
+    return rec
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
+        return 2
+    try:
+        from paddle_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable ({e}); run from the "
+              "repository root", file=sys.stderr)
+        return 3
+
+    smi = nvidia_smi()
+    emit({"phase": "device", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count()})
+    state, ok = {}, True
+    t0 = time.perf_counter()
+    try:
+        report = _build.build()
+        emit({"phase": "build", "ok": True,
+              "seconds": time.perf_counter() - t0,
+              "built": {k: {"seconds": s, "ptxas": [
+                  ln.strip() for ln in log.splitlines()
+                  if "registers" in ln or "Compiling entry" in ln]}
+                  for k, (s, log) in report.items()}})
+    except Exception:
+        traceback.print_exc()
+        emit({"phase": "build", "ok": False})
+        return 1
+    for name, fn in (("kernel", phase_kernel),
+                     ("engine_f32", phase_engine_f32),
+                     ("engine_bf16", phase_engine_bf16)):
+        t = time.perf_counter()
+        try:
+            passed = fn(state)
+        except Exception:
+            traceback.print_exc()
+            emit({"phase": name, "ok": False, "error": "exception"})
+            passed = False
+        print(f"chip_smoke: {name} {'passed' if passed else 'FAILED'} in "
+              f"{time.perf_counter() - t:.1f} s", file=sys.stderr)
+        ok &= passed
+    if not ok:
+        return 1
+
+    timing = state["kernel"]["timing"]["bfloat16"]
+    errs = state["kernel"]["errors"]
+    emit({"kernels": [{
+        "name": "ragged_paged_attention", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas/paged_attention.py:225",
+        "tpu_kernel": "paged_attention.py::_ragged_kernel",
+        "launches": state["engine_bf16"]["kernel_launches"],
+        "launches_engine_f32": state["engine_f32"]["kernel_launches"],
+        "max_abs_err": max(e["abs"] for e in errs.values()),
+        "errors_by_case": errs,
+        "ms": timing["ms"], "kernel_ms": timing["ms"],
+        "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
+        "timed_shape": "decode Tq=8 H=32 H_kv=32 D=128 bs=16, bfloat16",
+        "float32": state["kernel"]["timing"]["float32"]}]})
+    for ln in smi:
+        print(ln, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

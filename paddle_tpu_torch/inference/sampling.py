@@ -1,0 +1,162 @@
+"""Logit-processor chain and per-row sampling for the serving step
+(counterpart of paddle_tpu/inference/sampling.py).
+
+The chain order mirrors ``LlamaForCausalLM.generate``:
+
+    repetition penalty (CTRL rule) -> [greedy rows: argmax here]
+    -> temperature -> top-k -> top-p -> categorical
+
+Per-sequence parameters ride in a ``samp`` dict of batch-wide host
+arrays (``make_samp``), so one step serves any mix of greedy and sampled
+requests:
+
+    temps   [B] f32   (<= 0 -> greedy argmax, generate()-compatible)
+    top_k   [B] i32   (0 -> off)
+    top_p   [B] f32   (1.0 -> off; top token always kept)
+    penalty [B] f32   (1.0 -> off)
+    seen    [B,V] bool (prompt + generated token mask for the penalty)
+    keys    [B,2] i64  (seed, token index) of each sampled row's draw
+
+Sampled rows draw from a ``torch.Generator`` seeded from (seed, token
+index) alone, so a request's stream is reproducible across scheduling
+orders and preemptions, as the JAX package's ``fold_in(PRNGKey(seed),
+index)`` keys make it.  The draws are not the JAX package's threefry
+bits (ROADMAP Queue 1 lists bit-equal threefry as later work).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.llama import _gumbel_pick
+
+__all__ = [
+    "LogitProcessor", "RepetitionPenaltyProcessor", "TemperatureProcessor",
+    "TopKProcessor", "TopPProcessor", "DEFAULT_CHAIN", "make_samp",
+    "sample_tokens", "draw_seed",
+]
+
+_NEG_INF = float("-inf")
+
+
+class LogitProcessor:
+    """One stage of the chain: ``(lg [B,V] f32, samp) -> lg``, with samp
+    holding tensors on lg's device.
+
+    ``greedy_visible`` stages apply before the greedy/sampled split --
+    greedy rows argmax their output; the rest only shape the sampled
+    distribution.
+    """
+
+    greedy_visible = False
+
+    def __call__(self, lg, samp):  # pragma: no cover - interface
+        raise NotImplementedError
+
+
+class RepetitionPenaltyProcessor(LogitProcessor):
+    """CTRL rule: logits of seen tokens divide by the penalty when
+    positive, multiply when negative.  penalty == 1.0 is the identity."""
+
+    greedy_visible = True
+
+    def __call__(self, lg, samp):
+        pen = samp["penalty"][:, None]
+        pl = torch.where(lg > 0, lg / pen, lg * pen)
+        return torch.where(samp["seen"] & (pen != 1.0), pl, lg)
+
+
+class TemperatureProcessor(LogitProcessor):
+    def __call__(self, lg, samp):
+        return lg / torch.clamp(samp["temps"], min=1e-6)[:, None]
+
+
+class TopKProcessor(LogitProcessor):
+    """Keep each row's top_k logits (ties at the k-th value survive);
+    top_k == 0 disables the stage for the row."""
+
+    def __call__(self, lg, samp):
+        k = samp["top_k"].long()
+        V = lg.shape[-1]
+        srt = torch.sort(lg, dim=-1, descending=True).values
+        idx = torch.clamp(k - 1, 0, V - 1)
+        kth = torch.gather(srt, -1, idx[:, None])
+        return torch.where((k > 0)[:, None] & (lg < kth), _NEG_INF, lg)
+
+
+class TopPProcessor(LogitProcessor):
+    """Nucleus sampling: smallest prefix of the sorted distribution with
+    mass >= top_p (the top token is always kept); top_p >= 1.0 keeps
+    every token, disabling the stage for the row."""
+
+    def __call__(self, lg, samp):
+        p = samp["top_p"]
+        order = torch.argsort(-lg, dim=-1, stable=True)
+        srt = torch.gather(lg, -1, order)
+        m = torch.max(srt, dim=-1, keepdim=True).values
+        e = torch.exp(srt - m)
+        sp = e / torch.sum(e, dim=-1, keepdim=True)
+        cum = torch.cumsum(sp, dim=-1)
+        keep_sorted = cum - sp <= p[:, None]               # top always kept
+        keep = torch.empty_like(keep_sorted).scatter_(-1, order, keep_sorted)
+        return torch.where(keep, lg, _NEG_INF)
+
+
+DEFAULT_CHAIN = (RepetitionPenaltyProcessor(), TemperatureProcessor(),
+                 TopKProcessor(), TopPProcessor())
+
+
+def make_samp(B: int, V: int) -> dict:
+    """Host-side samp arrays at their 'off' defaults (greedy, no
+    penalty/truncation) -- the engine mutates rows in place per slot."""
+    return {
+        "temps": np.zeros((B,), np.float32),
+        "top_k": np.zeros((B,), np.int32),
+        "top_p": np.ones((B,), np.float32),
+        "penalty": np.ones((B,), np.float32),
+        "seen": np.zeros((B, V), bool),
+        "keys": np.zeros((B, 2), np.int64),
+    }
+
+
+def draw_seed(seed: int, index: int) -> int:
+    """The generator seed of token ``index`` of a request seeded
+    ``seed``: a pure function of the pair."""
+    return ((int(seed) & 0xFFFFFFFF) << 32) | (int(index) & 0xFFFFFFFF)
+
+
+def sample_tokens(logits, samp, chain=DEFAULT_CHAIN):
+    """Per-row sampling over [B, V] logits with the host ``samp`` dict.
+
+    Greedy rows (temps <= 0) argmax after the greedy-visible stages --
+    byte-compatible with generate()'s greedy branch -- while sampled rows
+    run the full chain into a Gumbel-max draw from their own generator.
+    Only what the launch needs crosses to the device: the greedy-visible
+    stages (the penalty, an identity at 1.0) run when some row has a
+    penalty, the sampled stages when some row samples.  Returns [B]
+    int32 on logits' device."""
+    dev = logits.device
+    lg = logits.float()
+    temps = np.asarray(samp["temps"])
+    sampled_rows = np.nonzero(temps > 0.0)[0]
+    needs_penalty = bool((np.asarray(samp["penalty"]) != 1.0).any())
+    keys = ("temps", "top_k", "top_p", "penalty") \
+        + (("seen",) if needs_penalty else ())
+    st = {k: torch.from_numpy(np.ascontiguousarray(samp[k])).to(dev)
+          for k in keys} if needs_penalty or len(sampled_rows) else {}
+    for proc in chain:
+        if proc.greedy_visible and needs_penalty:
+            lg = proc(lg, st)
+    greedy_tok = torch.argmax(lg, -1).to(torch.int32)
+    if not len(sampled_rows):
+        return greedy_tok
+    for proc in chain:
+        if not proc.greedy_visible:
+            lg = proc(lg, st)
+    out = greedy_tok.clone()
+    ks = np.asarray(samp["keys"])
+    for i in sampled_rows:
+        gen = torch.Generator(device=dev).manual_seed(
+            draw_seed(ks[i, 0], ks[i, 1]))
+        out[i] = _gumbel_pick(lg[i:i + 1], gen)[0].to(torch.int32)
+    return out

@@ -1,0 +1,892 @@
+"""Continuous-batching LLaMA serving engine in PyTorch (counterpart of
+paddle_tpu/inference/serving.py, its synchronous core).
+
+- ``BlockManager`` (inference/kv_cache.py) owns a fixed pool of KV pages
+  with per-sequence block tables.  With prefix caching on (the default)
+  the pool is content-addressed: admission reuses pages other sequences
+  already computed and prefills only the miss suffix; writes into a
+  shared page copy it first (copy-on-write).
+
+- A continuous-batching scheduler: every ``step()`` admits waiting
+  requests, packs at most ``max_prefill_tokens`` prompt tokens (long
+  prompts prefill in chunks across steps), grows every decoding
+  sequence's table by the token it writes, and preempts the youngest
+  sequence when the pool runs out (it requeues and recomputes, hitting
+  the prefix cache its own pages populated).
+
+- ONE ragged step per launch: the step's whole mix -- prefill chunks,
+  resumed chunks, single decode tokens -- is packed as rows of flat
+  query tokens described by ``(cu_seqlens, kv_lens, block_tables)`` and
+  padded to a token bucket.  Each layer writes the packed tokens' K/V into
+  the page pool, then one ragged paged-attention call
+  (ops/paged_attention.py) lets every token attend to its row's pages at
+  its absolute position: the hand-written CUDA kernel on the card, its
+  plain PyTorch version on the CPU.
+
+The decode math is term for term the JAX engine's (itself the math of
+``generate()``), so greedy output is token-identical to the JAX engine and
+to the port's dense ``generate()``, with the prefix cache on or off.
+
+This slice runs the step synchronously (``overlap=False``): ``step()``
+packs, launches, reads the sampled tokens back once, and commits.  The
+engine options of later slices raise ``NotImplementedError`` naming their
+ROADMAP item.  The engine is single-threaded: add_request/step/abort are
+called from one thread.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..models.llama import _rms_weight, _rope_positions, resolve_device
+from ..ops import paged_attention as _pa
+from ..profiler.serving import ServingStats
+from .kv_cache import NULL_BLOCK, BlockManager, BlockPoolExhausted
+from .policy import pack_prefill_chunks
+from .sampling import make_samp, sample_tokens
+
+__all__ = ["LLMEngine", "Request", "RequestOutput"]
+
+
+@dataclass
+class Request:
+    """One generation request in the engine's queues."""
+    rid: int
+    prompt: list                      # original prompt token ids
+    max_new_tokens: int
+    temperature: float
+    eos_token_id: object              # int | None
+    seed: int
+    top_k: int = 0                    # 0 -> off
+    top_p: float = 1.0                # 1.0 -> off
+    repetition_penalty: float = 1.0   # 1.0 -> off
+    # scheduler state
+    tokens: list = field(default_factory=list)   # tokens to (re)prefill
+    generated: list = field(default_factory=list)
+    cached: int = 0                   # positions whose KV is in the pool
+    arrival: int = 0                  # admission priority (FCFS)
+    slot: int = -1                    # stable decode-batch slot
+    t_arrival: float = 0.0            # wall clock at add_request (TTFT)
+    seen: object = None               # [V] bool penalty mask (lazy)
+
+
+@dataclass
+class RequestOutput:
+    rid: int
+    prompt: list
+    generated: list                   # includes the eos token when hit
+    finish_reason: str                # "eos" | "length" | abort reason
+
+    @property
+    def token_ids(self):
+        return list(self.prompt) + list(self.generated)
+
+
+@dataclass
+class _StepTicket:
+    """One launched ragged step awaiting its commit: the packed-row layout
+    and the device result ([2, Lq] int32: sampled tokens, finite flags)."""
+    chunks: list
+    batch: list
+    result: torch.Tensor
+    chunk_slots: list
+    batch_slots: list
+    dispatch_s: float                 # host seconds packing + launching
+
+
+class _DecodeBufs:
+    """Persistent host-side pack buffers for the pure-decode fast path.
+    ``bt_ver`` maps rid -> the block-table version staged into ``bt``;
+    ``layout`` is the rid order last packed."""
+
+    __slots__ = ("toks", "cu", "kvl", "bt", "samp", "layout", "bt_ver")
+
+    def __init__(self, B, nblk, vocab_size):
+        self.toks = np.zeros((B,), np.int32)
+        self.cu = np.zeros((B + 1,), np.int32)
+        self.kvl = np.zeros((B,), np.int32)
+        self.bt = np.full((B + 1, nblk), NULL_BLOCK, np.int32)
+        self.samp = make_samp(B, vocab_size)
+        self.layout: tuple = ()
+        self.bt_ver: dict = {}
+
+
+def _unported(option: str, item: int, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{option}: {what} is not ported to the PyTorch engine yet "
+        f"(ROADMAP Queue 1 item {item})")
+
+
+class LLMEngine:
+    """Continuous-batching serving loop over one LlamaForCausalLM.
+
+    Parameters (as the JAX engine's, where ported)
+    ----------------------------------------------
+    model: paddle_tpu_torch LlamaForCausalLM; its weights are used in
+        place (``decode_params()`` views, no copy) and must live on
+        ``device``.
+    device: where the engine runs; None means CUDA (raises when no GPU is
+        present).  Pass "cpu" for the plain PyTorch path.
+    max_num_seqs: decode-batch capacity.
+    block_size: KV page size in tokens.
+    num_blocks: page-pool size; default lets every batch slot reach
+        max_model_len.
+    max_model_len: longest prompt+generation accepted.
+    max_prefill_tokens: per-step prompt-token budget (longer prompts
+        prefill in chunks).
+    prefill_token_bucket: launches above max_num_seqs tokens pad to a
+        multiple of this.
+    enable_prefix_caching: content-addressed page reuse; greedy output
+        is byte-identical on or off.
+
+    Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+    item): drafter/spec_k, kv_dtype="int8", weight_dtype int8/int4,
+    tp > 1, decode_window > 1, overlap=True, kv_tier, fault_plan,
+    pressure, tracer.
+    """
+
+    def __init__(self, model, *, device=None, max_num_seqs: int = 8,
+                 block_size: int = 16, num_blocks: int | None = None,
+                 max_model_len: int | None = None,
+                 max_prefill_tokens: int = 512,
+                 prefill_token_bucket: int = 64,
+                 enable_prefix_caching: bool = True,
+                 drafter=None, spec_k: int = 0,
+                 fault_plan=None, pressure=None,
+                 kv_dtype: str = "float32", tp: int = 1,
+                 tracer=None, overlap: bool = False,
+                 decode_window: int = 1,
+                 weight_dtype: str = "float32",
+                 kv_tier=None):
+        if kv_dtype not in ("float32", "int8"):
+            raise ValueError(
+                f"kv_dtype must be 'float32' or 'int8', got {kv_dtype!r}")
+        if weight_dtype not in ("float32", "int8", "int4"):
+            raise ValueError(
+                "weight_dtype must be 'float32', 'int8' or 'int4', "
+                f"got {weight_dtype!r}")
+        if int(tp) < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
+        if int(decode_window) < 1:
+            raise ValueError(
+                f"decode_window must be >= 1, got {decode_window}")
+        for bad, option, item, what in (
+                (drafter is not None or int(spec_k) != 0, "drafter/spec_k",
+                 6, "speculative decoding"),
+                (kv_dtype == "int8", "kv_dtype='int8'", 7, "int8 KV pages"),
+                (weight_dtype != "float32", f"weight_dtype={weight_dtype!r}",
+                 7, "quantized weight pools"),
+                (bool(overlap), "overlap=True", 8, "the async step pipeline"),
+                (int(decode_window) > 1, "decode_window>1", 8,
+                 "the device-resident decode window"),
+                (kv_tier is not None, "kv_tier", 9, "the host KV spill tier"),
+                (fault_plan is not None, "fault_plan", 9, "fault injection"),
+                (pressure is not None, "pressure", 9,
+                 "the degradation controller"),
+                (tracer is not None, "tracer", 9, "the step tracer"),
+                (int(tp) > 1, "tp>1", 10, "tensor parallelism")):
+            if bad:
+                raise _unported(option, item, what)
+
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        if model.device != self.device:
+            raise ValueError(f"model weights live on {model.device}, the "
+                             f"engine runs on {self.device}")
+        cfg = model.config
+        self.config = cfg
+        self.params = model.decode_params()
+        self._act_dtype = self.params["embed"].dtype
+        # the unembedding runs in f32 as the JAX step's does; keep one f32
+        # copy instead of casting [H, V] every step (no copy for f32)
+        self._head_f32 = self.params["head"].float()
+        self.kv_dtype = kv_dtype
+        self.weight_dtype = weight_dtype
+        self.tp = 1
+        self.max_num_seqs = int(max_num_seqs)
+        self.block_size = int(block_size)
+        self.max_model_len = int(max_model_len or cfg.max_position_embeddings)
+        self.max_prefill_tokens = int(max_prefill_tokens)
+        self.prefill_token_bucket = int(prefill_token_bucket)
+        self.enable_prefix_caching = bool(enable_prefix_caching)
+
+        # static block-table width: pages needed by a max-length sequence
+        self.nblk = -(-self.max_model_len // self.block_size)
+        if num_blocks is None:
+            num_blocks = 1 + self.max_num_seqs * self.nblk
+        self.blocks = BlockManager(
+            num_blocks, self.block_size,
+            enable_prefix_caching=self.enable_prefix_caching)
+        if self.blocks.num_free < self.nblk:
+            raise ValueError(
+                f"num_blocks={num_blocks} cannot hold even one "
+                f"max_model_len={self.max_model_len} sequence "
+                f"({self.nblk} pages needed)")
+
+        self._nh = cfg.num_attention_heads
+        self._kvh = cfg.num_key_value_heads
+        self._hd = cfg.hidden_size // self._nh
+        L = cfg.num_hidden_layers
+        # "float32" means full-width model dtype (f32/bf16) pages; the
+        # pools are updated in place, layer by layer, every step
+        self._kc = torch.zeros((L, num_blocks, self._kvh, self.block_size,
+                                self._hd), dtype=self._act_dtype,
+                               device=self.device)
+        self._vc = torch.zeros_like(self._kc)
+
+        self._waiting: deque = deque()
+        self._running: list = []
+        self._finished: dict = {}
+        self._next_rid = 0
+        self._arrival = 0
+
+        # stable batch slots (pure-decode steps pack rows in slot order)
+        # plus persistent host buffers for the decode fast path
+        B = self.max_num_seqs
+        self._slot_used = [False] * B
+        self._Lq = B                      # logit rows: one per packed row
+        self._dbuf = _DecodeBufs(B, self.nblk, cfg.vocab_size)
+        self._d_lidx = np.minimum(np.arange(self._Lq), B - 1) \
+            .astype(np.int32)
+        self._inflight: _StepTicket | None = None
+        # padding accounting: real packed tokens vs bucket width, plus
+        # what a per-phase (prefill bucket + decode bucket) step would pad
+        self.pad_stats = {"real": 0, "padded": 0, "legacy_padded": 0}
+        self._evictions_seen = 0
+        self.peak_resident_seqs = 0
+        self.stats = ServingStats()
+        self.stats.set_weight_residency(
+            self.weight_dtype, self.weight_bytes_resident(),
+            self.weight_bytes_resident())
+
+    # ------------------------------------------------------------------
+    # request API
+    # ------------------------------------------------------------------
+
+    def add_request(self, prompt, max_new_tokens: int = 32,
+                    temperature: float = 0.0, eos_token_id=None,
+                    seed: int = 0, top_k: int = 0, top_p: float = 1.0,
+                    repetition_penalty: float = 1.0) -> int:
+        """Queue one generation request; returns its rid."""
+        prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
+        if not prompt:
+            raise ValueError("empty prompt")
+        if int(max_new_tokens) < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if len(prompt) + int(max_new_tokens) > self.max_model_len:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens "
+                f"({max_new_tokens}) exceeds max_model_len "
+                f"({self.max_model_len})")
+        if not 0.0 < float(top_p) <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if int(top_k) < 0:
+            raise ValueError(f"top_k must be >= 0, got {top_k}")
+        if float(repetition_penalty) <= 0.0:
+            raise ValueError(
+                f"repetition_penalty must be > 0, got {repetition_penalty}")
+        rid = self._next_rid
+        self._next_rid += 1
+        req = Request(rid=rid, prompt=prompt, tokens=list(prompt),
+                      max_new_tokens=int(max_new_tokens),
+                      temperature=float(temperature),
+                      eos_token_id=eos_token_id, seed=int(seed),
+                      top_k=int(top_k), top_p=float(top_p),
+                      repetition_penalty=float(repetition_penalty),
+                      t_arrival=time.perf_counter())
+        if req.repetition_penalty != 1.0:
+            req.seen = np.zeros((self.config.vocab_size,), bool)
+            req.seen[prompt] = True
+        self._waiting.append(req)
+        return rid
+
+    def has_unfinished(self) -> bool:
+        return bool(self._waiting or self._running)
+
+    def abort(self, request_id: int, finish_reason: str = "aborted"):
+        """Retire a request before it finishes, at any point of its
+        lifetime as observed between steps (queued, mid-chunked-prefill,
+        mid-decode).  Pages return through ``BlockManager.release`` -- the
+        abort path that only decrefs pages shared with live neighbours
+        and never registers the aborted tail.  Returns the partial
+        RequestOutput, or None when request_id is unknown or already
+        finished (counted in ``stats.abort_noops``)."""
+        req = None
+        for r in self._running:
+            if r.rid == request_id:
+                req = r
+                self._running.remove(r)
+                self._release_slot(r)
+                break
+        else:
+            for r in self._waiting:
+                if r.rid == request_id:
+                    req = r
+                    self._waiting.remove(r)
+                    break
+        if req is None:
+            self.stats.record_abort_noop()
+            return None
+        if self.blocks.has(req.rid):
+            self.blocks.release(req.rid)
+        out = RequestOutput(rid=req.rid, prompt=list(req.prompt),
+                            generated=list(req.generated),
+                            finish_reason=finish_reason)
+        self._finished[req.rid] = out
+        self.stats.record_abort(finish_reason)
+        return out
+
+    def run(self) -> dict:
+        """Drive step() until every queued request finishes.  Outputs by
+        rid; the run's metrics are in ``summary()``."""
+        while self.has_unfinished():
+            self.step()
+        return dict(self._finished)
+
+    def summary(self) -> dict:
+        """One dict of serving metrics + block-pool state for this run."""
+        out = self.stats.summary()
+        out["block_pool"] = self.blocks.stats()
+        out["device"] = str(self.device)
+        out["kv_dtype"] = self.kv_dtype
+        out["tp"] = self.tp
+        out["kv_bytes_resident"] = self.kv_bytes_resident()
+        out["weight_dtype"] = self.weight_dtype
+        out["weight_bytes_resident"] = self.weight_bytes_resident()
+        out["peak_resident_seqs"] = self.peak_resident_seqs
+        out["pad_stats"] = dict(self.pad_stats)
+        return out
+
+    def kv_page_bytes(self) -> int:
+        """Device bytes one KV page costs: K and V slabs across layers."""
+        L = self.config.num_hidden_layers
+        return (2 * L * self._kvh * self.block_size * self._hd
+                * self._kc.element_size())
+
+    def kv_bytes_resident(self) -> int:
+        """Device bytes holding real KV content: pages backing live
+        sequences plus parked prefix pages."""
+        return ((self.blocks.num_used + self.blocks.num_cached)
+                * self.kv_page_bytes())
+
+    def weight_bytes_resident(self) -> int:
+        """Device bytes of the decode weights (the f32 head copy of a
+        bf16 model included)."""
+        p = self.params
+        tensors = list(p["layers"].values()) + [p["embed"], p["norm_f"],
+                                                p["head"]]
+        total = sum(t.numel() * t.element_size() for t in tensors)
+        if self._head_f32 is not p["head"]:
+            total += self._head_f32.numel() * 4
+        return total
+
+    # ------------------------------------------------------------------
+    # scheduler
+    # ------------------------------------------------------------------
+
+    def _decode_ready(self, req) -> bool:
+        """Prefill complete and exactly the last generated token's KV is
+        still unwritten (the decode step writes it and samples the next)."""
+        return (req.cached >= len(req.tokens)
+                and req.cached == len(req.prompt) + len(req.generated) - 1)
+
+    def step(self) -> list:
+        """One engine iteration: admit -> schedule -> launch -> read back
+        -> apply -> retire.  Returns the requests that finished."""
+        finished: list = []
+        self._dispatch()
+        if self._inflight is not None:
+            self._complete(finished)
+        ev = self.blocks.eviction_count
+        if ev != self._evictions_seen:
+            self.stats.record_evictions(ev - self._evictions_seen)
+            self._evictions_seen = ev
+        return finished
+
+    def _dispatch(self) -> None:
+        """Admission + scheduling + packing + the ragged launch.  The
+        launch's result stays on the device in ``self._inflight`` until
+        ``_complete`` reads it back."""
+        admitted = self._admit()
+        if admitted:
+            self.stats.record_admission(len(admitted))
+        self.peak_resident_seqs = max(self.peak_resident_seqs,
+                                      len(self._running))
+        self.stats.record_prefill_queue(
+            sum(1 for r in self._running if r.cached < len(r.tokens))
+            + len(self._waiting))
+
+        chunks = self._schedule_prefill_chunks()
+        # decode-ready set (chunk owners are still mid-prefill, so the
+        # row classes are disjoint by construction)
+        batch = [r for r in self._running if self._decode_ready(r)]
+        batch = self._reserve_decode_pages(batch)
+        # a reservation can preempt a chunk owner or an already-reserved
+        # row: re-filter against the surviving running set
+        chunks = [(r, n) for r, n in chunks if r in self._running]
+        batch = [r for r in batch if r in self._running]
+        batch.sort(key=lambda r: r.slot)
+
+        if chunks or batch:
+            t0 = time.perf_counter()
+            with record_function("llm_engine.ragged_step"):
+                result, chunk_slots, batch_slots = self._run_ragged(chunks,
+                                                                    batch)
+            self._inflight = _StepTicket(
+                chunks=chunks, batch=batch, result=result,
+                chunk_slots=chunk_slots, batch_slots=batch_slots,
+                dispatch_s=time.perf_counter() - t0)
+
+    def _complete(self, finished: list) -> None:
+        """Read the launch's sampled tokens and finiteness flags back (one
+        device-to-host copy), then apply and retire."""
+        ticket = self._inflight
+        self._inflight = None
+        t0 = time.perf_counter()
+        res = ticket.result.cpu().numpy()
+        block_s = time.perf_counter() - t0
+        sampled, ok = res[0], res[1].astype(bool)
+        self.stats.record_round_trip()
+        dur = ticket.dispatch_s + block_s
+        self.stats.record_step(dur, dispatch_s=ticket.dispatch_s,
+                               block_s=block_s)
+        self._apply_ragged(ticket.chunks, ticket.batch, sampled, ok,
+                           ticket.chunk_slots, ticket.batch_slots, dur,
+                           finished)
+
+    def _invalidate_bt(self, rid: int) -> None:
+        """Drop the decode buffer's staged block-table row for rid (its
+        table can go stale without a version bump on re-admission and is
+        freed outright on preemption)."""
+        self._dbuf.bt_ver.pop(rid, None)
+
+    def _break_decode_layout(self) -> None:
+        """A mixed launch rewrites tables and row order: the decode fast
+        path fully restages at its next launch."""
+        self._dbuf.layout = ()
+        self._dbuf.bt_ver.clear()
+
+    def _apply_ragged(self, chunks, batch, sampled, ok, chunk_slots,
+                      batch_slots, dur, finished):
+        """Advance every packed row from the launch's outputs: chunk rows
+        commit their prefix (emitting a first token when the prompt
+        completes), decode rows emit one token.  A row whose logits came
+        back non-finite is QUARANTINED before any of its state commits.
+        The launch duration splits across the stats channels pro-rata by
+        packed tokens."""
+        chunk_tokens = sum(n for _, n in chunks)
+        total = max(chunk_tokens + len(batch), 1)
+        occ = len(self._running) / self.max_num_seqs
+
+        done = 0
+        for (req, n), s in zip(chunks, chunk_slots):
+            if not ok[s]:
+                self._quarantine(req, finished)
+                continue
+            req.cached += n
+            if self.enable_prefix_caching:
+                self.blocks.commit_prefill(req.rid, n)
+            if req.cached == len(req.tokens):
+                done += 1
+                tok = int(sampled[s])
+                req.generated.append(tok)
+                if req.seen is not None:
+                    req.seen[tok] = True
+                if len(req.generated) == 1:
+                    self.stats.record_ttft(time.perf_counter()
+                                           - req.t_arrival)
+                self._maybe_retire(req, finished)
+        if chunks:
+            self.stats.record_prefill(dur * chunk_tokens / total,
+                                      chunk_tokens, done)
+
+        for req, s in zip(batch, batch_slots):
+            if not ok[s]:
+                self._quarantine(req, finished)
+                continue
+            if self.enable_prefix_caching:
+                self.blocks.commit_decode_token(req.rid,
+                                                req.generated[-1])
+            req.cached += 1
+            tok = int(sampled[s])
+            req.generated.append(tok)
+            if req.seen is not None:
+                req.seen[tok] = True
+            self._maybe_retire(req, finished)
+        if batch:
+            self.stats.record_decode(dur * len(batch) / total,
+                                     len(batch), occ)
+
+    def _quarantine(self, req, finished: list) -> None:
+        """Retire one sequence whose step logits came back non-finite.
+        Its pages leave through ``release`` (decref-only, the unshared
+        tail never registers in the prefix cache, so corrupt K/V never
+        becomes a future hit); finish_reason is "numerical_error"."""
+        self.blocks.release(req.rid)
+        self._running.remove(req)
+        self._release_slot(req)
+        out = RequestOutput(rid=req.rid, prompt=list(req.prompt),
+                            generated=list(req.generated),
+                            finish_reason="numerical_error")
+        self._finished[req.rid] = out
+        finished.append(out)
+        self.stats.record_quarantine()
+        self.stats.record_abort("numerical_error")
+
+    def _claim_slot(self, req) -> None:
+        req.slot = self._slot_used.index(False)
+        self._slot_used[req.slot] = True
+
+    def _release_slot(self, req) -> None:
+        if req.slot >= 0:
+            self._slot_used[req.slot] = False
+            req.slot = -1
+
+    def _admit(self) -> list:
+        """Pull waiting requests into the running set while batch slots
+        and pool pages allow.  With prefix caching, admission matches the
+        prompt's token chain against the cache and allocates only the
+        miss suffix."""
+        admitted = []
+        while self._waiting and len(self._running) < self.max_num_seqs:
+            req = self._waiting[0]
+            if self.enable_prefix_caching:
+                hit = self.blocks.acquire(req.rid, req.tokens)
+                if hit is None:
+                    break
+                req.cached = hit
+                self.stats.record_cache_lookup(hit, len(req.tokens) - hit)
+            else:
+                if not self.blocks.allocate(req.rid, len(req.tokens)):
+                    break
+                req.cached = 0
+            self._waiting.popleft()
+            req.arrival = self._arrival
+            self._arrival += 1
+            self._invalidate_bt(req.rid)
+            self._claim_slot(req)
+            self._running.append(req)
+            admitted.append(req)
+            self.stats.record_queue_wait(time.perf_counter() - req.t_arrival)
+        return admitted
+
+    def _schedule_prefill_chunks(self) -> list:
+        """Pack at most max_prefill_tokens pending prompt tokens into this
+        step, FCFS, resuming partially-prefilled requests first
+        (``policy.pack_prefill_chunks``).  Copy-on-write of each chunk's
+        first write position hangs on the admit hook, so a CoW preemption
+        skips the victim without consuming budget."""
+        chunks: list = []
+
+        def admit(req):
+            if req not in self._running:
+                return False
+            if self.enable_prefix_caching:
+                return self._resolve_cow(req, req.cached, drop_from=chunks)
+            return True
+
+        ordered = sorted(list(self._running), key=lambda r: r.arrival)
+        return pack_prefill_chunks(
+            ((r, len(r.tokens) - r.cached) for r in ordered),
+            self.max_prefill_tokens, admit=admit, out=chunks)
+
+    def _resolve_cow(self, req, pos: int, drop_from: list | None = None) \
+            -> bool:
+        """Privatize the page holding ``pos`` if it is shared, preempting
+        victims while the pool has no page for the copy.  False when req
+        itself had to be preempted."""
+        while True:
+            try:
+                cw = self.blocks.cow_if_shared(req.rid, pos)
+            except BlockPoolExhausted:
+                victim = self._pick_victim(exclude=req)
+                if victim is None:
+                    self._preempt(req)
+                    return False
+                self._preempt(victim)
+                if drop_from is not None:
+                    drop_from[:] = [c for c in drop_from
+                                    if c[0] is not victim]
+                continue
+            if cw is not None:
+                self._apply_cow(*cw)
+                self.stats.record_cow()
+            return True
+
+    def _reserve_decode_pages(self, batch: list) -> list:
+        """Grow each sequence's table for the token this step will write
+        (plus a private copy of a still-shared tail page); preempt the
+        youngest runner whenever the pool comes up short."""
+        ok = []
+        for req in sorted(batch, key=lambda r: r.arrival):
+            if req not in self._running:   # evicted as a victim earlier
+                continue
+            while req is not None:
+                if not self.blocks.ensure(req.rid, req.cached + 1):
+                    victim = self._pick_victim(exclude=req)
+                    if victim is None:
+                        self._preempt(req)
+                        req = None
+                        break
+                    self._preempt(victim)
+                    ok = [r for r in ok if r is not victim]
+                    continue
+                if self.enable_prefix_caching:
+                    if not self._resolve_cow(req, req.cached):
+                        req = None
+                        break
+                    ok = [r for r in ok if r in self._running]
+                break
+            if req is not None:
+                ok.append(req)
+        return ok
+
+    def _pick_victim(self, exclude):
+        """Youngest-arrival running sequence other than ``exclude``."""
+        cands = [r for r in self._running if r is not exclude]
+        if not cands:
+            return None
+        return max(cands, key=lambda r: r.arrival)
+
+    def _preempt(self, req) -> None:
+        """Return req's pages and requeue it (front of the line) for
+        recomputation over prompt + tokens generated so far, which
+        rebuilds the exact KV state: greedy decoding resumes
+        token-identically, and with prefix caching the recompute hits the
+        pages this preemption just parked."""
+        self.blocks.free(req.rid)
+        self._running.remove(req)
+        self._release_slot(req)
+        req.tokens = list(req.prompt) + list(req.generated)
+        req.cached = 0
+        self._invalidate_bt(req.rid)
+        self._waiting.appendleft(req)
+        self.stats.record_preemption()
+
+    def _maybe_retire(self, req, finished: list) -> None:
+        eos = req.eos_token_id
+        if eos is not None and req.generated[-1] == int(eos):
+            reason = "eos"
+        elif len(req.generated) >= req.max_new_tokens:
+            reason = "length"
+        else:
+            return
+        self.blocks.free(req.rid)
+        self._running.remove(req)
+        self._release_slot(req)
+        out = RequestOutput(rid=req.rid, prompt=list(req.prompt),
+                            generated=list(req.generated),
+                            finish_reason=reason)
+        self._finished[req.rid] = out
+        finished.append(out)
+        self.stats.record_retirement()
+
+    # ------------------------------------------------------------------
+    # device side: copy-on-write and the ragged step
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def _apply_cow(self, src: int, dst: int) -> None:
+        """Copy page src -> dst across every layer's K and V pool (queued
+        on the stream ahead of any later write into dst)."""
+        self._kc[:, dst] = self._kc[:, src]
+        self._vc[:, dst] = self._vc[:, src]
+
+    def _ragged_bucket(self, n_tokens: int) -> int:
+        """Flat-token bucket for a launch: decode-sized launches pad to
+        max_num_seqs, anything larger rounds up to a multiple of
+        prefill_token_bucket (the JAX engine's ladder, kept so padding
+        accounting -- and a later CUDA-graph capture per bucket -- match)."""
+        if n_tokens <= self.max_num_seqs:
+            return self.max_num_seqs
+        tb = self.prefill_token_bucket
+        return -(-n_tokens // tb) * tb
+
+    @torch.no_grad()
+    def _ragged_step(self, Tq, toks, cu, kvl, bt, lidx, samp):
+        """The one serving step: Tq flat query tokens from up to
+        max_num_seqs ragged rows.  Each layer writes the packed tokens'
+        K/V into the page pool at their absolute positions, then ragged
+        paged attention lets every token attend to its own row's pages
+        causally.  Returns [2, Lq] int32 on the device: the sampled token
+        and the all-finite flag of each logit row.
+
+        toks [Tq] (tail padding maps to the sentinel row B); cu [B+1] row
+        offsets; kvl [B] valid KV per row AFTER this launch's writes; bt
+        [B+1, nblk] (row B: the null row pads resolve to); lidx [Lq] flat
+        index of each logit row; samp the host ``make_samp`` dict."""
+        nh, kvh, d = self._nh, self._kvh, self._hd
+        bs = self.block_size
+        B = self.max_num_seqs
+        eps = self.config.rms_norm_eps
+        theta = self.config.rope_theta
+        # one host-to-device copy for every packed int32 buffer
+        packed = torch.from_numpy(np.concatenate(
+            [toks, cu, kvl, bt.reshape(-1), lidx])).to(self.device)
+        o = np.cumsum([0, Tq, B + 1, B, bt.size])
+        toks_d, cu_d, kvl_d = (packed[o[0]:o[1]], packed[o[1]:o[2]],
+                               packed[o[2]:o[3]])
+        bt_d = packed[o[3]:o[4]].view(B + 1, self.nblk)
+        lidx_d = packed[o[4]:]
+
+        seg, rel = _pa.ragged_segments(cu_d, kvl_d, Tq)
+        blk = bt_d[seg.long(), (rel // bs).long()]              # [Tq]
+        slot = (rel % bs).long()
+        layers = self.params["layers"]
+        x = self.params["embed"][toks_d.long()]                 # [Tq, H]
+        for i in range(self.config.num_hidden_layers):
+            p = {k: v[i] for k, v in layers.items()}
+            h = _rms_weight(x, p["ln1"], eps)
+            q = _rope_positions((h @ p["wq"]).view(Tq, nh, d), rel, theta)
+            k = _rope_positions((h @ p["wk"]).view(Tq, kvh, d), rel, theta)
+            v = (h @ p["wv"]).view(Tq, kvh, d)
+            kcl, vcl = self._kc[i], self._vc[i]
+            # K/V of this layer land in the pages BEFORE attention reads
+            # them; pad tokens all write the null page's slot 0 (a benign
+            # race: nothing real reads it)
+            kcl[blk, :, slot, :] = k.to(kcl.dtype)
+            vcl[blk, :, slot, :] = v.to(vcl.dtype)
+            att = _pa.ragged_paged_attention_segrel_packed(
+                q, kcl, vcl, bt_d, seg, rel)
+            x = x + att.reshape(Tq, nh * d) @ p["wo"]
+            h2 = _rms_weight(x, p["ln2"], eps)
+            a = torch.nn.functional.silu((h2 @ p["gate"]).float()) \
+                .to(h2.dtype) * (h2 @ p["up"])
+            x = x + a @ p["down"]
+        h = _rms_weight(x, self.params["norm_f"], eps)
+        logits = h[lidx_d.long()].float() @ self._head_f32      # [Lq, V]
+        sampled = sample_tokens(logits, samp)
+        # per-row finiteness flag: a poisoned row is quarantined host-side
+        # without touching its batchmates (padded rows may be non-finite;
+        # the host only consults live slots)
+        fin = torch.isfinite(logits).all(-1)
+        return torch.stack([sampled, fin.to(torch.int32)])
+
+    def _launch_ragged(self, Tq, toks, cu, kvl, bt, lidx, samp,
+                       real_tokens):
+        self.pad_stats["real"] += int(real_tokens)
+        self.pad_stats["padded"] += int(Tq)
+        return self._ragged_step(Tq, toks, cu, kvl, bt, lidx, samp)
+
+    def _fill_samp(self, samp, s, req):
+        samp["temps"][s] = req.temperature
+        samp["top_k"][s] = req.top_k
+        samp["top_p"][s] = req.top_p
+        samp["penalty"][s] = req.repetition_penalty
+        if req.seen is not None:
+            np.copyto(samp["seen"][s], req.seen)
+        if req.temperature > 0.0:
+            samp["keys"][s] = self._req_key(req)
+
+    def _run_ragged(self, chunks: list, batch: list):
+        """Pack this step's whole mix as ONE ragged launch.
+
+        Row order: prefill chunks (scheduler order), then plain decode
+        tokens (slot order).  Returns (device result, chunk logit slots,
+        decode logit slots)."""
+        total = sum(n for _, n in chunks) + len(batch)
+        Tq = self._ragged_bucket(total)
+
+        # decode fast path: steady pure-decode steps reuse the
+        # persistent host buffers instead of repacking from scratch
+        if not chunks:
+            return self._run_ragged_decode(batch, Tq)
+
+        rows = [(req, req.tokens[req.cached:req.cached + n], "c")
+                for req, n in chunks]
+        rows += [(req, [req.generated[-1]], "d") for req in batch]
+
+        B = self.max_num_seqs
+        toks = np.zeros((Tq,), np.int32)
+        cu = np.zeros((B + 1,), np.int32)
+        kvl = np.zeros((B,), np.int32)
+        bt = np.full((B + 1, self.nblk), NULL_BLOCK, np.int32)
+        lidx = np.zeros((self._Lq,), np.int32)
+        samp = make_samp(self._Lq, self.config.vocab_size)
+        chunk_slots, batch_slots = [], []
+
+        off = 0      # flat-token cursor
+        for i, (req, window, kind) in enumerate(rows):
+            n = len(window)
+            toks[off:off + n] = window
+            cu[i + 1] = off + n
+            kvl[i] = req.cached + n
+            lidx[i] = off + n - 1
+            self._fill_samp(samp, i, req)
+            (chunk_slots if kind == "c" else batch_slots).append(i)
+            off += n
+        cu[len(rows) + 1:] = off
+        for i, (req, _w, _k) in enumerate(rows):
+            bt[i] = self.blocks.padded_table(req.rid, self.nblk)
+
+        # padding a per-phase step would have cost: a token-bucketed chunk
+        # launch plus the decode bucket
+        tb = self.prefill_token_bucket
+        ct = sum(n for _, n in chunks)
+        legacy = max(tb, -(-ct // tb) * tb)
+        if batch:
+            legacy += B
+        self.pad_stats["legacy_padded"] += legacy
+        self._break_decode_layout()
+
+        result = self._launch_ragged(Tq, toks, cu, kvl, bt, lidx, samp,
+                                     total)
+        return result, chunk_slots, batch_slots
+
+    def _run_ragged_decode(self, batch: list, Tq: int):
+        """Pure-decode launch over the persistent host buffers.  Rows
+        repack incrementally ONLY while the layout signature -- the rid
+        order of the packed rows -- is unchanged since the last
+        pure-decode step; retirement, admission, preemption or a mixed
+        launch in between forces a full repack.  Within a stable layout,
+        block-table rows refresh whenever the sequence's table version
+        bumped (page growth/CoW)."""
+        n = len(batch)
+        buf = self._dbuf
+        samp = buf.samp
+        layout = tuple(r.rid for r in batch)
+        if layout != buf.layout:
+            buf.layout = layout
+            buf.bt[:] = NULL_BLOCK
+            buf.kvl[:] = 0
+            buf.cu[:n + 1] = np.arange(n + 1)
+            buf.cu[n + 1:] = n
+            samp["temps"][:] = 0.0
+            samp["top_k"][:] = 0
+            samp["top_p"][:] = 1.0
+            samp["penalty"][:] = 1.0
+            samp["seen"][:] = False
+            for s, req in enumerate(batch):
+                samp["temps"][s] = req.temperature
+                samp["top_k"][s] = req.top_k
+                samp["top_p"][s] = req.top_p
+                samp["penalty"][s] = req.repetition_penalty
+            buf.bt_ver.clear()               # force table repacks below
+        for s, req in enumerate(batch):
+            buf.toks[s] = req.generated[-1]
+            buf.kvl[s] = req.cached + 1
+            if req.seen is not None:
+                np.copyto(samp["seen"][s], req.seen)
+            if req.temperature > 0.0:
+                samp["keys"][s] = self._req_key(req)
+        for s, req in enumerate(batch):
+            ver = self.blocks.table_version(req.rid)
+            if buf.bt_ver.get(req.rid) != ver:
+                buf.bt[s] = self.blocks.padded_table(req.rid, self.nblk)
+                buf.bt_ver[req.rid] = ver
+        self.pad_stats["legacy_padded"] += self.max_num_seqs
+        result = self._launch_ragged(Tq, buf.toks, buf.cu, buf.kvl, buf.bt,
+                                     self._d_lidx, samp, n)
+        return result, [], list(range(n))
+
+    def _req_key(self, req):
+        # the draw for token i of request r depends only on (seed, i):
+        # sampling is reproducible across scheduling orders and preemptions
+        return np.asarray([req.seed, len(req.generated)], np.int64)

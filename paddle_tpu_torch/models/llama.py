@@ -1,0 +1,341 @@
+"""LLaMA decode math in PyTorch (counterpart of paddle_tpu/models/llama.py).
+
+The serving engine (inference/serving.py) and the dense ``generate()``
+oracle share the building blocks here: RMSNorm in f32 with a learned
+scale (``_rms_weight``), INTERLEAVED rotary embeddings at per-token
+absolute positions (``_rope_positions``: pairs ``(2i, 2i+1)``, not the
+rotate-half layout of Hugging Face checkpoints), and the dense KV-cache
+decode forward (``_make_decode_fwd``).  The float math is term for term
+the JAX package's, so greedy tokens agree with it.
+
+Weights live in the JAX package's stacked decode-parameter layout:
+``layers.{ln1,wq,wk,wv,wo,ln2,gate,up,down}`` stacked on a leading layer
+axis with projections stored ``[in, out]``, then ``embed``, ``norm_f`` and
+``head``.  ``LlamaForCausalLM`` builds them from an explicit generator
+(no checkpoint ships with the repository); ``from_jax_decode_params``
+carries the JAX model's weights over for the parity tests.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "from_jax_decode_params",
+           "resolve_device"]
+
+LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "gate", "up", "down")
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+
+    @staticmethod
+    def llama_7b():
+        return LlamaConfig()
+
+    @staticmethod
+    def tiny(vocab=256, hidden=64, layers=2, heads=4, ffn=128, seq=128):
+        return LlamaConfig(vocab_size=vocab, hidden_size=hidden,
+                           intermediate_size=ffn, num_hidden_layers=layers,
+                           num_attention_heads=heads, num_key_value_heads=heads,
+                           max_position_embeddings=seq)
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    another.  Raises when CUDA is asked for (explicitly or by default)
+    and absent -- there is no silent CPU fallback."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    return dev
+
+
+def _layer_shapes(cfg: LlamaConfig) -> dict:
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    d = h // cfg.num_attention_heads
+    kv = cfg.num_key_value_heads * d
+    return {"ln1": (h,), "wq": (h, cfg.num_attention_heads * d),
+            "wk": (h, kv), "wv": (h, kv), "wo": (cfg.num_attention_heads * d, h),
+            "ln2": (h,), "gate": (h, f), "up": (h, f), "down": (f, h)}
+
+
+# ---------------------------------------------------------------------------
+# decode-math building blocks (shared with inference/serving.py)
+# ---------------------------------------------------------------------------
+
+def _rms_weight(x, w, eps):
+    """RMSNorm in f32 with a learned scale, cast back to x.dtype."""
+    xf = x.float()
+    o = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+    return (o * w.float()).to(x.dtype)
+
+
+def _rope_positions(x, pos, theta):
+    """Interleaved rotary embedding at per-token absolute positions.
+
+    x [..., h, d]; pos [...] (matching x.shape[:-2], or broadcasting to
+    it) integer positions.
+    """
+    d = x.shape[-1]
+    inv = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
+                                  device=x.device) / d)
+    freqs = pos.float()[..., None, None] * inv             # [..., 1, d/2]
+    cos = torch.cos(freqs)
+    sin = torch.sin(freqs)
+    xf = x.float()
+    x1, x2 = xf[..., 0::2], xf[..., 1::2]
+    out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def _make_decode_fwd(cfg, all_logits=False):
+    """Build the dense KV-cache decode forward:
+    ``fwd(params, toks, ck, cv, pos, mask) -> (logits, ck, cv)``.
+
+    toks [B, s]; ck/cv [L, B, T, kvh, d] (updated IN PLACE at positions
+    ``pos[0] .. pos[0]+s-1``, where the JAX version returns new arrays);
+    pos [s] absolute positions; mask [s, T] bool.  With all_logits the
+    logits cover every window position ([B, s, V]) instead of the last.
+    The attention is plain PyTorch: this is the port's oracle."""
+    nh = cfg.num_attention_heads
+    kvh = cfg.num_key_value_heads
+    d = cfg.hidden_size // nh
+    eps = cfg.rms_norm_eps
+    theta = cfg.rope_theta
+
+    def attend(q, kc, vc, mask):
+        # q [B, s, nh, d]; kc/vc [B, T, kvh, d]; mask [s, T] bool
+        if kvh != nh:
+            kc = torch.repeat_interleave(kc, nh // kvh, dim=2)
+            vc = torch.repeat_interleave(vc, nh // kvh, dim=2)
+        sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), kc.float()) \
+            / (d ** 0.5)
+        sc = torch.where(mask[None, None], sc, float("-inf"))
+        pr = torch.softmax(sc, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", pr, vc.float()).to(q.dtype)
+
+    def block(x, p, kc, vc, pos, p0, mask):
+        b, s = x.shape[:2]
+        h = _rms_weight(x, p["ln1"], eps)
+        q = _rope_positions((h @ p["wq"]).reshape(b, s, nh, d), pos, theta)
+        k = _rope_positions((h @ p["wk"]).reshape(b, s, kvh, d), pos, theta)
+        v = (h @ p["wv"]).reshape(b, s, kvh, d)
+        kc[:, p0:p0 + s] = k.to(kc.dtype)
+        vc[:, p0:p0 + s] = v.to(vc.dtype)
+        att = attend(q, kc, vc, mask).reshape(b, s, nh * d)
+        x = x + att @ p["wo"]
+        h2 = _rms_weight(x, p["ln2"], eps)
+        a = torch.nn.functional.silu((h2 @ p["gate"]).float()).to(h2.dtype) \
+            * (h2 @ p["up"])
+        return x + a @ p["down"]
+
+    def fwd(params, toks, caches_k, caches_v, pos, mask):
+        x = params["embed"][toks]
+        layers = params["layers"]
+        p0 = int(pos[0])                  # cache write offset, host int
+        for i in range(caches_k.shape[0]):
+            p = {k: v[i] for k, v in layers.items()}
+            x = block(x, p, caches_k[i], caches_v[i], pos, p0, mask)
+        h = _rms_weight(x, params["norm_f"], eps)
+        hsel = h if all_logits else h[:, -1]
+        logits = hsel.float() @ params["head"].float()
+        return logits, caches_k, caches_v
+
+    return fwd
+
+
+def _gumbel_pick(lg, generator):
+    """One categorical draw per row of lg [B, V] (log-probabilities up
+    to a constant; -inf entries are never drawn) by the Gumbel-max rule,
+    with the noise taken from ``generator``."""
+    u = torch.rand(lg.shape, generator=generator, device=lg.device,
+                   dtype=torch.float32)
+    g = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return torch.argmax(lg + g, dim=-1)
+
+
+class LlamaForCausalLM(nn.Module):
+    """LLaMA decoder weights in the stacked decode layout, on one device.
+
+    ``generator`` (a ``torch.Generator`` on ``device``, or an int seed;
+    default seed 0) draws the random weights: N(0, 0.02) projections and
+    embeddings, unit norm scales.  ``device=None`` means CUDA."""
+
+    def __init__(self, config: LlamaConfig, *, device=None,
+                 dtype=torch.float32, generator=None):
+        super().__init__()
+        self.config = config
+        dev = resolve_device(device)
+        if not isinstance(generator, torch.Generator):
+            generator = torch.Generator(device=dev).manual_seed(
+                0 if generator is None else int(generator))
+        L = config.num_hidden_layers
+        std = 0.02
+
+        def weight(*shape):
+            w = torch.empty(shape, device=dev, dtype=dtype)
+            if len(shape) > 1 and shape[0] == L:
+                for i in range(L):        # layer by layer: no f32 staging
+                    w[i].normal_(0.0, std, generator=generator)
+            else:
+                w.normal_(0.0, std, generator=generator)
+            return nn.Parameter(w, requires_grad=False)
+
+        def ones(*shape):
+            return nn.Parameter(torch.ones(shape, device=dev, dtype=dtype),
+                                requires_grad=False)
+
+        self.layers = nn.ParameterDict({
+            k: (ones(L, *s) if k in ("ln1", "ln2") else weight(L, *s))
+            for k, s in _layer_shapes(config).items()})
+        self.embed = weight(config.vocab_size, config.hidden_size)
+        self.norm_f = ones(config.hidden_size)
+        self.head = None if config.tie_word_embeddings \
+            else weight(config.hidden_size, config.vocab_size)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def decode_params(self) -> dict:
+        """The stacked decode-parameter dict (views of the module's
+        weights, no copy) in the layout ``_make_decode_fwd`` and the
+        serving engine consume."""
+        head = self.embed.T if self.head is None else self.head
+        return {"layers": {k: self.layers[k] for k in LAYER_KEYS},
+                "embed": self.embed, "norm_f": self.norm_f, "head": head}
+
+    def forward_logits(self, input_ids) -> torch.Tensor:
+        """Causal logits at every position of input_ids [B, S] ([B, S, V]
+        f32), through the dense decode forward on a fresh cache."""
+        ids = torch.as_tensor(input_ids, device=self.device).long()
+        return self._dense(ids, ids.shape[1], all_logits=True)[0]
+
+    def _dense(self, ids, T, all_logits=False):
+        cfg = self.config
+        d = cfg.hidden_size // cfg.num_attention_heads
+        shape = (cfg.num_hidden_layers, ids.shape[0], T,
+                 cfg.num_key_value_heads, d)
+        ck = torch.zeros(shape, device=self.device, dtype=self.embed.dtype)
+        cv = torch.zeros_like(ck)
+        S0 = ids.shape[1]
+        pos0 = torch.arange(S0, device=self.device)
+        mask0 = torch.arange(T, device=self.device)[None, :] <= pos0[:, None]
+        fwd = _make_decode_fwd(cfg, all_logits=all_logits)
+        with torch.no_grad():
+            logits, ck, cv = fwd(self.decode_params(), ids, ck, cv, pos0,
+                                 mask0)
+        return logits, ck, cv
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
+                 top_p=None, top_k=None, repetition_penalty=None,
+                 eos_token_id=None, seed=0):
+        """Greedy/top-p/top-k sampling over a dense KV cache (the JAX
+        package's compiled ``generate`` as an eager loop).
+
+        input_ids: [B, S0] ints.  Returns [B, S0+max_new_tokens] int64
+        (generation frozen at eos when eos_token_id is given).  Sampled
+        draws come from a ``torch.Generator`` seeded with ``seed``; they do
+        not reproduce the JAX package's threefry draws."""
+        cfg = self.config
+        dev = self.device
+        ids = torch.as_tensor(input_ids, device=dev).long()
+        B, S0 = ids.shape
+        max_new = int(max_new_tokens)
+        T = S0 + max_new
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        params = self.decode_params()
+        fwd = _make_decode_fwd(cfg)
+
+        def sample(logits, seen=None):
+            if repetition_penalty is not None and seen is not None:
+                pen = torch.where(logits > 0, logits / repetition_penalty,
+                                  logits * repetition_penalty)
+                logits = torch.where(seen, pen, logits)
+            if temperature == 0.0:
+                return torch.argmax(logits, -1)
+            lg = logits / max(temperature, 1e-6)
+            if top_k is not None:
+                kth = torch.topk(lg, int(top_k), dim=-1).values[:, -1:]
+                lg = torch.where(lg < kth, float("-inf"), lg)
+            if top_p is not None:
+                idx = torch.argsort(-lg, dim=-1, stable=True)
+                srt = torch.gather(lg, -1, idx)
+                sp = torch.softmax(srt, -1)
+                keep = torch.cumsum(sp, -1) - sp <= top_p
+                pick = _gumbel_pick(torch.where(keep, srt, float("-inf")),
+                                    gen)
+                return torch.gather(idx, -1, pick[:, None])[:, 0]
+            return _gumbel_pick(lg, gen)
+
+        logits, ck, cv = self._dense(ids, T)
+        V = params["head"].shape[-1]
+        rows = torch.arange(B, device=dev)
+        seen = None
+        if repetition_penalty is not None:
+            seen = torch.zeros((B, V), dtype=torch.bool, device=dev)
+            seen[rows[:, None], ids] = True
+        tok = sample(logits, seen)
+        if seen is not None:
+            seen[rows, tok] = True
+        done = torch.zeros((B,), dtype=torch.bool, device=dev) \
+            if eos_token_id is None else tok == eos_token_id
+        out = [tok]
+        ar = torch.arange(T, device=dev)
+        for t in range(max_new - 1):
+            pos = S0 + t
+            if eos_token_id is not None:
+                tok = torch.where(done, torch.full_like(tok, eos_token_id),
+                                  tok)
+                out[-1] = tok
+            mask = (ar <= pos)[None, :]
+            logits, ck, cv = fwd(params, tok[:, None], ck, cv,
+                                 torch.tensor([pos], device=dev), mask)
+            tok = sample(logits, seen)
+            if seen is not None:
+                seen[rows, tok] = True
+            if eos_token_id is not None:
+                done = done | (tok == eos_token_id)
+            out.append(tok)
+        if eos_token_id is not None:       # freeze the final token too
+            out[-1] = torch.where(done, torch.full_like(out[-1],
+                                                        eos_token_id),
+                                  out[-1])
+        return torch.cat([ids, torch.stack(out, dim=1)], dim=1)
+
+
+def from_jax_decode_params(cfg: LlamaConfig, params_np: dict, *,
+                           device=None,
+                           dtype=torch.float32) -> LlamaForCausalLM:
+    """Build the port's model from the JAX package's ``decode_params()``
+    pytree converted with ``np.asarray`` (same stacked layout, same
+    ``[in, out]`` projections), stored in ``dtype``."""
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    model = LlamaForCausalLM(cfg, device=device, dtype=dtype)
+    with torch.no_grad():
+        for k in LAYER_KEYS:
+            model.layers[k].copy_(t(params_np["layers"][k]))
+        model.embed.copy_(t(params_np["embed"]))
+        model.norm_f.copy_(t(params_np["norm_f"]))
+        if model.head is not None:
+            model.head.copy_(t(params_np["head"]))
+    return model

@@ -1,0 +1,216 @@
+"""Ragged paged-KV attention: the hand-written CUDA kernel and its plain
+PyTorch version (counterpart of paddle_tpu/ops/pallas/paged_attention.py,
+ragged part).
+
+The serving step packs every row of a launch -- prefill chunks, resumed
+chunks, single decode tokens -- as FLAT query tokens.  Each token ``t``
+owns a block-table row ``seg[t]`` and sits at absolute position
+``rel[t]`` within that row's KV, so causality is ``keypos <= rel[t]`` for
+every kind of row, and one launch serves the whole mix.
+
+Layout (the JAX package's, kept at every public function): q
+``[Tq, H, D]``; caches ``[num_blocks, H_kv, bs, D]``; block tables
+``[R, nblk]`` int32; seg/rel ``[Tq]`` int32.  GQA is native: query head
+``h * G + g`` reads kv head ``h`` (G = H / H_kv).
+
+``ragged_paged_attention_segrel_packed`` is the entry the engine calls.
+On CUDA tensors it launches the kernel in
+``paddle_tpu_torch/csrc/ragged_paged_attention.cu`` (or raises); on CPU
+tensors it computes ``ragged_paged_reference_segrel``, the plain version.
+``launch_count`` counts kernel launches, so a run can show that its
+attention went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["ragged_segments", "ragged_paged_reference_segrel",
+           "ragged_paged_attention_segrel",
+           "ragged_paged_attention_segrel_packed", "ragged_paged_attention",
+           "launch_count"]
+
+# kernel launches made by the CUDA route (plain-version calls never count)
+launch_count = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+_MAX_GROUP = 8
+
+
+def ragged_segments(cu_seqlens, kv_lens, n_tokens):
+    """Derive per-flat-token (seg, rel) from the ragged row layout.
+
+    cu_seqlens [R+1] int32 (row r owns flat tokens cu[r]..cu[r+1]);
+    kv_lens [R] int32 (valid KV positions per row AFTER this launch's
+    inserts).  Padding tokens past cu[R] get seg == R and rel == 0 so the
+    kernel computes a finite garbage row the caller discards.
+    """
+    cu = cu_seqlens.to(torch.int32)
+    kvl = kv_lens.to(torch.int32)
+    R = kvl.shape[0]
+    tpos = torch.arange(n_tokens, dtype=torch.int32, device=cu.device)
+    seg = torch.searchsorted(cu[1:].contiguous(), tpos, right=True,
+                             out_int32=True)
+    segc = torch.clamp(seg, max=R - 1).long()
+    qlen = cu[1:] - cu[:-1]
+    rel = torch.where(seg < R, kvl[segc] - qlen[segc] + tpos - cu[segc],
+                      torch.zeros_like(tpos))
+    return seg, rel.to(torch.int32)
+
+
+def ragged_paged_reference_segrel(q, key_cache, value_cache, block_tables,
+                                  seg, rel):
+    """Dense-gather plain version of the kernel (the JAX package's XLA
+    oracle, term for term): gather each row's pages, full masked softmax
+    in f32, cast to q.dtype."""
+    Tq, H, D = q.shape
+    _, Hkv, bs, _ = key_cache.shape
+    R, nblk = block_tables.shape
+    bt = torch.clamp(block_tables.long(), 0, key_cache.shape[0] - 1)
+    seg = torch.clamp(seg.long(), 0, R - 1)
+    kg = key_cache[bt].permute(0, 1, 3, 2, 4).reshape(
+        R, nblk * bs, Hkv, D)                  # [R, S, Hkv, D]
+    vg = value_cache[bt].permute(0, 1, 3, 2, 4).reshape(
+        R, nblk * bs, Hkv, D)
+    kq = kg[seg]                               # [Tq, S, Hkv, D]
+    vq = vg[seg]
+    if Hkv != H:
+        g = H // Hkv
+        kq = torch.repeat_interleave(kq, g, dim=2)
+        vq = torch.repeat_interleave(vq, g, dim=2)
+    sm_scale = 1.0 / (D ** 0.5)
+    scores = torch.einsum("qhd,qshd->qhs", q.float(), kq.float()) * sm_scale
+    keypos = torch.arange(nblk * bs, dtype=torch.int32, device=q.device)
+    mask = keypos[None, None, :] <= rel.to(torch.int32)[:, None, None]
+    scores = torch.where(mask, scores, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("qhs,qshd->qhd", probs, vq.float())
+    return out.to(q.dtype)
+
+
+def _check_operands(q, key_cache, value_cache, block_tables, seg, rel):
+    """Shape/dtype/contiguity contract of the kernel; raises ValueError
+    on anything it does not take."""
+    def need(ok, what):
+        if not ok:
+            raise ValueError(f"ragged paged attention kernel: {what}")
+
+    need(q.dim() == 3, f"q must be [Tq, H, D], got {tuple(q.shape)}")
+    need(key_cache.dim() == 4 and key_cache.shape == value_cache.shape,
+         "caches must both be [num_blocks, H_kv, bs, D], got "
+         f"{tuple(key_cache.shape)} and {tuple(value_cache.shape)}")
+    Tq, H, D = q.shape
+    NB, Hkv, bs, Dc = key_cache.shape
+    need(q.dtype in _DTYPES, f"q dtype {q.dtype} not in float32/bfloat16")
+    need(key_cache.dtype == q.dtype and value_cache.dtype == q.dtype,
+         f"cache dtypes {key_cache.dtype}/{value_cache.dtype} must equal "
+         f"q's {q.dtype}")
+    need(D in _HEAD_DIMS and Dc == D, f"head dim {D} (cache {Dc}) not in "
+         f"{_HEAD_DIMS}")
+    need(Hkv >= 1 and H % Hkv == 0, f"H={H} not a multiple of H_kv={Hkv}")
+    need(H // Hkv <= _MAX_GROUP, f"query group G={H // Hkv} exceeds "
+         f"{_MAX_GROUP}")
+    need(bs >= 8 and bs % 8 == 0, f"block size {bs} not a multiple of 8")
+    need(block_tables.dim() == 2 and block_tables.dtype == torch.int32,
+         f"block_tables must be int32 [R, nblk], got {block_tables.dtype} "
+         f"{tuple(block_tables.shape)}")
+    for name, x in (("seg", seg), ("rel", rel)):
+        need(x.dtype == torch.int32 and x.shape == (Tq,),
+             f"{name} must be int32 [{Tq}], got {x.dtype} {tuple(x.shape)}")
+    for name, x in (("q", q), ("key_cache", key_cache),
+                    ("value_cache", value_cache),
+                    ("block_tables", block_tables), ("seg", seg),
+                    ("rel", rel)):
+        need(x.is_contiguous(), f"{name} must be contiguous")
+    devs = {x.device for x in (q, key_cache, value_cache, block_tables,
+                               seg, rel)}
+    need(len(devs) == 1, f"operands on several devices: {devs}")
+
+
+def _launch_kernel(q, key_cache, value_cache, block_tables, seg, rel):
+    """Launch the CUDA kernel on PyTorch's current stream.  Raises on an
+    operand it does not take, on CPU tensors, on a failed build and on a
+    refused launch (the C entry returns ``cudaGetLastError()``, or the
+    error of raising the block's shared-memory limit when a block size
+    needs more than the card has)."""
+    global launch_count
+    _check_operands(q, key_cache, value_cache, block_tables, seg, rel)
+    if q.device.type != "cuda":
+        raise RuntimeError(
+            "the ragged paged attention kernel runs on CUDA tensors only; "
+            f"got {q.device} (the plain version serves CPU tensors)")
+    if any(x.data_ptr() % 16 for x in (key_cache, value_cache)):
+        raise ValueError("ragged paged attention kernel: caches must be "
+                         "16-byte aligned")
+    fn = _build.library("ragged_paged_attention") \
+        .paddle_ragged_paged_attention
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + \
+            [ctypes.c_float, ctypes.c_void_p]
+    Tq, H, D = q.shape
+    NB, Hkv, bs, _ = key_cache.shape
+    R, nblk = block_tables.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
+                 block_tables.data_ptr(), seg.data_ptr(), rel.data_ptr(),
+                 out.data_ptr(), Tq, H, Hkv, D, bs, NB, R, nblk,
+                 _DTYPES[q.dtype], 1.0 / (D ** 0.5), stream)
+    if err != 0:
+        raise RuntimeError(f"ragged paged attention kernel launch failed: "
+                           f"CUDA error {err}")
+    launch_count += 1
+    return out
+
+
+def ragged_paged_attention_segrel_packed(q, key_cache, value_cache,
+                                         block_tables, seg, rel):
+    """The engine's entry: ragged attention with precomputed (seg, rel),
+    for callers that guarantee the packing invariant (int32 operands,
+    table entries in [0, num_blocks), seg naming a real table row -- the
+    engine's [B+1]-row table makes the pad sentinel B its null row).
+
+    CUDA tensors go through the CUDA kernel (which raises on an operand it
+    does not take); CPU tensors take the plain version.  Returns
+    [Tq, H, D] in q.dtype."""
+    if q.device.type == "cuda":
+        return _launch_kernel(q, key_cache, value_cache, block_tables, seg,
+                              rel)
+    return ragged_paged_reference_segrel(q, key_cache, value_cache,
+                                         block_tables, seg, rel)
+
+
+def ragged_paged_attention_segrel(q, key_cache, value_cache, block_tables,
+                                  seg, rel):
+    """Ragged attention with precomputed (seg, rel) per flat token.
+
+    q [Tq, H, D]; caches [num_blocks, H_kv, bs, D]; block_tables [R, nblk];
+    seg [Tq] in [0, R] (R == padding sentinel); rel [Tq].  Clamps table
+    entries (blha -1 padding) and seg into range and casts to int32 before
+    the packed entry.  Returns [Tq, H, D]."""
+    R = block_tables.shape[0]
+    block_tables = torch.clamp(block_tables.to(torch.int32), 0,
+                               key_cache.shape[0] - 1).contiguous()
+    seg = torch.clamp(seg.to(torch.int32), 0, R - 1).contiguous()
+    return ragged_paged_attention_segrel_packed(
+        q.contiguous(), key_cache, value_cache, block_tables, seg,
+        rel.to(torch.int32).contiguous())
+
+
+def ragged_paged_attention(q, key_cache, value_cache, block_tables,
+                           cu_seqlens, kv_lens):
+    """One ragged launch over flat query tokens from mixed-phase rows.
+
+    q [Tq, H, D] (rows packed back-to-back, tail padding allowed);
+    cu_seqlens [R+1]; kv_lens [R] (valid KV per row AFTER this launch's
+    inserts -- a row's queries sit at its LAST kv_lens positions).
+    Returns [Tq, H, D]; padding rows are finite garbage."""
+    seg, rel = ragged_segments(cu_seqlens, kv_lens, q.shape[0])
+    return ragged_paged_attention_segrel(
+        q, key_cache, value_cache, block_tables, seg, rel)

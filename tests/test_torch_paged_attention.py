@@ -1,0 +1,203 @@
+"""PyTorch port, ragged paged attention: the plain version and the
+segment map against the JAX package (its XLA reference and its Pallas
+kernel run in interpret mode), and the CUDA wrapper's refusals on the CPU.
+
+Tolerance: atol = rtol = 1e-5 in float32 -- the same math, with the f32
+sums taken in another order (and, for the Pallas kernel, an online
+softmax over pages instead of one full softmax).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu.ops.pallas.paged_attention as jpa
+import paddle_tpu_torch.ops.paged_attention as tpa
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture
+def _interpret():
+    old = jpa.INTERPRET
+    jpa.INTERPRET = True
+    yield
+    jpa.INTERPRET = old
+
+
+def _case(seed, H, Hkv, D, bs, rows, Tq, nblk):
+    """An engine-shaped ragged launch: B = len(rows) rows of (query
+    tokens, kv length after the launch), a [B+1]-row block table whose
+    last row is the null row, tail padding up to Tq flat tokens."""
+    rng = np.random.RandomState(seed)
+    B = len(rows)
+    num_blocks = 1 + B * nblk
+    cu = np.zeros(B + 1, np.int32)
+    cu[1:] = np.cumsum([q for q, _ in rows])
+    kvl = np.asarray([kv for _, kv in rows], np.int32)
+    bt = np.zeros((B + 1, nblk), np.int32)        # NULL_BLOCK == 0
+    pages = rng.permutation(np.arange(1, num_blocks))
+    used = 0
+    for r, (_, kv) in enumerate(rows):
+        n = -(-kv // bs)
+        bt[r, :n] = pages[used:used + n]
+        used += n
+    q = rng.randn(Tq, H, D).astype(np.float32)
+    kc = rng.randn(num_blocks, Hkv, bs, D).astype(np.float32)
+    vc = rng.randn(num_blocks, Hkv, bs, D).astype(np.float32)
+    return q, kc, vc, bt, cu, kvl
+
+
+# (rows of (q tokens, kv len after the launch), Tq, nblk)
+LAYOUTS = {
+    "prefill": ([(7, 7)], 8, 2),
+    "mixed": ([(6, 6), (3, 11), (1, 9), (1, 1)], 16, 3),
+    "decode": ([(1, 5), (1, 17), (1, 24), (1, 2)], 4, 3),
+    "empty_rows": ([(2, 10), (0, 0), (1, 3)], 8, 2),
+}
+SHAPES = [(4, 4, 64, 8), (4, 2, 64, 8), (8, 2, 128, 16)]   # H, Hkv, D, bs
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_ragged_segments_match_jax(layout):
+    rows, Tq, nblk = LAYOUTS[layout]
+    _, _, _, _, cu, kvl = _case(0, 4, 4, 64, 8, rows, Tq, nblk)
+    jseg, jrel = jpa.ragged_segments(jnp.asarray(cu), jnp.asarray(kvl), Tq)
+    tseg, trel = tpa.ragged_segments(*_torch(cu, kvl), Tq)
+    assert tseg.dtype == torch.int32 and trel.dtype == torch.int32
+    np.testing.assert_array_equal(tseg.numpy(), np.asarray(jseg))
+    np.testing.assert_array_equal(trel.numpy(), np.asarray(jrel))
+    # padding tokens resolve to the null row at position 0
+    pad = np.arange(Tq) >= cu[-1]
+    assert (tseg.numpy()[pad] == len(rows)).all()
+    assert (trel.numpy()[pad] == 0).all()
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "H%dKV%dD%dbs%d" % s)
+@pytest.mark.parametrize("layout", ["prefill", "mixed", "decode"])
+def test_plain_version_matches_jax_reference(layout, shape):
+    H, Hkv, D, bs = shape
+    rows, Tq, nblk = LAYOUTS[layout]
+    q, kc, vc, bt, cu, kvl = _case(1, H, Hkv, D, bs, rows, Tq,
+                                   max(nblk, -(-24 // bs)))
+    seg, rel = jpa.ragged_segments(jnp.asarray(cu), jnp.asarray(kvl), Tq)
+    ref = jpa.ragged_paged_reference_segrel(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(bt),
+        seg, rel)
+    tq, tkc, tvc, tbt, tcu, tkvl = _torch(q, kc, vc, bt, cu, kvl)
+    tseg, trel = tpa.ragged_segments(tcu, tkvl, Tq)
+    out = tpa.ragged_paged_attention_segrel_packed(tq, tkc, tvc, tbt, tseg,
+                                                   trel)
+    assert out.shape == (Tq, H, D) and out.dtype == torch.float32
+    assert torch.isfinite(out).all()           # pad rows too
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("layout", ["mixed", "empty_rows"])
+@pytest.mark.parametrize("shape", [(4, 2, 64, 8), (4, 4, 64, 8)],
+                         ids=["gqa", "mha"])
+def test_plain_version_matches_pallas_kernel_interpreted(_interpret, layout,
+                                                         shape):
+    H, Hkv, D, bs = shape
+    rows, Tq, nblk = LAYOUTS[layout]
+    q, kc, vc, bt, cu, kvl = _case(2, H, Hkv, D, bs, rows, Tq, nblk)
+    seg, rel = jpa.ragged_segments(jnp.asarray(cu), jnp.asarray(kvl), Tq)
+    kern = jpa.ragged_paged_attention_segrel_packed(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(bt),
+        seg, rel)
+    tq, tkc, tvc, tbt, tcu, tkvl = _torch(q, kc, vc, bt, cu, kvl)
+    out = tpa.ragged_paged_attention(tq, tkc, tvc, tbt, tcu, tkvl)
+    live = np.arange(Tq) < cu[-1]          # pad rows: garbage on both sides
+    np.testing.assert_allclose(out.numpy()[live], np.asarray(kern)[live],
+                               **TOL)
+
+
+def test_public_segrel_clamps_blha_padding():
+    """-1 table padding and the seg == R sentinel clamp into range, as
+    the JAX entry's do."""
+    H, Hkv, D, bs = 4, 2, 64, 8
+    rows, Tq, nblk = LAYOUTS["mixed"]
+    q, kc, vc, bt, cu, kvl = _case(3, H, Hkv, D, bs, rows, Tq, nblk)
+    bt = bt[:-1].copy()                        # drop the null row: R = B
+    bt[bt == 0] = -1
+    seg, rel = jpa.ragged_segments(jnp.asarray(cu), jnp.asarray(kvl), Tq)
+    ref = jpa.ragged_paged_reference_segrel(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(bt),
+        seg, rel)
+    tq, tkc, tvc, tbt, tcu, tkvl = _torch(q, kc, vc, bt.astype(np.int64),
+                                          cu, kvl)
+    tseg, trel = tpa.ragged_segments(tcu, tkvl, Tq)
+    out = tpa.ragged_paged_attention_segrel(tq, tkc, tvc, tbt, tseg.long(),
+                                            trel)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def _operands(H=4, Hkv=2, D=64, bs=8, dtype=torch.float32):
+    rows, Tq, nblk = LAYOUTS["mixed"]
+    q, kc, vc, bt, cu, kvl = _case(4, H, Hkv, D, bs, rows, Tq, nblk)
+    tq, tkc, tvc, tbt, tcu, tkvl = _torch(q, kc, vc, bt, cu, kvl)
+    seg, rel = tpa.ragged_segments(tcu, tkvl, Tq)
+    return [tq.to(dtype), tkc.to(dtype), tvc.to(dtype), tbt, seg, rel]
+
+
+def test_cpu_tensors_take_the_plain_version_and_never_count():
+    tpa.launch_count = 0
+    ops = _operands()
+    out = tpa.ragged_paged_attention_segrel_packed(*ops)
+    np.testing.assert_array_equal(
+        out.numpy(), tpa.ragged_paged_reference_segrel(*ops).numpy())
+    assert tpa.launch_count == 0
+
+
+def test_kernel_refuses_cpu_tensors():
+    tpa.launch_count = 0
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        tpa._launch_kernel(*_operands())
+    assert tpa.launch_count == 0
+
+
+def _bad(name):
+    ops = _operands()
+    if name == "noncontiguous_q":
+        ops[0] = ops[0].transpose(0, 1).contiguous().transpose(0, 1)
+    elif name == "int64_table":
+        ops[3] = ops[3].long()
+    elif name == "group_above_8":
+        ops = _operands(H=18, Hkv=2)
+    elif name == "head_dim_32":
+        ops = _operands(D=32)
+    elif name == "block_size_12":
+        ops = _operands(bs=12)
+    elif name == "float16":
+        ops = _operands(dtype=torch.float16)
+    elif name == "cache_dtype_mismatch":
+        ops[1] = ops[1].to(torch.bfloat16)
+    elif name == "seg_length":
+        ops[4] = ops[4][:-1]
+    return ops
+
+
+@pytest.mark.parametrize("name", [
+    "noncontiguous_q", "int64_table", "group_above_8", "head_dim_32",
+    "block_size_12", "float16", "cache_dtype_mismatch", "seg_length"])
+def test_kernel_wrapper_rejects_bad_operands(name):
+    ops = _bad(name)
+    with pytest.raises(ValueError, match="ragged paged attention kernel"):
+        tpa._launch_kernel(*ops)
+
+
+def test_bf16_plain_version_tracks_f32():
+    """bf16 operands: the plain version computes in f32 and rounds the
+    output once, so it sits within bf16 input rounding of the f32 run."""
+    ops32 = _operands()
+    ops16 = [x.to(torch.bfloat16) if x.is_floating_point() else x
+             for x in ops32]
+    out32 = tpa.ragged_paged_reference_segrel(*ops32)
+    out16 = tpa.ragged_paged_reference_segrel(*ops16)
+    assert out16.dtype == torch.bfloat16
+    np.testing.assert_allclose(out16.float().numpy(), out32.numpy(),
+                               atol=5e-2)

@@ -6,12 +6,15 @@ Run from the repository root, with one CUDA card visible:
 
 It builds the port's CUDA kernels from the sources in the checkout, holds
 each kernel against its plain PyTorch version at the shapes the LLaMA-7B
-serving path gives it, serves requests through ``LLMEngine`` at LLaMA-7B
-width (2 layers in float32, all 32 layers in bfloat16, random weights from
-a seed), checks the float32 run's tokens against the dense ``generate()``
-forward and holds the kernel to its plain version at every launch of the
-bfloat16 run, and shows through the kernels' launch counters that the
-engine's attention went through the kernel.  Each phase prints one JSON
+serving path gives it (phases ``kernel``, ``kernel_q8``, ``qmm``), serves
+requests through ``LLMEngine`` at LLaMA-7B width (random weights from a
+seed): ``engine_f32`` (2 layers in float32, tokens checked against the
+dense ``generate()`` forward), ``engine_bf16`` (32 layers in bfloat16),
+``engine_w8kv8`` (32 layers, int8 weight pools and int8 KV pages) and
+``engine_w4`` (32 layers, int4 weight pools, bfloat16 pages).  Each
+32-layer phase holds every kernel to its plain version at every engine
+launch of a gate run, and shows through the kernels' launch counters that
+a run on the kernels alone went through them.  Each phase prints one JSON
 line; the line before the last two is the kernel record, then the card's
 name and power limit as nvidia-smi gives them, then ``{"ok": true, ...}``.
 
@@ -44,6 +47,10 @@ NBLK = MAX_MODEL_LEN // BS
 # output by 1% (1.05e-2).
 TOLERANCE = {"float32": {"abs": 1e-4, "token_rel": 1e-4, "l2_rel": 1e-5},
              "bfloat16": {"abs": 2e-2, "token_rel": 2e-2, "l2_rel": 6e-3}}
+# dequant matmul against its plain version: both compute in f32 from
+# exactly upcast operands and differ only in summation order, so
+# ||out - ref|| / ||ref|| <= 1e-5 and max|out - ref| / max|ref| <= 1e-4
+QMM_TOLERANCE = {"l2_rel": 1e-5, "max_rel": 1e-4}
 # H100 SXM data-sheet peaks (dense): HBM bytes/s; f32 off the tensor cores
 # and bf16 on them, flop/s
 PEAK_BYTES = 3.35e12
@@ -75,8 +82,18 @@ def within(errs: dict, dtype_name: str, keys=None) -> bool:
     return all(errs[k] <= tol[k] for k in keys or tol)
 
 
+# cycles of the spin kernel queued ahead of each timed call (about 2.5 ms
+# on an H100): the host enqueues the call while the card spins, so the
+# events bracket the call's device time, not the host's enqueue time
+SPIN_CYCLES = 5_000_000
+
+
 def time_ms(fn, reps=30, warm=3) -> float:
-    """Median CUDA-event time of one call, after warm-up."""
+    """Median CUDA-event time of one call on the card, after warm-up.
+    The card is kept busy with a spin kernel while the host enqueues the
+    start event, the call and the end event, so a call whose host side
+    (argument checks, ctypes, allocation) outlasts its kernels is timed
+    by its kernels."""
     import torch
     for _ in range(warm):
         fn()
@@ -85,6 +102,7 @@ def time_ms(fn, reps=30, warm=3) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -246,16 +264,241 @@ def phase_kernel(state):
 
 
 # ---------------------------------------------------------------------------
+# kernel_q8 phase: int8-page ragged attention against its plain version
+# ---------------------------------------------------------------------------
+
+def quantize_pages(pages):
+    """Float pages [NB, H_kv, bs, D] -> int8 pages and f32 scales
+    [NB, H_kv], per page and head, as the engine commits them (scale =
+    amax / 127, codes rounded half to even and clipped to +-127)."""
+    import torch
+    s = pages.float().abs().amax((2, 3)) / 127.0
+    q8 = torch.round(pages.float() / s.clamp_min(1e-30)[:, :, None, None])
+    return q8.clamp(-127, 127).to(torch.int8), s
+
+
+def q8_case(kind, Hkv, dtype, rng, gen):
+    """``attention_case``'s pack with its N(0, 1) pages quantized and q in
+    ``dtype``."""
+    import torch
+    c = attention_case(kind, Hkv, torch.float32, rng, gen)
+    (kq, ks), (vq, vs) = quantize_pages(c["kc"]), quantize_pages(c["vc"])
+    c.update(q=c["q"].to(dtype), kc=kq, vc=vq, ks=ks, vs=vs)
+    return c
+
+
+def plain_q8(c, chunk=64):
+    """The int8-page plain version in f32 (q upcast, pages dequantized
+    densely), a few tokens at a time as ``plain`` does."""
+    import torch
+    from paddle_tpu_torch.ops import paged_attention as pa
+    return torch.cat([pa.ragged_paged_reference_quant_segrel(
+        c["q"][i:i + chunk].float(), c["kc"], c["vc"], c["ks"], c["vs"],
+        c["bt"], c["seg"][i:i + chunk], c["rel"][i:i + chunk])
+        for i in range(0, c["Tq"], chunk)])
+
+
+def kernel_q8(c):
+    from paddle_tpu_torch.ops import paged_attention as pa
+    return pa._launch_quant_kernel(c["q"], c["kc"], c["vc"], c["ks"],
+                                   c["vs"], c["bt"], c["seg"], c["rel"])
+
+
+def bound_q8(c):
+    """Least time for an int8-page launch: the live int8 pages and their
+    scales, q, out, table rows and seg/rel once over HBM bandwidth, and
+    the QK and PV flops over the f32 rate (the kernel's arithmetic after
+    dequantization)."""
+    import numpy as np
+    isz = c["q"].element_size()
+    Hkv = c["kc"].shape[1]
+    pages = int(sum(-(-kv // BS) for _, kv in c["rows"]))
+    nbytes = (2 * pages * BS * Hkv * D + 2 * pages * Hkv * 4
+              + 2 * c["q"].numel() * isz + pages * 4 + 8 * c["Tq"])
+    keys = int((c["rel"].cpu().numpy().astype(np.int64) + 1).sum())
+    flops = 4 * keys * H * D
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, flops)
+
+
+def dequantized(c, dtype):
+    """``c`` with its int8 pages dequantized to float pages in ``dtype``
+    (the library yardstick's operands)."""
+    kd = c["kc"].float() * c["ks"][:, :, None, None]
+    vd = c["vc"].float() * c["vs"][:, :, None, None]
+    return dict(c, kc=kd.to(dtype), vc=vd.to(dtype))
+
+
+def scaled_scales(c):
+    """A subtle control: every scale 1% too large."""
+    return kernel_q8(dict(c, ks=c["ks"] * 1.01, vs=c["vs"] * 1.01))
+
+
+def wrong_page_scales(c):
+    """A gross control: each page read with its neighbour's scales."""
+    return kernel_q8(dict(c, ks=c["ks"].roll(1, 0).contiguous(),
+                          vs=c["vs"].roll(1, 0).contiguous()))
+
+
+CONTROLS_Q8 = {"scales_1pct": scaled_scales,
+               "wrong_page_scale": wrong_page_scales}
+
+
+def phase_kernel_q8(state):
+    import numpy as np
+    import torch
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    errs, timing, controls, ok = {}, {}, {}, True
+    for kind, Hkv in (("decode", H), ("mixed", H), ("mixed_gqa", H // 4)):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            c = q8_case("decode" if kind == "decode" else "mixed", Hkv,
+                        dtype, np.random.default_rng(SEED), gen)
+            out = kernel_q8(c)
+            ref = plain_q8(c)                   # f32, whatever q's type
+            err = errors(out, ref)
+            errs[f"{kind}_{name}"] = err
+            ok &= bool(torch.isfinite(out).all()) and within(err, name)
+            for cname, control in CONTROLS_Q8.items():
+                c_err = errors(control(c), ref)
+                fails = not within(c_err, name)
+                controls[f"{cname}_{kind}_{name}"] = dict(c_err,
+                                                          fails=fails)
+                ok &= fails
+            if kind == "decode":
+                lib_fn, lib_out = library(dequantized(c, dtype))
+                b_ms, b_by, nbytes, flops = bound_q8(c)
+                timing[name] = {
+                    "ms": time_ms(lambda: kernel_q8(c)),
+                    "plain_ms": time_ms(lambda: plain_q8(c), reps=20),
+                    "library_ms": time_ms(lib_fn),
+                    "library_max_abs_err": float(
+                        (lib_out.float() - ref).abs().max()),
+                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                    "flops": flops}
+                del lib_fn, lib_out
+            del c, out, ref
+    torch.cuda.empty_cache()
+    state["kernel_q8"] = {"errors": errs, "timing": timing}
+    emit({"phase": "kernel_q8", "ok": ok, "tolerance": TOLERANCE,
+          "reference": "plain version in f32 (q upcast), pages int8 with "
+                       "per-page-per-head scales amax/127 from N(0, 1)",
+          "errors": errs, "controls": controls, "decode_timing": timing,
+          "bound_peaks": {"bytes_per_s": PEAK_BYTES,
+                          "flops_per_s": PEAK_FLOPS["float32"]}})
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# qmm phase: the dequant matmul against its plain version
+# ---------------------------------------------------------------------------
+
+# LLaMA-7B's (K, N): wq/wk/wv/wo, gate/up, down, the logit head
+QMM_SHAPES = {"qkvo": (4096, 4096), "gate_up": (4096, 11008),
+              "down": (11008, 4096), "head": (4096, 32000)}
+
+
+def qmm_errors(out, ref) -> dict:
+    """QMM_TOLERANCE's two measures, plus the largest absolute error."""
+    d = (out - ref).float()
+    return {"l2_rel": float(d.norm() / ref.norm().clamp_min(1e-30)),
+            "max_rel": float(d.abs().max()
+                             / ref.abs().max().clamp_min(1e-30)),
+            "abs": float(d.abs().max())}
+
+
+def qmm_within(errs: dict) -> bool:
+    return all(errs[k] <= v for k, v in QMM_TOLERANCE.items())
+
+
+def swap_nibbles(q):
+    """A control: every int4 byte with its two nibbles exchanged."""
+    import torch
+    b = q.to(torch.int32) & 0xFF
+    return (((b & 0xF) << 4) | (b >> 4)).to(torch.uint8).view(torch.int8)
+
+
+def phase_qmm(state):
+    import torch
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    cases, ok, control = {}, True, None
+    for shape, (K, N) in QMM_SHAPES.items():
+        w = torch.randn((K, N), generator=gen, device=DEV) * 0.02
+        for wdt in ("int8", "int4"):
+            q, s = qm.quantize_weight(w, wdt)
+            w_lib = qm.dequantize_weight(q, s, wdt).to(torch.bfloat16)
+            for M in (8, 512):
+                x = torch.randn((M, K), generator=gen,
+                                device=DEV).to(torch.bfloat16)
+                out = qm._launch_kernel(x, q, s, wdt)
+                ref = qm.reference_matmul(x, q, s, wdt)
+                err = qmm_errors(out, ref)
+                ok &= bool(torch.isfinite(out).all()) and qmm_within(err)
+                nbytes = (q.numel() + s.numel() * 4 + x.numel() * 2
+                          + M * N * 4)
+                flops = 2 * M * K * N
+                t_bytes = nbytes / PEAK_BYTES * 1e3
+                t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+                cases[f"{shape}_{wdt}_M{M}"] = dict(
+                    err, M=M, K=K, N=N, weight_dtype=wdt,
+                    ms=time_ms(lambda: qm._launch_kernel(x, q, s, wdt)),
+                    plain_ms=time_ms(
+                        lambda: qm.reference_matmul(x, q, s, wdt), reps=20),
+                    library_ms=time_ms(lambda: x @ w_lib),
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bytes=nbytes, flops=flops)
+                if shape == "qkvo" and wdt == "int4" and M == 8:
+                    control = qmm_errors(
+                        qm._launch_kernel(x, swap_nibbles(q), s, wdt), ref)
+                    control["fails"] = not qmm_within(control)
+                    ok &= control["fails"]
+                del x, out, ref
+            del q, s, w_lib
+        del w
+    torch.cuda.empty_cache()
+    state["qmm"] = cases
+    emit({"phase": "qmm", "ok": ok, "tolerance": QMM_TOLERANCE,
+          "x_dtype": "bfloat16", "control_int4_nibbles_swapped": control,
+          "cases": cases,
+          "bound_peaks": {"bytes_per_s": PEAK_BYTES,
+                          "flops_per_s": PEAK_FLOPS["bfloat16"],
+                          "flops_peak": "bf16 dense tensor cores"}})
+    return ok
+
+
+# ---------------------------------------------------------------------------
 # engine phases: the main path through LLMEngine
 # ---------------------------------------------------------------------------
 
-def serve(model, requests, attention=None, sampler=None):
-    """Serve the requests through a fresh engine, counting kernel launches
+def launch_counts() -> dict:
+    """Every kernel's launch counter, by kernel."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    return {"attention": pa.launch_count,
+            "attention_q8": pa.quant_launch_count, "qmm": qm.launch_count}
+
+
+def reset_launch_counts() -> None:
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    pa.launch_count = pa.quant_launch_count = qm.launch_count = 0
+
+
+def serve(model, requests, attention=None, sampler=None, patch=None,
+          **engine_opts):
+    """Serve the requests through a fresh engine (``engine_opts`` such as
+    kv_dtype and weight_dtype go to it), counting every kernel's launches
     over exactly that run.  ``attention`` swaps another function in for
-    the engine's attention entry during the run, ``sampler`` another for
-    its sampler (the gate's reference and control runs).  Returns (engine,
-    outputs, seconds, launches, peak device memory of the run, weights
-    included)."""
+    the engine's float attention entry during the run, ``patch`` ({(module,
+    name): function}) others for any module function the engine calls,
+    and ``sampler`` another for its sampler (the gates' reference and
+    control runs).  Returns (engine, outputs, seconds, launches by kernel,
+    peak device memory of the run, weights included)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.inference import LLMEngine, serving
@@ -263,16 +506,15 @@ def serve(model, requests, attention=None, sampler=None):
     torch.cuda.reset_peak_memory_stats()
     eng = LLMEngine(model, device=DEV, max_num_seqs=8, block_size=BS,
                     max_model_len=MAX_MODEL_LEN, max_prefill_tokens=512,
-                    prefill_token_bucket=64)
+                    prefill_token_bucket=64, **engine_opts)
     rids = [eng.add_request(p, max_new_tokens=mx, **opts)
             for p, mx, opts in requests]
     assert rids == list(range(len(requests)))
-    entry = pa.ragged_paged_attention_segrel_packed
-    sample = serving.sample_tokens
+    patch = dict(patch or {})
     if attention is not None:
-        pa.ragged_paged_attention_segrel_packed = attention
+        patch[(pa, "ragged_paged_attention_segrel_packed")] = attention
     if sampler is not None:
-        serving.sample_tokens = sampler
+        patch[(serving, "sample_tokens")] = sampler
         step = eng._ragged_step
 
         def counted_step(Tq, toks, cu, *rest):
@@ -281,17 +523,20 @@ def serve(model, requests, attention=None, sampler=None):
             sampler.live = int((np.diff(cu) > 0).sum())
             return step(Tq, toks, cu, *rest)
         eng._ragged_step = counted_step
+    saved = {key: getattr(*key) for key in patch}
     try:
+        for (mod, name), fn in patch.items():
+            setattr(mod, name, fn)
         torch.cuda.synchronize()
-        pa.launch_count = 0
+        reset_launch_counts()
         t0 = time.perf_counter()
         outs = eng.run()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = pa.launch_count
+        launches = launch_counts()
     finally:
-        pa.ragged_paged_attention_segrel_packed = entry
-        serving.sample_tokens = sample
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
     return eng, outs, seconds, launches, torch.cuda.max_memory_allocated()
 
 
@@ -414,27 +659,46 @@ def teacher_forced(model, requests, outs):
     return worst_gap, agree, total
 
 
+def expected_launches(eng, steps) -> dict:
+    """Launches per kernel a run of ``steps`` steps must show: the
+    attention kernel the pages call for once per layer per step (the
+    other none), and the dequant matmul 7 times per layer plus once for
+    the logit head per step in a quantized-weight engine."""
+    L = eng.config.num_hidden_layers
+    q8 = eng.kv_dtype == "int8"
+    return {"attention": 0 if q8 else L * steps,
+            "attention_q8": L * steps if q8 else 0,
+            "qmm": (7 * L + 1) * steps
+            if eng.weight_dtype != "float32" else 0}
+
+
 def engine_record(name, run, requests, checks: dict, **extra):
     """One engine phase's JSON line; it passes when every request finished
-    with its count, none was quarantined, the kernel was launched once per
-    layer per step, and every entry of ``checks`` holds."""
+    with its count, none was quarantined, every kernel was launched as
+    ``expected_launches`` says, and every entry of ``checks`` holds."""
     eng, outs, seconds, launches, peak = run
     s = eng.summary()
     steps = s["engine_steps"]
     layers = eng.config.num_hidden_layers
+    want = expected_launches(eng, steps)
+    att = "attention_q8" if eng.kv_dtype == "int8" else "attention"
     counts_ok = all(len(outs[r].generated) == requests[r][1]
                     and outs[r].finish_reason == "length"
                     for r in range(len(requests)))
     gen_tokens = sum(len(o.generated) for o in outs.values())
     checks = {"finished_with_right_count": counts_ok,
               "none_quarantined": s["quarantined"] == 0,
-              "launches_equal_layers_x_steps": launches == layers * steps,
+              "launches_equal_layers_x_steps":
+                  launches[att] == want[att] == layers * steps,
+              "launches_as_expected_for_every_kernel": launches == want,
               **checks}
     rec = {"phase": name, "ok": all(checks.values()), "checks": checks,
            "requests": len(requests), "layers": layers,
            "dtype": str(eng._act_dtype).split(".")[-1],
+           "kv_dtype": eng.kv_dtype, "weight_dtype": eng.weight_dtype,
            "quarantined": s["quarantined"], "steps": steps,
-           "kernel_launches": launches, "launches_per_step": layers,
+           "kernel_launches": launches[att], "launches": launches,
+           "expected_launches": want, "launches_per_step": layers,
            "generated_tokens": gen_tokens, "wall_s": seconds,
            "tokens_per_s": gen_tokens / seconds,
            "prefill_tokens": s["prefill_tokens"],
@@ -445,7 +709,9 @@ def engine_record(name, run, requests, checks: dict, **extra):
            "block_ms_p50": s["block_ms_p50"],
            "cache_hit_tokens": s["cache_hit_tokens"],
            "preemptions": s["preemptions"],
-           "peak_memory_bytes": peak, **extra}
+           "peak_memory_bytes": peak,
+           "weight_bytes_resident": eng.weight_bytes_resident(),
+           "kv_page_bytes": eng.kv_page_bytes(), **extra}
     emit(rec)
     return rec
 
@@ -474,9 +740,98 @@ def phase_engine_f32(state):
     return rec["ok"]
 
 
+def plain_patch(int8_kv):
+    """Patches that put the plain versions where the engine calls its
+    kernels (the quantized engines' reference runs)."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import quant_matmul as qm
+
+    def attention_q8(q, kc, vc, ks, vs, bt, seg, rel):
+        return plain_q8(dict(q=q, kc=kc, vc=vc, ks=ks, vs=vs, bt=bt,
+                             seg=seg, rel=rel, Tq=q.shape[0])).to(q.dtype)
+    patch = {(qm, "matmul"): qm.reference_matmul}
+    if int8_kv:
+        patch[(pa, "ragged_paged_attention_quant_segrel_packed")] = \
+            attention_q8
+    else:
+        patch[(pa, "ragged_paged_attention_segrel_packed")] = plain_attention
+    return patch
+
+
+def phase_engine_quant_f32(state):
+    """The quantized engines' tokens at float32, where the kernels agree
+    with their plain versions to f32 rounding: 2 of 32 layers (as
+    engine_f32), engine_f32's requests.  A run on the plain versions
+    records its logits; a run on the kernels, forced along the same
+    tokens, must pick the reference run's argmax at every greedy step up
+    to a 1e-3 logit gap (a near-tie may flip), once with int8 weights and
+    int8 pages, once with int4 weights."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama_7b()
+    cfg.num_hidden_layers = 2
+    model = LlamaForCausalLM(cfg, device=DEV, dtype=torch.float32,
+                             generator=SEED)
+    rng = np.random.default_rng(SEED + 1)
+    lens = [5, 300] + [int(x) for x in rng.integers(5, 301, 6)]
+    requests = [(rng.integers(0, cfg.vocab_size, n).tolist(), 16, {})
+                for n in lens]
+    ok, runs = True, {}
+    for name, opts in (("w8kv8", {"weight_dtype": "int8",
+                                  "kv_dtype": "int8"}),
+                       ("w4", {"weight_dtype": "int4"})):
+        script, log = [], []
+        serve(model, requests, sampler=recording_sampler(script),
+              patch=plain_patch(opts.get("kv_dtype") == "int8"), **opts)
+        run = serve(model, requests, sampler=forced_sampler(script, log),
+                    **opts)
+        gap = forced_gap(script, log)
+        steps = run[0].summary()["engine_steps"]
+        launches_ok = run[3] == expected_launches(run[0], steps)
+        runs[name] = dict(gap, steps=steps, launches=run[3],
+                          launches_as_expected=launches_ok)
+        ok &= gap["gap"] <= 1e-3 and launches_ok
+        del run, script, log
+    emit({"phase": "engine_quant_f32", "ok": ok, "layers": 2,
+          "requests": len(requests), "gap_tolerance": 1e-3, "runs": runs})
+    state["engine_quant_f32"] = runs
+    del model
+    torch.cuda.empty_cache()
+    return ok
+
+
 # the engine-level check takes the scale-free measures only: the engine's
 # activations are not N(0, 1), and an absolute bound means nothing there
 ENGINE_MEASURES = ("token_rel", "l2_rel")
+
+
+def llama_7b_bf16():
+    """LLaMA-7B at its published widths, all 32 layers, bf16, random
+    weights from the seed."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    return LlamaForCausalLM(LlamaConfig.llama_7b(), device=DEV,
+                            dtype=torch.bfloat16, generator=SEED)
+
+
+def bf16_requests(V):
+    """The 32-layer phases' request mix: 12 requests, prompts 17-700
+    tokens (one chunked over two steps), two sharing a 256-token prefix,
+    one sampled at T=0.8 / top-p 0.9, 16-64 new tokens."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 2)
+    shared = rng.integers(0, V, 256).tolist()
+    lens = [17, 700] + [int(x) for x in rng.integers(17, 701, 8)]
+    requests = [(rng.integers(0, V, n).tolist(),
+                 int(rng.integers(16, 65)), {}) for n in lens]
+    requests[5] = (requests[5][0], requests[5][1],
+                   {"temperature": 0.8, "top_p": 0.9, "seed": 7})
+    requests.insert(2, (shared + rng.integers(0, V, 40).tolist(), 64, {}))
+    # the second sharer queues behind the 8 slots, so it is admitted after
+    # the first has committed the shared pages: a prefix-cache hit
+    requests.append((shared + rng.integers(0, V, 90).tolist(), 32, {}))
+    return requests
 
 
 def phase_engine_bf16(state):
@@ -496,24 +851,9 @@ def phase_engine_bf16(state):
     attention differs).  The kernel run replayed along its own tokens must
     give the same live logits bit for bit, which shows that the forced
     runs differ from it only where their attention does."""
-    import numpy as np
     import torch
-    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-    cfg = LlamaConfig.llama_7b()
-    model = LlamaForCausalLM(cfg, device=DEV, dtype=torch.bfloat16,
-                             generator=SEED)
-    rng = np.random.default_rng(SEED + 2)
-    V = cfg.vocab_size
-    shared = rng.integers(0, V, 256).tolist()
-    lens = [17, 700] + [int(x) for x in rng.integers(17, 701, 8)]
-    requests = [(rng.integers(0, V, n).tolist(),
-                 int(rng.integers(16, 65)), {}) for n in lens]
-    requests[5] = (requests[5][0], requests[5][1],
-                   {"temperature": 0.8, "top_p": 0.9, "seed": 7})
-    requests.insert(2, (shared + rng.integers(0, V, 40).tolist(), 64, {}))
-    # the second sharer queues behind the 8 slots, so it is admitted after
-    # the first has committed the shared pages: a prefix-cache hit
-    requests.append((shared + rng.integers(0, V, 90).tolist(), 32, {}))
+    model = llama_7b_bf16()
+    requests = bf16_requests(model.config.vocab_size)
     script = []
     run = serve(model, requests, sampler=recording_sampler(script))
     dense_gap, agree, total = teacher_forced(model, requests, run[1])
@@ -555,7 +895,7 @@ def phase_engine_bf16(state):
     return rec["ok"]
 
 
-def profile_decode(model):
+def profile_decode(model, name="profile", **engine_opts):
     """Where a step's time goes: 8 requests (128-token prompts, 32 new
     tokens) served once unprofiled (wall time) and once under
     torch.profiler (device time by kernel; the profiler slows the host, so
@@ -565,12 +905,13 @@ def profile_decode(model):
     rng = np.random.default_rng(SEED + 3)
     requests = [(rng.integers(0, model.config.vocab_size, 128).tolist(), 32,
                  {}) for _ in range(8)]
-    serve(model, requests[:2])                      # warm the allocator
-    eng, _, seconds, _, _ = serve(model, requests)
+    serve(model, requests[:2], **engine_opts)       # warm the allocator
+    eng, _, seconds, _, _ = serve(model, requests, **engine_opts)
     s = eng.summary()
+    del eng
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        serve(model, requests)
+        serve(model, requests, **engine_opts)
     kernels = [e for e in prof.key_averages()
                if str(getattr(e, "device_type", "")).endswith("CUDA")
                and not e.key.startswith("llm_engine.")]
@@ -581,7 +922,8 @@ def profile_decode(model):
 
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    rec = {"phase": "profile", "requests": 8, "prompt_tokens": 128,
+    rec = {"phase": name, **engine_opts, "requests": 8,
+           "prompt_tokens": 128,
            "new_tokens": 32, "steps": s["engine_steps"],
            "wall_ms": seconds * 1e3, "device_busy_ms": busy_ms,
            "device_idle_share": (1 - busy_ms / (seconds * 1e3))
@@ -594,6 +936,173 @@ def profile_decode(model):
                             "calls": e.count} for e in top]}
     emit(rec)
     return rec
+
+
+def held_q8(log):
+    """The int8-KV engine's attention for a gate run: the kernel and the
+    plain version (in f32) on the same inputs at every call, errors
+    logged; the engine goes on with the plain version's output."""
+    def fn(q, kc, vc, ks, vs, bt, seg, rel):
+        c = dict(q=q, kc=kc, vc=vc, ks=ks, vs=vs, bt=bt, seg=seg, rel=rel,
+                 Tq=q.shape[0])
+        ref = plain_q8(c)
+        log.append(errors(kernel_q8(c), ref))
+        return ref.to(q.dtype)
+    return fn
+
+
+def held_qmm(log):
+    """The engine's dequant matmul for a gate run: the kernel and the
+    plain version on the same inputs at every call, QMM_TOLERANCE's
+    measures logged on the device; the engine goes on with the plain
+    version's output."""
+    import torch
+    from paddle_tpu_torch.ops import quant_matmul as qm
+
+    def fn(x, q, s, weight_dtype):
+        ref = qm.reference_matmul(x, q, s, weight_dtype)
+        d = qm._launch_kernel(x, q, s, weight_dtype) - ref
+        log.append(torch.stack([d.norm() / ref.norm().clamp_min(1e-30),
+                                d.abs().max()
+                                / ref.abs().max().clamp_min(1e-30)]))
+        return ref
+    return fn
+
+
+def quantized_engine_phase(name, state, **engine_opts):
+    """32 layers in bf16 with quantized weights (and int8 pages where
+    asked), the request mix of engine_bf16.  A gate run takes the plain
+    versions of the dequant matmul and of the attention the pages call
+    for, and launches each kernel beside every call, so each kernel is held
+    to its plain version, launch by launch, on the engine's own inputs.  A
+    second run, on the kernels alone, is the main path: its wall time,
+    latencies and launch counts are the phase's."""
+    import torch
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    model = llama_7b_bf16()
+    requests = bf16_requests(model.config.vocab_size)
+    att_log, qmm_log = [], []
+    patch = {(qm, "matmul"): held_qmm(qmm_log)}
+    if engine_opts.get("kv_dtype") == "int8":
+        patch[(pa, "ragged_paged_attention_quant_segrel_packed")] = \
+            held_q8(att_log)
+    else:
+        patch[(pa, "ragged_paged_attention_segrel_packed")] = \
+            held_to_plain(kernel_attention, att_log)
+    gate = serve(model, requests, patch=patch, **engine_opts)
+    gate_steps = gate[0].summary()["engine_steps"]
+    gate_calls = {"attention": len(att_log), "qmm": len(qmm_log)}
+    gate_want = expected_launches(gate[0], gate_steps)
+    gate_tokens = {r: o.generated for r, o in gate[1].items()}
+    gate_wall = gate[2]
+    att_err = worst(att_log)
+    qmm_err = dict(zip(("l2_rel", "max_rel"), (
+        float(v) for v in torch.stack(qmm_log).amax(0).cpu())))
+    del gate, att_log, qmm_log
+    torch.cuda.empty_cache()
+
+    run = serve(model, requests, **engine_opts)
+    greedy = [r for r, (_, _, o) in enumerate(requests)
+              if o.get("temperature", 0.0) == 0.0]
+    same = sum(run[1][r].generated == gate_tokens[r] for r in greedy)
+    rec = engine_record(
+        name, run, requests,
+        {"prefix_cache_hit": run[0].summary()["cache_hit_tokens"] >= 256,
+         "gate_held_every_call": gate_calls == {
+             "attention": max(gate_want["attention"],
+                              gate_want["attention_q8"]),
+             "qmm": gate_want["qmm"]},
+         "per_launch_attention_vs_plain": within(att_err, "bfloat16",
+                                                 ENGINE_MEASURES),
+         "per_launch_qmm_vs_plain": qmm_within(qmm_err)},
+        per_launch_attention_errors=att_err,
+        per_launch_attention_tolerance={
+            k: TOLERANCE["bfloat16"][k] for k in ENGINE_MEASURES},
+        per_launch_qmm_errors=qmm_err, per_launch_qmm_tolerance=QMM_TOLERANCE,
+        gate_calls=gate_calls, gate_steps=gate_steps, gate_wall_s=gate_wall,
+        greedy_requests_equal_to_gate_run=f"{same}/{len(greedy)}")
+    state[name] = rec
+    del run
+    state["profile_" + name] = profile_decode(model, "profile_" + name,
+                                              **engine_opts)
+    del model
+    torch.cuda.empty_cache()
+    return rec["ok"]
+
+
+def phase_engine_w8kv8(state):
+    return quantized_engine_phase("engine_w8kv8", state, weight_dtype="int8",
+                                  kv_dtype="int8")
+
+
+def phase_engine_w4(state):
+    return quantized_engine_phase("engine_w4", state, weight_dtype="int4")
+
+
+def kernel_records(state) -> list:
+    """The kernels line: each kernel with its TPU original, its launches
+    on the main path (the runs on the kernels alone) and its numbers from
+    this run."""
+    timing = state["kernel"]["timing"]["bfloat16"]
+    errs = state["kernel"]["errors"]
+    t_q8 = state["kernel_q8"]["timing"]["bfloat16"]
+    errs_q8 = state["kernel_q8"]["errors"]
+    qmm = state["qmm"]
+    qmm_timed = "gate_up_int8_M8"
+    return [{
+        "name": "ragged_paged_attention", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas/paged_attention.py:225",
+        "tpu_kernel": "paged_attention.py::_ragged_kernel",
+        "launches": state["engine_bf16"]["kernel_launches"]
+        + state["engine_w4"]["launches"]["attention"],
+        "launches_by_phase": {
+            "engine_bf16": state["engine_bf16"]["kernel_launches"],
+            "engine_w4": state["engine_w4"]["launches"]["attention"],
+            "engine_f32": state["engine_f32"]["kernel_launches"]},
+        "max_abs_err": max(e["abs"] for e in errs.values()),
+        "errors_by_case": errs,
+        "ms": timing["ms"], "kernel_ms": timing["ms"],
+        "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
+        "timed_shape": "decode Tq=8 H=32 H_kv=32 D=128 bs=16, bfloat16",
+        "float32": state["kernel"]["timing"]["float32"]}, {
+        "name": "ragged_paged_attention_q8", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas/paged_attention.py:283",
+        "tpu_kernel": "paged_attention.py::_ragged_quant_kernel",
+        "launches": state["engine_w8kv8"]["launches"]["attention_q8"],
+        "max_abs_err": max(e["abs"] for e in errs_q8.values()),
+        "errors_by_case": errs_q8,
+        "ms": t_q8["ms"], "plain_ms": t_q8["plain_ms"],
+        "bound_ms": t_q8["bound_ms"], "bound_by": t_q8["bound_by"],
+        "library_ms": t_q8["library_ms"],
+        "library": "scaled_dot_product_attention on K/V dequantized and "
+                   "gathered dense beforehand",
+        "timed_shape": "decode Tq=8 H=32 H_kv=32 D=128 bs=16, int8 pages, "
+                       "bfloat16 q",
+        "float32_q": state["kernel_q8"]["timing"]["float32"]}, {
+        "name": "quant_matmul", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/quant_matmul.cu",
+        "replaces": "paddle_tpu/ops/pallas/quant_matmul.py:227",
+        "tpu_kernel": "quant_matmul.py::_qmm_kernel",
+        "launches": state["engine_w8kv8"]["launches"]["qmm"]
+        + state["engine_w4"]["launches"]["qmm"],
+        "launches_by_phase": {
+            "engine_w8kv8": state["engine_w8kv8"]["launches"]["qmm"],
+            "engine_w4": state["engine_w4"]["launches"]["qmm"]},
+        "max_abs_err": max(c["abs"] for c in qmm.values()),
+        "ms": qmm[qmm_timed]["ms"], "plain_ms": qmm[qmm_timed]["plain_ms"],
+        "bound_ms": qmm[qmm_timed]["bound_ms"],
+        "bound_by": qmm[qmm_timed]["bound_by"],
+        "library_ms": qmm[qmm_timed]["library_ms"],
+        "library": "torch.matmul against the weight dequantized to bf16 "
+                   "beforehand",
+        "timed_shape": "M=8 K=4096 N=11008 int8, bfloat16 x",
+        "by_shape": {k: {f: c[f] for f in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}
+                     for k, c in qmm.items()}}]
 
 
 def main() -> int:
@@ -632,8 +1141,13 @@ def main() -> int:
         emit({"phase": "build", "ok": False})
         return 1
     for name, fn in (("kernel", phase_kernel),
+                     ("kernel_q8", phase_kernel_q8),
+                     ("qmm", phase_qmm),
                      ("engine_f32", phase_engine_f32),
-                     ("engine_bf16", phase_engine_bf16)):
+                     ("engine_quant_f32", phase_engine_quant_f32),
+                     ("engine_bf16", phase_engine_bf16),
+                     ("engine_w8kv8", phase_engine_w8kv8),
+                     ("engine_w4", phase_engine_w4)):
         t = time.perf_counter()
         try:
             passed = fn(state)
@@ -647,22 +1161,7 @@ def main() -> int:
     if not ok:
         return 1
 
-    timing = state["kernel"]["timing"]["bfloat16"]
-    errs = state["kernel"]["errors"]
-    emit({"kernels": [{
-        "name": "ragged_paged_attention", "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
-        "replaces": "paddle_tpu/ops/pallas/paged_attention.py:225",
-        "tpu_kernel": "paged_attention.py::_ragged_kernel",
-        "launches": state["engine_bf16"]["kernel_launches"],
-        "launches_engine_f32": state["engine_f32"]["kernel_launches"],
-        "max_abs_err": max(e["abs"] for e in errs.values()),
-        "errors_by_case": errs,
-        "ms": timing["ms"], "kernel_ms": timing["ms"],
-        "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
-        "timed_shape": "decode Tq=8 H=32 H_kv=32 D=128 bs=16, bfloat16",
-        "float32": state["kernel"]["timing"]["float32"]}]})
+    emit({"kernels": kernel_records(state)})
     for ln in smi:
         print(ln, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

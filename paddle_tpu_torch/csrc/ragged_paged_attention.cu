@@ -1,4 +1,5 @@
-// Ragged paged-KV attention for Hopper (sm_90a), written by hand.
+// Ragged paged-KV attention for Hopper (sm_90a), written by hand: the float
+// kernel here, and its int8-page variant further down.
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas/paged_attention.py ::
 // _ragged_kernel (launched by _ragged_launch).  What it computes, for each
@@ -246,7 +247,231 @@ int launch(const void* q, const void* kc, const void* vc, const void* bt,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// int8 pages
+//
+// Replaces paddle_tpu/ops/pallas/paged_attention.py :: _ragged_quant_kernel
+// (launched by _ragged_quant_launch).  The same walk over int8 caches
+// [num_blocks, H_kv, bs, D] with f32 scales [num_blocks, H_kv]: a page's
+// value is int8 * scale[bt[seg[t], page], h], the scale looked up through
+// the same block-table indirection as the page.  Each tile's pages are
+// copied into shared memory as int8 (half the bytes of a bf16 tile) with
+// their scales beside them, and dequantized as they are read.  The rounding
+// is the TPU kernel's, not the float kernel's: q * scale stays f32, K and V
+// are dequantized to f32, p is not rounded before the PV product, and only
+// the output is cast to q's type.  What bounds it: memory bandwidth, as for
+// the float kernel, on half the page bytes.
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+ragged_paged_attention_q8_kernel(const T* __restrict__ q,
+                                 const int8_t* __restrict__ kc,
+                                 const int8_t* __restrict__ vc,
+                                 const float* __restrict__ ks,
+                                 const float* __restrict__ vs,
+                                 const int* __restrict__ bt,
+                                 const int* __restrict__ seg,
+                                 const int* __restrict__ rel,
+                                 T* __restrict__ out, int H, int Hkv, int bs,
+                                 int num_blocks, int R, int nblk,
+                                 int pages_per_tile, float scale) {
+  constexpr int kDpl = D / 32;
+  constexpr int kTpc = kThreads / D;
+  constexpr int kGpt = (kMaxG + kTpc - 1) / kTpc;
+  constexpr int kVec = 16;                     // int8 elements per 16 bytes
+  constexpr int kMaxPages = kTileKeys / 8;     // bs >= 8
+
+  const int G = H / Hkv;
+  const int t = blockIdx.x;
+  const int h = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int tile_keys = pages_per_tile * bs;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int8_t* k_tile = reinterpret_cast<int8_t*>(smem_raw);  // [tile_keys, D]
+  int8_t* v_tile = k_tile + tile_keys * D;               // [tile_keys, D]
+  float* p_tile = reinterpret_cast<float*>(v_tile + tile_keys * D);
+                                                         // [kMaxG, tile_keys]
+  __shared__ float m_s[kMaxG], l_s[kMaxG], alpha_s[kMaxG];
+  __shared__ float ksc_s[kMaxPages], vsc_s[kMaxPages];
+
+  const int row = min(max(seg[t], 0), R - 1);
+  const int r = rel[t];
+  const int n_keys = min(r + 1, nblk * bs);
+  const int* bt_row = bt + (size_t)row * nblk;
+
+  // query group in registers, pre-scaled in f32 (not rounded to T)
+  float qr[kMaxG][kDpl];
+  const T* q_t = q + ((size_t)t * H + (size_t)h * G) * D;
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) {
+#pragma unroll
+    for (int i = 0; i < kDpl; ++i) {
+      qr[g][i] = g < G ? to_f(q_t[g * D + lane * kDpl + i]) * scale : 0.f;
+    }
+  }
+  if (tid < kMaxG) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+  float acc[kGpt];
+#pragma unroll
+  for (int k = 0; k < kGpt; ++k) acc[k] = 0.f;
+  const int col = tid % D;
+  const int gsub = tid / D;
+  __syncthreads();
+
+  const int vecs_per_page = bs * D / kVec;
+  for (int base = 0; base < n_keys; base += tile_keys) {
+    const int nk = min(tile_keys, n_keys - base);
+    const int np = (nk + bs - 1) / bs;
+    const int page0 = base / bs;
+
+    // 1. copy this tile's int8 pages and their scales
+    for (int i = tid; i < np * vecs_per_page; i += kThreads) {
+      const int p = i / vecs_per_page;
+      const int o = i - p * vecs_per_page;
+      const int blk = min(max(bt_row[page0 + p], 0), num_blocks - 1);
+      const size_t src = ((size_t)blk * Hkv + h) * bs * D;
+      reinterpret_cast<uint4*>(k_tile + p * bs * D)[o] =
+          reinterpret_cast<const uint4*>(kc + src)[o];
+      reinterpret_cast<uint4*>(v_tile + p * bs * D)[o] =
+          reinterpret_cast<const uint4*>(vc + src)[o];
+    }
+    if (tid < np) {
+      const int blk = min(max(bt_row[page0 + tid], 0), num_blocks - 1);
+      ksc_s[tid] = ks[(size_t)blk * Hkv + h];
+      vsc_s[tid] = vs[(size_t)blk * Hkv + h];
+    }
+    __syncthreads();
+
+    // 2. scores s[g, j] = q[g] . (k[j] * kscale), f32
+    for (int j = warp; j < nk; j += kWarps) {
+      const float ksc = ksc_s[j / bs];
+      float kf[kDpl];
+#pragma unroll
+      for (int i = 0; i < kDpl; ++i)
+        kf[i] = (float)k_tile[j * D + lane * kDpl + i] * ksc;
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g < G) {
+          float s = 0.f;
+#pragma unroll
+          for (int i = 0; i < kDpl; ++i) s = fmaf(qr[g][i], kf[i], s);
+          s = warp_sum(s);
+          if (lane == 0) p_tile[g * tile_keys + j] = s;
+        }
+      }
+    }
+    __syncthreads();
+
+    // 3. online softmax, one warp per query row; p stays f32
+    for (int g = warp; g < G; g += kWarps) {
+      float* prow = p_tile + g * tile_keys;
+      float mx = -INFINITY;
+      for (int j = lane; j < nk; j += 32) mx = fmaxf(mx, prow[j]);
+      mx = warp_max(mx);
+      const float m_prev = m_s[g];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int j = lane; j < nk; j += 32) {
+        const float p = expf(prow[j] - m_new);
+        sum += p;
+        prow[j] = p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        alpha_s[g] = alpha;
+        l_s[g] = alpha * l_s[g] + sum;
+        m_s[g] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // 4. acc = acc * alpha + p @ (v * vscale)
+#pragma unroll
+    for (int k = 0; k < kGpt; ++k) {
+      const int g = gsub + k * kTpc;
+      if (g < G) {
+        const float* prow = p_tile + g * tile_keys;
+        float pv = 0.f;
+        for (int j = 0; j < nk; ++j)
+          pv = fmaf(prow[j], (float)v_tile[j * D + col] * vsc_s[j / bs], pv);
+        acc[k] = acc[k] * alpha_s[g] + pv;
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int k = 0; k < kGpt; ++k) {
+    const int g = gsub + k * kTpc;
+    if (g < G) {
+      out[((size_t)t * H + (size_t)h * G + g) * D + col] =
+          from_f<T>(acc[k] / l_s[g]);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch_q8(const void* q, const void* kc, const void* vc, const void* ks,
+              const void* vs, const void* bt, const void* seg,
+              const void* rel, void* out, int Tq, int H, int Hkv, int bs,
+              int num_blocks, int R, int nblk, float scale,
+              cudaStream_t stream) {
+  const int pages_per_tile = bs >= kTileKeys ? 1 : kTileKeys / bs;
+  const int tile_keys = pages_per_tile * bs;
+  const size_t smem = 2 * (size_t)tile_keys * D +
+                      (size_t)kMaxG * tile_keys * sizeof(float);
+  auto kern = ragged_paged_attention_q8_kernel<T, D>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid(Tq, Hkv);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const int8_t*>(kc),
+      static_cast<const int8_t*>(vc), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(bt),
+      static_cast<const int*>(seg), static_cast<const int*>(rel),
+      static_cast<T*>(out), H, Hkv, bs, num_blocks, R, nblk, pages_per_tile,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// C entry of the int8-page kernel, bound with ctypes.  As the float entry,
+// plus the f32 scale pools ks/vs [num_blocks, H_kv]; kc/vc are int8, and
+// dtype names q's (and out's) type.
+extern "C" int paddle_ragged_paged_attention_q8(
+    const void* q, const void* kc, const void* vc, const void* ks,
+    const void* vs, const void* bt, const void* seg, const void* rel,
+    void* out, int Tq, int H, int Hkv, int D, int bs, int num_blocks, int R,
+    int nblk, int dtype, float scale, void* stream) {
+  if (Tq == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 64)
+    return launch_q8<float, 64>(q, kc, vc, ks, vs, bt, seg, rel, out, Tq, H,
+                                Hkv, bs, num_blocks, R, nblk, scale, s);
+  if (dtype == 0 && D == 128)
+    return launch_q8<float, 128>(q, kc, vc, ks, vs, bt, seg, rel, out, Tq, H,
+                                 Hkv, bs, num_blocks, R, nblk, scale, s);
+  if (dtype == 1 && D == 64)
+    return launch_q8<__nv_bfloat16, 64>(q, kc, vc, ks, vs, bt, seg, rel, out,
+                                        Tq, H, Hkv, bs, num_blocks, R, nblk,
+                                        scale, s);
+  if (dtype == 1 && D == 128)
+    return launch_q8<__nv_bfloat16, 128>(q, kc, vc, ks, vs, bt, seg, rel,
+                                         out, Tq, H, Hkv, bs, num_blocks, R,
+                                         nblk, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 // C entry, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16.  Returns
 // cudaGetLastError() after the launch (0 on success); the caller checks it.

@@ -23,6 +23,15 @@ paddle_tpu/inference/serving.py, its synchronous core).
   its absolute position: the hand-written CUDA kernel on the card, its
   plain PyTorch version on the CPU.
 
+- Quantized modes.  ``kv_dtype="int8"`` stores int8 pages with
+  per-page-per-head f32 scale pools, quantized at commit time inside the
+  step (scales only grow while a page is live) and dequantized by the
+  int8-page attention kernel.  ``weight_dtype="int8"|"int4"`` quantizes
+  the weights once, at build, into pools every projection, the MLP and
+  the unembedding stream through the fused dequant matmul
+  (ops/quant_matmul.py); the embedding dequantizes only the rows it
+  gathers.
+
 The decode math is term for term the JAX engine's (itself the math of
 ``generate()``), so greedy output is token-identical to the JAX engine and
 to the port's dense ``generate()``, with the prefix cache on or off.
@@ -45,12 +54,16 @@ from torch.profiler import record_function
 
 from ..models.llama import _rms_weight, _rope_positions, resolve_device
 from ..ops import paged_attention as _pa
+from ..ops import quant_matmul as _qm
 from ..profiler.serving import ServingStats
 from .kv_cache import NULL_BLOCK, BlockManager, BlockPoolExhausted
 from .policy import pack_prefill_chunks
 from .sampling import make_samp, sample_tokens
 
 __all__ = ["LLMEngine", "Request", "RequestOutput"]
+
+_INV127 = float(np.float32(1.0) / np.float32(127.0))
+_NO_PAGES = np.zeros((0,), np.int32)
 
 
 @dataclass
@@ -144,10 +157,14 @@ class LLMEngine:
     enable_prefix_caching: content-addressed page reuse; greedy output
         is byte-identical on or off.
 
+    kv_dtype: "float32" (full-width pages in the model dtype) or "int8"
+        (int8 pages + f32 per-page-per-head scales).
+    weight_dtype: "float32" (the model's weights as they are), "int8" or
+        "int4" (quantized pools streamed through the dequant matmul).
+
     Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-    item): drafter/spec_k, kv_dtype="int8", weight_dtype int8/int4,
-    tp > 1, decode_window > 1, overlap=True, kv_tier, fault_plan,
-    pressure, tracer.
+    item): drafter/spec_k, tp > 1, decode_window > 1, overlap=True,
+    kv_tier, fault_plan, pressure, tracer.
     """
 
     def __init__(self, model, *, device=None, max_num_seqs: int = 8,
@@ -178,9 +195,6 @@ class LLMEngine:
         for bad, option, item, what in (
                 (drafter is not None or int(spec_k) != 0, "drafter/spec_k",
                  6, "speculative decoding"),
-                (kv_dtype == "int8", "kv_dtype='int8'", 7, "int8 KV pages"),
-                (weight_dtype != "float32", f"weight_dtype={weight_dtype!r}",
-                 7, "quantized weight pools"),
                 (bool(overlap), "overlap=True", 8, "the async step pipeline"),
                 (int(decode_window) > 1, "decode_window>1", 8,
                  "the device-resident decode window"),
@@ -202,12 +216,20 @@ class LLMEngine:
         cfg = model.config
         self.config = cfg
         self.params = model.decode_params()
-        self._act_dtype = self.params["embed"].dtype
-        # the unembedding runs in f32 as the JAX step's does; keep one f32
-        # copy instead of casting [H, V] every step (no copy for f32)
-        self._head_f32 = self.params["head"].float()
         self.kv_dtype = kv_dtype
         self.weight_dtype = weight_dtype
+        # the step's activations keep the model's float dtype even when
+        # the embed table is about to become a quantized pool + scales
+        self._act_dtype = self.params["embed"].dtype
+        if weight_dtype != "float32":
+            self.params = self._quantize_params(self.params)
+            self._head_f32 = None
+        else:
+            # the unembedding runs in f32 as the JAX step's does; keep one
+            # f32 copy instead of casting [H, V] every step (no copy for
+            # f32)
+            self._head_f32 = self.params["head"].float()
+        self._mm, self._embed, self._head_logits = self._weight_ops()
         self.tp = 1
         self.max_num_seqs = int(max_num_seqs)
         self.block_size = int(block_size)
@@ -233,11 +255,22 @@ class LLMEngine:
         self._kvh = cfg.num_key_value_heads
         self._hd = cfg.hidden_size // self._nh
         L = cfg.num_hidden_layers
-        # "float32" means full-width model dtype (f32/bf16) pages; the
-        # pools are updated in place, layer by layer, every step
-        self._kc = torch.zeros((L, num_blocks, self._kvh, self.block_size,
-                                self._hd), dtype=self._act_dtype,
-                               device=self.device)
+        # the pools are updated in place, layer by layer, every step
+        shape = (L, num_blocks, self._kvh, self.block_size, self._hd)
+        if kv_dtype == "int8":
+            # int8 pages + a parallel per-page-per-head f32 scale pool
+            # (float = int8 * scale), written at commit time inside the
+            # step; every host-side page structure is dtype-blind
+            self._kc = torch.zeros(shape, dtype=torch.int8,
+                                   device=self.device)
+            self._ks = torch.zeros((L, num_blocks, self._kvh),
+                                   dtype=torch.float32, device=self.device)
+            self._vs = torch.zeros_like(self._ks)
+        else:
+            # "float32" means full-width model dtype (f32/bf16) pages
+            self._kc = torch.zeros(shape, dtype=self._act_dtype,
+                                   device=self.device)
+            self._ks = self._vs = None
         self._vc = torch.zeros_like(self._kc)
 
         self._waiting: deque = deque()
@@ -365,10 +398,14 @@ class LLMEngine:
         return out
 
     def kv_page_bytes(self) -> int:
-        """Device bytes one KV page costs: K and V slabs across layers."""
+        """Device bytes one KV page costs: K and V slabs across layers,
+        plus the page's scale-pool rows in int8 mode."""
         L = self.config.num_hidden_layers
-        return (2 * L * self._kvh * self.block_size * self._hd
-                * self._kc.element_size())
+        per = (2 * L * self._kvh * self.block_size * self._hd
+               * self._kc.element_size())
+        if self.kv_dtype == "int8":
+            per += 2 * L * self._kvh * self._ks.element_size()
+        return per
 
     def kv_bytes_resident(self) -> int:
         """Device bytes holding real KV content: pages backing live
@@ -377,15 +414,82 @@ class LLMEngine:
                 * self.kv_page_bytes())
 
     def weight_bytes_resident(self) -> int:
-        """Device bytes of the decode weights (the f32 head copy of a
-        bf16 model included)."""
+        """Device bytes of the decode weights: the quantized pools, their
+        f32 scales and the norms (or the model's weights, plus the f32
+        head copy of a bf16 model)."""
         p = self.params
-        tensors = list(p["layers"].values()) + [p["embed"], p["norm_f"],
-                                                p["head"]]
+        tensors = list(p["layers"].values()) + \
+            [v for k, v in p.items() if k != "layers"]
         total = sum(t.numel() * t.element_size() for t in tensors)
-        if self._head_f32 is not p["head"]:
+        if self._head_f32 is not None and self._head_f32 is not p["head"]:
             total += self._head_f32.numel() * 4
         return total
+
+    # ------------------------------------------------------------------
+    # quantized weight pools (weight_dtype != "float32")
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def _quantize_params(self, params) -> dict:
+        """Quantize decode_params ONCE at engine build into the pool
+        layout the dequant matmul streams: every projection/MLP weight
+        ``name`` becomes ``name_q`` + ``name_s`` f32 scales, the embedding
+        a per-vocab-row pool, the head a pool; norms stay as they are.
+        Quantizes layer by layer in f32 on the weights' device, so a
+        large model never has a whole f32 copy of its weights."""
+        wdt = self.weight_dtype
+        layers = params["layers"]
+        out_layers = {"ln1": layers["ln1"], "ln2": layers["ln2"]}
+        for name in ("wq", "wk", "wv", "wo", "gate", "up", "down"):
+            w = layers[name]
+            for i in range(w.shape[0]):
+                q, s = _qm.quantize_weight(w[i], wdt)
+                if i == 0:
+                    pool = torch.empty((w.shape[0], *q.shape),
+                                       dtype=q.dtype, device=q.device)
+                    scales = torch.empty((w.shape[0], *s.shape),
+                                         dtype=s.dtype, device=s.device)
+                pool[i] = q
+                scales[i] = s
+            out_layers[name + "_q"] = pool
+            out_layers[name + "_s"] = scales
+        eq, es = _qm.quantize_embedding(params["embed"], wdt)
+        hq, hs = _qm.quantize_weight(params["head"], wdt)
+        return {"layers": out_layers, "embed_q": eq, "embed_s": es,
+                "norm_f": params["norm_f"], "head_q": hq, "head_s": hs}
+
+    def _weight_ops(self):
+        """(mm, embed, head_logits) for the step: the dense expressions
+        for weight_dtype="float32"; otherwise every projection/MLP/head
+        product through ``ops.quant_matmul.matmul`` (the CUDA kernel on
+        the card, its plain version on the CPU) and the embedding
+        dequantized at gather."""
+        dt = self._act_dtype
+        wdt = self.weight_dtype
+        params = self.params
+        if wdt != "float32":
+            def mm(h, p, name):
+                return _qm.matmul(h, p[name + "_q"], p[name + "_s"],
+                                  wdt).to(h.dtype)
+
+            def embed(toks):
+                return _qm.dequantize_rows(params["embed_q"][toks],
+                                           params["embed_s"][toks],
+                                           wdt).to(dt)
+
+            def head_logits(hsel):
+                return _qm.matmul(hsel.float(), params["head_q"],
+                                  params["head_s"], wdt)
+        else:
+            def mm(h, p, name):
+                return h @ p[name]
+
+            def embed(toks):
+                return params["embed"][toks]
+
+            def head_logits(hsel):
+                return hsel.float() @ self._head_f32
+        return mm, embed, head_logits
 
     # ------------------------------------------------------------------
     # scheduler
@@ -695,9 +799,14 @@ class LLMEngine:
     @torch.no_grad()
     def _apply_cow(self, src: int, dst: int) -> None:
         """Copy page src -> dst across every layer's K and V pool (queued
-        on the stream ahead of any later write into dst)."""
+        on the stream ahead of any later write into dst).  In int8 mode
+        the page's scale rows travel with it: dst is a live replica, which
+        BlockManager keeps out of the fresh set."""
         self._kc[:, dst] = self._kc[:, src]
         self._vc[:, dst] = self._vc[:, src]
+        if self.kv_dtype == "int8":
+            self._ks[:, dst] = self._ks[:, src]
+            self._vs[:, dst] = self._vs[:, src]
 
     def _ragged_bucket(self, n_tokens: int) -> int:
         """Flat-token bucket for a launch: decode-sized launches pad to
@@ -710,7 +819,7 @@ class LLMEngine:
         return -(-n_tokens // tb) * tb
 
     @torch.no_grad()
-    def _ragged_step(self, Tq, toks, cu, kvl, bt, lidx, samp):
+    def _ragged_step(self, Tq, toks, cu, kvl, bt, lidx, samp, fresh):
         """The one serving step: Tq flat query tokens from up to
         max_num_seqs ragged rows.  Each layer writes the packed tokens'
         K/V into the page pool at their absolute positions, then ragged
@@ -721,47 +830,60 @@ class LLMEngine:
         toks [Tq] (tail padding maps to the sentinel row B); cu [B+1] row
         offsets; kvl [B] valid KV per row AFTER this launch's writes; bt
         [B+1, nblk] (row B: the null row pads resolve to); lidx [Lq] flat
-        index of each logit row; samp the host ``make_samp`` dict."""
+        index of each logit row; samp the host ``make_samp`` dict; fresh
+        the pages whose scale rows reset this launch (int8 pages only,
+        else empty)."""
         nh, kvh, d = self._nh, self._kvh, self._hd
         bs = self.block_size
         B = self.max_num_seqs
         eps = self.config.rms_norm_eps
         theta = self.config.rope_theta
+        mm = self._mm
         # one host-to-device copy for every packed int32 buffer
         packed = torch.from_numpy(np.concatenate(
-            [toks, cu, kvl, bt.reshape(-1), lidx])).to(self.device)
-        o = np.cumsum([0, Tq, B + 1, B, bt.size])
+            [toks, cu, kvl, bt.reshape(-1), lidx, fresh])).to(self.device)
+        o = np.cumsum([0, Tq, B + 1, B, bt.size, len(lidx)])
         toks_d, cu_d, kvl_d = (packed[o[0]:o[1]], packed[o[1]:o[2]],
                                packed[o[2]:o[3]])
         bt_d = packed[o[3]:o[4]].view(B + 1, self.nblk)
-        lidx_d = packed[o[4]:]
+        lidx_d = packed[o[4]:o[5]]
+        if len(fresh):
+            # pages handed out since the last launch: their old scales are
+            # dead (step 1 of the quantize-at-commit below, every layer)
+            fresh_d = packed[o[5]:].long()
+            self._ks[:, fresh_d] = 0.0
+            self._vs[:, fresh_d] = 0.0
 
         seg, rel = _pa.ragged_segments(cu_d, kvl_d, Tq)
         blk = bt_d[seg.long(), (rel // bs).long()]              # [Tq]
         slot = (rel % bs).long()
         layers = self.params["layers"]
-        x = self.params["embed"][toks_d.long()]                 # [Tq, H]
+        x = self._embed(toks_d.long())                          # [Tq, H]
         for i in range(self.config.num_hidden_layers):
             p = {k: v[i] for k, v in layers.items()}
             h = _rms_weight(x, p["ln1"], eps)
-            q = _rope_positions((h @ p["wq"]).view(Tq, nh, d), rel, theta)
-            k = _rope_positions((h @ p["wk"]).view(Tq, kvh, d), rel, theta)
-            v = (h @ p["wv"]).view(Tq, kvh, d)
-            kcl, vcl = self._kc[i], self._vc[i]
-            # K/V of this layer land in the pages BEFORE attention reads
-            # them; pad tokens all write the null page's slot 0 (a benign
-            # race: nothing real reads it)
-            kcl[blk, :, slot, :] = k.to(kcl.dtype)
-            vcl[blk, :, slot, :] = v.to(vcl.dtype)
-            att = _pa.ragged_paged_attention_segrel_packed(
-                q, kcl, vcl, bt_d, seg, rel)
-            x = x + att.reshape(Tq, nh * d) @ p["wo"]
+            q = _rope_positions(mm(h, p, "wq").view(Tq, nh, d), rel, theta)
+            k = _rope_positions(mm(h, p, "wk").view(Tq, kvh, d), rel, theta)
+            v = mm(h, p, "wv").view(Tq, kvh, d)
+            if self.kv_dtype == "int8":
+                att = self._commit_q8_and_attend(i, q, k, v, blk, slot, bt_d,
+                                                 seg, rel).to(x.dtype)
+            else:
+                kcl, vcl = self._kc[i], self._vc[i]
+                # K/V of this layer land in the pages BEFORE attention
+                # reads them; pad tokens all write the null page's slot 0
+                # (a benign race: nothing real reads it)
+                kcl[blk, :, slot, :] = k.to(kcl.dtype)
+                vcl[blk, :, slot, :] = v.to(vcl.dtype)
+                att = _pa.ragged_paged_attention_segrel_packed(
+                    q, kcl, vcl, bt_d, seg, rel)
+            x = x + mm(att.reshape(Tq, nh * d), p, "wo")
             h2 = _rms_weight(x, p["ln2"], eps)
-            a = torch.nn.functional.silu((h2 @ p["gate"]).float()) \
-                .to(h2.dtype) * (h2 @ p["up"])
-            x = x + a @ p["down"]
+            a = torch.nn.functional.silu(mm(h2, p, "gate").float()) \
+                .to(h2.dtype) * mm(h2, p, "up")
+            x = x + mm(a, p, "down")
         h = _rms_weight(x, self.params["norm_f"], eps)
-        logits = h[lidx_d.long()].float() @ self._head_f32      # [Lq, V]
+        logits = self._head_logits(h[lidx_d.long()])            # [Lq, V]
         sampled = sample_tokens(logits, samp)
         # per-row finiteness flag: a poisoned row is quarantined host-side
         # without touching its batchmates (padded rows may be non-finite;
@@ -769,11 +891,55 @@ class LLMEngine:
         fin = torch.isfinite(logits).all(-1)
         return torch.stack([sampled, fin.to(torch.int32)])
 
+    def _commit_q8_and_attend(self, i, q, k, v, blk, slot, bt, seg, rel):
+        """Layer i of the int8-page step: quantize this launch's K/V into
+        their pages at commit time, then attend over the int8 pages.
+
+        The JAX q8 step's order, term for term (its step 1, zeroing the
+        fresh pages' scale rows, ran once for all layers before the layer
+        loop): read the touched pages' scales; grow them by scatter-max
+        with each token's per-head amax/127 (scales only grow while a page
+        is live, so committed int8 never overflows); re-encode the touched
+        pages' int8 content from a gathered copy at the ratio old/new;
+        then quantize the new tokens at the settled scale and scatter them
+        into their slots.  Duplicate pages across tokens are safe: every
+        duplicate sees the same settled scale and re-encodes identical
+        bytes.  Pad tokens land on the null page's slot 0 and grow its
+        scale, harmlessly, as in JAX."""
+        kcl, vcl, ksl, vsl = self._kc[i], self._vc[i], self._ks[i], \
+            self._vs[i]
+        for cache, scales, t in ((kcl, ksl, k), (vcl, vsl, v)):
+            tf = t.float()                                    # [Tq, kvh, d]
+            old = scales[blk]                                 # [Tq, kvh]
+            # the compiled JAX step multiplies by the f32 reciprocal of
+            # 127 (XLA's rewrite of a division by a constant)
+            scales.index_reduce_(0, blk, tf.abs().amax(-1) * _INV127,
+                                 "amax", include_self=True)
+            new = scales[blk]
+            safe = new.clamp_min(1e-30)
+            ratio = torch.where(new > 0.0, old / safe, 0.0)
+            page = torch.round(cache[blk].float() * ratio[:, :, None, None])
+            cache[blk] = page.clamp(-127, 127).to(torch.int8)
+            tq = torch.round(tf / safe[:, :, None])
+            cache[blk, :, slot, :] = tq.clamp(-127, 127).to(torch.int8)
+        return _pa.ragged_paged_attention_quant_segrel_packed(
+            q, kcl, vcl, ksl, vsl, bt, seg, rel)
+
+    def _consume_fresh(self) -> np.ndarray:
+        """Pages BlockManager handed out since the last launch (sorted
+        int32): the launch zeroes their scale rows.  CoW destinations are
+        not among them -- their scale rows arrived with the copy."""
+        return np.asarray(self.blocks.drain_fresh(), np.int32)
+
     def _launch_ragged(self, Tq, toks, cu, kvl, bt, lidx, samp,
                        real_tokens):
+        """The one place a step launches (mixed and pure-decode packs
+        alike), so int8 mode drains the fresh pages at every launch."""
         self.pad_stats["real"] += int(real_tokens)
         self.pad_stats["padded"] += int(Tq)
-        return self._ragged_step(Tq, toks, cu, kvl, bt, lidx, samp)
+        fresh = self._consume_fresh() if self.kv_dtype == "int8" \
+            else _NO_PAGES
+        return self._ragged_step(Tq, toks, cu, kvl, bt, lidx, samp, fresh)
 
     def _fill_samp(self, samp, s, req):
         samp["temps"][s] = req.temperature

@@ -29,6 +29,7 @@ BUILD_DIR = _PKG.parent / "build"
 # kernel name -> source, relative to the package
 SOURCES = {
     "ragged_paged_attention": "csrc/ragged_paged_attention.cu",
+    "quant_matmul": "csrc/quant_matmul.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

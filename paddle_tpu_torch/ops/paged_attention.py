@@ -19,6 +19,13 @@ On CUDA tensors it launches the kernel in
 tensors it computes ``ragged_paged_reference_segrel``, the plain version.
 ``launch_count`` counts kernel launches, so a run can show that its
 attention went through the kernel.
+
+int8 pages (``kv_dtype="int8"``): caches ``[num_blocks, H_kv, bs, D]``
+int8 with per-page-per-head f32 scales ``[num_blocks, H_kv]`` (float =
+int8 * scale).  ``ragged_paged_attention_quant_segrel_packed`` launches
+the int8-page kernel of the same ``.cu`` on CUDA tensors and computes
+``ragged_paged_reference_quant_segrel`` on CPU tensors; its launches are
+counted apart, in ``quant_launch_count``.
 """
 from __future__ import annotations
 
@@ -31,10 +38,15 @@ from . import _build
 __all__ = ["ragged_segments", "ragged_paged_reference_segrel",
            "ragged_paged_attention_segrel",
            "ragged_paged_attention_segrel_packed", "ragged_paged_attention",
-           "launch_count"]
+           "ragged_paged_reference_quant_segrel",
+           "ragged_paged_attention_quant_segrel",
+           "ragged_paged_attention_quant_segrel_packed",
+           "launch_count", "quant_launch_count"]
 
-# kernel launches made by the CUDA route (plain-version calls never count)
+# kernel launches made by the CUDA route, one count per kernel (plain-
+# version calls never count)
 launch_count = 0
+quant_launch_count = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -92,12 +104,18 @@ def ragged_paged_reference_segrel(q, key_cache, value_cache, block_tables,
     return out.to(q.dtype)
 
 
-def _check_operands(q, key_cache, value_cache, block_tables, seg, rel):
-    """Shape/dtype/contiguity contract of the kernel; raises ValueError
-    on anything it does not take."""
+def _check_operands(q, key_cache, value_cache, block_tables, seg, rel,
+                    key_scales=None, value_scales=None):
+    """Shape/dtype/contiguity contract of the kernels; raises ValueError
+    on anything they do not take.  With scales given, the contract of the
+    int8-page kernel: int8 caches and f32 [num_blocks, H_kv] scales."""
+    quant = key_scales is not None
+    kind = "int8-page ragged paged attention kernel" if quant else \
+        "ragged paged attention kernel"
+
     def need(ok, what):
         if not ok:
-            raise ValueError(f"ragged paged attention kernel: {what}")
+            raise ValueError(f"{kind}: {what}")
 
     need(q.dim() == 3, f"q must be [Tq, H, D], got {tuple(q.shape)}")
     need(key_cache.dim() == 4 and key_cache.shape == value_cache.shape,
@@ -106,9 +124,10 @@ def _check_operands(q, key_cache, value_cache, block_tables, seg, rel):
     Tq, H, D = q.shape
     NB, Hkv, bs, Dc = key_cache.shape
     need(q.dtype in _DTYPES, f"q dtype {q.dtype} not in float32/bfloat16")
-    need(key_cache.dtype == q.dtype and value_cache.dtype == q.dtype,
-         f"cache dtypes {key_cache.dtype}/{value_cache.dtype} must equal "
-         f"q's {q.dtype}")
+    cache_dtype = torch.int8 if quant else q.dtype
+    need(key_cache.dtype == cache_dtype and value_cache.dtype == cache_dtype,
+         f"cache dtypes {key_cache.dtype}/{value_cache.dtype} must be "
+         f"{cache_dtype}")
     need(D in _HEAD_DIMS and Dc == D, f"head dim {D} (cache {Dc}) not in "
          f"{_HEAD_DIMS}")
     need(Hkv >= 1 and H % Hkv == 0, f"H={H} not a multiple of H_kv={Hkv}")
@@ -121,51 +140,80 @@ def _check_operands(q, key_cache, value_cache, block_tables, seg, rel):
     for name, x in (("seg", seg), ("rel", rel)):
         need(x.dtype == torch.int32 and x.shape == (Tq,),
              f"{name} must be int32 [{Tq}], got {x.dtype} {tuple(x.shape)}")
-    for name, x in (("q", q), ("key_cache", key_cache),
-                    ("value_cache", value_cache),
-                    ("block_tables", block_tables), ("seg", seg),
-                    ("rel", rel)):
+    named = [("q", q), ("key_cache", key_cache), ("value_cache", value_cache),
+             ("block_tables", block_tables), ("seg", seg), ("rel", rel)]
+    if quant:
+        for name, x in (("key_scales", key_scales),
+                        ("value_scales", value_scales)):
+            need(x.dtype == torch.float32 and x.shape == (NB, Hkv),
+                 f"{name} must be float32 [{NB}, {Hkv}], got {x.dtype} "
+                 f"{tuple(x.shape)}")
+        named += [("key_scales", key_scales), ("value_scales", value_scales)]
+    for name, x in named:
         need(x.is_contiguous(), f"{name} must be contiguous")
-    devs = {x.device for x in (q, key_cache, value_cache, block_tables,
-                               seg, rel)}
+    devs = {x.device for _, x in named}
     need(len(devs) == 1, f"operands on several devices: {devs}")
+    need(q.device.type != "cuda" or not any(
+        x.data_ptr() % 16 for x in (key_cache, value_cache)),
+        "caches must be 16-byte aligned")
 
 
-def _launch_kernel(q, key_cache, value_cache, block_tables, seg, rel):
-    """Launch the CUDA kernel on PyTorch's current stream.  Raises on an
-    operand it does not take, on CPU tensors, on a failed build and on a
-    refused launch (the C entry returns ``cudaGetLastError()``, or the
-    error of raising the block's shared-memory limit when a block size
-    needs more than the card has)."""
-    global launch_count
-    _check_operands(q, key_cache, value_cache, block_tables, seg, rel)
+def _launch(entry, q, key_cache, value_cache, block_tables, seg, rel,
+            scales=()):
+    """Launch one of the two CUDA kernels on PyTorch's current stream.
+    Raises on CPU tensors and on a refused launch (the C entry returns
+    ``cudaGetLastError()``, or the error of raising the block's
+    shared-memory limit when a block size needs more than the card
+    has)."""
     if q.device.type != "cuda":
         raise RuntimeError(
-            "the ragged paged attention kernel runs on CUDA tensors only; "
+            "the ragged paged attention kernels run on CUDA tensors only; "
             f"got {q.device} (the plain version serves CPU tensors)")
-    if any(x.data_ptr() % 16 for x in (key_cache, value_cache)):
-        raise ValueError("ragged paged attention kernel: caches must be "
-                         "16-byte aligned")
-    fn = _build.library("ragged_paged_attention") \
-        .paddle_ragged_paged_attention
+    fn = getattr(_build.library("ragged_paged_attention"), entry)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + \
-            [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * (7 + len(scales)) + \
+            [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     Tq, H, D = q.shape
     NB, Hkv, bs, _ = key_cache.shape
     R, nblk = block_tables.shape
     out = torch.empty_like(q)
+    ptrs = [q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr()] + \
+        [x.data_ptr() for x in scales] + \
+        [block_tables.data_ptr(), seg.data_ptr(), rel.data_ptr(),
+         out.data_ptr()]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
-                 block_tables.data_ptr(), seg.data_ptr(), rel.data_ptr(),
-                 out.data_ptr(), Tq, H, Hkv, D, bs, NB, R, nblk,
-                 _DTYPES[q.dtype], 1.0 / (D ** 0.5), stream)
+        err = fn(*ptrs, Tq, H, Hkv, D, bs, NB, R, nblk, _DTYPES[q.dtype],
+                 1.0 / (D ** 0.5), stream)
     if err != 0:
         raise RuntimeError(f"ragged paged attention kernel launch failed: "
                            f"CUDA error {err}")
+    return out
+
+
+def _launch_kernel(q, key_cache, value_cache, block_tables, seg, rel):
+    """Launch the float CUDA kernel.  Raises on an operand it does not
+    take, on CPU tensors, on a failed build and on a refused launch."""
+    global launch_count
+    _check_operands(q, key_cache, value_cache, block_tables, seg, rel)
+    out = _launch("paddle_ragged_paged_attention", q, key_cache,
+                  value_cache, block_tables, seg, rel)
     launch_count += 1
+    return out
+
+
+def _launch_quant_kernel(q, key_cache, value_cache, key_scales,
+                         value_scales, block_tables, seg, rel):
+    """Launch the int8-page CUDA kernel (same refusals as
+    ``_launch_kernel``, plus int8 caches and f32 scales)."""
+    global quant_launch_count
+    _check_operands(q, key_cache, value_cache, block_tables, seg, rel,
+                    key_scales, value_scales)
+    out = _launch("paddle_ragged_paged_attention_q8", q, key_cache,
+                  value_cache, block_tables, seg, rel,
+                  (key_scales, value_scales))
+    quant_launch_count += 1
     return out
 
 
@@ -214,3 +262,49 @@ def ragged_paged_attention(q, key_cache, value_cache, block_tables,
     seg, rel = ragged_segments(cu_seqlens, kv_lens, q.shape[0])
     return ragged_paged_attention_segrel(
         q, key_cache, value_cache, block_tables, seg, rel)
+
+
+def ragged_paged_reference_quant_segrel(q, key_cache, value_cache,
+                                        key_scales, value_scales,
+                                        block_tables, seg, rel):
+    """Plain version of the int8-page kernel: dequantize the whole pool
+    densely (float = int8 * scale, the math the kernel applies per page)
+    and call the float plain version."""
+    kd = key_cache.float() * key_scales.float()[:, :, None, None]
+    vd = value_cache.float() * value_scales.float()[:, :, None, None]
+    return ragged_paged_reference_segrel(q, kd, vd, block_tables, seg, rel)
+
+
+def ragged_paged_attention_quant_segrel_packed(q, key_cache, value_cache,
+                                               key_scales, value_scales,
+                                               block_tables, seg, rel):
+    """The int8-KV engine's entry, under the packing invariant of
+    ``ragged_paged_attention_segrel_packed`` plus f32 scale pools.  CUDA
+    tensors go through the int8-page kernel (which raises on an operand it
+    does not take); CPU tensors take the plain version.  Returns
+    [Tq, H, D] in q.dtype."""
+    if q.device.type == "cuda":
+        return _launch_quant_kernel(q, key_cache, value_cache, key_scales,
+                                    value_scales, block_tables, seg, rel)
+    return ragged_paged_reference_quant_segrel(
+        q, key_cache, value_cache, key_scales, value_scales, block_tables,
+        seg, rel)
+
+
+def ragged_paged_attention_quant_segrel(q, key_cache, value_cache,
+                                        key_scales, value_scales,
+                                        block_tables, seg, rel):
+    """Ragged attention over int8 KV pages with per-page-per-head scales.
+
+    q [Tq, H, D] float; caches [num_blocks, H_kv, bs, D] int8;
+    key_scales/value_scales [num_blocks, H_kv] (float = int8 * scale);
+    block_tables [R, nblk]; seg/rel as in ``ragged_paged_attention_segrel``
+    (clamped and cast the same way).  Returns [Tq, H, D] in q.dtype."""
+    R = block_tables.shape[0]
+    block_tables = torch.clamp(block_tables.to(torch.int32), 0,
+                               key_cache.shape[0] - 1).contiguous()
+    seg = torch.clamp(seg.to(torch.int32), 0, R - 1).contiguous()
+    return ragged_paged_attention_quant_segrel_packed(
+        q.contiguous(), key_cache, value_cache,
+        key_scales.float().contiguous(), value_scales.float().contiguous(),
+        block_tables, seg, rel.to(torch.int32).contiguous())

@@ -3,7 +3,8 @@ to the JAX ``LLMEngine`` and to JAX ``generate()`` on the same weights
 (the 16-request ragged stream of tests/test_llm_engine.py, prefix cache on
 and off, preemption, chunked prefill, GQA), abort, sampling
 reproducibility, the refusal of unported options, and import hygiene of
-the port and of chip_smoke.py."""
+the port and of chip_smoke.py.  The quantized options (int8 KV pages,
+int8/int4 weight pools) are held in tests/test_torch_kv_quant.py."""
 import ast
 import os
 import pathlib
@@ -215,9 +216,7 @@ def test_sampling_reproducible_across_scheduling(pairs):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"drafter": "ngram"}, 6), ({"spec_k": 2}, 6),
-    ({"kv_dtype": "int8"}, 7), ({"weight_dtype": "int8"}, 7),
-    ({"weight_dtype": "int4"}, 7), ({"overlap": True}, 8),
+    ({"drafter": "ngram"}, 6), ({"spec_k": 2}, 6), ({"overlap": True}, 8),
     ({"decode_window": 4}, 8), ({"kv_tier": object()}, 9),
     ({"fault_plan": object()}, 9), ({"pressure": object()}, 9),
     ({"tracer": object()}, 9), ({"tp": 2}, 10)])

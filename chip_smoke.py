@@ -1,22 +1,28 @@
-"""Drive the PyTorch port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
 
 Run from the repository root, with one CUDA card visible:
 
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout, holds
-each kernel against its plain PyTorch version at the shapes the LLaMA-7B
-serving path gives it (phases ``kernel``, ``kernel_q8``, ``qmm``), serves
-requests through ``LLMEngine`` at LLaMA-7B width (random weights from a
-seed): ``engine_f32`` (2 layers in float32, tokens checked against the
-dense ``generate()`` forward), ``engine_bf16`` (32 layers in bfloat16),
-``engine_w8kv8`` (32 layers, int8 weight pools and int8 KV pages) and
-``engine_w4`` (32 layers, int4 weight pools, bfloat16 pages).  Each
-32-layer phase holds every kernel to its plain version at every engine
-launch of a gate run, and shows through the kernels' launch counters that
-a run on the kernels alone went through them.  Each phase prints one JSON
-line; the line before the last two is the kernel record, then the card's
-name and power limit as nvidia-smi gives them, then ``{"ok": true, ...}``.
+each kernel against its plain PyTorch version at the shapes its main path
+gives it (phases ``kernel``, ``kernel_q8``, ``qmm`` at the LLaMA-7B
+serving path's; ``flash`` at the trainer's attention and LLaMA-7B's, with
+controls that must fail), serves requests through ``LLMEngine`` at
+LLaMA-7B width (random weights from a seed): ``engine_f32`` (2 layers in
+float32, tokens checked against the dense ``generate()`` forward),
+``engine_bf16`` (32 layers in bfloat16), ``engine_w8kv8`` (32 layers, int8
+weight pools and int8 KV pages) and ``engine_w4`` (32 layers, int4 weight
+pools, bfloat16 pages), and trains through ``build_train_step`` at the
+350M GQA LLaMA bench configuration: ``train_f32`` (2 layers in float32,
+three steps on the kernels against three on the plain versions) and
+``train_bf16`` (24 layers in bfloat16: a gate run holding every kernel
+launch to its plain version, then 20 timed steps on the kernels alone and
+2 with remat).  Each 32- and 24-layer phase shows through the kernels'
+launch counters that a run on the kernels alone went through them.  Each
+phase prints one JSON line; the line before the last two is the kernel
+record, then the card's name and power limit as nvidia-smi gives them,
+then ``{"ok": true, ...}``.
 
 It exits non-zero, and prints no result, when no CUDA device is present,
 when the port cannot be imported (the script alone, outside the
@@ -24,7 +30,9 @@ repository), or when any phase fails.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1040,6 +1048,570 @@ def phase_engine_w4(state):
     return quantized_engine_phase("engine_w4", state, weight_dtype="int4")
 
 
+# ---------------------------------------------------------------------------
+# flash phase: the three flash attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# (B, S, H, Hk, D): the trainer's attention at the bench configuration
+# (GQA group 4) and LLaMA-7B's (D = 128, where sm_scale is not a power of
+# two and the rounding of q * sm_scale shows)
+FLASH_SHAPES = {"trainer": (2, 2048, 16, 4, 64), "7b": (1, 2048, 32, 32, 128)}
+# lse, f32 on both sides and summed in another order: absolute (values up
+# to ~20).  Gradients are held by two scale-free measures, max|d| / max|ref|
+# over the whole tensor (at TOLERANCE's token_rel) and ||d|| / ||ref||
+# (l2_rel): their magnitude grows with S, and some rows are zero
+# analytically (query 0 sees one key), so neither an absolute nor a
+# per-row bound fits.
+LSE_ABS = 1e-3
+
+
+def rows(x):
+    """[B, S, ...] -> [B * S, ...]: one row per sequence position."""
+    return x.reshape(x.shape[0] * x.shape[1], -1)
+
+
+def grad_errors(got, want) -> dict:
+    d = got.float() - want.float()
+    w = want.float()
+    return {"abs": float(d.abs().max()),
+            "max_rel": float(d.abs().max() / w.abs().max().clamp_min(1e-12)),
+            "l2_rel": float(d.norm() / w.norm().clamp_min(1e-12))}
+
+
+def grad_within(errs: dict, dtype_name: str) -> bool:
+    tol = TOLERANCE[dtype_name]
+    return errs["max_rel"] <= tol["token_rel"] and \
+        errs["l2_rel"] <= tol["l2_rel"]
+
+
+def flash_bound(shape, dtype_name, kernel):
+    """Least time of one causal launch: the bytes it must move (each
+    operand once) over HBM bandwidth, and its products over the causal
+    triangle (S (S + 1) / 2 query-key pairs a head; the forward runs 2
+    products, dK/dV 4, dQ 3, each 2 D flops a pair) over the dtype's
+    peak.  Returns (ms, bound_by, bytes, flops)."""
+    B, S, H, Hk, D = shape
+    isz = 4 if dtype_name == "float32" else 2
+    pairs = S * (S + 1) // 2
+    qb, kb, vec = B * S * H * D * isz, B * S * Hk * D * isz, B * H * S * 4
+    nbytes, products = {
+        "fwd": (2 * qb + 2 * kb + vec, 2),
+        "dkdv": (2 * qb + 4 * kb + 2 * vec, 4),
+        "dq": (3 * qb + 2 * kb + 2 * vec, 3)}[kernel]
+    flops = products * 2 * B * H * pairs * D
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, flops)
+
+
+def flash_case(shape, dtype, gen) -> dict:
+    import torch
+    B, S, H, Hk, D = shape
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=DEV).to(dtype)
+    return dict(q=randn(B, S, H, D), k=randn(B, S, Hk, D),
+                v=randn(B, S, Hk, D), do=randn(B, S, H, D))
+
+
+def flash_controls(c, ref, lse_ref, delta, name) -> dict:
+    """Kernel runs that must fail the holds: query head j reading kv head
+    j % Hk (GQA only), the diagonal excluded (the kernel on q one position
+    ahead of k, so query i sees keys < i), and lse + log 2 fed to both
+    backward kernels."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+    G = q.shape[2] // k.shape[2]
+    out = {}
+    if G > 1:
+        o, _ = fa._launch_fwd(q, k.repeat(1, 1, G, 1), v.repeat(1, 1, G, 1),
+                              True)
+        e = errors(rows(o), rows(ref))
+        out["gqa_j_mod_hk"] = dict(e, fails=not within(e, name))
+    o, _ = fa._launch_fwd(q[:, 1:].contiguous(), k[:, :-1].contiguous(),
+                          v[:, :-1].contiguous(), True)
+    e = errors(rows(o), rows(ref[:, 1:]))
+    out["diagonal_excluded"] = dict(e, fails=not within(e, name))
+    lse2 = lse_ref + math.log(2.0)
+    dk2, dv2 = fa._launch_dkdv(q, k, v, do, lse2, delta, True)
+    dq2 = fa._launch_dq(q, k, v, do, lse2, delta, True)
+    dk_r, dv_r = fa.flash_bwd_dkdv_reference(q, k, v, do, lse_ref, delta,
+                                             True)
+    dq_r = fa.flash_bwd_dq_reference(q, k, v, do, lse_ref, delta, True)
+    for g, got, want in (("dk", dk2, dk_r), ("dv", dv2, dv_r),
+                         ("dq", dq2, dq_r)):
+        e = grad_errors(got, want)
+        out[f"lse_plus_log2_{g}"] = dict(e, fails=not grad_within(e, name))
+    return out
+
+
+def flash_repeats_identical(c, first, lse_ref, delta, n=10) -> bool:
+    """Each kernel launched n more times on the same inputs gives its
+    first outputs bit for bit (no atomics, a fixed summation order)."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+    same = True
+    for _ in range(n):
+        again = (*fa._launch_fwd(q, k, v, True),
+                 *fa._launch_dkdv(q, k, v, do, lse_ref, delta, True),
+                 fa._launch_dq(q, k, v, do, lse_ref, delta, True))
+        same &= all(torch.equal(a, b) for a, b in zip(again, first))
+    return bool(same)
+
+
+def flash_library(c):
+    """Yardstick only (the port never calls it): PyTorch's
+    scaled_dot_product_attention, causal with GQA, on the same inputs in
+    [B, H, S, D]; returns (forward fn, backward fn, its output)."""
+    import torch
+    import torch.nn.functional as F
+    qh, kh, vh = (c[n].transpose(1, 2).detach().requires_grad_(True)
+                  for n in ("q", "k", "v"))
+    doh = c["do"].transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                              enable_gqa=True)
+    o = fwd()
+    return (fwd, lambda: torch.autograd.grad(o, (qh, kh, vh), doh,
+                                             retain_graph=True),
+            o.detach().transpose(1, 2))
+
+
+def phase_flash(state):
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    cases, ok = {}, True
+    for sname, shape in FLASH_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            c = flash_case(shape, dtype, gen)
+            q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+            out, lse = fa._launch_fwd(q, k, v, True)
+            ref, lse_ref = fa.flash_fwd_reference(q, k, v, True)
+            delta = fa.attention_delta(ref, do)
+            dk, dv = fa._launch_dkdv(q, k, v, do, lse_ref, delta, True)
+            dq = fa._launch_dq(q, k, v, do, lse_ref, delta, True)
+            dk_r, dv_r = fa.flash_bwd_dkdv_reference(q, k, v, do, lse_ref,
+                                                     delta, True)
+            dq_r = fa.flash_bwd_dq_reference(q, k, v, do, lse_ref, delta,
+                                             True)
+            errs = {"out": errors(rows(out), rows(ref)),
+                    "lse_abs": float((lse - lse_ref).abs().max()),
+                    "dk": grad_errors(dk, dk_r), "dv": grad_errors(dv, dv_r),
+                    "dq": grad_errors(dq, dq_r)}
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in (out, lse, dk, dv, dq))
+            held = (finite and within(errs["out"], name)
+                    and errs["lse_abs"] <= LSE_ABS
+                    and all(grad_within(errs[g], name)
+                            for g in ("dk", "dv", "dq")))
+            repeats = flash_repeats_identical(c, (out, lse, dk, dv, dq),
+                                              lse_ref, delta)
+            del dk, dv, dq, dk_r, dv_r, dq_r
+            controls = flash_controls(c, ref, lse_ref, delta, name)
+            ok &= held and repeats and all(x["fails"]
+                                           for x in controls.values())
+            lib_fwd, lib_bwd, lib_out = flash_library(c)
+            timing = {
+                "ms": {"fwd": time_ms(lambda: fa._launch_fwd(q, k, v, True)),
+                       "dkdv": time_ms(lambda: fa._launch_dkdv(
+                           q, k, v, do, lse_ref, delta, True)),
+                       "dq": time_ms(lambda: fa._launch_dq(
+                           q, k, v, do, lse_ref, delta, True))},
+                "plain_ms": {
+                    "fwd": time_ms(lambda: fa.flash_fwd_reference(
+                        q, k, v, True)),
+                    "dkdv": time_ms(lambda: fa.flash_bwd_dkdv_reference(
+                        q, k, v, do, lse_ref, delta, True)),
+                    "dq": time_ms(lambda: fa.flash_bwd_dq_reference(
+                        q, k, v, do, lse_ref, delta, True))},
+                "library_ms": {"fwd": time_ms(lib_fwd),
+                               "bwd_dq_dk_dv": time_ms(lib_bwd)},
+                "library_max_abs_err": float(
+                    (lib_out.float() - ref.float()).abs().max())}
+            timing["bound"] = {
+                kern: dict(zip(("ms", "by", "bytes", "flops"),
+                               flash_bound(shape, name, kern)))
+                for kern in ("fwd", "dkdv", "dq")}
+            cases[f"{sname}_{name}"] = {"shape": dict(zip(
+                ("B", "S", "H", "Hk", "D"), shape)), "held": held,
+                "repeats_bit_identical": repeats,
+                "errors": errs, "controls": controls, "timing": timing}
+            del c, q, k, v, do, out, lse, ref, lse_ref, delta
+            del lib_fwd, lib_bwd, lib_out
+            torch.cuda.empty_cache()
+    state["flash"] = cases
+    emit({"phase": "flash", "ok": ok, "causal": True,
+          "tolerance": {"out": TOLERANCE, "lse_abs": LSE_ABS,
+                        "grads": {k: {"max_rel": t["token_rel"],
+                                      "l2_rel": t["l2_rel"]}
+                                  for k, t in TOLERANCE.items()}},
+          "cases": cases,
+          "bound_peaks": {"bytes_per_s": PEAK_BYTES,
+                          "flops_per_s": PEAK_FLOPS}})
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# training phases: the train step (build_train_step) at the bench's 350M
+# GQA LLaMA widths
+# ---------------------------------------------------------------------------
+
+# bench.py's configuration: vocab 32000, hidden 1024, ffn 2816, 16 heads,
+# 4 kv heads (D = 64), 24 layers; batch 2 x seq 2048; AdamW lr 1e-3, betas
+# (0.9, 0.95), clip 1.0
+TRAIN_DIMS = dict(vocab_size=32000, hidden_size=1024, intermediate_size=2816,
+                  num_attention_heads=16, num_key_value_heads=4,
+                  max_position_embeddings=2048)
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 24, 2, 2048
+TRAIN_STEPS = 20
+# train_f32: f32 on both sides, the kernels' attention within ~1e-6 of the
+# plain version's (flash phase): losses of three steps to rtol 1e-4 (Adam
+# moves the few parameters whose gradient is zero up to rounding by up to
+# 2 lr), the first step's gradients to ||g - g_plain|| / ||g_plain|| <=
+# 1e-4 per leaf
+TRAIN_F32_TOL = {"loss_rtol": 1e-4, "grad_l2_rel": 1e-4}
+
+
+def train_config(layers):
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig(num_hidden_layers=layers, **TRAIN_DIMS)
+
+
+def train_tokens(cfg, n, seed):
+    """n token batches [TRAIN_BATCH, TRAIN_SEQ] from a numpy seed."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                          (TRAIN_BATCH, TRAIN_SEQ))).to(DEV)
+            for _ in range(n)]
+
+
+def flash_counts() -> dict:
+    from paddle_tpu_torch.ops import flash_attention as fa
+    return {"fwd": fa.fwd_launch_count, "dkdv": fa.dkdv_launch_count,
+            "dq": fa.dq_launch_count}
+
+
+def reset_flash_counts() -> None:
+    from paddle_tpu_torch.ops import flash_attention as fa
+    fa.fwd_launch_count = fa.dkdv_launch_count = fa.dq_launch_count = 0
+
+
+class flash_patched:
+    """Within the block, the attention Function's forward and backward are
+    ``fwd`` and ``bwd`` in place of the device dispatch (the plain
+    versions, or the gate's held pair)."""
+
+    def __init__(self, fwd, bwd):
+        self.fns = (fwd, bwd)
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import flash_attention as fa
+        self.saved = (fa._forward, fa._backward)
+        fa._forward, fa._backward = self.fns
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops import flash_attention as fa
+        fa._forward, fa._backward = self.saved
+
+
+def plain_flash():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    return flash_patched(fa.flash_fwd_reference, fa.flash_bwd_reference)
+
+
+def phase_train_f32(state):
+    """The bench's widths at 2 of 24 layers in f32 (cut so that the f32
+    plain attention's scores and the f32 Adam state stay small): three
+    steps on the kernels against three on the plain versions, from the
+    same seeded parameters and tokens."""
+    import torch
+    from paddle_tpu_torch.parallel import transformer as pt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = train_config(2)
+    hp = pt.HybridParallelConfig(dtype=torch.float32, remat=False, lr=1e-3,
+                                 betas=(0.9, 0.95), grad_clip_norm=1.0)
+    tokens = train_tokens(cfg, 3, SEED + 7)
+    runs = {}
+    for mode in ("plain", "kernels"):
+        params = pt.init_params(cfg, hp, seed=SEED, device=DEV)
+        opt = pt.init_opt_state(params)
+        step = pt.build_train_step(cfg, hp, device=DEV)
+        reset_flash_counts()
+        with plain_flash() if mode == "plain" else \
+                contextlib.nullcontext():
+            _, grads = pt.loss_and_grads(params, tokens[0], cfg, hp)
+            losses = [float(step(params, opt, t)[2]) for t in tokens]
+        runs[mode] = {"losses": losses, "grads": grads,
+                      "launches": flash_counts()}
+        del params, opt
+    g_rel = {n: float((g.float() - gp.float()).norm()
+                      / gp.float().norm().clamp_min(1e-30))
+             for (n, g), (_, gp) in zip(pt._leaves(runs["kernels"]["grads"]),
+                                        pt._leaves(runs["plain"]["grads"]))}
+    kl, pl_ = runs["kernels"]["losses"], runs["plain"]["losses"]
+    L = cfg.num_hidden_layers
+    want = {k: L * (1 + len(tokens)) for k in ("fwd", "dkdv", "dq")}
+    checks = {
+        "losses_finite": all(map(math.isfinite, kl)),
+        "losses_match_plain": all(
+            abs(a - b) <= TRAIN_F32_TOL["loss_rtol"] * abs(b)
+            for a, b in zip(kl, pl_)),
+        "grads_match_plain": max(g_rel.values())
+        <= TRAIN_F32_TOL["grad_l2_rel"],
+        "launches_equal_layers_x_passes":
+            runs["kernels"]["launches"] == want,
+        "plain_run_launched_nothing": runs["plain"]["launches"] == {
+            "fwd": 0, "dkdv": 0, "dq": 0}}
+    rec = {"phase": "train_f32", "ok": all(checks.values()),
+           "checks": checks, "layers": L, "tolerance": TRAIN_F32_TOL,
+           "losses_kernels": kl, "losses_plain": pl_,
+           "grad_l2_rel_by_leaf": g_rel,
+           "launches": runs["kernels"]["launches"], "expected": want}
+    emit(rec)
+    state["train_f32"] = rec
+    del runs
+    torch.cuda.empty_cache()
+    return rec["ok"]
+
+
+def held_flash(log):
+    """The gate's attention: at every call the plain versions run and the
+    kernels are launched beside them on the same inputs, their errors
+    logged; the step goes on with the plain versions' results.  Each call
+    also logs two controls that must fail: the forward's output 1% too
+    large, and the dQ kernel fed lse + log 2."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    def fwd(q, k, v, causal):
+        ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal)
+        out, lse = fa._launch_fwd(q, k, v, causal)
+        log["fwd"].append(dict(errors(rows(out), rows(ref)),
+                               lse_abs=float((lse - lse_ref).abs().max())))
+        log["ctl_out_1pct"].append(errors(rows(out * 1.01), rows(ref)))
+        return ref, lse_ref
+
+    def bwd(q, k, v, out, lse, do, causal):
+        delta = fa.attention_delta(out, do)
+        dk_r, dv_r = fa.flash_bwd_dkdv_reference(q, k, v, do, lse, delta,
+                                                 causal)
+        dq_r = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+        dk, dv = fa._launch_dkdv(q, k, v, do, lse, delta, causal)
+        dq = fa._launch_dq(q, k, v, do, lse, delta, causal)
+        log["dkdv"].append({"dk": grad_errors(dk, dk_r),
+                            "dv": grad_errors(dv, dv_r)})
+        log["dq"].append(grad_errors(dq, dq_r))
+        log["ctl_lse_log2"].append(grad_errors(fa._launch_dq(
+            q, k, v, do, lse + math.log(2.0), delta, causal), dq_r))
+        return dq_r, dk_r, dv_r
+    return fwd, bwd
+
+
+# cuBLAS's kernel names hold one of these (CUDA 12.8's bf16 GEMMs: nvjet)
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def profile_train_step(step, params, opt, batch, step_ms):
+    """Device time of one train step by kernel under torch.profiler; the
+    idle share divides the kernels' sum by the unprofiled step time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    flash_ms = sum(dev_us(e) for e in kernels if "flash_" in e.key) / 1e3
+    gemm_ms = sum(dev_us(e) for e in kernels
+                  if any(w in e.key.lower() for w in GEMM_NAMES)) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    return {"device_busy_ms": busy_ms,
+            "device_idle_share": (1 - busy_ms / step_ms) if busy_ms
+            else "not measured",
+            "flash_kernels_ms": flash_ms, "gemm_ms": gemm_ms,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:90], "ms": dev_us(e) / 1e3,
+                             "calls": e.count} for e in top]}
+
+
+def phase_train_bf16(state):
+    """The bench configuration, all 24 layers in bf16 (remat off, as the
+    bench runs it).  A gate run of TRAIN_STEPS steps takes the plain
+    attention and launches the three kernels beside every call, holding
+    each launch to the plain version on the step's own activations
+    (controls must fail that hold); its losses are the plain attention's
+    trajectory.  Then the main path: TRAIN_STEPS steps on the kernels
+    alone from the same parameters on the same fixed batch (the loss must
+    stay finite and fall; each kernel's launches must be layers x steps),
+    timed, with one profiled step; then 2 steps with remat, where the
+    forward runs twice a layer."""
+    import dataclasses
+    import statistics as st
+    import torch
+    from paddle_tpu_torch.parallel import transformer as pt
+    cfg = train_config(TRAIN_LAYERS)
+    hp = pt.HybridParallelConfig(dtype=torch.bfloat16, remat=False, lr=1e-3,
+                                 betas=(0.9, 0.95), grad_clip_norm=1.0)
+    N = pt.param_count(cfg)
+    L = cfg.num_hidden_layers
+    batch = train_tokens(cfg, 1, SEED + 8)[0]
+    step = pt.build_train_step(cfg, hp, device=DEV)
+
+    # gate: the plain attention, each kernel launch held beside it
+    log = {k: [] for k in ("fwd", "dkdv", "dq", "ctl_out_1pct",
+                           "ctl_lse_log2")}
+    params = pt.init_params(cfg, hp, seed=SEED, device=DEV)
+    opt = pt.init_opt_state(params)
+    with flash_patched(*held_flash(log)):
+        gate_losses = [float(step(params, opt, batch)[2])
+                       for _ in range(TRAIN_STEPS)]
+    del params, opt
+    torch.cuda.empty_cache()
+    fwd_err = worst(log["fwd"])
+    dk_err = worst([e["dk"] for e in log["dkdv"]])
+    dv_err = worst([e["dv"] for e in log["dkdv"]])
+    dq_err = worst(log["dq"])
+    ctl_out = [not within(e, "bfloat16", ENGINE_MEASURES)
+               for e in log["ctl_out_1pct"]]
+    ctl_lse = [not grad_within(e, "bfloat16") for e in log["ctl_lse_log2"]]
+    gate = {"calls": {k: len(log[k]) for k in ("fwd", "dkdv", "dq")},
+            "losses": gate_losses, "fwd": fwd_err, "dk": dk_err,
+            "dv": dv_err, "dq": dq_err,
+            "controls_failing": {"out_1pct": f"{sum(ctl_out)}/{len(ctl_out)}",
+                                 "dq_lse_plus_log2":
+                                     f"{sum(ctl_lse)}/{len(ctl_lse)}"}}
+
+    # the main path: the kernels alone, one fixed batch
+    params = pt.init_params(cfg, hp, seed=SEED, device=DEV)
+    opt = pt.init_opt_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        _, _, loss = step(params, opt, batch)
+        losses.append(float(loss))          # waits for the step
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = st.median(times[1:])
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    profile = profile_train_step(step, params, opt, batch, step_ms)
+    # the cost of f32 logits: the head product with an f32 result (the
+    # JAX einsum's preferred_element_type) against one rounded to bf16
+    h = torch.randn((TRAIN_BATCH * TRAIN_SEQ, cfg.hidden_size), device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(SEED))
+    h = h.to(torch.bfloat16)
+    logits_ms = {"f32_out": time_ms(lambda: pt._mm_f32(h, params["head"])),
+                 "bf16_out": time_ms(lambda: h @ params["head"])}
+    del h
+
+    # remat: the forward kernel runs again inside each block's backward
+    hp_r = dataclasses.replace(hp, remat=True)
+    step_r = pt.build_train_step(cfg, hp_r, device=DEV)
+    reset_flash_counts()
+    remat_losses = [float(step_r(params, opt, batch)[2]) for _ in range(2)]
+    remat_launches = flash_counts()
+    del params, opt
+    torch.cuda.empty_cache()
+
+    want = {k: L * TRAIN_STEPS for k in ("fwd", "dkdv", "dq")}
+    want_r = {"fwd": 2 * L * 2, "dkdv": L * 2, "dq": L * 2}
+    checks = {
+        "gate_held_every_call": gate["calls"] == {
+            k: TRAIN_STEPS * L for k in ("fwd", "dkdv", "dq")},
+        "gate_fwd_vs_plain": within(fwd_err, "bfloat16", ENGINE_MEASURES)
+        and fwd_err["lse_abs"] <= LSE_ABS,
+        "gate_dkdv_vs_plain": grad_within(dk_err, "bfloat16")
+        and grad_within(dv_err, "bfloat16"),
+        "gate_dq_vs_plain": grad_within(dq_err, "bfloat16"),
+        "gate_controls_fail": all(ctl_out) and all(ctl_lse),
+        "losses_finite": all(map(math.isfinite, losses + remat_losses)),
+        "loss_falls": losses[-1] < losses[0],
+        "launches_equal_layers_x_steps": launches == want,
+        "remat_launches": remat_launches == want_r}
+    rec = {"phase": "train_bf16", "ok": all(checks.values()),
+           "checks": checks, "layers": L, "params": N,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "gate": gate, "gate_tolerance": {
+               "out": {k: TOLERANCE["bfloat16"][k] for k in ENGINE_MEASURES},
+               "lse_abs": LSE_ABS,
+               "grads": {"max_rel": TOLERANCE["bfloat16"]["token_rel"],
+                         "l2_rel": TOLERANCE["bfloat16"]["l2_rel"]}},
+           "losses": losses, "step_ms": times, "step_ms_p50": step_ms,
+           "first_step_ms": times[0], "tokens_per_s": tokens_per_s,
+           "mfu": 6 * N * tokens_per_s / PEAK_FLOPS["bfloat16"],
+           "mfu_formula": "6 * params * tokens/s / 989e12",
+           "peak_memory_bytes": peak, "launches": launches,
+           "expected_launches": want, "remat_losses": remat_losses,
+           "remat_launches": remat_launches,
+           "remat_expected_launches": want_r, "profile": profile,
+           "logits_product_ms": logits_ms}
+    emit(rec)
+    state["train_bf16"] = rec
+    return rec["ok"]
+
+
+def flash_records(state) -> list:
+    """The kernels line's flash attention entries, timed at the trainer's
+    attention in bf16 (flash phase), with launches from train_bf16's run
+    on the kernels alone."""
+    cases = state["flash"]
+    t = cases["trainer_bfloat16"]["timing"]
+    tb = state["train_bf16"]
+    recs = []
+    for kern, line, fn, err_keys in (
+            ("fwd", 97, "_fwd_kernel", ("out",)),
+            ("dkdv", 214, "_bwd_dkdv_kernel", ("dk", "dv")),
+            ("dq", 277, "_bwd_dq_kernel", ("dq",))):
+        b = t["bound"][kern]
+        recs.append({
+            "name": f"flash_attention_{'bwd_' if kern != 'fwd' else ''}"
+                    f"{kern}",
+            "route": "cuda", "source": "paddle_tpu_torch/csrc/"
+                                       "flash_attention.cu",
+            "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+            "tpu_kernel": f"flash_attention.py::{fn}",
+            "launches": tb["launches"][kern],
+            "launches_by_phase": {
+                "train_bf16": tb["launches"][kern],
+                "train_bf16_remat": tb["remat_launches"][kern],
+                "train_f32": state["train_f32"]["launches"][kern]},
+            "max_abs_err": max(c["errors"][e]["abs"] for c in cases.values()
+                               for e in err_keys),
+            "max_rel_err": max(c["errors"][e].get(
+                "max_rel", c["errors"][e].get("token_rel"))
+                for c in cases.values() for e in err_keys),
+            "ms": t["ms"][kern], "plain_ms": t["plain_ms"][kern],
+            "bound_ms": b["ms"], "bound_by": b["by"],
+            "library_ms": t["library_ms"]["fwd" if kern == "fwd"
+                                          else "bwd_dq_dk_dv"],
+            "library": "scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True) " + (
+                           "forward" if kern == "fwd" else
+                           "backward (dq, dk and dv in one call)"),
+            "timed_shape": "B=2 S=2048 H=16 Hk=4 D=64 causal, bfloat16",
+            "by_case": {name: {"ms": c["timing"]["ms"][kern],
+                               "plain_ms": c["timing"]["plain_ms"][kern],
+                               "bound_ms": c["timing"]["bound"][kern]["ms"]}
+                        for name, c in cases.items()}})
+    return recs
+
+
 def kernel_records(state) -> list:
     """The kernels line: each kernel with its TPU original, its launches
     on the main path (the runs on the kernels alone) and its numbers from
@@ -1102,7 +1674,7 @@ def kernel_records(state) -> list:
         "timed_shape": "M=8 K=4096 N=11008 int8, bfloat16 x",
         "by_shape": {k: {f: c[f] for f in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")}
-                     for k, c in qmm.items()}}]
+                     for k, c in qmm.items()}}] + flash_records(state)
 
 
 def main() -> int:
@@ -1143,11 +1715,14 @@ def main() -> int:
     for name, fn in (("kernel", phase_kernel),
                      ("kernel_q8", phase_kernel_q8),
                      ("qmm", phase_qmm),
+                     ("flash", phase_flash),
                      ("engine_f32", phase_engine_f32),
                      ("engine_quant_f32", phase_engine_quant_f32),
                      ("engine_bf16", phase_engine_bf16),
                      ("engine_w8kv8", phase_engine_w8kv8),
-                     ("engine_w4", phase_engine_w4)):
+                     ("engine_w4", phase_engine_w4),
+                     ("train_f32", phase_train_f32),
+                     ("train_bf16", phase_train_bf16)):
         t = time.perf_counter()
         try:
             passed = fn(state)

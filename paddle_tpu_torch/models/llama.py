@@ -41,6 +41,12 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
+    # MoE (0 = dense SwiGLU FFN), the JAX config's fields; the port's
+    # trainer refuses moe_experts > 0 until its MoE slice
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0
+    moe_aux_weight: float = 0.01
 
     @staticmethod
     def llama_7b():

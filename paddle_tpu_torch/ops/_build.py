@@ -30,6 +30,7 @@ BUILD_DIR = _PKG.parent / "build"
 SOURCES = {
     "ragged_paged_attention": "csrc/ragged_paged_attention.cu",
     "quant_matmul": "csrc/quant_matmul.cu",
+    "flash_attention": "csrc/flash_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,6 +1,7 @@
 """PyTorch port, CUDA kernels on the card: each kernel against its plain
 version over the shapes its wrapper accepts, and the engine's attention
-and weight products going through the kernels.  Marked ``cuda``; without a CUDA device (or
+and weight products, and the train step's attention, going through the
+kernels.  Marked ``cuda``; without a CUDA device (or
 nvcc) every test skips.  The card's machine has no JAX, so run this file
 there without the suite's conftest:
 
@@ -29,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import quant_matmul as qm
 
@@ -270,3 +272,166 @@ def test_quantized_engine_goes_through_the_kernels(dev, opts):
     quant_w = opts.get("weight_dtype", "float32") != "float32"
     assert qm.launch_count == ((7 * L + 1) * steps if quant_w else 0)
     assert all(len(o.generated) == 12 for o in outs.values())
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the forward, dK/dV and dQ kernels against their plain
+# versions, and the train step going through them.  The forward's output is
+# held by TOL's three measures over [B * S, H * D] rows (a row is one query
+# position); lse, f32 on both sides and summed in another order, to 1e-3
+# absolute (values up to ~20).  Gradients are held by two scale-free
+# measures, max|d| / max|ref| over the whole tensor and ||d|| / ||ref||, at
+# TOL's token_rel and l2_rel bounds: their magnitude grows with S, so an
+# absolute bound means nothing, and a per-row ratio neither, since some
+# rows are zero analytically (causal query 0 sees one key, and the
+# gradient of a softmax over one key is 0) and hold rounding noise only.
+# ---------------------------------------------------------------------------
+
+LSE_ABS = 1e-3
+GRAD_TOL = {dt: {"max_rel": t["token_rel"], "l2_rel": t["l2_rel"]}
+            for dt, t in TOL.items()}
+ORACLE_BF16 = {"max_rel": 5e-2, "l2_rel": 2e-2}
+
+
+def _rows(x):
+    return x.reshape(x.shape[0] * x.shape[1], -1)
+
+
+def _grad_errors(got, want):
+    d = (got.float() - want.float())
+    w = want.float()
+    return {"max_rel": (d.abs().max() / w.abs().max().clamp_min(1e-12)).item(),
+            "l2_rel": (d.norm() / w.norm().clamp_min(1e-12)).item()}
+
+
+def _assert_grad_within(got, want, tol):
+    errs = _grad_errors(got, want)
+    assert all(errs[k] <= v for k, v in tol.items()), errs
+
+
+def _flash_case(dev, dtype, B, S, H, Hk, D, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=dev).to(dtype)
+    return (randn(B, S, H, D), randn(B, S, Hk, D), randn(B, S, Hk, D),
+            randn(B, S, H, D))
+
+
+FLASH_SHAPES = [  # B, S, H, Hk, D
+    (2, 128, 4, 4, 64), (2, 200, 8, 2, 64), (1, 100, 4, 1, 128),
+    (1, 256, 16, 4, 64), (1, 130, 8, 8, 128), (1, 1, 4, 2, 64)]
+FLASH_IDS = ["mha", "gqa_S200", "mqa_d128_S100", "gqa4_S256", "d128_S130",
+             "S1"]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,Hk,D", FLASH_SHAPES, ids=FLASH_IDS)
+def test_flash_kernels_match_plain_versions(dev, B, S, H, Hk, D, dtype,
+                                            causal):
+    q, k, v, do = _flash_case(dev, dtype, B, S, H, Hk, D)
+    counts = (fa.fwd_launch_count, fa.dkdv_launch_count, fa.dq_launch_count)
+    out, lse = fa._launch_fwd(q, k, v, causal)
+    ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal)
+    assert out.dtype == dtype and lse.shape == (B, H, S)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    _assert_within(_rows(out), _rows(ref), dtype)
+    assert (lse - lse_ref).abs().max().item() <= LSE_ABS
+    delta = fa.attention_delta(ref, do)
+    dk, dv = fa._launch_dkdv(q, k, v, do, lse_ref, delta, causal)
+    dq = fa._launch_dq(q, k, v, do, lse_ref, delta, causal)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launch_count, fa.dkdv_launch_count,
+            fa.dq_launch_count) == tuple(c + 1 for c in counts)
+    dk_ref, dv_ref = fa.flash_bwd_dkdv_reference(q, k, v, do, lse_ref, delta,
+                                                 causal)
+    dq_ref = fa.flash_bwd_dq_reference(q, k, v, do, lse_ref, delta, causal)
+    for name, got, want in (("dk", dk, dk_ref), ("dv", dv, dv_ref),
+                            ("dq", dq, dq_ref)):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        if S == 1 and name != "dv":
+            # one key: dS = 0 analytically, both sides hold rounding noise
+            assert got.float().abs().max().item() <= 1e-5
+        else:
+            _assert_grad_within(got, want, GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,Hk,D", [(2, 200, 8, 2, 64),
+                                        (1, 130, 4, 4, 128)],
+                         ids=["gqa_S200", "d128_S130"])
+def test_flash_function_gradients_agree_with_autograd_of_the_oracle(
+        dev, B, S, H, Hk, D, dtype):
+    """The autograd Function on CUDA tensors (three kernel launches) against
+    torch autograd through the O(S^2) f32 oracle on the same inputs, in
+    the manner of gradcheck: the oracle's gradients are computed by an
+    independent route.  f32 at GRAD_TOL; bf16 at ORACLE_BF16, looser
+    because the oracle rounds nowhere while the kernels round q * scale,
+    p and dS to bf16 (each a relative 2^-9) before their products."""
+    q, k, v, do = _flash_case(dev, dtype, B, S, H, Hk, D, seed=1)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    counts = (fa.fwd_launch_count, fa.dkdv_launch_count, fa.dq_launch_count)
+    out = fa.attention(*leaves, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launch_count, fa.dkdv_launch_count,
+            fa.dq_launch_count) == tuple(c + 1 for c in counts)
+    oracle = [x.float().clone().requires_grad_(True) for x in (q, k, v)]
+    ref = fa._ref_attention(*oracle, True)
+    ref.backward(do.float())
+    tol = GRAD_TOL[dtype] if dtype == torch.float32 else ORACLE_BF16
+    for got, want in [(out, ref)] + [(x.grad, o.grad)
+                                     for x, o in zip(leaves, oracle)]:
+        _assert_grad_within(got, want, tol)
+
+
+def test_flash_wrapper_refuses_what_the_kernels_do_not_take(dev):
+    q, k, v, _ = _flash_case(dev, torch.float32, 1, 64, 4, 2, 64)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        fa._launch_fwd(q, k[:, :32], v[:, :32], True)
+    with pytest.raises(ValueError, match="head dim"):
+        fa._launch_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                       v[..., :32].contiguous(), False)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
+def test_train_step_goes_through_the_kernels(dev, remat):
+    """Two f32 steps of a 2-layer model on the card: every attention goes
+    through the three kernels (forward twice a layer under remat) and no
+    plain version runs; the losses equal the CPU run's (the plain
+    versions) to rtol 1e-4, both sides f32 without TF32."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.parallel import transformer as pt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=200)
+    hp = pt.HybridParallelConfig(remat=remat)
+    toks = np.random.default_rng(0).integers(0, 256, (2, 2, 200))
+    losses = {}
+    for where in ("cpu", "cuda"):
+        params = pt.init_params(cfg, hp, seed=0, device="cpu")
+        params = pt.from_jax_params(pt.to_numpy(params), device=where)
+        opt = pt.init_opt_state(params)
+        step = pt.build_train_step(cfg, hp, device=where)
+        fa.fwd_launch_count = fa.dkdv_launch_count = fa.dq_launch_count = 0
+        if where == "cuda":
+            plain = (fa.flash_fwd_reference, fa.flash_bwd_reference)
+
+            def refuse(*a, **kw):
+                raise AssertionError("a plain version ran on the card")
+            fa.flash_fwd_reference = fa.flash_bwd_reference = refuse
+        try:
+            losses[where] = [float(step(params, opt, t)[2]) for t in toks]
+        finally:
+            if where == "cuda":
+                fa.flash_fwd_reference, fa.flash_bwd_reference = plain
+    L, steps = cfg.num_hidden_layers, len(toks)
+    assert fa.fwd_launch_count == (2 if remat else 1) * L * steps
+    assert fa.dkdv_launch_count == fa.dq_launch_count == L * steps
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

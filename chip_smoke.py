@@ -18,8 +18,15 @@ pools, bfloat16 pages), and trains through ``build_train_step`` at the
 three steps on the kernels against three on the plain versions) and
 ``train_bf16`` (24 layers in bfloat16: a gate run holding every kernel
 launch to its plain version, then 20 timed steps on the kernels alone and
-2 with remat).  Each 32- and 24-layer phase shows through the kernels'
-launch counters that a run on the kernels alone went through them.  Each
+2 with remat).  ``decode`` and ``varlen`` hold the paged decode kernel and
+the three varlen flash attention kernels against their plain versions at
+LLaMA-7B's attention width (with controls that must fail, and
+``flash_attn_unpadded``'s autograd through the varlen kernels), and
+``blha_f32`` (2 layers) and ``blha_bf16`` (32 layers: a gate run, then
+the kernels alone) serve a prefill, a mixed and 16 or 32 decode steps
+through ``block_multihead_attention``.  Each 32- and 24-layer phase shows
+through the kernels' launch counters that a run on the kernels alone
+went through them.  Each
 phase prints one JSON line; the line before the last two is the kernel
 record, then the card's name and power limit as nvidia-smi gives them,
 then ``{"ok": true, ...}``.
@@ -189,15 +196,16 @@ def kernel(c):
 
 
 def bound(c, dtype_name):
-    """Least time for this launch: the bytes it must move (live K/V pages
-    once, q, out, table rows, seg/rel) over HBM bandwidth, and its
-    flops (QK and PV over each token's keys) over the dtype's peak."""
+    """Least time for this launch: the bytes it must move (each row's live
+    keys' K and V once, q, out, the table entries of the live pages,
+    seg/rel) over HBM bandwidth, and its flops (QK and PV over each
+    token's keys) over the dtype's peak."""
     import numpy as np
     isz = c["q"].element_size()
     Hkv = c["kc"].shape[1]
     live_keys = int(sum(kv for _, kv in c["rows"]))
     pages = int(sum(-(-kv // BS) for _, kv in c["rows"]))
-    nbytes = (2 * pages * BS * Hkv * D * isz + 2 * c["q"].numel() * isz
+    nbytes = (2 * live_keys * Hkv * D * isz + 2 * c["q"].numel() * isz
               + pages * 4 + 8 * c["Tq"])
     keys_per_token = c["rel"].cpu().numpy().astype(np.int64) + 1
     flops = 4 * int(keys_per_token.sum()) * H * D
@@ -313,15 +321,16 @@ def kernel_q8(c):
 
 
 def bound_q8(c):
-    """Least time for an int8-page launch: the live int8 pages and their
-    scales, q, out, table rows and seg/rel once over HBM bandwidth, and
-    the QK and PV flops over the f32 rate (the kernel's arithmetic after
-    dequantization)."""
+    """Least time for an int8-page launch: each row's live keys' int8 K
+    and V and their pages' scales, q, out, the table entries and seg/rel
+    once over HBM bandwidth, and the QK and PV flops over the f32 rate
+    (the kernel's arithmetic after dequantization)."""
     import numpy as np
     isz = c["q"].element_size()
     Hkv = c["kc"].shape[1]
+    live_keys = int(sum(kv for _, kv in c["rows"]))
     pages = int(sum(-(-kv // BS) for _, kv in c["rows"]))
-    nbytes = (2 * pages * BS * Hkv * D + 2 * pages * Hkv * 4
+    nbytes = (2 * live_keys * Hkv * D + 2 * pages * Hkv * 4
               + 2 * c["q"].numel() * isz + pages * 4 + 8 * c["Tq"])
     keys = int((c["rel"].cpu().numpy().astype(np.int64) + 1).sum())
     flops = 4 * keys * H * D
@@ -1053,9 +1062,11 @@ def phase_engine_w4(state):
 # ---------------------------------------------------------------------------
 
 # (B, S, H, Hk, D): the trainer's attention at the bench configuration
-# (GQA group 4) and LLaMA-7B's (D = 128, where sm_scale is not a power of
-# two and the rounding of q * sm_scale shows)
-FLASH_SHAPES = {"trainer": (2, 2048, 16, 4, 64), "7b": (1, 2048, 32, 32, 128)}
+# (GQA group 4), LLaMA-7B's (D = 128, where sm_scale is not a power of two
+# and the rounding of q * sm_scale shows), and D 256 at a small size (the
+# CUDA-core kernels in both types, reached by scaled_dot_product_attention)
+FLASH_SHAPES = {"trainer": (2, 2048, 16, 4, 64), "7b": (1, 2048, 32, 32, 128),
+                "d256": (1, 512, 8, 2, 256)}
 # lse, f32 on both sides and summed in another order: absolute (values up
 # to ~20).  Gradients are held by two scale-free measures, max|d| / max|ref|
 # over the whole tensor (at TOLERANCE's token_rel) and ||d|| / ||ref||
@@ -1566,6 +1577,905 @@ def phase_train_bf16(state):
     return rec["ok"]
 
 
+# ---------------------------------------------------------------------------
+# decode phase: the paged decode kernel (block_multihead_attention's decode)
+# against its plain version
+# ---------------------------------------------------------------------------
+
+BLHA_BS = 64                             # block_multihead_attention's default
+BLHA_SLOTS = 8
+BLHA_NBLK = MAX_MODEL_LEN // BLHA_BS
+
+
+def blha_tables(need, rng):
+    """Block tables [len(need), BLHA_NBLK] int32: row b lists need[b] pages
+    drawn from a shuffled pool (page 0 stays unused, as the engine's null
+    page), then -1 padding, the blha convention; and the pool's size."""
+    import numpy as np
+    num_blocks = 1 + BLHA_SLOTS * BLHA_NBLK
+    bt = np.full((len(need), BLHA_NBLK), -1, np.int32)
+    pages = rng.permutation(np.arange(1, num_blocks))
+    used = 0
+    for b, n in enumerate(need):
+        bt[b, :n] = pages[used:used + n]
+        used += n
+    return bt, num_blocks
+
+
+def decode_case(Hkv, dtype, rng, gen) -> dict:
+    """One blha decode launch at LLaMA-7B's attention width: 8 rows at kv
+    lengths 100..2000 (the fresh token included), bs 64, -1-padded
+    tables."""
+    import torch
+    lens = decode_lens(rng)
+    need = [-(-n // BLHA_BS) for n in lens]
+    bt, num_blocks = blha_tables(need, rng)
+    dev = torch.device(DEV)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    bt_d = torch.from_numpy(bt).to(dev)
+    return dict(q=randn(len(lens), H, D),
+                kc=randn(num_blocks, Hkv, BLHA_BS, D),
+                vc=randn(num_blocks, Hkv, BLHA_BS, D), bt=bt_d,
+                btc=bt_d.clamp(0, num_blocks - 1).contiguous(),
+                lens=torch.tensor(lens, dtype=torch.int32, device=dev),
+                pages=sum(need), keys=sum(lens))
+
+
+def decode_kernel(c, lens=None):
+    from paddle_tpu_torch.ops import paged_attention as pa
+    return pa._launch_decode_kernel(c["q"], c["kc"], c["vc"], c["btc"],
+                                    c["lens"] if lens is None else lens)
+
+
+def decode_plain(c):
+    from paddle_tpu_torch.ops import paged_attention as pa
+    return pa.paged_decode_plain(c["q"], c["kc"], c["vc"], c["bt"],
+                                 c["lens"])
+
+
+DECODE_CONTROLS = {
+    # each row reads one key fewer
+    "one_key_fewer": lambda c: decode_kernel(c, c["lens"] - 1),
+    # a normalisation fault: every output 1% too large
+    "scaled_1pct": lambda c: decode_kernel(c) * 1.01}
+
+
+def decode_bound(c, dtype_name):
+    """Least time of one decode launch: each row's keys' K and V (its
+    length, not its pages in full), q, out, the table entries of the live
+    pages and the lengths once over HBM bandwidth, and QK and PV over
+    every row's keys (4 D flops a key and query head) over the dtype's
+    peak."""
+    isz = c["q"].element_size()
+    B, Hq, Dh = c["q"].shape
+    Hkv = c["kc"].shape[1]
+    nbytes = (2 * c["keys"] * Hkv * Dh * isz
+              + 2 * c["q"].numel() * isz + 4 * c["pages"] + 4 * B)
+    flops = 4 * c["keys"] * Hq * Dh
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, flops)
+
+
+def decode_library(c):
+    """Yardstick only (the port never calls it): scaled_dot_product_attention
+    over each row's pages gathered dense beforehand, a length mask."""
+    import torch
+    import torch.nn.functional as F
+    B, Hq, Dh = c["q"].shape
+    Hkv = c["kc"].shape[1]
+    S = BLHA_NBLK * BLHA_BS
+    pages = c["btc"].long()
+    k = c["kc"][pages].permute(0, 2, 1, 3, 4).reshape(B, Hkv, S, Dh)
+    v = c["vc"][pages].permute(0, 2, 1, 3, 4).reshape(B, Hkv, S, Dh)
+    mask = (torch.arange(S, device=k.device)[None, :]
+            < c["lens"][:, None])[:, None, None, :]
+    q = c["q"][:, :, None, :]
+    fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask, enable_gqa=Hkv != Hq)
+    return fn, fn()[:, :, 0, :]
+
+
+def phase_decode(state):
+    import numpy as np
+    import torch
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    cases, ok = {}, True
+    for kind, Hkv in (("mha", H), ("gqa", H // 4)):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            c = decode_case(Hkv, dtype, np.random.default_rng(SEED + 9), gen)
+            out = decode_kernel(c)
+            ref = decode_plain(c)
+            err = errors(out, ref)
+            held = bool(torch.isfinite(out).all()) and within(err, name)
+            controls = {}
+            for cname, control in DECODE_CONTROLS.items():
+                c_err = errors(control(c), ref)
+                controls[cname] = dict(c_err, fails=not within(c_err, name))
+            ok &= held and all(x["fails"] for x in controls.values())
+            lib_fn, lib_out = decode_library(c)
+            b_ms, b_by, nbytes, flops = decode_bound(c, name)
+            cases[f"{kind}_{name}"] = {
+                "H_kv": Hkv, "held": held, "errors": err,
+                "controls": controls, "ms": time_ms(lambda: decode_kernel(c)),
+                "plain_ms": time_ms(lambda: decode_plain(c), reps=20),
+                "library_ms": time_ms(lib_fn),
+                "library_max_abs_err": float(
+                    (lib_out.float() - ref.float()).abs().max()),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                "flops": flops, "live_pages": c["pages"],
+                "live_keys": c["keys"]}
+            del c, out, ref, lib_fn, lib_out
+            torch.cuda.empty_cache()
+    state["decode"] = cases
+    emit({"phase": "decode", "ok": ok, "tolerance": TOLERANCE,
+          "shapes": {"B": BLHA_SLOTS, "H": H, "D": D, "bs": BLHA_BS,
+                     "nblk": BLHA_NBLK, "kv_lens": "100..2000",
+                     "gqa": f"H_kv={H // 4}", "tables": "-1 padded"},
+          "cases": cases,
+          "bound_peaks": {"bytes_per_s": PEAK_BYTES,
+                          "flops_per_s": PEAK_FLOPS}})
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# varlen phase: the three varlen flash attention kernels against their plain
+# versions, and flash_attn_unpadded's autograd through them
+# ---------------------------------------------------------------------------
+
+PACKED = [2048, 1536, 1200, 1024, 900, 700, 500, 284]     # 8,192 tokens
+# name: (query lengths, key lengths or None for self attention, H, D,
+# causal): LLaMA-7B's attention and the trainer's head dim over 8 packed
+# sequences, a cross case (1,024 queries over 4,096 keys), D 256 at a small
+# size, and an empty sequence among others
+VARLEN_CASES = {
+    "7b": (PACKED, None, 32, 128, True),
+    "trainer_d64": (PACKED, None, 16, 64, True),
+    "cross": ([400, 300, 200, 124], [1500, 1000, 1096, 500], 32, 128, False),
+    "d256": ([300, 200, 57], None, 4, 256, True),
+    "empty_seq": ([500, 0, 300, 1], None, 8, 64, True),
+}
+VARLEN_TIMED = ("7b", "trainer_d64")    # plain and library times too
+# the plain versions' [H, Tq, Tk] f32 scores, at most this many elements at
+# once: sequences are taken in runs that fit (the 7B case's whole [32,
+# 8192, 8192] would be 8.6 GB a tensor)
+VARLEN_CHUNK = 2 ** 28
+
+
+def varlen_groups(cu_q, cu_k, heads):
+    """Runs of whole sequences [a, b) whose scores fit VARLEN_CHUNK: (q0,
+    q1, k0, k1, cu_q, cu_k) with the run's offsets rebased to 0."""
+    cq, ck = cu_q.tolist(), cu_k.tolist()
+    n, a, groups = len(cq) - 1, 0, []
+    while a < n:
+        b = a + 1
+        while b < n and heads * (cq[b + 1] - cq[a]) * (ck[b + 1] - ck[a]) \
+                <= VARLEN_CHUNK:
+            b += 1
+        groups.append((cq[a], cq[b], ck[a], ck[b],
+                       (cu_q[a:b + 1] - cq[a]).contiguous(),
+                       (cu_k[a:b + 1] - ck[a]).contiguous()))
+        a = b
+    return groups
+
+
+def varlen_plain_fwd(q, k, v, cu_q, cu_k, causal, scale):
+    """The forward's plain version over runs of sequences (each query sees
+    keys of its own sequence only, so the runs are independent)."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention_varlen as fav
+    outs, lses = [], []
+    for q0, q1, k0, k1, gq, gk in varlen_groups(cu_q, cu_k, q.shape[1]):
+        if q1 == q0:
+            continue
+        if k1 == k0:                     # key-less rows: 0 and -inf
+            outs.append(torch.zeros_like(q[q0:q1]))
+            lses.append(torch.full((q.shape[1], q1 - q0), float("-inf"),
+                                   device=q.device))
+            continue
+        o, lse = fav.varlen_fwd_reference(q[q0:q1], k[k0:k1], v[k0:k1], gq,
+                                          gk, causal, scale)
+        outs.append(o)
+        lses.append(lse)
+    return torch.cat(outs), torch.cat(lses, 1).contiguous()
+
+
+def varlen_plain_grads(q, k, v, do, lse, delta, cu_q, cu_k, causal, scale,
+                       want=("dq", "dk", "dv")):
+    """The dK/dV and dQ plain versions over runs of sequences."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention_varlen as fav
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for q0, q1, k0, k1, gq, gk in varlen_groups(cu_q, cu_k, q.shape[1]):
+        if q1 == q0 or k1 == k0:         # nothing to attend: zero gradients
+            continue
+        args = (q[q0:q1], k[k0:k1], v[k0:k1], do[q0:q1],
+                lse[:, q0:q1].contiguous(), delta[:, q0:q1].contiguous(), gq,
+                gk, causal, scale)
+        if "dk" in want:
+            dk[k0:k1], dv[k0:k1] = fav.varlen_bwd_dkdv_reference(*args)
+        if "dq" in want:
+            dq[q0:q1] = fav.varlen_bwd_dq_reference(*args)
+    return dq, dk, dv
+
+
+def varlen_plain_bwd(q, k, v, out, lse, do, cu_q, cu_k, causal, scale):
+    from paddle_tpu_torch.ops import flash_attention_varlen as fav
+    return varlen_plain_grads(q, k, v, do, lse, fav.varlen_delta(out, do),
+                              cu_q, cu_k, causal, scale)
+
+
+class varlen_patched:
+    """Within the block, the varlen autograd Function's forward and
+    backward are ``fwd`` and ``bwd`` in place of the device dispatch."""
+
+    def __init__(self, fwd, bwd):
+        self.fns = (fwd, bwd)
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import flash_attention_varlen as fav
+        self.saved = (fav._forward, fav._backward)
+        fav._forward, fav._backward = self.fns
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops import flash_attention_varlen as fav
+        fav._forward, fav._backward = self.saved
+
+
+def varlen_case(name, dtype, gen) -> dict:
+    import numpy as np
+    import torch
+    lens_q, lens_k, heads, dh, causal = VARLEN_CASES[name]
+    lens_k = lens_q if lens_k is None else lens_k
+    cu_q = np.concatenate([[0], np.cumsum(lens_q)]).astype(np.int32)
+    cu_k = np.concatenate([[0], np.cumsum(lens_k)]).astype(np.int32)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=DEV).to(dtype)
+    tq, tk = int(cu_q[-1]), int(cu_k[-1])
+    return dict(q=randn(tq, heads, dh), k=randn(tk, heads, dh),
+                v=randn(tk, heads, dh), do=randn(tq, heads, dh),
+                cu_q=torch.from_numpy(cu_q).to(DEV),
+                cu_k=torch.from_numpy(cu_k).to(DEV), lens_q=list(lens_q),
+                lens_k=list(lens_k), causal=causal, scale=dh ** -0.5)
+
+
+def varlen_args(c):
+    return c["cu_q"], c["cu_k"], c["causal"], c["scale"]
+
+
+def varlen_kernels(c, lse, delta):
+    """The three kernels on the case's inputs, the backward fed ``lse``
+    and ``delta``: (out, lse, dq, dk, dv)."""
+    from paddle_tpu_torch.ops import flash_attention_varlen as fav
+    q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+    out, lse_k = fav._launch_fwd(q, k, v, *varlen_args(c))
+    dk, dv = fav._launch_dkdv(q, k, v, do, lse, delta, *varlen_args(c))
+    dq = fav._launch_dq(q, k, v, do, lse, delta, *varlen_args(c))
+    return out, lse_k, dq, dk, dv
+
+
+def lse_error(lse, ref) -> float:
+    """Largest |lse - ref| where ref is finite; inf when the -inf rows (no
+    key) differ."""
+    import torch
+    fin = torch.isfinite(ref)
+    if not torch.equal(fin, torch.isfinite(lse)) or \
+            not bool((lse[~fin] == float("-inf")).all()):
+        return float("inf")
+    return float((lse[fin] - ref[fin]).abs().max()) if bool(fin.any()) \
+        else 0.0
+
+
+def varlen_bound(c, dtype_name, kernel):
+    """Least time of one launch: each operand once over HBM bandwidth, and
+    its products over the per-sequence pairs (s (s + 1) / 2 a head causal,
+    s_q s_k otherwise; the forward runs 2 products, dK/dV 4, dQ 3, each 2 D
+    flops a pair) over the dtype's peak.  Returns (ms, by, bytes, flops)."""
+    tq, heads, dh = c["q"].shape
+    tk = c["k"].shape[0]
+    isz = 4 if dtype_name == "float32" else 2
+    pairs = sum(s * (s + 1) // 2 if c["causal"] else s * t
+                for s, t in zip(c["lens_q"], c["lens_k"]))
+    qb, kb, vec = tq * heads * dh * isz, tk * heads * dh * isz, 4 * heads * tq
+    nbytes, products = {"fwd": (2 * qb + 2 * kb + vec, 2),
+                        "dkdv": (2 * qb + 4 * kb + 2 * vec, 4),
+                        "dq": (3 * qb + 2 * kb + 2 * vec, 3)}[kernel]
+    nbytes += 8 * (len(c["lens_q"]) + 1)
+    flops = products * 2 * heads * pairs * dh
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, flops)
+
+
+def varlen_library(c):
+    """Yardstick only (the port never calls it): PyTorch's varlen flash
+    attention (``aten._flash_attention_forward`` / ``_backward`` with
+    cumulative lengths) where the card's torch runs it (bf16), else
+    scaled_dot_product_attention once per sequence.  Returns (which,
+    forward fn, backward fn, its output)."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+    causal, scale = c["causal"], c["scale"]
+    mq, mk = max(c["lens_q"]), max(c["lens_k"])
+    if q.dtype == torch.bfloat16:
+        try:
+            def fwd():
+                return torch.ops.aten._flash_attention_forward(
+                    q, k, v, c["cu_q"], c["cu_k"], mq, mk, 0.0, causal,
+                    False, scale=scale)
+            out, lse, rng_state, unused, _ = fwd()
+
+            def bwd():
+                return torch.ops.aten._flash_attention_backward(
+                    do, q, k, v, out, lse, c["cu_q"], c["cu_k"], mq, mk, 0.0,
+                    causal, rng_state, unused, scale=scale)
+            bwd()
+            return "aten._flash_attention_forward/_backward (varlen)", fwd, \
+                bwd, out
+        except (RuntimeError, NotImplementedError) as e:   # yardstick only
+            print(f"chip_smoke: varlen flash yardstick unavailable ({e!r:.200})"
+                  "; timing SDPA per sequence", file=sys.stderr)
+    cq, ck = c["cu_q"].tolist(), c["cu_k"].tolist()
+    spans = [(cq[i], cq[i + 1], ck[i], ck[i + 1]) for i in range(len(cq) - 1)
+             if cq[i + 1] > cq[i] and ck[i + 1] > ck[i]]
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+    def fwd():
+        return [F.scaled_dot_product_attention(
+            leaves[0][a:b].transpose(0, 1), leaves[1][e:f].transpose(0, 1),
+            leaves[2][e:f].transpose(0, 1), is_causal=causal, scale=scale)
+            for a, b, e, f in spans]
+    outs = fwd()
+    grads = [do[a:b].transpose(0, 1) for a, b, _, _ in spans]
+
+    def bwd():
+        return torch.autograd.grad(outs, leaves, grads, retain_graph=True)
+    out = torch.zeros_like(q)
+    for (a, b, _, _), o in zip(spans, outs):
+        out[a:b] = o.detach().transpose(0, 1)
+    return "scaled_dot_product_attention per sequence", fwd, bwd, out
+
+
+def varlen_controls(c, ref, lse_ref, delta, name) -> dict:
+    """Kernel runs that must fail the holds: one cu boundary dropped (two
+    sequences merged), the diagonal excluded (each sequence's queries one
+    position ahead of its keys, so query i sees keys < i; causal only), and
+    lse + log 2 fed to both backward kernels."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import flash_attention_varlen as fav
+    q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+    lq, lk = c["lens_q"], c["lens_k"]
+    causal, scale = c["causal"], c["scale"]
+    out = {}
+    i = max(range(1, len(lq)), key=lambda j: min(lq[j - 1], lq[j], lk[j - 1],
+                                                 lk[j]))
+    keep = [j for j in range(len(lq) + 1) if j != i]
+    o, _ = fav._launch_fwd(q, k, v, c["cu_q"][keep].contiguous(),
+                           c["cu_k"][keep].contiguous(), causal, scale)
+    e = errors(o.flatten(1), ref.flatten(1))
+    out["boundary_dropped"] = dict(e, fails=not within(e, name))
+    if causal:
+        cq = np.asarray(c["cu_q"].tolist())
+        nz = np.asarray(lq) > 0
+        first = np.ones(cq[-1], bool)
+        first[cq[:-1][nz]] = False               # each sequence's first query
+        last = np.ones(cq[-1], bool)
+        last[cq[1:][nz] - 1] = False             # and its last key
+        iq = torch.from_numpy(np.nonzero(first)[0]).to(q.device)
+        ik = torch.from_numpy(np.nonzero(last)[0]).to(q.device)
+        cs = torch.from_numpy(np.concatenate(
+            [[0], np.cumsum(np.maximum(np.asarray(lq) - 1, 0))]).astype(
+                np.int32)).to(q.device)
+        o, _ = fav._launch_fwd(q[iq].contiguous(), k[ik].contiguous(),
+                               v[ik].contiguous(), cs, cs, True, scale)
+        e = errors(o.flatten(1), ref[iq].flatten(1))
+        out["diagonal_excluded"] = dict(e, fails=not within(e, name))
+    lse2 = lse_ref + math.log(2.0)
+    dk2, dv2 = fav._launch_dkdv(q, k, v, do, lse2, delta, *varlen_args(c))
+    dq2 = fav._launch_dq(q, k, v, do, lse2, delta, *varlen_args(c))
+    dq_r, dk_r, dv_r = varlen_plain_grads(q, k, v, do, lse_ref, delta,
+                                          *varlen_args(c))
+    for g, got, want in (("dk", dk2, dk_r), ("dv", dv2, dv_r),
+                         ("dq", dq2, dq_r)):
+        e = grad_errors(got, want)
+        out[f"lse_plus_log2_{g}"] = dict(e, fails=not grad_within(e, name))
+    return out
+
+
+def varlen_counts() -> dict:
+    from paddle_tpu_torch.ops import flash_attention_varlen as fav
+    from paddle_tpu_torch.ops import paged_attention as pa
+    return {"varlen_fwd": fav.fwd_launch_count,
+            "varlen_dkdv": fav.dkdv_launch_count,
+            "varlen_dq": fav.dq_launch_count,
+            "decode": pa.decode_launch_count}
+
+
+def reset_varlen_counts() -> None:
+    from paddle_tpu_torch.ops import flash_attention_varlen as fav
+    from paddle_tpu_torch.ops import paged_attention as pa
+    fav.fwd_launch_count = fav.dkdv_launch_count = fav.dq_launch_count = 0
+    pa.decode_launch_count = 0
+
+
+UNPADDED_STEPS = 2
+
+
+def unpadded_autograd(c, plain_run):
+    """``flash_attn_unpadded`` forward and backward, ``(out * g).sum()``,
+    UNPADDED_STEPS times from fresh leaves: through the kernels, or (the
+    reference) with the autograd Function's forward and backward swapped
+    for the plain versions.  Returns (out, (dq, dk, dv), launches of the
+    run by kernel)."""
+    import torch
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+    ctx = varlen_patched(varlen_plain_fwd, varlen_plain_bwd) if plain_run \
+        else contextlib.nullcontext()
+    with ctx:
+        torch.cuda.synchronize()
+        reset_varlen_counts()
+        for _ in range(UNPADDED_STEPS):
+            leaves = [c[n].detach().clone().requires_grad_(True)
+                      for n in ("q", "k", "v")]
+            out, _ = flash_attn_unpadded(
+                *leaves, c["cu_q"], c["cu_k"], max(c["lens_q"]),
+                max(c["lens_k"]), c["scale"], causal=c["causal"])
+            (out.float() * c["do"].float()).sum().backward()
+        torch.cuda.synchronize()
+        launches = varlen_counts()
+    return out.detach(), tuple(x.grad for x in leaves), launches
+
+
+def phase_varlen(state):
+    import torch
+    from paddle_tpu_torch.ops import flash_attention_varlen as fav
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 10)
+    cases, ok = {}, True
+    for cname in VARLEN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            c = varlen_case(cname, dtype, gen)
+            q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+            ref, lse_ref = varlen_plain_fwd(q, k, v, *varlen_args(c))
+            delta = fav.varlen_delta(ref, do)
+            first = varlen_kernels(c, lse_ref, delta)
+            out, lse, dq, dk, dv = first
+            dq_r, dk_r, dv_r = varlen_plain_grads(q, k, v, do, lse_ref, delta,
+                                                  *varlen_args(c))
+            errs = {"out": errors(out.flatten(1), ref.flatten(1)),
+                    "lse_abs": lse_error(lse, lse_ref),
+                    "dk": grad_errors(dk, dk_r), "dv": grad_errors(dv, dv_r),
+                    "dq": grad_errors(dq, dq_r)}
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in (out, dk, dv, dq))
+            held = (finite and within(errs["out"], name)
+                    and errs["lse_abs"] <= LSE_ABS
+                    and all(grad_within(errs[g], name)
+                            for g in ("dk", "dv", "dq")))
+            repeats = all(all(torch.equal(a, b) for a, b in zip(
+                varlen_kernels(c, lse_ref, delta), first)) for _ in range(10))
+            del dq_r, dk_r, dv_r
+            controls = varlen_controls(c, ref, lse_ref, delta, name)
+            rec = {"shape": {"lens_q": c["lens_q"], "lens_k": c["lens_k"],
+                             "H": q.shape[1], "D": q.shape[2],
+                             "causal": c["causal"]},
+                   "held": held, "repeats_bit_identical": repeats,
+                   "errors": errs, "controls": controls}
+            ok &= held and repeats and all(x["fails"]
+                                           for x in controls.values())
+            args = (*varlen_args(c),)
+            rec["ms"] = {
+                "fwd": time_ms(lambda: fav._launch_fwd(q, k, v, *args)),
+                "dkdv": time_ms(lambda: fav._launch_dkdv(
+                    q, k, v, do, lse_ref, delta, *args)),
+                "dq": time_ms(lambda: fav._launch_dq(
+                    q, k, v, do, lse_ref, delta, *args))}
+            rec["bound"] = {kern: dict(zip(("ms", "by", "bytes", "flops"),
+                                           varlen_bound(c, name, kern)))
+                            for kern in ("fwd", "dkdv", "dq")}
+            if cname in VARLEN_TIMED:
+                rec["plain_ms"] = {
+                    "fwd": time_ms(lambda: varlen_plain_fwd(q, k, v, *args),
+                                   reps=10, warm=1),
+                    "dkdv": time_ms(lambda: varlen_plain_grads(
+                        q, k, v, do, lse_ref, delta, *args, want=("dk",)),
+                        reps=10, warm=1),
+                    "dq": time_ms(lambda: varlen_plain_grads(
+                        q, k, v, do, lse_ref, delta, *args, want=("dq",)),
+                        reps=10, warm=1)}
+                which, lib_fwd, lib_bwd, lib_out = varlen_library(c)
+                rec["library"] = which
+                rec["library_ms"] = {"fwd": time_ms(lib_fwd),
+                                     "bwd_dq_dk_dv": time_ms(lib_bwd)}
+                rec["library_max_abs_err"] = float(
+                    (lib_out.float() - ref.float()).abs().max())
+                del lib_fwd, lib_bwd, lib_out
+            cases[f"{cname}_{name}"] = rec
+            del c, q, k, v, do, ref, lse_ref, delta, first, out, lse, dq, dk
+            del dv
+            torch.cuda.empty_cache()
+
+    # the main path: flash_attn_unpadded's forward and backward at the 7B
+    # case, through the kernels, against autograd of the plain versions
+    auto = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        c = varlen_case("7b", dtype, gen)
+        ref, ref_grads, plain_launches = unpadded_autograd(c, plain_run=True)
+        out, grads, launches = unpadded_autograd(c, plain_run=False)
+        errs = {"out": errors(out.flatten(1), ref.flatten(1)),
+                **{g: grad_errors(a, b) for g, a, b in
+                   zip(("dq", "dk", "dv"), grads, ref_grads)}}
+        want = {"varlen_fwd": UNPADDED_STEPS, "varlen_dkdv": UNPADDED_STEPS,
+                "varlen_dq": UNPADDED_STEPS, "decode": 0}
+        checks = {"out": within(errs["out"], name),
+                  "grads": all(grad_within(errs[g], name)
+                               for g in ("dq", "dk", "dv")),
+                  "one_launch_of_each_kernel_a_step": launches == want,
+                  "plain_run_launched_nothing": not any(
+                      plain_launches.values())}
+        ok &= all(checks.values())
+        auto[name] = {"checks": checks, "errors": errs, "launches": launches,
+                      "expected_launches": want}
+        del c, ref, ref_grads, out, grads
+        torch.cuda.empty_cache()
+    state["varlen"] = {"cases": cases, "unpadded": auto}
+    emit({"phase": "varlen", "ok": ok,
+          "tolerance": {"out": TOLERANCE, "lse_abs": LSE_ABS,
+                        "grads": {k: {"max_rel": t["token_rel"],
+                                      "l2_rel": t["l2_rel"]}
+                                  for k, t in TOLERANCE.items()}},
+          "cases": cases, "flash_attn_unpadded_autograd": auto,
+          "unpadded_steps": UNPADDED_STEPS,
+          "bound_peaks": {"bytes_per_s": PEAK_BYTES,
+                          "flops_per_s": PEAK_FLOPS}})
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# blha phases: block_multihead_attention through a serving trace at
+# LLaMA-7B's attention width (its prefill runs the varlen forward kernel,
+# its decode the paged decode kernel)
+# ---------------------------------------------------------------------------
+
+def blha_trace(n_decode):
+    """A serving trace over 8 slots: (seq_lens_encoder, seq_lens_decoder,
+    seq_lens_this_time) a step.  Step 0 prefills slots 0-5 (prompts of
+    17..700 tokens from the seed), step 1 prefills slots 6-7 and decodes
+    0-5 (a mixed batch), then ``n_decode`` steps decode all 8.  Returns
+    (steps, pages each slot needs, prompt lengths)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 11)
+    prompts = [17, 700] + [int(x) for x in rng.integers(17, 701, 6)]
+    n = BLHA_SLOTS
+    pos = [0] * n
+    steps = []
+
+    def step(enc, this):
+        dec = [p if t == 1 and e == 0 else 0 for p, t, e in
+               zip(pos, this, enc)]
+        steps.append(tuple(np.asarray(x, np.int32) for x in (enc, dec, this)))
+        for b in range(n):
+            pos[b] += this[b]
+    step([p if b < 6 else 0 for b, p in enumerate(prompts)],
+         [p if b < 6 else 0 for b, p in enumerate(prompts)])
+    step([0] * 6 + prompts[6:], [1] * 6 + prompts[6:])
+    for _ in range(n_decode):
+        step([0] * n, [1] * n)
+    return steps, [-(-p // BLHA_BS) for p in pos], prompts
+
+
+def blha_run(layers, dtype, n_decode, gen_seed, caches=None, on_call=None):
+    """Serve the trace through ``block_multihead_attention``, layer after
+    layer every step, each layer with its own cache pair; qkv ``[T, 3 H
+    D]`` from a seeded generator.  Returns (outputs [step][layer], caches,
+    ms of each step with the card synchronised, launches by kernel)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.incubate.nn.functional import \
+        block_multihead_attention
+    steps, need, _ = blha_trace(n_decode)
+    bt_np, num_blocks = blha_tables(need, np.random.default_rng(SEED + 12))
+    bt = torch.from_numpy(bt_np).to(DEV)
+    if caches is None:
+        caches = [tuple(torch.zeros((num_blocks, H, BLHA_BS, D), dtype=dtype,
+                                    device=DEV) for _ in range(2))
+                  for _ in range(layers)]
+    else:
+        for kc, vc in caches:
+            kc.zero_()
+            vc.zero_()
+    gen = torch.Generator(device=DEV).manual_seed(gen_seed)
+    outs, ms = [], []
+    torch.cuda.synchronize()
+    reset_varlen_counts()
+    for enc, dec, this in steps:
+        T = int(this.sum())
+        t0 = time.perf_counter()
+        row = []
+        for layer in range(layers):
+            qkv = torch.randn((T, 3 * H * D), generator=gen,
+                              device=DEV).to(dtype)
+            kc, vc = caches[layer]
+            out, _, kc2, vc2 = block_multihead_attention(
+                qkv, kc, vc, enc, dec, this, block_tables=bt,
+                block_size=BLHA_BS)
+            assert kc2 is kc and vc2 is vc
+            row.append(out if on_call is None else on_call(out))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(row)
+    return outs, caches, ms, varlen_counts()
+
+
+class blha_plain:
+    """Within the block, blha's kernels are their plain versions: the
+    varlen autograd Function's forward, and the packed decode entry."""
+
+    def __init__(self, varlen_fwd=None, decode=None):
+        from paddle_tpu_torch.ops import paged_attention as pa
+        self.varlen = varlen_patched(varlen_fwd or varlen_plain_fwd,
+                                     varlen_plain_bwd)
+        self.decode = decode or pa.paged_decode_plain
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import paged_attention as pa
+        self.varlen.__enter__()
+        self.saved = pa.paged_decode_attention_packed
+        pa.paged_decode_attention_packed = self.decode
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops import paged_attention as pa
+        self.varlen.__exit__()
+        pa.paged_decode_attention_packed = self.saved
+
+
+def blha_expected(layers, n_decode) -> dict:
+    """Launches of the trace on the kernels: the varlen forward once a
+    layer in each step with a prefill (steps 0 and 1), the decode kernel
+    once a layer in each step with decodes (1 + n_decode)."""
+    return {"varlen_fwd": 2 * layers, "varlen_dkdv": 0, "varlen_dq": 0,
+            "decode": (1 + n_decode) * layers}
+
+
+BLHA_F32_LAYERS, BLHA_F32_DECODE = 2, 16
+BLHA_LAYERS, BLHA_DECODE = 32, 32
+
+
+def phase_blha_f32(state):
+    """2 layers in f32: the trace on the plain versions, then on the
+    kernels; every call's output within f32 TOLERANCE of the plain run's,
+    the caches equal bit for bit."""
+    import torch
+    L, n = BLHA_F32_LAYERS, BLHA_F32_DECODE
+    with blha_plain():
+        ref, ref_caches, _, plain_launches = blha_run(L, torch.float32, n,
+                                                      SEED + 13)
+    ref_caches = [(kc.clone(), vc.clone()) for kc, vc in ref_caches]
+    outs, caches, ms, launches = blha_run(L, torch.float32, n, SEED + 13)
+    errs = [errors(o, r) for row, rrow in zip(outs, ref) for o, r in
+            zip(row, rrow) if o.shape[0]]
+    want = blha_expected(L, n)
+    checks = {"outputs_within_f32_tolerance": all(within(e, "float32")
+                                                  for e in errs),
+              "outputs_finite": all(bool(torch.isfinite(o).all())
+                                    for row in outs for o in row),
+              "caches_bit_equal": all(
+                  torch.equal(a, b) for pair, rpair in zip(caches, ref_caches)
+                  for a, b in zip(pair, rpair)),
+              "launches_as_expected": launches == want,
+              "plain_run_launched_nothing": not any(plain_launches.values())}
+    rec = {"phase": "blha_f32", "ok": all(checks.values()), "checks": checks,
+           "layers": L, "steps": len(outs), "decode_steps": n,
+           "worst_errors": worst(errs), "tolerance": TOLERANCE["float32"],
+           "launches": launches, "expected_launches": want,
+           "step_ms": ms}
+    emit(rec)
+    state["blha_f32"] = rec
+    del outs, ref, caches, ref_caches
+    torch.cuda.empty_cache()
+    return rec["ok"]
+
+
+def held_blha(log):
+    """The gate's kernels: at every call the plain version runs and the
+    kernel is launched beside it on the same inputs, errors logged, with
+    two controls a kernel that must fail (decode: each row one key fewer,
+    the output 1% too large; varlen forward: one cu boundary dropped where
+    two sequences meet, the output 1% too large); blha goes on with the
+    plain versions' results."""
+    from paddle_tpu_torch.ops import flash_attention_varlen as fav
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    def varlen_fwd(q, k, v, cu_q, cu_k, causal, scale):
+        ref, lse = varlen_plain_fwd(q, k, v, cu_q, cu_k, causal, scale)
+        out, _ = fav._launch_fwd(q, k, v, cu_q, cu_k, causal, scale)
+        log["varlen"].append(errors(out.flatten(1), ref.flatten(1)))
+        log["varlen_ctl_1pct"].append(errors((out * 1.01).flatten(1),
+                                             ref.flatten(1)))
+        lens = (cu_q[1:] - cu_q[:-1]).tolist()
+        meet = [i for i in range(1, len(lens)) if lens[i - 1] and lens[i]]
+        if meet:
+            keep = [j for j in range(len(lens) + 1) if j != meet[0]]
+            o, _ = fav._launch_fwd(q, k, v, cu_q[keep].contiguous(),
+                                   cu_k[keep].contiguous(), causal, scale)
+            log["varlen_ctl_merged"].append(errors(o.flatten(1),
+                                                   ref.flatten(1)))
+        return ref, lse
+
+    def decode(q, kc, vc, bt, lens):
+        ref = pa.paged_decode_plain(q, kc, vc, bt, lens)
+        out = pa._launch_decode_kernel(q, kc, vc, bt, lens)
+        log["decode"].append(errors(out, ref))
+        log["decode_ctl_1pct"].append(errors(out * 1.01, ref))
+        log["decode_ctl_short"].append(errors(
+            pa._launch_decode_kernel(q, kc, vc, bt, lens - 1), ref))
+        return ref
+    return blha_plain(varlen_fwd, decode)
+
+
+def profile_blha(caches, layers, n_decode, wall_ms) -> dict:
+    """Device time of the kernels-alone trace under torch.profiler, by
+    kernel; the idle share divides the kernels' sum by the unprofiled
+    run's wall time (``wall_ms``: its step times summed)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        blha_run(layers, torch.bfloat16, n_decode, SEED + 14, caches)
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    return {"device_busy_ms": busy_ms, "wall_ms": wall_ms,
+            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms
+            else "not measured",
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:90], "ms": dev_us(e) / 1e3,
+                             "calls": e.count} for e in top]}
+
+
+def phase_blha_bf16(state):
+    """32 layers in bf16 (≈ 8.6 GB of pages).  A gate run on the plain
+    versions launches each kernel beside every call and holds it to the
+    bf16 TOLERANCE, its controls failing; then the main path, the trace on
+    the kernels alone: launch counts, prefill- and decode-step times, and
+    every output against the gate's (the plain versions' on the same
+    qkv); then the trace once more under the profiler."""
+    import statistics as st
+    import torch
+    L, n = BLHA_LAYERS, BLHA_DECODE
+    log = {k: [] for k in ("varlen", "varlen_ctl_1pct", "varlen_ctl_merged",
+                           "decode", "decode_ctl_1pct", "decode_ctl_short")}
+    with held_blha(log):
+        ref, caches, gate_ms, _ = blha_run(L, torch.bfloat16, n, SEED + 14)
+    ctl = {k: f"{sum(not within(e, 'bfloat16') for e in log[k])}"
+              f"/{len(log[k])}" for k in log if "_ctl_" in k}
+    gate = {"calls": {k: len(log[k]) for k in ("varlen", "decode")},
+            "varlen": worst(log["varlen"]), "decode": worst(log["decode"]),
+            "controls_failing": ctl}
+    del log
+    torch.cuda.reset_peak_memory_stats()
+    errs = []
+    outs, caches, ms, launches = blha_run(L, torch.bfloat16, n, SEED + 14,
+                                          caches)
+    for row, rrow in zip(outs, ref):
+        errs += [errors(o, r) for o, r in zip(row, rrow) if o.shape[0]]
+    peak = torch.cuda.max_memory_allocated()
+    want = blha_expected(L, n)
+    steps, _, prompts = blha_trace(n)
+    prof = profile_blha(caches, L, n, sum(ms))
+    checks = {
+        "gate_held_every_call": gate["calls"] == {
+            "varlen": want["varlen_fwd"], "decode": want["decode"]},
+        "gate_varlen_vs_plain": within(gate["varlen"], "bfloat16"),
+        "gate_decode_vs_plain": within(gate["decode"], "bfloat16"),
+        "gate_controls_fail": all(
+            v.split("/")[0] == v.split("/")[1] and v != "0/0"
+            for v in ctl.values()),
+        "kernel_run_vs_gate": within(worst(errs), "bfloat16"),
+        "outputs_finite": all(bool(torch.isfinite(o).all())
+                              for row in outs for o in row),
+        "launches_as_expected": launches == want}
+    page_bytes = sum(x.numel() * x.element_size() for pair in caches
+                     for x in pair)
+    rec = {"phase": "blha_bf16", "ok": all(checks.values()),
+           "checks": checks, "layers": L, "steps": len(steps),
+           "decode_steps": n, "slots": BLHA_SLOTS,
+           "prompt_tokens": prompts,
+           "gate": gate, "gate_tolerance": TOLERANCE["bfloat16"],
+           "kernel_run_vs_gate": worst(errs), "launches": launches,
+           "expected_launches": want, "prefill_step_ms": ms[0],
+           "mixed_step_ms": ms[1], "decode_step_ms_p50": st.median(ms[2:]),
+           "decode_step_ms": ms[2:], "gate_step_ms_p50": st.median(gate_ms),
+           "page_bytes": page_bytes, "peak_memory_bytes": peak,
+           "profile": prof}
+    emit(rec)
+    state["blha_bf16"] = rec
+    del outs, ref, caches
+    torch.cuda.empty_cache()
+    return rec["ok"]
+
+
+def blha_records(state) -> list:
+    """The kernels line's entries of this slice's four kernels: the decode
+    kernel timed at the decode phase's bf16 MHA case, the varlen kernels at
+    the varlen phase's 7B bf16 case; launches from the main-path runs
+    (blha_bf16 on the kernels alone, and flash_attn_unpadded's autograd
+    run in bf16)."""
+    dec = state["decode"]
+    dt = dec["mha_bfloat16"]
+    vcases = state["varlen"]["cases"]
+    vt = vcases["7b_bfloat16"]
+    bl = state["blha_bf16"]["launches"]
+    auto = state["varlen"]["unpadded"]["bfloat16"]["launches"]
+    recs = [{
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas/paged_attention.py:77",
+        "tpu_kernel": "paged_attention.py::_decode_kernel",
+        "launches": bl["decode"],
+        "launches_by_phase": {
+            "blha_bf16": bl["decode"],
+            "blha_f32": state["blha_f32"]["launches"]["decode"]},
+        "max_abs_err": max(c["errors"]["abs"] for c in dec.values()),
+        "ms": dt["ms"], "plain_ms": dt["plain_ms"], "bound_ms": dt["bound_ms"],
+        "bound_by": dt["bound_by"], "library_ms": dt["library_ms"],
+        "library": "scaled_dot_product_attention over the pages gathered "
+                   "dense beforehand, a length mask",
+        "timed_shape": "B=8 H=H_kv=32 D=128 bs=64, kv lens 100..2000, "
+                       "bfloat16",
+        "by_case": {k: {f: c[f] for f in ("ms", "plain_ms", "bound_ms",
+                                          "library_ms")}
+                    for k, c in dec.items()}}]
+    for kern, line, fn, err_keys, lib in (
+            ("fwd", 101, "_vfwd_kernel", ("out",), "fwd"),
+            ("dkdv", 143, "_vbwd_dkdv_kernel", ("dk", "dv"), "bwd_dq_dk_dv"),
+            ("dq", 183, "_vbwd_dq_kernel", ("dq",), "bwd_dq_dk_dv")):
+        b = vt["bound"][kern]
+        launches = auto[f"varlen_{kern}"] + (bl["varlen_fwd"] if kern == "fwd"
+                                             else 0)
+        recs.append({
+            "name": "flash_attention_varlen_" + (
+                "fwd" if kern == "fwd" else f"bwd_{kern}"),
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_varlen.cu",
+            "replaces": f"paddle_tpu/ops/pallas/flash_attention_varlen.py:"
+                        f"{line}",
+            "tpu_kernel": f"flash_attention_varlen.py::{fn}",
+            "launches": launches,
+            "launches_by_phase": {
+                "flash_attn_unpadded_bf16": auto[f"varlen_{kern}"],
+                "blha_bf16": bl[f"varlen_{kern}"],
+                "blha_f32": state["blha_f32"]["launches"][f"varlen_{kern}"]},
+            "max_abs_err": max(c["errors"][e]["abs"] for c in vcases.values()
+                               for e in err_keys),
+            "ms": vt["ms"][kern], "plain_ms": vt["plain_ms"][kern],
+            "bound_ms": b["ms"], "bound_by": b["by"],
+            "library_ms": vt["library_ms"][lib],
+            "library": vt["library"] + (" forward" if kern == "fwd" else
+                                        " backward (dq, dk and dv together)"),
+            "timed_shape": "8 packed causal sequences, 8,192 tokens, H=32 "
+                           "D=128, bfloat16",
+            "by_case": {name: {"ms": c["ms"][kern],
+                               "bound_ms": c["bound"][kern]["ms"]}
+                        for name, c in vcases.items()}})
+    return recs
+
+
 def flash_records(state) -> list:
     """The kernels line's flash attention entries, timed at the trainer's
     attention in bf16 (flash phase), with launches from train_bf16's run
@@ -1674,7 +2584,8 @@ def kernel_records(state) -> list:
         "timed_shape": "M=8 K=4096 N=11008 int8, bfloat16 x",
         "by_shape": {k: {f: c[f] for f in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")}
-                     for k, c in qmm.items()}}] + flash_records(state)
+                     for k, c in qmm.items()}}] + flash_records(state) + \
+        blha_records(state)
 
 
 def main() -> int:
@@ -1716,13 +2627,17 @@ def main() -> int:
                      ("kernel_q8", phase_kernel_q8),
                      ("qmm", phase_qmm),
                      ("flash", phase_flash),
+                     ("decode", phase_decode),
+                     ("varlen", phase_varlen),
                      ("engine_f32", phase_engine_f32),
                      ("engine_quant_f32", phase_engine_quant_f32),
                      ("engine_bf16", phase_engine_bf16),
                      ("engine_w8kv8", phase_engine_w8kv8),
                      ("engine_w4", phase_engine_w4),
                      ("train_f32", phase_train_f32),
-                     ("train_bf16", phase_train_bf16)):
+                     ("train_bf16", phase_train_bf16),
+                     ("blha_f32", phase_blha_f32),
+                     ("blha_bf16", phase_blha_bf16)):
         t = time.perf_counter()
         try:
             passed = fn(state)

@@ -6,9 +6,11 @@
 // [B, Sk, Hk, D], all row-major and read in place (a tile of 64 rows of one
 // head is 64 strided runs of D contiguous elements); lse and delta are
 // [B, H, Sq] float32.  Query head j reads kv head j / G (G = H / Hk).
-// Inputs are float or bfloat16; every product sums in f32.  float inputs
-// take the first three kernels, IEEE f32 FMAs on the CUDA cores (never
-// TF32); bfloat16 inputs the last three, mma.sync on the tensor cores.
+// Inputs are float or bfloat16 at D in {64, 128, 256}; every product sums
+// in f32.  float inputs, and bfloat16 at D = 256, take the first three
+// kernels, IEEE f32 FMAs on the CUDA cores (never TF32); bfloat16 at D in
+// {64, 128} the last three, mma.sync on the tensor cores.  The device code
+// they share with the varlen kernels is in attention_common.cuh.
 //
 // Rounding points, as in the TPU kernels: q * sm_scale is rounded to the
 // input type; the forward rounds p to it before the PV product while the
@@ -20,11 +22,12 @@
 // walk the K/V tiles of their kv head up to the diagonal under causal; dK/dV
 // walks, for its 64 keys, the G query heads of its group and their query
 // tiles from the diagonal on, so the GQA group sum happens in registers.
-// The kernels mask the causal diagonal tile and the ragged sequence edge
-// themselves (S need not be a multiple of 64): a padded key gets score
-// -inf; a padded query row reads zeros and lse = +inf in the backward (so
-// its p is exactly 0) and is never written.  The heaviest blocks of the
-// causal triangle are launched first.
+// The CUDA-core kernels walk tiles of 64 rows, 32 at D = 256.  The kernels
+// mask the causal diagonal and the ragged sequence edge themselves (S need
+// not be a multiple of 64): a padded key gets score -inf; a padded query
+// row reads zeros and lse = +inf in the backward (so its p is exactly 0)
+// and is never written.  The heaviest blocks of the causal triangle are
+// launched first.
 //
 // What bounds them on this card: operations.  At the trainer's shape
 // (B 2, S 2048, H 16, Hk 4, D 64) the causal forward does 17.2 GFLOP on
@@ -40,158 +43,40 @@
 // 256 blocks at the trainer's shape, the first walking 32 times the query
 // tiles of the last) split further.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "attention_common.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// float on the CUDA cores
+// CUDA cores: float at every D, bfloat16 at D = 256
 //
-// A block is 256 threads, (ty, tx) = (tid / 16, tid % 16).  Every operand
-// tile is 64 rows, held in shared memory as f32 with a row stride of D + 1
-// floats, so the column reads of the products below fall on distinct
-// banks.  A 64 x 64 score tile is split into 4 x 4 micro-tiles, thread
-// (ty, tx) owning rows ty + 16 i and columns tx + 16 j; a 64 x D output tile
-// into 4 x D/16 micro-tiles, rows ty + 16 i and columns tx + 16 j.  A row's
-// 16 owners are one half-warp, so row maxima and sums are four shuffles.
+// Operands widened to f32 in shared memory (attention_common.cuh's layout:
+// row stride D + 1, 4 x N/16 micro-tiles a thread); the rounding points
+// are explicit round_to<T> calls, identities for float.
 // ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int kTile = 64;           // query rows and keys per tile
-constexpr int kPStride = kTile + 1;  // row stride of a 64 x 64 f32 tile
-
-// reductions over the 16 lanes of a half-warp (the 16 owners of a row)
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Copy rows [0, rows) of a 64-row tile (row r at src + r * stride) into
-// shared memory with row stride D + 1, zeros past `rows`; with kScale each
-// element is multiplied by `scale`.  16-byte global loads.
-template <int D, bool kScale>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const float* __restrict__ src,
-                                          size_t stride, int rows,
-                                          float scale) {
-  constexpr int kVecsPerRow = D / 4;
-  for (int i = threadIdx.x; i < kTile * kVecsPerRow; i += kThreads) {
-    const int r = i / kVecsPerRow;
-    const int c = (i - r * kVecsPerRow) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows)
-      x = *reinterpret_cast<const float4*>(src + (size_t)r * stride + c);
-    if (kScale) {
-      x.x *= scale;
-      x.y *= scale;
-      x.z *= scale;
-      x.w *= scale;
-    }
-    float* d = dst + r * (D + 1) + c;
-    d[0] = x.x;
-    d[1] = x.y;
-    d[2] = x.z;
-    d[3] = x.w;
-  }
-}
-
-// acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d]: a 64 x 64 tile of
-// A . B^T, A and B [64, D] in shared memory (stride D + 1)
-template <int D>
-__device__ __forceinline__ void mm_abt(float (&acc)[4][4],
-                                       const float* __restrict__ A,
-                                       const float* __restrict__ B, int ty,
-                                       int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_k P[ty + 16 i][k] * V[k][tx + 16 j]: a 64 x D tile of
-// P . V, P [64, 64] (stride 65) and V [64, D] (stride D + 1)
-template <int D>
-__device__ __forceinline__ void mm_ab(float (&acc)[4][D / 16],
-                                      const float* __restrict__ P,
-                                      const float* __restrict__ V, int ty,
-                                      int tx) {
-#pragma unroll 4
-  for (int k = 0; k < kTile; ++k) {
-    float a[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = P[(ty + 16 * i) * kPStride + k];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      const float b = V[k * (D + 1) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
-    }
-  }
-}
-
-// Write rows [0, rows) of a 64 x D micro-tiled accumulator.
-template <int D>
-__device__ __forceinline__ void store_tile(float* __restrict__ dst,
-                                           size_t stride, int rows,
-                                           const float (&acc)[4][D / 16],
-                                           int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r < rows) {
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j)
-        dst[(size_t)r * stride + tx + 16 * j] = acc[i][j];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // forward
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py :: _fwd_kernel.  One
 // block per (64-row query tile, b * H + h); the query tile (pre-scaled)
-// stays in shared memory while the block walks the 64-key K/V tiles of kv
+// stays in shared memory while the block walks the NB-key K/V tiles of kv
 // head h / G, up to the diagonal under causal, with an online
 // softmax whose running max m, sum l and accumulator stay in f32 registers.
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <typename T, int D, int NB>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int Sq, int Sk, int H, int Hk,
                  int causal, float scale) {
   constexpr int kS = D + 1;
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                 // [64, D]
-  float* k_s = q_s + kTile * kS;     // [64, D]
-  float* v_s = k_s + kTile * kS;     // [64, D]
-  float* p_s = v_s + kTile * kS;     // [64, 64]
+  float* k_s = q_s + kTile * kS;     // [NB, D]
+  float* v_s = k_s + NB * kS;        // [NB, D]
+  float* p_s = v_s + NB * kS;        // [64, NB]
 
   const int n_qt = (Sq + kTile - 1) / kTile;
   const int qt = n_qt - 1 - blockIdx.x;   // longest causal rows first
@@ -202,10 +87,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = qt * kTile;
   const int q_rows = min(kTile, Sq - q0);
 
-  const float* q_base = q + (((size_t)b * Sq + q0) * H + h) * D;
-  const float* k_base = k + ((size_t)b * Sk * Hk + hk) * D;
-  const float* v_base = v + ((size_t)b * Sk * Hk + hk) * D;
-  load_tile<D, true>(q_s, q_base, (size_t)H * D, q_rows, scale);
+  const T* q_base = q + (((size_t)b * Sq + q0) * H + h) * D;
+  const T* k_base = k + ((size_t)b * Sk * Hk + hk) * D;
+  const T* v_base = v + ((size_t)b * Sk * Hk + hk) * D;
+  load_tile<T, D, kTile, true>(q_s, q_base, (size_t)H * D, q_rows, scale);
 
   float acc[4][D / 16], m[4], l[4];
 #pragma unroll
@@ -216,39 +101,41 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
   }
 
-  const int n_kt = (Sk + kTile - 1) / kTile;
-  const int kt_end = causal ? min(qt + 1, n_kt) : n_kt;
+  const int n_kt = (Sk + NB - 1) / NB;
+  const int kt_end = causal ? min((q0 + kTile - 1) / NB + 1, n_kt) : n_kt;
   for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kTile;
+    const int k0 = kt * NB;
     __syncthreads();                 // the previous tile's PV is done
-    load_tile<D, false>(k_s, k_base + (size_t)k0 * Hk * D,
-                           (size_t)Hk * D, min(kTile, Sk - k0), 0.f);
-    load_tile<D, false>(v_s, v_base + (size_t)k0 * Hk * D,
-                           (size_t)Hk * D, min(kTile, Sk - k0), 0.f);
+    load_tile<T, D, NB>(k_s, k_base + (size_t)k0 * Hk * D, (size_t)Hk * D,
+                        Sk - k0);
+    load_tile<T, D, NB>(v_s, v_base + (size_t)k0 * Hk * D, (size_t)Hk * D,
+                        Sk - k0);
     __syncthreads();
 
-    float s[4][4];
-    mm_abt<D>(s, q_s, k_s, ty, tx);
-    if ((causal && kt == qt) || k0 + kTile > Sk) {
+    float s[4][NB / 16];
+    mm_abt<D, NB>(s, q_s, k_s, ty, tx);
+    if ((causal && k0 + NB - 1 > q0) || k0 + NB > Sk) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < NB / 16; ++j) {
           const int qp = q0 + ty + 16 * i, kp = k0 + tx + 16 * j;
           if ((causal && kp > qp) || kp >= Sk) s[i][j] = -INFINITY;
         }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NB / 16; ++j) mx = fmaxf(mx, s[i][j]);
       const float m_new = fmaxf(m[i], row_max(mx));
       const float m_use = m_new == -INFINITY ? 0.f : m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < NB / 16; ++j) {
         const float p = expf(s[i][j] - m_use);
         sum += p;
-        p_s[(ty + 16 * i) * kPStride + tx + 16 * j] = p;
+        p_s[(ty + 16 * i) * (NB + 1) + tx + 16 * j] = round_to<T>(p);
       }
       const float alpha = expf(m[i] - m_use);
       l[i] = alpha * l[i] + row_sum(sum);
@@ -257,7 +144,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < D / 16; ++j) acc[i][j] *= alpha;
     }
     __syncthreads();
-    mm_ab<D>(acc, p_s, v_s, ty, tx);
+    mm_ab<D, NB>(acc, p_s, v_s, ty, tx);
   }
 
   // out = acc / l, divided as the TPU kernel divides
@@ -268,7 +155,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < D / 16; ++j)
         out[(((size_t)b * Sq + q0 + r) * H + h) * D + tx + 16 * j] =
-            acc[i][j] / l[i];
+            from_f<T>(acc[i][j] / l[i]);
       if (tx == 0) lse[(size_t)bh * Sq + q0 + r] = m[i] + logf(l[i]);
     }
   }
@@ -280,30 +167,30 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // Replaces paddle_tpu/ops/pallas/flash_attention.py :: _bwd_dkdv_kernel and
 // the XLA group sum after it.  One block per (64-key tile, b * Hk + hk); the
 // key and value tiles stay in shared memory while the block loops over the
-// group's G query heads and, for each, over the query tiles from the
+// group's G query heads and, for each, over the NQ-row query tiles from the
 // diagonal on (all of them without causal), accumulating dK and dV for the
 // whole group in f32 registers.  So the TPU path's [B*H, S, D] f32 partials
 // never exist, no atomics are needed, and the summation order is fixed.
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <typename T, int D, int NQ>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dout,
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dk,
-                      float* __restrict__ dv, int Sq, int Sk, int H, int Hk,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, int Sq, int Sk, int H, int Hk,
                       int causal, float scale) {
   constexpr int kS = D + 1;
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;                 // [64 keys, D]
   float* v_s = k_s + kTile * kS;     // [64 keys, D]
-  float* q_s = v_s + kTile * kS;     // [64 queries, D], scaled
-  float* do_s = q_s + kTile * kS;    // [64 queries, D]
-  float* pt_s = do_s + kTile * kS;   // [64 keys, 64 queries]: p
-  float* dst_s = pt_s + kTile * kPStride;  // dS
-  float* lse_s = dst_s + kTile * kPStride; // [64]
-  float* delta_s = lse_s + kTile;          // [64]
+  float* q_s = v_s + kTile * kS;     // [NQ queries, D], scaled
+  float* do_s = q_s + NQ * kS;       // [NQ queries, D]
+  float* pt_s = do_s + NQ * kS;      // [64 keys, NQ queries]: p
+  float* dst_s = pt_s + kTile * (NQ + 1);  // dS
+  float* lse_s = dst_s + kTile * (NQ + 1); // [NQ]
+  float* delta_s = lse_s + NQ;             // [NQ]
 
   const int kt = blockIdx.x;         // key tile 0 has the most query tiles
   const int bhk = blockIdx.y;
@@ -313,10 +200,10 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = kt * kTile;
   const int k_rows = min(kTile, Sk - k0);
 
-  load_tile<D, false>(k_s, k + (((size_t)b * Sk + k0) * Hk + hk) * D,
-                         (size_t)Hk * D, k_rows, 0.f);
-  load_tile<D, false>(v_s, v + (((size_t)b * Sk + k0) * Hk + hk) * D,
-                         (size_t)Hk * D, k_rows, 0.f);
+  load_tile<T, D, kTile>(k_s, k + (((size_t)b * Sk + k0) * Hk + hk) * D,
+                         (size_t)Hk * D, k_rows);
+  load_tile<T, D, kTile>(v_s, v + (((size_t)b * Sk + k0) * Hk + hk) * D,
+                         (size_t)Hk * D, k_rows);
 
   float dk_acc[4][D / 16], dv_acc[4][D / 16];
 #pragma unroll
@@ -324,51 +211,50 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  const int n_qt = (Sq + kTile - 1) / kTile;
+  const int n_qt = (Sq + NQ - 1) / NQ;
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
     const size_t row = (size_t)b * H + h;   // lse/delta row
-    for (int qt = causal ? kt : 0; qt < n_qt; ++qt) {
-      const int q0 = qt * kTile;
-      const int q_rows = min(kTile, Sq - q0);
+    for (int qt = causal ? k0 / NQ : 0; qt < n_qt; ++qt) {
+      const int q0 = qt * NQ;
+      const int q_rows = min(NQ, Sq - q0);
       __syncthreads();               // the previous tile's products are done
-      load_tile<D, true>(q_s, q + (((size_t)b * Sq + q0) * H + h) * D,
-                            (size_t)H * D, q_rows, scale);
-      load_tile<D, false>(do_s,
-                             dout + (((size_t)b * Sq + q0) * H + h) * D,
-                             (size_t)H * D, q_rows, 0.f);
-      if (tid < kTile) {
+      load_tile<T, D, NQ, true>(q_s, q + (((size_t)b * Sq + q0) * H + h) * D,
+                                (size_t)H * D, q_rows, scale);
+      load_tile<T, D, NQ>(do_s, dout + (((size_t)b * Sq + q0) * H + h) * D,
+                          (size_t)H * D, q_rows);
+      if (tid < NQ) {
         const bool ok = tid < q_rows;
         lse_s[tid] = ok ? lse[row * Sq + q0 + tid] : INFINITY;
         delta_s[tid] = ok ? delta[row * Sq + q0 + tid] : 0.f;
       }
       __syncthreads();
 
-      float st[4][4], dpt[4][4];
-      mm_abt<D>(st, k_s, q_s, ty, tx);      // [keys, queries]
-      mm_abt<D>(dpt, v_s, do_s, ty, tx);
-      const bool diag = causal && qt == kt;
+      float st[4][NQ / 16], dpt[4][NQ / 16];
+      mm_abt<D, NQ>(st, k_s, q_s, ty, tx);    // [keys, queries]
+      mm_abt<D, NQ>(dpt, v_s, do_s, ty, tx);
+      const bool diag = causal && q0 < k0 + kTile - 1;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < NQ / 16; ++j) {
           const int qc = tx + 16 * j;
           float s = st[i][j];
           if (diag && q0 + qc < k0 + ty + 16 * i) s = -INFINITY;
           const float p = expf(s - lse_s[qc]);
           const float ds = p * (dpt[i][j] - delta_s[qc]);
-          pt_s[(ty + 16 * i) * kPStride + qc] = p;
-          dst_s[(ty + 16 * i) * kPStride + qc] = ds;
+          pt_s[(ty + 16 * i) * (NQ + 1) + qc] = round_to<T>(p);
+          dst_s[(ty + 16 * i) * (NQ + 1) + qc] = round_to<T>(ds);
         }
       __syncthreads();
-      mm_ab<D>(dv_acc, pt_s, do_s, ty, tx);
-      mm_ab<D>(dk_acc, dst_s, q_s, ty, tx);
+      mm_ab<D, NQ>(dv_acc, pt_s, do_s, ty, tx);
+      mm_ab<D, NQ>(dk_acc, dst_s, q_s, ty, tx);
     }
   }
 
   const size_t off = (((size_t)b * Sk + k0) * Hk + hk) * D;
-  store_tile<D>(dk + off, (size_t)Hk * D, k_rows, dk_acc, ty, tx);
-  store_tile<D>(dv + off, (size_t)Hk * D, k_rows, dv_acc, ty, tx);
+  store_tile<T, D>(dk + off, (size_t)Hk * D, k_rows, dk_acc, ty, tx);
+  store_tile<T, D>(dv + off, (size_t)Hk * D, k_rows, dv_acc, ty, tx);
 }
 
 // ---------------------------------------------------------------------------
@@ -376,26 +262,27 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py :: _bwd_dq_kernel.  One
 // block per (64-row query tile, b * H + h); the query, dout, lse and delta
-// tiles stay in shared memory while the block walks the K/V tiles of its kv
-// head up to the diagonal.  After the scores and dP of a tile are taken,
-// the K tile is rescaled in place to k * sm_scale for the dQ product.
+// tiles stay in shared memory while the block walks the NK-key K/V tiles of
+// its kv head up to the diagonal.  After the scores and dP of a tile are
+// taken, the K tile is rescaled in place to k * sm_scale (rounded) for the
+// dQ product.
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <typename T, int D, int NK>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
+                    const float* __restrict__ delta, T* __restrict__ dq,
                     int Sq, int Sk, int H, int Hk, int causal, float scale) {
   constexpr int kS = D + 1;
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                 // [64 queries, D], scaled
   float* do_s = q_s + kTile * kS;    // [64 queries, D]
-  float* k_s = do_s + kTile * kS;    // [64 keys, D]
-  float* v_s = k_s + kTile * kS;     // [64 keys, D]
-  float* ds_s = v_s + kTile * kS;    // [64 queries, 64 keys]: dS
-  float* lse_s = ds_s + kTile * kPStride;  // [64]
+  float* k_s = do_s + kTile * kS;    // [NK keys, D]
+  float* v_s = k_s + NK * kS;        // [NK keys, D]
+  float* ds_s = v_s + NK * kS;       // [64 queries, NK keys]: dS
+  float* lse_s = ds_s + kTile * (NK + 1);  // [64]
   float* delta_s = lse_s + kTile;          // [64]
 
   const int n_qt = (Sq + kTile - 1) / kTile;
@@ -408,8 +295,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q_rows = min(kTile, Sq - q0);
 
   const size_t q_off = (((size_t)b * Sq + q0) * H + h) * D;
-  load_tile<D, true>(q_s, q + q_off, (size_t)H * D, q_rows, scale);
-  load_tile<D, false>(do_s, dout + q_off, (size_t)H * D, q_rows, 0.f);
+  load_tile<T, D, kTile, true>(q_s, q + q_off, (size_t)H * D, q_rows, scale);
+  load_tile<T, D, kTile>(do_s, dout + q_off, (size_t)H * D, q_rows);
   if (tid < kTile) {
     const bool ok = tid < q_rows;   // padded rows: finite, never written
     lse_s[tid] = ok ? lse[(size_t)bh * Sq + q0 + tid] : 0.f;
@@ -422,193 +309,59 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
 
-  const float* k_base = k + ((size_t)b * Sk * Hk + hk) * D;
-  const float* v_base = v + ((size_t)b * Sk * Hk + hk) * D;
-  const int n_kt = (Sk + kTile - 1) / kTile;
-  const int kt_end = causal ? min(qt + 1, n_kt) : n_kt;
+  const T* k_base = k + ((size_t)b * Sk * Hk + hk) * D;
+  const T* v_base = v + ((size_t)b * Sk * Hk + hk) * D;
+  const int n_kt = (Sk + NK - 1) / NK;
+  const int kt_end = causal ? min((q0 + kTile - 1) / NK + 1, n_kt) : n_kt;
   for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kTile;
+    const int k0 = kt * NK;
     __syncthreads();                 // the previous tile's dQ product is done
-    load_tile<D, false>(k_s, k_base + (size_t)k0 * Hk * D,
-                           (size_t)Hk * D, min(kTile, Sk - k0), 0.f);
-    load_tile<D, false>(v_s, v_base + (size_t)k0 * Hk * D,
-                           (size_t)Hk * D, min(kTile, Sk - k0), 0.f);
+    load_tile<T, D, NK>(k_s, k_base + (size_t)k0 * Hk * D, (size_t)Hk * D,
+                        Sk - k0);
+    load_tile<T, D, NK>(v_s, v_base + (size_t)k0 * Hk * D, (size_t)Hk * D,
+                        Sk - k0);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
-    mm_abt<D>(s, q_s, k_s, ty, tx);        // [queries, keys]
-    mm_abt<D>(dp, do_s, v_s, ty, tx);
-    const bool masked = (causal && kt == qt) || k0 + kTile > Sk;
+    float s[4][NK / 16], dp[4][NK / 16];
+    mm_abt<D, NK>(s, q_s, k_s, ty, tx);        // [queries, keys]
+    mm_abt<D, NK>(dp, do_s, v_s, ty, tx);
+    const bool masked = (causal && k0 + NK - 1 > q0) || k0 + NK > Sk;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qr = ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < NK / 16; ++j) {
         const int kc = tx + 16 * j;
         float sv = s[i][j];
         if (masked && ((causal && k0 + kc > q0 + qr) || k0 + kc >= Sk))
           sv = -INFINITY;
         const float p = expf(sv - lse_s[qr]);
-        ds_s[qr * kPStride + kc] = p * (dp[i][j] - delta_s[qr]);
+        ds_s[qr * (NK + 1) + kc] = round_to<T>(p * (dp[i][j] - delta_s[qr]));
       }
     }
     __syncthreads();
-    // K tile -> k * sm_scale, in place
-    for (int i = tid; i < kTile * D; i += kThreads) {
+    // K tile -> k * sm_scale rounded to T, in place
+    for (int i = tid; i < NK * D; i += kThreads) {
       const int r = i / D, c = i - r * D;
-      k_s[r * kS + c] = k_s[r * kS + c] * scale;
+      k_s[r * kS + c] = round_to<T>(k_s[r * kS + c] * scale);
     }
     __syncthreads();
-    mm_ab<D>(acc, ds_s, k_s, ty, tx);
+    mm_ab<D, NK>(acc, ds_s, k_s, ty, tx);
   }
 
-  store_tile<D>(dq + q_off, (size_t)H * D, q_rows, acc, ty, tx);
+  store_tile<T, D>(dq + q_off, (size_t)H * D, q_rows, acc, ty, tx);
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16 on the tensor cores (D in {64, 128})
 //
 // For bf16 inputs every product above runs as mma.sync.m16n8k16 (bf16
-// operands, f32 accumulators).  The TPU kernels' rounding points are
-// exactly the operands' type here: q * sm_scale, p and dS are rounded to
-// bf16 because that is what the tensor core takes, and every sum is f32.
-// A block is 4 warps; warp w owns 16 rows (queries in the forward and dQ,
-// keys in dK/dV) of the block's 64, and keeps its accumulators in the
-// mma.sync C layout: thread (g = lane / 4, t = lane % 4) holds rows g and
-// g + 8, columns 2t and 2t + 1 of each 8-wide n-tile.  A score tile in
-// that layout is already the A operand of the next product once packed to
-// bf16 pairs (the FA2 register trick), so p and dS never touch shared
-// memory.  Tiles sit in shared memory as bf16 with rows padded by 8
-// elements (every 32-bit fragment load of a warp hits 32 distinct banks);
-// an operand read along its rows by one product and along its columns by
-// another is stored twice, once transposed.
+// operands, f32 accumulators; attention_common.cuh's fragment layout).  The
+// TPU kernels' rounding points are exactly the operands' type here: q *
+// sm_scale, p and dS are rounded to bf16 because that is what the tensor
+// core takes, and every sum is f32.  Warp w owns 16 rows (queries in the
+// forward and dQ, keys in dK/dV) of the block's 64.
 // ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-constexpr int kMmaThreads = 128;     // 4 warps x 16 rows = one 64-row tile
-constexpr int kLdT = kTile + 8;      // row stride of a transposed tile
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a . b for one m16n8k16 tile (a row-major 16 x 16, b 16 x 8)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment (16 rows x 16 of k) at rows [r, r + 16), columns
-// [c, c + 16) of a row-major bf16 tile with row stride ld.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld,
-                                       int r, int c, int g, int t) {
-  const bf16* p = s + (r + g) * ld + c + 2 * t;
-  a[0] = lds32(p);
-  a[1] = lds32(p + 8 * ld);
-  a[2] = lds32(p + 8);
-  a[3] = lds32(p + 8 * ld + 8);
-}
-
-// acc[n][.] += A . B^T over n-tiles n of 8 rows of B: A is the warp's 16
-// rows at row r of a (row-major, stride lda), B rows [n0 + 8 n, ...) of b
-// (row-major, stride ldb), the shared dimension K long.
-template <int K, int N>
-__device__ __forceinline__ void mma_abt(float (&acc)[N][4], const bf16* a,
-                                        int lda, int r, const bf16* b, int ldb,
-                                        int n0, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t af[4];
-    load_a(af, a, lda, r, kk * 16, g, t);
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const bf16* p = b + (n0 + 8 * n + g) * ldb + kk * 16 + 2 * t;
-      mma_bf16(acc[n], af, lds32(p), lds32(p + 8));
-    }
-  }
-}
-
-// acc[n][.] += P . B over n-tiles of 8 columns: P the warp's 16 x (16 KS)
-// operand as packed A fragments, B^T given transposed (bt[col][k], stride
-// ldt) from k offset k0.
-template <int KS, int N>
-__device__ __forceinline__ void mma_pb(float (&acc)[N][4],
-                                       const uint32_t (&pa)[KS][4],
-                                       const bf16* bt, int ldt, int k0, int g,
-                                       int t) {
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const bf16* p = bt + (8 * n + g) * ldt + k0 + kk * 16 + 2 * t;
-      mma_bf16(acc[n], pa[kk], lds32(p), lds32(p + 8));
-    }
-  }
-}
-
-// Pack a 16 x (16 KS) tile held in C layout (x[2 kk + h][.]) into A
-// fragments of the next product.
-template <int KS>
-__device__ __forceinline__ void to_a(uint32_t (&pa)[KS][4],
-                                     const float (&x)[2 * KS][4]) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    pa[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    pa[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    pa[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    pa[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-  }
-}
-
-// Copy rows [0, rows) of a 64-row bf16 tile (row r at src + r * stride)
-// into shared memory, zeros past `rows`; with kScale each element becomes
-// (x * scale) rounded to bf16.  Row-major (dst[r][c], stride D + 8) or,
-// with kTrans, transposed (dst[c][r], stride kLdT).
-template <int D, bool kScale, bool kTrans>
-__device__ __forceinline__ void load_bf16(bf16* __restrict__ dst,
-                                          const bf16* __restrict__ src,
-                                          size_t stride, int rows,
-                                          float scale) {
-  constexpr int kVecs = D / 8;
-  for (int i = threadIdx.x; i < kTile * kVecs; i += kMmaThreads) {
-    const int r = i / kVecs;
-    const int c = (i - r * kVecs) * 8;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows)
-      raw = *reinterpret_cast<const uint4*>(src + (size_t)r * stride + c);
-    bf16* e = reinterpret_cast<bf16*>(&raw);
-    if (kScale) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * scale);
-    }
-    if (kTrans) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst[(c + j) * kLdT + r] = e[j];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = raw;
-    }
-  }
-}
-
-// max and sum over the 4 lanes that share a row of the C layout
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // Forward, bf16: the design of flash_fwd_kernel, products on the tensor
 // cores.  Each warp keeps its 16 query rows' running max, sum and 16 x D
@@ -942,19 +695,19 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // dynamic shared memory of each kernel, in bytes
-template <int D>
+template <int D, int NB>
 constexpr size_t fwd_smem() {
-  return (3 * (size_t)kTile * (D + 1) + (size_t)kTile * kPStride) *
+  return ((size_t)(kTile + 2 * NB) * (D + 1) + (size_t)kTile * (NB + 1)) *
          sizeof(float);
 }
-template <int D>
+template <int D, int NQ>
 constexpr size_t dkdv_smem() {
-  return (4 * (size_t)kTile * (D + 1) + 2 * (size_t)kTile * kPStride +
-          2 * kTile) * sizeof(float);
+  return ((size_t)(2 * kTile + 2 * NQ) * (D + 1) +
+          2 * (size_t)kTile * (NQ + 1) + 2 * NQ) * sizeof(float);
 }
-template <int D>
+template <int D, int NK>
 constexpr size_t dq_smem() {
-  return (4 * (size_t)kTile * (D + 1) + (size_t)kTile * kPStride +
+  return ((size_t)(2 * kTile + 2 * NK) * (D + 1) + (size_t)kTile * (NK + 1) +
           2 * kTile) * sizeof(float);
 }
 template <int D>
@@ -971,50 +724,22 @@ constexpr size_t dq_mma_smem() {
   return (4 * (size_t)kTile * (D + 8) + (size_t)D * kLdT) * sizeof(bf16);
 }
 
-// Launch one kernel after raising its dynamic shared memory limit where it
-// needs more than 48 KB; returns the first CUDA error (0 on success).
-template <typename K, typename... Args>
-int launch(K kern, dim3 grid, int threads, size_t smem, cudaStream_t stream,
-           Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kern<<<grid, threads, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-// float inputs take the CUDA-core kernels, bf16 the tensor-core ones
-template <typename T>
-constexpr bool kMma = std::is_same<T, bf16>::value;
-
-template <typename T, int D>
-auto fwd_kernel() {
-  if constexpr (kMma<T>) return flash_fwd_mma_kernel<D>;
-  else return flash_fwd_kernel<D>;
-}
-template <typename T, int D>
-auto dkdv_kernel() {
-  if constexpr (kMma<T>) return flash_bwd_dkdv_mma_kernel<D>;
-  else return flash_bwd_dkdv_kernel<D>;
-}
-template <typename T, int D>
-auto dq_kernel() {
-  if constexpr (kMma<T>) return flash_bwd_dq_mma_kernel<D>;
-  else return flash_bwd_dq_kernel<D>;
-}
-
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                void* lse, int B, int Sq, int Sk, int H, int Hk, int causal,
                float scale, cudaStream_t stream) {
-  return launch(fwd_kernel<T, D>(), dim3((Sq + kTile - 1) / kTile, B * H),
-                kMma<T> ? kMmaThreads : kThreads,
-                kMma<T> ? fwd_mma_smem<D>() : fwd_smem<D>(), stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<T*>(out),
-                static_cast<float*>(lse), Sq, Sk, H, Hk, causal, scale);
+  const dim3 grid((Sq + kTile - 1) / kTile, B * H);
+  auto args = [&](auto kern, int threads, size_t smem) {
+    return launch(kern, grid, threads, smem, stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<T*>(out),
+                  static_cast<float*>(lse), Sq, Sk, H, Hk, causal, scale);
+  };
+  if constexpr (kMma<T, D>)
+    return args(flash_fwd_mma_kernel<D>, kMmaThreads, fwd_mma_smem<D>());
+  else
+    return args(flash_fwd_kernel<T, D, walk<D>()>, kThreads,
+                fwd_smem<D, walk<D>()>());
 }
 
 template <typename T, int D>
@@ -1022,14 +747,21 @@ int launch_dkdv(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 void* dk, void* dv, int B, int Sq, int Sk, int H, int Hk,
                 int causal, float scale, cudaStream_t stream) {
-  return launch(dkdv_kernel<T, D>(), dim3((Sk + kTile - 1) / kTile, B * Hk),
-                kMma<T> ? kMmaThreads : kThreads,
-                kMma<T> ? dkdv_mma_smem<D>() : dkdv_smem<D>(), stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const T*>(dout),
-                static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<T*>(dk),
-                static_cast<T*>(dv), Sq, Sk, H, Hk, causal, scale);
+  const dim3 grid((Sk + kTile - 1) / kTile, B * Hk);
+  auto args = [&](auto kern, int threads, size_t smem) {
+    return launch(kern, grid, threads, smem, stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<const T*>(dout),
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), static_cast<T*>(dk),
+                  static_cast<T*>(dv), Sq, Sk, H, Hk, causal, scale);
+  };
+  if constexpr (kMma<T, D>)
+    return args(flash_bwd_dkdv_mma_kernel<D>, kMmaThreads,
+                dkdv_mma_smem<D>());
+  else
+    return args(flash_bwd_dkdv_kernel<T, D, walk<D>()>, kThreads,
+                dkdv_smem<D, walk<D>()>());
 }
 
 template <typename T, int D>
@@ -1037,23 +769,29 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int Sq,
               int Sk, int H, int Hk, int causal, float scale,
               cudaStream_t stream) {
-  return launch(dq_kernel<T, D>(), dim3((Sq + kTile - 1) / kTile, B * H),
-                kMma<T> ? kMmaThreads : kThreads,
-                kMma<T> ? dq_mma_smem<D>() : dq_smem<D>(), stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const T*>(dout),
-                static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<T*>(dq), Sq, Sk,
-                H, Hk, causal, scale);
+  const dim3 grid((Sq + kTile - 1) / kTile, B * H);
+  auto args = [&](auto kern, int threads, size_t smem) {
+    return launch(kern, grid, threads, smem, stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<const T*>(dout),
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), static_cast<T*>(dq), Sq,
+                  Sk, H, Hk, causal, scale);
+  };
+  if constexpr (kMma<T, D>)
+    return args(flash_bwd_dq_mma_kernel<D>, kMmaThreads, dq_mma_smem<D>());
+  else
+    return args(flash_bwd_dq_kernel<T, D, walk<D>()>, kThreads,
+                dq_smem<D, walk<D>()>());
 }
 
 }  // namespace
 
 // C entries, bound with ctypes by paddle_tpu_torch/ops/flash_attention.py,
 // which has already checked shapes, types, contiguity and alignment: D in
-// {64, 128}, H % Hk == 0, Sq == Sk under causal, Sq, Sk >= 1.  dtype: 0 =
-// float32, 1 = bfloat16.  Each returns cudaGetLastError() after its launch
-// (0 on success).
+// {64, 128, 256}, H % Hk == 0, Sq == Sk under causal, Sq, Sk >= 1.  dtype:
+// 0 = float32, 1 = bfloat16.  Each returns cudaGetLastError() after its
+// launch (0 on success).
 
 #define PADDLE_FA_DISPATCH(LAUNCH, ...)                                     \
   do {                                                                      \
@@ -1061,10 +799,10 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
     cudaStream_t s = static_cast<cudaStream_t>(stream);                     \
     if (dtype == 0 && D == 64) return LAUNCH<float, 64>(__VA_ARGS__, s);    \
     if (dtype == 0 && D == 128) return LAUNCH<float, 128>(__VA_ARGS__, s);  \
-    if (dtype == 1 && D == 64)                                              \
-      return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__, s);                     \
-    if (dtype == 1 && D == 128)                                             \
-      return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__, s);                    \
+    if (dtype == 0 && D == 256) return LAUNCH<float, 256>(__VA_ARGS__, s);  \
+    if (dtype == 1 && D == 64) return LAUNCH<bf16, 64>(__VA_ARGS__, s);     \
+    if (dtype == 1 && D == 128) return LAUNCH<bf16, 128>(__VA_ARGS__, s);   \
+    if (dtype == 1 && D == 256) return LAUNCH<bf16, 256>(__VA_ARGS__, s);   \
     return (int)cudaErrorInvalidValue;                                      \
   } while (0)
 

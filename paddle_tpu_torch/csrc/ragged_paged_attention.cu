@@ -36,6 +36,18 @@
 // core tile, via wgmma), double-buffer the page tiles with TMA/cp.async, and
 // split long rows over several blocks for decode.  The TPU's pages_per_step
 // grid dimension has no counterpart: the key walk is a loop in the block.
+//
+// Paged decode (kDecode = true) replaces paddle_tpu/ops/pallas/
+// paged_attention.py :: _decode_kernel (launched by _paged_decode_launch),
+// which serves block_multihead_attention's decode.  It is the same walk
+// with one query token per row: block (b, h) takes row b of the block table
+// and reads lengths[b] keys, which is the ragged mask keypos <= rel with
+// seg = b and rel = lengths[b] - 1, so no seg/rel arrays are built.  The
+// TPU kernel's rounding points are the ragged kernel's (q * scale and p
+// rounded to the storage type), and it too reads only live pages (the TPU
+// kernel copies every table entry and skips the compute).  What bounds it:
+// memory bandwidth, as above; B x H_kv blocks (256 at LLaMA-7B's B 8, H_kv
+// 32) each walk a whole row, so long rows want a split over blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,7 +88,8 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <typename T, int D>
+// kDecode: block x is row x, and `rel` holds lengths (see the header)
+template <typename T, int D, bool kDecode>
 __global__ void __launch_bounds__(kThreads)
 ragged_paged_attention_kernel(const T* __restrict__ q,
                               const T* __restrict__ kc,
@@ -107,8 +120,8 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
                                                          // [kMaxG, tile_keys]
   __shared__ float m_s[kMaxG], l_s[kMaxG], alpha_s[kMaxG];
 
-  const int row = min(max(seg[t], 0), R - 1);
-  const int r = rel[t];
+  const int row = kDecode ? t : min(max(seg[t], 0), R - 1);
+  const int r = kDecode ? rel[t] - 1 : rel[t];
   const int n_keys = min(r + 1, nblk * bs);    // keys at positions <= r
   const int* bt_row = bt + (size_t)row * nblk;
 
@@ -222,7 +235,7 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDecode = false>
 int launch(const void* q, const void* kc, const void* vc, const void* bt,
            const void* seg, const void* rel, void* out, int Tq, int H,
            int Hkv, int bs, int num_blocks, int R, int nblk, float scale,
@@ -231,7 +244,7 @@ int launch(const void* q, const void* kc, const void* vc, const void* bt,
   const int tile_keys = pages_per_tile * bs;
   const size_t smem = 2 * (size_t)tile_keys * D * sizeof(T) +
                       (size_t)kMaxG * tile_keys * sizeof(float);
-  auto kern = ragged_paged_attention_kernel<T, D>;
+  auto kern = ragged_paged_attention_kernel<T, D, kDecode>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -497,5 +510,32 @@ extern "C" int paddle_ragged_paged_attention(
   if (dtype == 1 && D == 128)
     return launch<__nv_bfloat16, 128>(q, kc, vc, bt, seg, rel, out, Tq, H,
                                       Hkv, bs, num_blocks, R, nblk, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// C entry of the paged decode kernel, bound with ctypes.  q and out are
+// [B, H, D]; bt is [B, nblk] int32 (entries clamped into range in the
+// kernel); lens is [B] int32, the valid positions of each row (>= 1).  The
+// wrapper has checked what the float entry's has.
+extern "C" int paddle_paged_decode_attention(
+    const void* q, const void* kc, const void* vc, const void* bt,
+    const void* lens, void* out, int B, int H, int Hkv, int D, int bs,
+    int num_blocks, int nblk, int dtype, float scale, void* stream) {
+  if (B == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 64)
+    return launch<float, 64, true>(q, kc, vc, bt, nullptr, lens, out, B, H,
+                                   Hkv, bs, num_blocks, B, nblk, scale, s);
+  if (dtype == 0 && D == 128)
+    return launch<float, 128, true>(q, kc, vc, bt, nullptr, lens, out, B, H,
+                                    Hkv, bs, num_blocks, B, nblk, scale, s);
+  if (dtype == 1 && D == 64)
+    return launch<__nv_bfloat16, 64, true>(q, kc, vc, bt, nullptr, lens, out,
+                                           B, H, Hkv, bs, num_blocks, B, nblk,
+                                           scale, s);
+  if (dtype == 1 && D == 128)
+    return launch<__nv_bfloat16, 128, true>(q, kc, vc, bt, nullptr, lens,
+                                            out, B, H, Hkv, bs, num_blocks, B,
+                                            nblk, scale, s);
   return (int)cudaErrorInvalidValue;
 }

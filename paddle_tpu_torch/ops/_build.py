@@ -3,8 +3,9 @@
 Each kernel is one ``.cu`` file under ``paddle_tpu_torch/csrc/`` with a
 plain C entry point.  It is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library under ``<repo>/build/`` at first use, named by a hash of
-its source and flags (a changed source never loads a stale library), and
-loaded with ``ctypes``.  ``build()`` starts one ``nvcc`` per source, all
+its source, the shared headers (``csrc/*.cuh``) and the flags (a changed
+source or header never loads a stale library), and loaded with
+``ctypes``.  ``build()`` starts one ``nvcc`` per source, all
 at once, so a script that needs every kernel pays for the slowest build
 only.  Nothing here runs at import: the CPU test suite imports every
 module on a machine with no ``nvcc``.
@@ -31,6 +32,7 @@ SOURCES = {
     "ragged_paged_attention": "csrc/ragged_paged_attention.cu",
     "quant_matmul": "csrc/quant_matmul.cu",
     "flash_attention": "csrc/flash_attention.cu",
+    "flash_attention_varlen": "csrc/flash_attention_varlen.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -50,7 +52,10 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (_PKG / SOURCES[name]).read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes()
+                       for h in sorted((_PKG / "csrc").glob("*.cuh")))
+    key = hashlib.sha256(src + headers +
+                         " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 
 

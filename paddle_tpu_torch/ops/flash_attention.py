@@ -18,9 +18,10 @@ rounded to k's type for dQ; dK and dV are summed over each GQA group.
 
 ``attention(q, k, v, causal)`` applies ``FlashAttention``.  On CUDA
 tensors its forward launches the forward kernel and its backward the dK/dV
-and dQ kernels of ``paddle_tpu_torch/csrc/flash_attention.cu`` (float32 on
-the CUDA cores, bfloat16 on the tensor cores; it raises on what they do
-not take); on CPU tensors both run the plain versions.
+and dQ kernels of ``paddle_tpu_torch/csrc/flash_attention.cu`` (float32,
+and bfloat16 at head dim 256, on the CUDA cores; bfloat16 at 64 and 128 on
+the tensor cores; it raises on what they do not take, head dims past 256
+among them); on CPU tensors both run the plain versions.
 ``fwd_launch_count``, ``dkdv_launch_count`` and ``dq_launch_count`` count
 kernel launches, one per launch.
 """
@@ -43,7 +44,7 @@ dkdv_launch_count = 0
 dq_launch_count = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,422 @@
+"""Varlen (unpadded) flash attention, forward and backward: three
+hand-written CUDA kernels, their plain PyTorch versions and the autograd
+Function that ties them (counterpart of
+paddle_tpu/ops/pallas/flash_attention_varlen.py).
+
+Layout (the JAX package's, kept at every public function): sequences
+concatenated along the token axis, q ``[Tq, H, D]``, k and v ``[Tk, H,
+D]``, delimited by cumulative offsets ``cu_q`` / ``cu_k`` (``[nseq + 1]``
+int32).  Every token carries (segment, position in segment); query i sees
+key j when their segments are equal (and, under ``causal``, rel_i >=
+rel_j).  Tokens past ``cu[-1]`` of a side keep the segment ``nseq``;
+tile padding past T takes the sentinel ``nseq`` (queries) or ``nseq + 1``
+(keys), so padding never matches padding.  ``lse`` is ``[H, Tq]`` float32
+(the JAX package keeps ``[H, 1, pad_q]``).
+
+The rounding points are those of the varlen TPU kernels, which differ from
+the fixed-length ones: the scale multiplies the f32 score (q is never
+pre-scaled or rounded), p is rounded to v's type before the PV product (the
+row sum l takes the unrounded p), dS = p * (dP - delta) * scale is rounded
+to q's (k's) type for dK (dQ), and delta = rowsum(dO * O) is f32.  A query
+row with no key gives output 0 and lse -inf; the backward reads such an
+lse as 0 (its p is 0 wherever it is masked).
+
+``varlen_attention`` applies ``VarlenAttention``.  On CUDA tensors its
+forward launches the forward kernel and its backward the dK/dV and dQ
+kernels of ``paddle_tpu_torch/csrc/flash_attention_varlen.cu`` (it raises
+on what they do not take); on CPU tensors both run the plain versions.
+``use_varlen_kernel`` is the JAX package's shape rule (``use_varlen_flash``
+without its flag, probe and interpreter branch): shapes it refuses take the
+segment-masked composition, as the JAX package routes them.
+``fwd_launch_count``, ``dkdv_launch_count`` and ``dq_launch_count`` count
+kernel launches, one per launch.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["varlen_attention", "VarlenAttention", "use_varlen_kernel",
+           "segments",
+           "varlen_fwd_reference", "varlen_bwd_reference",
+           "varlen_bwd_dkdv_reference", "varlen_bwd_dq_reference",
+           "varlen_delta", "fwd_launch_count", "dkdv_launch_count",
+           "dq_launch_count"]
+
+fwd_launch_count = 0
+dkdv_launch_count = 0
+dq_launch_count = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128, 256)
+# rows of the tile a block owns (queries in the forward and dQ, keys in
+# dK/dV); the tiles it walks are 64 rows too, 32 at D = 256 (the CUDA-core
+# kernels' shared memory)
+TILE = 64
+
+
+def walk_tile(head_dim: int) -> int:
+    return 32 if head_dim == 256 else TILE
+
+
+# ---------------------------------------------------------------------------
+# segment metadata and block bounds (torch ops on the tensors' device)
+# ---------------------------------------------------------------------------
+
+def segments(cu, n):
+    """Segment id (index of the containing ``[cu[i], cu[i + 1])``
+    interval; ``nseq`` past ``cu[-1]``) and position within it of each of
+    n tokens, both int32: the one segment rule of the varlen kernels'
+    metadata, the segment-masked composition and blha's prefill."""
+    cu = cu.to(torch.int32)
+    pos = torch.arange(n, dtype=torch.int32, device=cu.device)
+    seg = torch.searchsorted(cu, pos, right=True, out_int32=True) - 1
+    return seg, pos - cu[seg.long()]
+
+
+def _segment_meta(cu, total, pad_to, pad_seg):
+    """seg[pad_to] (rows at or past ``total`` get ``pad_seg``) and
+    rel[pad_to], both int32; rel counts from the last sequence's start
+    past ``cu[-1]``, as the JAX package's."""
+    cu = cu.to(torch.int32)
+    seg, _ = segments(cu, pad_to)
+    pos = torch.arange(pad_to, dtype=torch.int32, device=cu.device)
+    seg = torch.where(pos < total, seg, pad_seg)
+    rel = pos - cu[torch.clamp(seg, 0, cu.shape[0] - 2).long()]
+    return seg.to(torch.int32), rel.to(torch.int32)
+
+
+def _clip_bounds(lo, hi, n):
+    lo = torch.clamp(lo, 0, n)
+    return lo.to(torch.int32), torch.maximum(hi, lo).clamp(max=n).to(
+        torch.int32)
+
+
+def _block_bounds_q(seg_q, rel_q, cu_k, block_q, block_k, nkb, causal):
+    """Per query block, the range [lo, hi) of key blocks it must walk
+    (int32 [nqb])."""
+    cu_k = cu_k.to(torch.int32)
+    nseq = cu_k.shape[0] - 1
+    valid = seg_q < nseq                       # pad rows contribute nothing
+    seg_c = torch.clamp(seg_q, 0, nseq - 1).long()
+    row_lo = torch.where(valid, cu_k[seg_c], 2 ** 30)
+    if causal:
+        row_hi = torch.where(valid, cu_k[seg_c] + rel_q + 1, 0)
+    else:
+        row_hi = torch.where(valid, cu_k[seg_c + 1], 0)
+    nqb = seg_q.shape[0] // block_q
+    lo = row_lo.reshape(nqb, block_q).amin(1) // block_k
+    hi = -(-row_hi.reshape(nqb, block_q).amax(1) // block_k)
+    return _clip_bounds(lo, hi, nkb)
+
+
+def _block_bounds_k(seg_k, rel_k, cu_q, block_q, block_k, nqb, causal):
+    """Per key block, the range [lo, hi) of query blocks it must walk
+    (int32 [nkb])."""
+    cu_q = cu_q.to(torch.int32)
+    nseq = cu_q.shape[0] - 1
+    valid = seg_k < nseq
+    seg_c = torch.clamp(seg_k, 0, nseq - 1).long()
+    if causal:
+        row_lo = torch.where(valid, cu_q[seg_c] + rel_k, 2 ** 30)
+    else:
+        row_lo = torch.where(valid, cu_q[seg_c], 2 ** 30)
+    row_hi = torch.where(valid, cu_q[seg_c + 1], 0)
+    nkb = seg_k.shape[0] // block_k
+    lo = row_lo.reshape(nkb, block_k).amin(1) // block_q
+    hi = -(-row_hi.reshape(nkb, block_k).amax(1) // block_q)
+    return _clip_bounds(lo, hi, nqb)
+
+
+def _prep(tq, tk, cu_q, cu_k):
+    """The kernels' segment metadata: seg/rel of queries and keys, each
+    padded to a multiple of TILE rows with the sentinel segments (queries
+    ``nseq``, keys ``nseq + 1``).  The kernels read q, k and v unpadded and
+    treat rows past T as zeros, so no token is copied (the JAX package's
+    ``_pad_tokens`` has no counterpart)."""
+    nseq = cu_q.shape[0] - 1
+    pad_q = -(-tq // TILE) * TILE
+    pad_k = -(-tk // TILE) * TILE
+    return (*_segment_meta(cu_q, tq, pad_q, nseq),
+            *_segment_meta(cu_k, tk, pad_k, nseq + 1))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _round(x, dtype):
+    """x (f32) rounded to ``dtype`` and back: a rounding point of the
+    kernels."""
+    return x.to(dtype).float()
+
+
+def _scores(q, k, cu_q, cu_k, causal, scale):
+    """f32 scores ``[H, Tq, Tk]`` = (q . k) * scale, -inf where a query
+    may not see a key."""
+    nseq = cu_q.shape[0] - 1
+    seg_q, rel_q = _segment_meta(cu_q, q.shape[0], q.shape[0], nseq)
+    seg_k, rel_k = _segment_meta(cu_k, k.shape[0], k.shape[0], nseq + 1)
+    keep = seg_q[:, None] == seg_k[None, :]
+    if causal:
+        keep &= rel_q[:, None] >= rel_k[None, :]
+    s = torch.einsum("qhd,khd->hqk", q.float(), k.float()) * scale
+    return torch.where(keep[None], s, float("-inf"))
+
+
+def varlen_fwd_reference(q, k, v, cu_q, cu_k, causal, scale):
+    """Plain version of the forward kernel: ``(out [Tq, H, D] in q.dtype,
+    lse [H, Tq] f32)``."""
+    s = _scores(q, k, cu_q, cu_k, causal, scale)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isneginf(m), 0.0, m))
+    l = p.sum(-1, keepdim=True)
+    acc = torch.einsum("hqk,khd->hqd", _round(p, v.dtype), v.float())
+    has = l > 0
+    l1 = torch.where(has, l, 1.0)
+    out = torch.where(has, acc / l1, 0.0).permute(1, 0, 2).to(q.dtype)
+    lse = torch.where(has, m + torch.log(l1), float("-inf"))[..., 0]
+    return out, lse
+
+
+def varlen_delta(out, do):
+    """delta = rowsum(dO * O) in f32, ``[H, Tq]`` (computed outside the
+    kernels, as the JAX package does)."""
+    return (do.float() * out.float()).sum(-1).t().contiguous()
+
+
+def _probs_and_ds(q, k, v, lse, delta, do, cu_q, cu_k, causal, scale):
+    """Recomputed p and dS = p * (dP - delta) * scale, ``[H, Tq, Tk]``
+    f32; a row whose lse is not finite (no key) reads it as 0."""
+    s = _scores(q, k, cu_q, cu_k, causal, scale)
+    lse_safe = torch.where(torch.isfinite(lse), lse, 0.0)
+    p = torch.exp(s - lse_safe[..., None])
+    dp = torch.einsum("qhd,khd->hqk", do.float(), v.float())
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def varlen_bwd_dkdv_reference(q, k, v, do, lse, delta, cu_q, cu_k, causal,
+                              scale):
+    """Plain version of the dK/dV kernel: ``(dk, dv)`` in k's and v's
+    types."""
+    p, ds = _probs_and_ds(q, k, v, lse, delta, do, cu_q, cu_k, causal,
+                          scale)
+    dv = torch.einsum("hqk,qhd->khd", _round(p, do.dtype), do.float())
+    dk = torch.einsum("hqk,qhd->khd", _round(ds, q.dtype), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def varlen_bwd_dq_reference(q, k, v, do, lse, delta, cu_q, cu_k, causal,
+                            scale):
+    """Plain version of the dQ kernel: dq in q.dtype."""
+    _, ds = _probs_and_ds(q, k, v, lse, delta, do, cu_q, cu_k, causal,
+                          scale)
+    return torch.einsum("hqk,khd->qhd", _round(ds, k.dtype),
+                        k.float()).to(q.dtype)
+
+
+def varlen_bwd_reference(q, k, v, out, lse, do, cu_q, cu_k, causal, scale):
+    """Plain version of the whole backward: ``(dq, dk, dv)``."""
+    delta = varlen_delta(out, do)
+    dk, dv = varlen_bwd_dkdv_reference(q, k, v, do, lse, delta, cu_q, cu_k,
+                                       causal, scale)
+    return (varlen_bwd_dq_reference(q, k, v, do, lse, delta, cu_q, cu_k,
+                                    causal, scale), dk, dv)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+# ---------------------------------------------------------------------------
+
+def use_varlen_kernel(q, k) -> bool:
+    """The JAX package's shape rule for its varlen kernels: 3-D inputs,
+    equal head dims and head counts (GQA takes the composition), D in
+    {64, 128, 256}, float32 or bfloat16.  Decided from shapes alone."""
+    return (q.dim() == 3 and k.dim() == 3 and q.shape[2] == k.shape[2]
+            and q.shape[1] == k.shape[1] and q.shape[2] in HEAD_DIMS
+            and q.dtype in _DTYPES)
+
+
+def _check_operands(q, k, v, cu_q, cu_k, do=None, lse=None, delta=None):
+    """The kernels' contract; raises ValueError on anything they do not
+    take."""
+    def need(ok, what):
+        if not ok:
+            raise ValueError(f"varlen flash attention kernel: {what}")
+
+    need(q.dim() == 3 and k.dim() == 3 and v.shape == k.shape,
+         f"q must be [Tq, H, D] and k, v [Tk, H, D], got {tuple(q.shape)}, "
+         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    Tq, H, D = q.shape
+    Tk = k.shape[0]
+    need(k.shape[1:] == (H, D), f"k/v heads or head dim differ from q's: "
+         f"{tuple(k.shape)} vs {tuple(q.shape)}")
+    need(q.dtype in _DTYPES, f"dtype {q.dtype} not in float32/bfloat16")
+    need(k.dtype == q.dtype and v.dtype == q.dtype,
+         f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    need(D in HEAD_DIMS, f"head dim {D} not in {HEAD_DIMS}")
+    need(Tq >= 1 and Tk >= 1, f"no tokens (Tq={Tq}, Tk={Tk})")
+    need(cu_q.dtype == torch.int32 and cu_k.dtype == torch.int32
+         and cu_q.dim() == 1 and cu_q.shape == cu_k.shape
+         and cu_q.shape[0] >= 2,
+         f"cu_seqlens must be int32 [nseq + 1] on both sides, got "
+         f"{cu_q.dtype} {tuple(cu_q.shape)} and {cu_k.dtype} "
+         f"{tuple(cu_k.shape)}")
+    named = [("q", q), ("k", k), ("v", v), ("cu_q", cu_q), ("cu_k", cu_k)]
+    if do is not None:
+        need(do.shape == q.shape and do.dtype == q.dtype,
+             f"dout must match q: {do.dtype} {tuple(do.shape)}")
+        for name, x in (("lse", lse), ("delta", delta)):
+            need(x.dtype == torch.float32 and x.shape == (H, Tq),
+                 f"{name} must be float32 [{H}, {Tq}], got {x.dtype} "
+                 f"{tuple(x.shape)}")
+        named += [("dout", do), ("lse", lse), ("delta", delta)]
+    for name, x in named:
+        need(x.is_contiguous(), f"{name} must be contiguous")
+    devs = {x.device for _, x in named}
+    need(len(devs) == 1, f"operands on several devices: {devs}")
+    need(q.device.type != "cuda" or not any(
+        x.data_ptr() % 16 for _, x in named[:3] + named[5:6]),
+        "q, k, v and dout must be 16-byte aligned")
+
+
+def _launch(name, ptrs, q, k, causal, scale):
+    """Launch one kernel on PyTorch's current stream; raises on CPU
+    tensors and on a refused launch (the C entry returns
+    ``cudaGetLastError()``, or the error of raising the block's
+    shared-memory limit)."""
+    if q.device.type != "cuda":
+        raise RuntimeError(
+            "the varlen flash attention kernels run on CUDA tensors only; "
+            f"got {q.device} (the plain versions serve CPU tensors)")
+    fn = getattr(_build.library("flash_attention_varlen"), name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 6 + \
+            [ctypes.c_float, ctypes.c_void_p]
+    Tq, H, D = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*ptrs, Tq, k.shape[0], H, D, int(bool(causal)),
+                 _DTYPES[q.dtype], float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"varlen flash attention kernel {name} launch "
+                           f"failed: CUDA error {err}")
+
+
+def _meta_ptrs(meta, lo, hi):
+    return [x.data_ptr() for x in meta] + [lo.data_ptr(), hi.data_ptr()]
+
+
+def _launch_fwd(q, k, v, cu_q, cu_k, causal, scale):
+    """The forward kernel: ``(out, lse)``."""
+    global fwd_launch_count
+    _check_operands(q, k, v, cu_q, cu_k)
+    meta = _prep(q.shape[0], k.shape[0], cu_q, cu_k)
+    bk = walk_tile(q.shape[2])
+    lo, hi = _block_bounds_q(meta[0], meta[1], cu_k, TILE, bk,
+                             meta[2].shape[0] // bk, causal)
+    out = torch.empty_like(q)
+    lse = torch.empty((q.shape[1], q.shape[0]), dtype=torch.float32,
+                      device=q.device)
+    _launch("paddle_varlen_attention_fwd",
+            [q.data_ptr(), k.data_ptr(), v.data_ptr()] +
+            _meta_ptrs(meta, lo, hi) + [out.data_ptr(), lse.data_ptr()],
+            q, k, causal, scale)
+    fwd_launch_count += 1
+    return out, lse
+
+
+def _launch_dkdv(q, k, v, do, lse, delta, cu_q, cu_k, causal, scale):
+    """The dK/dV kernel: ``(dk, dv)``."""
+    global dkdv_launch_count
+    _check_operands(q, k, v, cu_q, cu_k, do, lse, delta)
+    meta = _prep(q.shape[0], k.shape[0], cu_q, cu_k)
+    bq = walk_tile(q.shape[2])
+    lo, hi = _block_bounds_k(meta[2], meta[3], cu_q, bq, TILE,
+                             meta[0].shape[0] // bq, causal)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("paddle_varlen_attention_bwd_dkdv",
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr()] + _meta_ptrs(meta, lo, hi) +
+            [dk.data_ptr(), dv.data_ptr()], q, k, causal, scale)
+    dkdv_launch_count += 1
+    return dk, dv
+
+
+def _launch_dq(q, k, v, do, lse, delta, cu_q, cu_k, causal, scale):
+    """The dQ kernel: dq."""
+    global dq_launch_count
+    _check_operands(q, k, v, cu_q, cu_k, do, lse, delta)
+    meta = _prep(q.shape[0], k.shape[0], cu_q, cu_k)
+    bk = walk_tile(q.shape[2])
+    lo, hi = _block_bounds_q(meta[0], meta[1], cu_k, TILE, bk,
+                             meta[2].shape[0] // bk, causal)
+    dq = torch.empty_like(q)
+    _launch("paddle_varlen_attention_bwd_dq",
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr()] + _meta_ptrs(meta, lo, hi) +
+            [dq.data_ptr()], q, k, causal, scale)
+    dq_launch_count += 1
+    return dq
+
+
+# ---------------------------------------------------------------------------
+# dispatch by device, and the autograd Function
+# ---------------------------------------------------------------------------
+
+def _forward(q, k, v, cu_q, cu_k, causal, scale):
+    """``(out, lse)``: the forward kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if q.device.type == "cuda":
+        return _launch_fwd(q, k, v, cu_q, cu_k, causal, scale)
+    return varlen_fwd_reference(q, k, v, cu_q, cu_k, causal, scale)
+
+
+def _backward(q, k, v, out, lse, do, cu_q, cu_k, causal, scale):
+    """``(dq, dk, dv)``: the dK/dV and dQ kernels on CUDA tensors, the
+    plain version on CPU tensors."""
+    if q.device.type == "cuda":
+        delta = varlen_delta(out, do)
+        dk, dv = _launch_dkdv(q, k, v, do, lse, delta, cu_q, cu_k, causal,
+                              scale)
+        return (_launch_dq(q, k, v, do, lse, delta, cu_q, cu_k, causal,
+                           scale), dk, dv)
+    return varlen_bwd_reference(q, k, v, out, lse, do, cu_q, cu_k, causal,
+                                scale)
+
+
+class VarlenAttention(torch.autograd.Function):
+    """Counterpart of the JAX package's ``_varlen_attention`` custom VJP:
+    the forward saves ``(q, k, v, out, lse)`` and the offsets, never the
+    scores; the backward recomputes the probabilities from lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cu_q, cu_k, causal, scale):
+        out, lse = _forward(q, k, v, cu_q, cu_k, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse, cu_q, cu_k)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, cu_q, cu_k = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, out, lse, do.contiguous(), cu_q,
+                               cu_k, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def varlen_attention(q, k, v, cu_q, cu_k, causal, scale):
+    """Varlen attention over q ``[Tq, H, D]``, k and v ``[Tk, H, D]`` with
+    offsets ``cu_q``/``cu_k`` (``[nseq + 1]``); returns ``[Tq, H, D]`` in
+    q.dtype, differentiable in q, k and v.  CUDA tensors go through the
+    kernels, CPU tensors through the plain versions."""
+    cu_q = torch.as_tensor(cu_q, device=q.device).to(torch.int32)
+    cu_k = torch.as_tensor(cu_k, device=q.device).to(torch.int32)
+    return VarlenAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), cu_q.contiguous(),
+                                 cu_k.contiguous(), bool(causal),
+                                 float(scale))

@@ -26,10 +26,25 @@ int8 * scale).  ``ragged_paged_attention_quant_segrel_packed`` launches
 the int8-page kernel of the same ``.cu`` on CUDA tensors and computes
 ``ragged_paged_reference_quant_segrel`` on CPU tensors; its launches are
 counted apart, in ``quant_launch_count``.
+
+Paged decode (``block_multihead_attention``'s decode): one query token per
+row, q ``[B, H, D]``, block tables ``[B, nblk]`` and per-row lengths ``[B]``
+(valid positions including the fresh token).  ``paged_decode_attention``
+clamps the blha convention's -1 table padding into range;
+``paged_decode_attention_packed`` launches the decode kernel (the third C
+entry of the same ``.cu``) on CUDA tensors and computes
+``paged_decode_plain`` on CPU tensors.  Unlike the ragged plain version,
+``paged_decode_plain`` repeats the TPU decode kernel's rounding points (q *
+scale rounded to q's type, p to the values' type), because that kernel, run
+by the Pallas interpreter, is what the JAX package's blha decode runs off
+the TPU.  ``paged_decode_reference`` is the JAX package's dense-gather f32
+oracle, blha's path for shapes ``supports`` refuses.  Decode launches are
+counted in ``decode_launch_count``.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -41,12 +56,16 @@ __all__ = ["ragged_segments", "ragged_paged_reference_segrel",
            "ragged_paged_reference_quant_segrel",
            "ragged_paged_attention_quant_segrel",
            "ragged_paged_attention_quant_segrel_packed",
-           "launch_count", "quant_launch_count"]
+           "paged_decode_plain", "paged_decode_reference",
+           "paged_decode_attention", "paged_decode_attention_packed",
+           "supports", "launch_count", "quant_launch_count",
+           "decode_launch_count"]
 
 # kernel launches made by the CUDA route, one count per kernel (plain-
 # version calls never count)
 launch_count = 0
 quant_launch_count = 0
+decode_launch_count = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -104,14 +123,17 @@ def ragged_paged_reference_segrel(q, key_cache, value_cache, block_tables,
     return out.to(q.dtype)
 
 
-def _check_operands(q, key_cache, value_cache, block_tables, seg, rel,
-                    key_scales=None, value_scales=None):
+def _check_operands(q, key_cache, value_cache, block_tables, vectors,
+                    key_scales=None, value_scales=None,
+                    kind="ragged paged attention kernel"):
     """Shape/dtype/contiguity contract of the kernels; raises ValueError
-    on anything they do not take.  With scales given, the contract of the
-    int8-page kernel: int8 caches and f32 [num_blocks, H_kv] scales."""
+    on anything they do not take.  ``vectors`` names the int32 [q.shape[0]]
+    operands (seg and rel, or the decode kernel's lengths).  With scales
+    given, the contract of the int8-page kernel: int8 caches and f32
+    [num_blocks, H_kv] scales."""
     quant = key_scales is not None
-    kind = "int8-page ragged paged attention kernel" if quant else \
-        "ragged paged attention kernel"
+    if quant:
+        kind = "int8-page " + kind
 
     def need(ok, what):
         if not ok:
@@ -137,11 +159,11 @@ def _check_operands(q, key_cache, value_cache, block_tables, seg, rel,
     need(block_tables.dim() == 2 and block_tables.dtype == torch.int32,
          f"block_tables must be int32 [R, nblk], got {block_tables.dtype} "
          f"{tuple(block_tables.shape)}")
-    for name, x in (("seg", seg), ("rel", rel)):
+    for name, x in vectors.items():
         need(x.dtype == torch.int32 and x.shape == (Tq,),
              f"{name} must be int32 [{Tq}], got {x.dtype} {tuple(x.shape)}")
     named = [("q", q), ("key_cache", key_cache), ("value_cache", value_cache),
-             ("block_tables", block_tables), ("seg", seg), ("rel", rel)]
+             ("block_tables", block_tables), *vectors.items()]
     if quant:
         for name, x in (("key_scales", key_scales),
                         ("value_scales", value_scales)):
@@ -158,36 +180,39 @@ def _check_operands(q, key_cache, value_cache, block_tables, seg, rel,
         "caches must be 16-byte aligned")
 
 
-def _launch(entry, q, key_cache, value_cache, block_tables, seg, rel,
+def _launch(entry, q, key_cache, value_cache, block_tables, vectors,
             scales=()):
-    """Launch one of the two CUDA kernels on PyTorch's current stream.
-    Raises on CPU tensors and on a refused launch (the C entry returns
-    ``cudaGetLastError()``, or the error of raising the block's
-    shared-memory limit when a block size needs more than the card
-    has)."""
+    """Launch one of the three CUDA kernels on PyTorch's current stream:
+    ``vectors`` are the int32 operands after the block table (seg and
+    rel, or lengths).  Raises on CPU tensors and on a refused launch (the
+    C entry returns ``cudaGetLastError()``, or the error of raising the
+    block's shared-memory limit when a block size needs more than the
+    card has)."""
     if q.device.type != "cuda":
         raise RuntimeError(
-            "the ragged paged attention kernels run on CUDA tensors only; "
+            "the paged attention kernels run on CUDA tensors only; "
             f"got {q.device} (the plain version serves CPU tensors)")
+    decode = len(vectors) == 1
     fn = getattr(_build.library("ragged_paged_attention"), entry)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * (7 + len(scales)) + \
-            [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * (5 + len(scales) + len(vectors)) \
+            + [ctypes.c_int] * (8 if decode else 9) + \
+            [ctypes.c_float, ctypes.c_void_p]
     Tq, H, D = q.shape
     NB, Hkv, bs, _ = key_cache.shape
     R, nblk = block_tables.shape
     out = torch.empty_like(q)
     ptrs = [q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr()] + \
-        [x.data_ptr() for x in scales] + \
-        [block_tables.data_ptr(), seg.data_ptr(), rel.data_ptr(),
-         out.data_ptr()]
+        [x.data_ptr() for x in scales] + [block_tables.data_ptr()] + \
+        [x.data_ptr() for x in vectors] + [out.data_ptr()]
+    dims = [Tq, H, Hkv, D, bs, NB] + ([] if decode else [R]) + \
+        [nblk, _DTYPES[q.dtype]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*ptrs, Tq, H, Hkv, D, bs, NB, R, nblk, _DTYPES[q.dtype],
-                 1.0 / (D ** 0.5), stream)
+        err = fn(*ptrs, *dims, 1.0 / (D ** 0.5), stream)
     if err != 0:
-        raise RuntimeError(f"ragged paged attention kernel launch failed: "
+        raise RuntimeError(f"paged attention kernel {entry} launch failed: "
                            f"CUDA error {err}")
     return out
 
@@ -196,9 +221,10 @@ def _launch_kernel(q, key_cache, value_cache, block_tables, seg, rel):
     """Launch the float CUDA kernel.  Raises on an operand it does not
     take, on CPU tensors, on a failed build and on a refused launch."""
     global launch_count
-    _check_operands(q, key_cache, value_cache, block_tables, seg, rel)
+    _check_operands(q, key_cache, value_cache, block_tables,
+                    {"seg": seg, "rel": rel})
     out = _launch("paddle_ragged_paged_attention", q, key_cache,
-                  value_cache, block_tables, seg, rel)
+                  value_cache, block_tables, (seg, rel))
     launch_count += 1
     return out
 
@@ -208,12 +234,29 @@ def _launch_quant_kernel(q, key_cache, value_cache, key_scales,
     """Launch the int8-page CUDA kernel (same refusals as
     ``_launch_kernel``, plus int8 caches and f32 scales)."""
     global quant_launch_count
-    _check_operands(q, key_cache, value_cache, block_tables, seg, rel,
-                    key_scales, value_scales)
+    _check_operands(q, key_cache, value_cache, block_tables,
+                    {"seg": seg, "rel": rel}, key_scales, value_scales)
     out = _launch("paddle_ragged_paged_attention_q8", q, key_cache,
-                  value_cache, block_tables, seg, rel,
+                  value_cache, block_tables, (seg, rel),
                   (key_scales, value_scales))
     quant_launch_count += 1
+    return out
+
+
+def _launch_decode_kernel(q, key_cache, value_cache, block_tables, lengths):
+    """Launch the paged decode CUDA kernel: the ragged kernel's refusals,
+    with one table row per query row and int32 lengths in place of
+    seg/rel."""
+    global decode_launch_count
+    _check_operands(q, key_cache, value_cache, block_tables,
+                    {"lengths": lengths}, kind="paged decode kernel")
+    if block_tables.shape[0] != q.shape[0]:
+        raise ValueError(f"paged decode kernel: block_tables has "
+                         f"{block_tables.shape[0]} rows for {q.shape[0]} "
+                         "queries")
+    out = _launch("paddle_paged_decode_attention", q, key_cache, value_cache,
+                  block_tables, (lengths,))
+    decode_launch_count += 1
     return out
 
 
@@ -308,3 +351,96 @@ def ragged_paged_attention_quant_segrel(q, key_cache, value_cache,
         q.contiguous(), key_cache, value_cache,
         key_scales.float().contiguous(), value_scales.float().contiguous(),
         block_tables, seg, rel.to(torch.int32).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# paged decode (blha)
+# ---------------------------------------------------------------------------
+
+def _gather_pages(cache, block_tables):
+    """The pages [num_blocks, H_kv, bs, D] of each row's table, in table
+    order -> [B, H_kv, nblk * bs, D]."""
+    B, nblk = block_tables.shape
+    _, Hkv, bs, D = cache.shape
+    return cache[block_tables.long()].permute(0, 2, 1, 3, 4).reshape(
+        B, Hkv, nblk * bs, D)
+
+
+def paged_decode_plain(q, key_cache, value_cache, block_tables, lengths):
+    """Plain version of the decode kernel, with the TPU decode kernel's
+    rounding points: q * (1 / sqrt(D)) rounded to q's type, scores and the
+    PV product in f32, p rounded to the values' type before the PV product
+    (the row sum takes the unrounded p), output acc / l in q's type.
+    Returns [B, H, D]."""
+    B, H, D = q.shape
+    Hkv = key_cache.shape[1]
+    bt = torch.clamp(block_tables.long(), 0, key_cache.shape[0] - 1)
+    k = _gather_pages(key_cache, bt).float()      # the kernel clamps too
+    v = _gather_pages(value_cache, bt)
+    qs = (q.float() * (1.0 / (D ** 0.5))).to(q.dtype).float()
+    s = torch.einsum("bhgd,bhsd->bhgs", qs.reshape(B, Hkv, H // Hkv, D), k)
+    pos = torch.arange(k.shape[2], device=q.device)
+    keep = pos[None, :] < lengths.to(q.device).long()[:, None]
+    s = torch.where(keep[:, None, None, :], s, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    acc = torch.einsum("bhgs,bhsd->bhgd", p.to(v.dtype).float(), v.float())
+    return (acc / p.sum(-1, keepdim=True)).reshape(B, H, D).to(q.dtype)
+
+
+def paged_decode_reference(q, key_cache, value_cache, block_tables,
+                           lengths):
+    """The JAX package's dense-gather oracle, term for term: gather each
+    row's pages, one masked softmax in f32, output in q's type."""
+    B, H, D = q.shape
+    Hkv = key_cache.shape[1]
+    ks = _gather_pages(key_cache, block_tables)
+    vs = _gather_pages(value_cache, block_tables)
+    if Hkv != H:
+        ks = torch.repeat_interleave(ks, H // Hkv, dim=1)
+        vs = torch.repeat_interleave(vs, H // Hkv, dim=1)
+    scores = torch.einsum("bhd,bhmd->bhm", q.float(), ks.float()) / \
+        math.sqrt(D)
+    pos = torch.arange(ks.shape[2], device=q.device)[None, None, :]
+    scores = torch.where(pos < lengths.to(q.device)[:, None, None], scores,
+                         float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhm,bhmd->bhd", probs, vs.float()).to(q.dtype)
+
+
+def paged_decode_attention_packed(q, key_cache, value_cache, block_tables,
+                                  lengths):
+    """Decode without the table clamp and casts, for callers that pass
+    int32 operands with every table entry in [0, num_blocks).  CUDA
+    tensors go through the decode kernel (which raises on an operand it
+    does not take); CPU tensors take ``paged_decode_plain``.  Returns
+    [B, H, D] in q.dtype."""
+    if q.device.type == "cuda":
+        return _launch_decode_kernel(q, key_cache, value_cache, block_tables,
+                                     lengths)
+    return paged_decode_plain(q, key_cache, value_cache, block_tables,
+                              lengths)
+
+
+def paged_decode_attention(q, key_cache, value_cache, block_tables,
+                           lengths):
+    """One-token-per-sequence decode over paged KV.
+
+    q [B, H, D]; caches [num_blocks, H_kv, bs, D]; block_tables [B, nblk];
+    lengths [B] (valid positions including the fresh token).  Clamps the
+    blha convention's -1 table padding into range and casts the tables
+    and lengths to int32 before the packed entry.  Returns [B, H, D]."""
+    block_tables = torch.clamp(block_tables.to(torch.int32), 0,
+                               key_cache.shape[0] - 1).contiguous()
+    return paged_decode_attention_packed(
+        q.contiguous(), key_cache, value_cache, block_tables,
+        lengths.to(torch.int32).contiguous())
+
+
+def supports(B, H, Hkv, D, bs) -> bool:
+    """The JAX package's shape rule for its decode kernel (without its
+    lowering probe): H a multiple of H_kv, D 64 or a multiple of 128, bs a
+    multiple of 8.  Where it holds, blha decodes through
+    ``paged_decode_attention`` (whose CUDA kernel raises on shapes outside
+    its own scope: D in {64, 128}, G <= 8, float32/bfloat16); elsewhere
+    through ``paged_decode_reference``."""
+    return H % Hkv == 0 and (D % 128 == 0 or D == 64) and bs % 8 == 0

@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import flash_attention_varlen as fav
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import quant_matmul as qm
 
@@ -320,9 +321,10 @@ def _flash_case(dev, dtype, B, S, H, Hk, D, seed=0):
 
 FLASH_SHAPES = [  # B, S, H, Hk, D
     (2, 128, 4, 4, 64), (2, 200, 8, 2, 64), (1, 100, 4, 1, 128),
-    (1, 256, 16, 4, 64), (1, 130, 8, 8, 128), (1, 1, 4, 2, 64)]
+    (1, 256, 16, 4, 64), (1, 130, 8, 8, 128), (1, 1, 4, 2, 64),
+    (1, 200, 4, 2, 256)]
 FLASH_IDS = ["mha", "gqa_S200", "mqa_d128_S100", "gqa4_S256", "d128_S130",
-             "S1"]
+             "S1", "d256_gqa_S200"]
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
@@ -361,8 +363,9 @@ def test_flash_kernels_match_plain_versions(dev, B, S, H, Hk, D, dtype,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("B,S,H,Hk,D", [(2, 200, 8, 2, 64),
-                                        (1, 130, 4, 4, 128)],
-                         ids=["gqa_S200", "d128_S130"])
+                                        (1, 130, 4, 4, 128),
+                                        (1, 130, 2, 1, 256)],
+                         ids=["gqa_S200", "d128_S130", "d256_S130"])
 def test_flash_function_gradients_agree_with_autograd_of_the_oracle(
         dev, B, S, H, Hk, D, dtype):
     """The autograd Function on CUDA tensors (three kernel launches) against
@@ -397,6 +400,29 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="head dim"):
         fa._launch_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
                        v[..., :32].contiguous(), False)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256, 384])
+def test_sdpa_routes_head_dims_by_the_jax_rule(dev, D):
+    """``scaled_dot_product_attention`` sends every head dim the JAX rule
+    takes to the flash kernels: up to 256 they launch (forward and both
+    backward kernels once each), past it the wrapper raises; no plain
+    version runs on the card."""
+    from paddle_tpu_torch.nn import functional as F
+    q, k, v, do = _flash_case(dev, torch.bfloat16, 1, 128, 4, 2, D, seed=2)
+    q.requires_grad_(True)
+    counts = (fa.fwd_launch_count, fa.dkdv_launch_count, fa.dq_launch_count)
+    if D > 256:
+        with pytest.raises(ValueError, match="head dim"):
+            F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launch_count, fa.dkdv_launch_count,
+            fa.dq_launch_count) == tuple(c + 1 for c in counts)
+    ref, _ = fa.flash_fwd_reference(q.detach(), k, v, True)
+    _assert_within(_rows(out.detach()), _rows(ref), torch.bfloat16)
 
 
 @pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
@@ -435,3 +461,287 @@ def test_train_step_goes_through_the_kernels(dev, remat):
     assert fa.fwd_launch_count == (2 if remat else 1) * L * steps
     assert fa.dkdv_launch_count == fa.dq_launch_count == L * steps
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# paged decode (blha): the decode kernel against its plain version, which
+# rounds q * scale and p to the storage type as the kernel does, so both
+# dtypes are held at TOL.
+# ---------------------------------------------------------------------------
+
+def _decode_case(dev, dtype, B, H, Hkv, D, bs, lens, seed=0):
+    """Tables padded with -1 past each row's pages, pages permuted."""
+    rng = np.random.default_rng(seed)
+    nblk = -(-max(lens) // bs)
+    num_blocks = 1 + sum(-(-n // bs) for n in lens)
+    bt = np.full((B, nblk), -1, np.int32)
+    pages = rng.permutation(np.arange(1, num_blocks))
+    used = 0
+    for b, n in enumerate(lens):
+        m = -(-n // bs)
+        bt[b, :m] = pages[used:used + m]
+        used += m
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=dev).to(dtype)
+    return (randn(B, H, D), randn(num_blocks, Hkv, bs, D),
+            randn(num_blocks, Hkv, bs, D), torch.from_numpy(bt).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,Hkv,D,bs", [
+    (4, 4, 64, 8), (8, 2, 64, 16), (32, 32, 128, 64), (32, 8, 128, 64),
+    (16, 2, 128, 32), (8, 8, 128, 128), (12, 3, 64, 24)])
+def test_decode_kernel_matches_plain_version(dev, dtype, H, Hkv, D, bs):
+    lens = [1, 9, 300, 64, 65, 130]
+    q, kc, vc, bt, ln = _decode_case(dev, dtype, len(lens), H, Hkv, D, bs,
+                                     lens)
+    before, ragged = pa.decode_launch_count, pa.launch_count
+    out = pa.paged_decode_attention(q, kc, vc, bt, ln)
+    torch.cuda.synchronize()
+    assert pa.decode_launch_count == before + 1
+    assert pa.launch_count == ragged
+    ref = pa.paged_decode_plain(q, kc, vc, bt, ln)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    _assert_within(out, ref, dtype)
+
+
+def test_decode_kernel_at_the_7b_blha_shape(dev):
+    lens = [100, 2000, 731, 1290, 5, 64, 65, 1999]
+    for dtype in (torch.float32, torch.bfloat16):
+        ops = _decode_case(dev, dtype, 8, 32, 32, 128, 64, lens, seed=3)
+        _assert_within(pa.paged_decode_attention(*ops),
+                       pa.paged_decode_plain(*ops), dtype)
+
+
+def test_decode_kernel_refuses_what_it_does_not_take(dev):
+    ops = list(_decode_case(dev, torch.float32, 2, 4, 4, 64, 8, [5, 9]))
+    with pytest.raises(ValueError, match="paged decode kernel"):
+        pa.paged_decode_attention(ops[0].half(), ops[1].half(),
+                                  ops[2].half(), *ops[3:])
+    with pytest.raises(ValueError, match="paged decode kernel"):
+        pa.paged_decode_attention_packed(*ops[:4], ops[4][:1])
+    big = _decode_case(dev, torch.float32, 2, 4, 4, 256, 8, [5, 9])
+    with pytest.raises(ValueError, match="head dim"):
+        pa.paged_decode_attention(*big)
+
+
+# ---------------------------------------------------------------------------
+# varlen flash attention: the forward, dK/dV and dQ kernels against their
+# plain versions (out at TOL over [Tq, H * D] rows, lse to LSE_ABS where
+# finite and -inf where the plain version has it, gradients at GRAD_TOL),
+# and flash_attn_unpadded / block_multihead_attention going through them.
+# ---------------------------------------------------------------------------
+
+VARLEN_CASES = {  # (lens_q, lens_k or None for self attention), H, D
+    "mixed_d64": (([7, 130, 0, 55, 64, 1], None), 4, 64),
+    "d128": (([200, 33, 90], None), 2, 128),
+    "d256": (([70, 3, 100], None), 2, 256),
+    "cross_keyless": (([30, 40, 50, 5], [100, 0, 260, 1]), 2, 64),
+}
+
+
+def _varlen_case(dev, dtype, lens_q, lens_k, H, D, seed=0):
+    lens_k = lens_q if lens_k is None else lens_k
+    cu_q = np.concatenate([[0], np.cumsum(lens_q)]).astype(np.int32)
+    cu_k = np.concatenate([[0], np.cumsum(lens_k)]).astype(np.int32)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=dev).to(dtype)
+    Tq, Tk = int(cu_q[-1]), int(cu_k[-1])
+    return (randn(Tq, H, D), randn(Tk, H, D), randn(Tk, H, D),
+            randn(Tq, H, D), torch.from_numpy(cu_q).to(dev),
+            torch.from_numpy(cu_k).to(dev))
+
+
+def _assert_lse(lse, ref):
+    fin = torch.isfinite(ref)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert (ref[~fin] == float("-inf")).all() and \
+        (lse[~fin] == float("-inf")).all()
+    assert (lse[fin] - ref[fin]).abs().max().item() <= LSE_ABS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case,causal", [
+    pytest.param(name, causal, id=f"{name}-{'causal' if causal else 'full'}")
+    for name, ((_, lens_k), _, _) in VARLEN_CASES.items()
+    for causal in (True, False) if not (causal and lens_k)])
+def test_varlen_kernels_match_plain_versions(dev, case, dtype, causal):
+    """Causal attention pairs a query with its own sequence, so the cross
+    case runs non-causal only."""
+    (lens_q, lens_k), H, D = VARLEN_CASES[case]
+    q, k, v, do, cu_q, cu_k = _varlen_case(dev, dtype, lens_q, lens_k, H, D)
+    scale = D ** -0.5
+    counts = (fav.fwd_launch_count, fav.dkdv_launch_count,
+              fav.dq_launch_count)
+    out, lse = fav._launch_fwd(q, k, v, cu_q, cu_k, causal, scale)
+    ref, lse_ref = fav.varlen_fwd_reference(q, k, v, cu_q, cu_k, causal,
+                                            scale)
+    assert out.dtype == dtype and lse.shape == (H, q.shape[0])
+    assert torch.isfinite(out).all()
+    _assert_within(out.flatten(1), ref.flatten(1), dtype)
+    _assert_lse(lse, lse_ref)
+    delta = fav.varlen_delta(ref, do)
+    args = (do, lse_ref, delta, cu_q, cu_k, causal, scale)
+    dk, dv = fav._launch_dkdv(q, k, v, *args)
+    dq = fav._launch_dq(q, k, v, *args)
+    torch.cuda.synchronize()
+    assert (fav.fwd_launch_count, fav.dkdv_launch_count,
+            fav.dq_launch_count) == tuple(c + 1 for c in counts)
+    dk_ref, dv_ref = fav.varlen_bwd_dkdv_reference(q, k, v, *args)
+    dq_ref = fav.varlen_bwd_dq_reference(q, k, v, *args)
+    for got, want in ((dk, dk_ref), (dv, dv_ref), (dq, dq_ref)):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        _assert_grad_within(got, want, GRAD_TOL[dtype])
+    if lens_k is not None:                  # key-less query rows
+        assert (out[30:70] == 0).all() and (dq[30:70] == 0).all()
+
+
+def test_varlen_kernels_at_the_7b_shape(dev):
+    """LLaMA-7B's attention (H 32, D 128) over 4 packed causal sequences
+    (4,232 tokens, the longest 2,048), both dtypes."""
+    lens = [2048, 1200, 700, 284]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do, cu, _ = _varlen_case(dev, dtype, lens, None, 32, 128,
+                                          seed=4)
+        args = (cu, cu, True, 128 ** -0.5)
+        out, lse = fav._launch_fwd(q, k, v, *args)
+        ref, lse_ref = fav.varlen_fwd_reference(q, k, v, *args)
+        _assert_within(out.flatten(1), ref.flatten(1), dtype)
+        _assert_lse(lse, lse_ref)
+        delta = fav.varlen_delta(ref, do)
+        grads = (fav._launch_dq(q, k, v, do, lse_ref, delta, *args),
+                 *fav._launch_dkdv(q, k, v, do, lse_ref, delta, *args))
+        del out, lse, ref
+        want = (fav.varlen_bwd_dq_reference(q, k, v, do, lse_ref, delta,
+                                            *args),
+                *fav.varlen_bwd_dkdv_reference(q, k, v, do, lse_ref, delta,
+                                               *args))
+        for got, ref_g in zip(grads, want):
+            _assert_grad_within(got, ref_g, GRAD_TOL[dtype])
+        del q, k, v, do, grads, want
+        torch.cuda.empty_cache()
+
+
+def test_varlen_kernels_repeat_bit_for_bit(dev):
+    (lens, _), H, D = VARLEN_CASES["mixed_d64"]
+    q, k, v, do, cu, _ = _varlen_case(dev, torch.bfloat16, lens, None, H, D)
+    args = (cu, cu, True, D ** -0.5)
+    out, lse = fav._launch_fwd(q, k, v, *args)
+    delta = fav.varlen_delta(out, do)
+    first = (out, lse, *fav._launch_dkdv(q, k, v, do, lse, delta, *args),
+             fav._launch_dq(q, k, v, do, lse, delta, *args))
+    for _ in range(5):
+        again = (*fav._launch_fwd(q, k, v, *args),
+                 *fav._launch_dkdv(q, k, v, do, lse, delta, *args),
+                 fav._launch_dq(q, k, v, do, lse, delta, *args))
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attn_unpadded_autograd_goes_through_the_kernels(dev, dtype):
+    """``flash_attn_unpadded`` on CUDA tensors: one launch of each kernel
+    for a forward and backward, gradients against torch autograd through
+    the f32 segment-masked composition (f32 at GRAD_TOL, bf16 at
+    ORACLE_BF16); GQA takes the composition and launches nothing."""
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+    from paddle_tpu_torch.nn.functional.attention import _unpadded_impl
+    (lens, _), H, D = VARLEN_CASES["mixed_d64"]
+    q, k, v, do, cu, _ = _varlen_case(dev, dtype, lens, None, H, D, seed=1)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fav.fwd_launch_count = fav.dkdv_launch_count = fav.dq_launch_count = 0
+    out, _ = flash_attn_unpadded(*leaves, cu, cu, 130, 130, D ** -0.5,
+                                 causal=True)
+    (out.float() * do.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert (fav.fwd_launch_count, fav.dkdv_launch_count,
+            fav.dq_launch_count) == (1, 1, 1)
+    oracle = [x.float().clone().requires_grad_(True) for x in (q, k, v)]
+    ref = _unpadded_impl(*oracle, cu, cu, scale=D ** -0.5, causal=True)
+    (ref * do.float()).sum().backward()
+    tol = GRAD_TOL[dtype] if dtype == torch.float32 else ORACLE_BF16
+    for got, want in [(out, ref)] + [(x.grad, o.grad)
+                                     for x, o in zip(leaves, oracle)]:
+        _assert_grad_within(got, want, tol)
+    flash_attn_unpadded(q, k[:, :2].contiguous(), v[:, :2].contiguous(), cu,
+                        cu, 130, 130, D ** -0.5, causal=True)
+    assert fav.fwd_launch_count == 1
+
+
+def test_varlen_wrapper_refuses_what_the_kernels_do_not_take(dev):
+    (lens, _), H, D = VARLEN_CASES["mixed_d64"]
+    q, k, v, _, cu, _ = _varlen_case(dev, torch.float32, lens, None, H, D)
+    with pytest.raises(ValueError, match="dtype"):
+        fav._launch_fwd(q.half(), k.half(), v.half(), cu, cu, True, 0.1)
+    with pytest.raises(ValueError, match="head dim"):
+        sl = [x[..., :32].contiguous() for x in (q, k, v)]
+        fav._launch_fwd(*sl, cu, cu, True, 0.1)
+    with pytest.raises(ValueError, match="heads"):
+        fav._launch_fwd(q, k[:, :2].contiguous(), v[:, :2].contiguous(), cu,
+                        cu, True, 0.1)
+    with pytest.raises(ValueError, match="cu_seqlens"):
+        fav._launch_fwd(q, k, v, cu.long(), cu, True, 0.1)
+
+
+def _blha_trace_case(dev, dtype, H=4, D=64, bs=16, seed=0):
+    rng = np.random.default_rng(seed)
+    B, nblk = 4, 8
+    bt = rng.permutation(np.arange(B * nblk)).reshape(B, nblk).astype(
+        np.int32)
+    kc = torch.zeros((B * nblk, H, bs, D), dtype=dtype, device=dev)
+    return rng, bt, kc, kc.clone()
+
+
+def test_block_multihead_attention_goes_through_the_kernels(dev):
+    """A prefill step, a mixed step and decode steps on the card: one
+    varlen forward per prefill part and one decode launch per decode part,
+    no plain version run; outputs equal the CPU run's (the plain versions)
+    at f32 TOL and the caches bit for bit."""
+    from paddle_tpu_torch.incubate.nn.functional import \
+        block_multihead_attention as blha
+    H, D, bs = 4, 64, 16
+    runs = {}
+    for where in ("cpu", "cuda"):
+        rng, bt, kc, vc = _blha_trace_case(where, torch.float32, H, D, bs)
+        steps = [([40, 7, 0, 0], [0, 0, 0, 0], [40, 7, 0, 0])]
+        steps.append(([40, 7, 20, 0], [40, 7, 0, 0], [1, 1, 20, 0]))
+        for i in range(3):
+            steps.append(([40, 7, 20, 0], [41 + i, 8 + i, 20 + i, 0],
+                          [1, 1, 1, 0]))
+        outs = []
+        plain = (fav.varlen_fwd_reference, pa.paged_decode_plain)
+        if where == "cuda":
+            def refuse(*a, **kw):
+                raise AssertionError("a plain version ran on the card")
+            fav.varlen_fwd_reference = pa.paged_decode_plain = refuse
+        fav.fwd_launch_count = pa.decode_launch_count = 0
+        try:
+            for enc, dec, this in steps:
+                sel = [b for b in range(4) if this[b] > 0]
+                T = sum(this)
+                qkv = torch.from_numpy(rng.standard_normal(
+                    (T, 3 * H * D)).astype(np.float32)).to(where)
+                out, _, kc2, vc2 = blha(
+                    qkv, kc, vc, np.array(enc)[sel], np.array(dec)[sel],
+                    np.array(this)[sel],
+                    block_tables=torch.from_numpy(bt[sel]).to(where),
+                    block_size=bs)
+                assert kc2 is kc and vc2 is vc
+                outs.append(out.cpu())
+        finally:
+            fav.varlen_fwd_reference, pa.paged_decode_plain = plain
+        runs[where] = (outs, kc.cpu(), vc.cpu(),
+                       (fav.fwd_launch_count, pa.decode_launch_count))
+    assert runs["cuda"][3] == (2, 4)
+    assert runs["cpu"][3] == (0, 0)
+    for got, want in zip(runs["cuda"][0], runs["cpu"][0]):
+        _assert_within(got, want, torch.float32)
+    assert torch.equal(runs["cuda"][1], runs["cpu"][1])
+    assert torch.equal(runs["cuda"][2], runs["cpu"][2])

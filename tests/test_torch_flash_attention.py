@@ -51,8 +51,9 @@ def _close(got, want, tol):
 
 SHAPES = [  # B, S, H, Hk, D
     (2, 128, 4, 4, 64), (2, 128, 4, 2, 64), (1, 128, 8, 2, 64),
-    (1, 128, 4, 1, 64), (1, 128, 2, 2, 128), (1, 128, 4, 2, 128)]
-IDS = ["mha", "gqa4_2", "gqa8_2", "mqa4_1", "d128", "d128_gqa"]
+    (1, 128, 4, 1, 64), (1, 128, 2, 2, 128), (1, 128, 4, 2, 128),
+    (1, 128, 2, 1, 256)]
+IDS = ["mha", "gqa4_2", "gqa8_2", "mqa4_1", "d128", "d128_gqa", "d256_mqa"]
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
@@ -201,10 +202,12 @@ def _ops(shape=(1, 64, 4, 64), kv=(1, 64, 2, 64), dtype=torch.float32):
     (_ops(dtype=torch.float16), True, "dtype"),
     (_ops((1, 64, 4, 32), (1, 64, 2, 32)), True, "head dim"),
     (_ops((1, 64, 4, 96), (1, 64, 2, 96)), True, "head dim"),
+    (_ops((1, 64, 2, 384), (1, 64, 1, 384)), True, "head dim"),
     (_ops((1, 64, 6, 64), (1, 64, 4, 64)), True, "multiple"),
     (_ops((1, 64, 4, 64), (1, 80, 2, 64)), True, "Sq == Sk"),
     (_ops((1, 0, 4, 64), (1, 0, 2, 64)), False, "empty"),
-], ids=["f16", "d32", "d96", "h6_hk4", "causal_sq_ne_sk", "empty"])
+], ids=["f16", "d32", "d96", "d384", "h6_hk4", "causal_sq_ne_sk",
+        "empty"])
 def test_cuda_wrapper_refuses_what_the_kernels_do_not_take(ops, causal,
                                                           match):
     with pytest.raises(ValueError, match=match):

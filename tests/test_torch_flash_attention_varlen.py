@@ -1,0 +1,351 @@
+"""PyTorch port, varlen flash attention: the segment metadata, the block
+bounds, the plain versions of the three varlen kernels (what the port runs
+on CPU tensors and what the CUDA kernels are held to on the card) and
+``flash_attn_unpadded`` against the JAX package.  The JAX side runs its
+Pallas varlen kernels through the interpreter (``flash_attention.INTERPRET
+= True``, as tests/test_paged_attention.py runs them) or, for shapes its
+rule refuses, its segment-masked composition ``_unpadded_impl``.
+
+Same inputs (numpy, from a seed) through both.  Tolerances (rtol and atol):
+float32 2e-5 for outputs and lse, 2e-4 for gradients (the same f32 sums in
+another order; the backward takes differences of them).  bfloat16 8e-3 for
+outputs and gradients, one bf16 ulp at magnitude 1: both sides round p and
+dS to bf16 at the same points, but the JAX kernel rounds p relative to its
+running max of a 128-key block and the plain version relative to the row's
+max, so single elements may differ by an ulp.  ``_segment_meta`` and the
+block bounds must agree exactly.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.nn.functional import attention as JA
+from paddle_tpu.ops.pallas import flash_attention as FA
+from paddle_tpu.ops.pallas import flash_attention_varlen as JV
+from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.functional import attention as TA
+from paddle_tpu_torch.ops import flash_attention_varlen as fav
+
+TOL = {"float32": (2e-5, 2e-4), "bfloat16": (8e-3, 8e-3)}   # out, grads
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture
+def _interpret():
+    prev = FA.INTERPRET
+    FA.INTERPRET = True
+    yield
+    FA.INTERPRET = prev
+
+
+def _cu(lens):
+    return np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+
+
+def _inputs(lens_q, lens_k, H, D, Hk=None, seed=0):
+    """q [Tq, H, D], k/v [Tk, Hk, D], dout like q, and the two offset
+    vectors, from a seed."""
+    rng = np.random.RandomState(seed)
+    cq, ck = _cu(lens_q), _cu(lens_k)
+    Hk = H if Hk is None else Hk
+    return (rng.randn(cq[-1], H, D).astype(np.float32),
+            rng.randn(ck[-1], Hk, D).astype(np.float32),
+            rng.randn(ck[-1], Hk, D).astype(np.float32),
+            rng.randn(cq[-1], H, D).astype(np.float32), cq, ck)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+# (lens_q, lens_k, H, D): self attention where lens_k is None
+CASES = {
+    "packed_d64": ([7, 130, 0, 55, 64], None, 2, 64),
+    "one_seq_d128": ([96], None, 2, 128),
+    "d256": ([100, 28], None, 1, 256),
+    "cross_keyless": ([30, 40, 50, 5], [100, 0, 60, 1], 2, 64),
+}
+
+
+def _case(name):
+    lens_q, lens_k, H, D = CASES[name]
+    return _inputs(lens_q, lens_q if lens_k is None else lens_k, H, D)
+
+
+def _with_causal(cases):
+    """(name, causal) pairs: causal attention pairs a query with its own
+    sequence, so cross-attention cases run non-causal only."""
+    return [pytest.param(n, c, id=f"{n}-{'causal' if c else 'full'}")
+            for n, case in cases.items() for c in (True, False)
+            if c is False or case[1] is None]
+
+
+# ---------------------------------------------------------------------------
+# segment metadata and block bounds: exact
+# ---------------------------------------------------------------------------
+
+META = {  # offsets, total tokens, padded length
+    "packed": ([0, 7, 137, 137, 192, 256], 256, 320),
+    "exact_fit": ([0, 64, 128], 128, 128),
+    "tail_past_cu": ([0, 5, 9], 12, 64),
+    "empty_first": ([0, 0, 70, 71], 71, 128),
+}
+
+
+@pytest.mark.parametrize("name", list(META))
+def test_segment_meta_matches_jax(name):
+    cu, total, pad = META[name]
+    nseq = len(cu) - 1
+    js, jr = JV._segment_meta(jnp.asarray(cu, jnp.int32), total, pad,
+                              nseq + 1)
+    ts, tr = fav._segment_meta(torch.tensor(cu, dtype=torch.int32), total,
+                               pad, nseq + 1)
+    assert ts.dtype == torch.int32 and tr.dtype == torch.int32
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+
+
+@pytest.mark.parametrize("name", list(META))
+def test_segments_is_the_jax_composition_rule(name):
+    """``segments``, which the port's composition and blha's prefill
+    share, is the rule of the JAX ``_unpadded_impl`` and blha prefill:
+    searchsorted from the right, tokens past cu[-1] in segment nseq."""
+    cu, total, _ = META[name]
+    jcu = jnp.asarray(cu, jnp.int32)
+    pos = jnp.arange(total)
+    js = jnp.searchsorted(jcu, pos, side="right") - 1
+    ts, tr = fav.segments(torch.tensor(cu, dtype=torch.int32), total)
+    assert ts.dtype == torch.int32 and tr.dtype == torch.int32
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(pos - jcu[js]))
+
+
+BOUNDS = {  # cu_q, cu_k (Tq = cu_q[-1], Tk = cu_k[-1])
+    "self": ([0, 7, 137, 137, 192, 256], [0, 7, 137, 137, 192, 256]),
+    "cross": ([0, 30, 70, 120, 125], [0, 100, 100, 160, 161]),
+    "one": ([0, 200], [0, 200]),
+}
+
+
+@pytest.mark.parametrize("blocks", [(64, 64), (64, 32), (32, 64)],
+                         ids=["64x64", "64x32", "32x64"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("name", list(BOUNDS))
+def test_block_bounds_match_jax_at_equal_block_sizes(name, causal, blocks):
+    cu_q, cu_k = BOUNDS[name]
+    block_q, block_k = blocks
+    tq, tk, nseq = cu_q[-1], cu_k[-1], len(cu_q) - 1
+    pad_q = -(-tq // 64) * 64
+    pad_k = -(-tk // 64) * 64
+    nqb, nkb = pad_q // block_q, pad_k // block_k
+    jcq, jck = jnp.asarray(cu_q, jnp.int32), jnp.asarray(cu_k, jnp.int32)
+    tcq = torch.tensor(cu_q, dtype=torch.int32)
+    tck = torch.tensor(cu_k, dtype=torch.int32)
+    jsq, jrq = JV._segment_meta(jcq, tq, pad_q, nseq)
+    jsk, jrk = JV._segment_meta(jck, tk, pad_k, nseq + 1)
+    tsq, trq = fav._segment_meta(tcq, tq, pad_q, nseq)
+    tsk, trk = fav._segment_meta(tck, tk, pad_k, nseq + 1)
+    want = (JV._block_bounds_q(jsq, jrq, jck, block_q, block_k, nkb, causal)
+            + JV._block_bounds_k(jsk, jrk, jcq, block_q, block_k, nqb,
+                                 causal))
+    got = (fav._block_bounds_q(tsq, trq, tck, block_q, block_k, nkb, causal)
+           + fav._block_bounds_k(tsk, trk, tcq, block_q, block_k, nqb,
+                                 causal))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("shape,rule", [
+    (((64, 4, 64), (64, 4, 64), "float32"), True),
+    (((64, 4, 128), (64, 4, 128), "bfloat16"), True),
+    (((64, 4, 256), (64, 4, 256), "float32"), True),
+    (((64, 4, 64), (64, 2, 64), "float32"), False),     # GQA
+    (((64, 4, 32), (64, 4, 32), "float32"), False),     # head dim
+    (((64, 4, 64), (64, 4, 64), "float16"), False),
+    (((2, 64, 4, 64), (2, 64, 4, 64), "float32"), False),   # 4-D
+], ids=["d64", "d128_bf16", "d256", "gqa", "d32", "f16", "4d"])
+def test_kernel_rule_matches_jax(_interpret, shape, rule):
+    qs, ks, dt = shape
+    jq = jax.ShapeDtypeStruct(qs, jnp.dtype(dt))
+    jk = jax.ShapeDtypeStruct(ks, jnp.dtype(dt))
+    tdt = getattr(torch, dt)
+    tq, tk = torch.empty(qs, dtype=tdt), torch.empty(ks, dtype=tdt)
+    assert JV.use_varlen_flash(jq, jk, True) is rule
+    assert fav.use_varlen_kernel(tq, tk) is rule
+
+
+# ---------------------------------------------------------------------------
+# plain versions against the interpreted Pallas kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,causal", _with_causal(CASES))
+def test_plain_versions_match_pallas_kernels(_interpret, name, causal, dtype):
+    q, k, v, g, cq, ck = _case(name)
+    D = q.shape[-1]
+    scale = D ** -0.5
+    jx = [jnp.asarray(x, JDT[dtype]) for x in (q, k, v, g)]
+    out_j, lse_j = JV._varlen_fwd(*jx[:3], jnp.asarray(cq), jnp.asarray(ck),
+                                  causal, scale)
+    grads_j = JV._varlen_bwd(*jx[:3], out_j, lse_j, jx[3], jnp.asarray(cq),
+                             jnp.asarray(ck), causal, scale)
+    tx = [torch.from_numpy(x).to(TDT[dtype]) for x in (q, k, v, g)]
+    tcq, tck = torch.from_numpy(cq), torch.from_numpy(ck)
+    out, lse = fav.varlen_fwd_reference(*tx[:3], tcq, tck, causal, scale)
+    grads = fav.varlen_bwd_reference(*tx[:3], out, lse, tx[3], tcq, tck,
+                                     causal, scale)
+    tol_out, tol_grad = TOL[dtype]
+    assert out.dtype == TDT[dtype] and lse.dtype == torch.float32
+    assert lse.shape == (q.shape[1], q.shape[0])
+    _close(out, out_j, tol_out)
+    lse_j = np.asarray(lse_j)[:, 0, :q.shape[0]]
+    fin = np.isfinite(lse_j)
+    np.testing.assert_array_equal(np.isfinite(lse.numpy()), fin)
+    assert (lse.numpy()[~fin] == -np.inf).all()
+    _close(lse.numpy()[fin], lse_j[fin], 2e-5)
+    for got, want, x in zip(grads, grads_j, tx[:3]):
+        assert got.dtype == x.dtype and got.shape == x.shape
+        _close(got, want, tol_grad)
+    if not fin.all():                   # key-less rows: 0 out, 0 dq
+        rows = ~fin.any(0)
+        assert (out.float().numpy()[rows] == 0).all()
+        assert (grads[0].float().numpy()[rows] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# flash_attn_unpadded: values and autograd gradients
+# ---------------------------------------------------------------------------
+
+def _jax_unpadded(q, k, v, g, cq, ck, causal, scale, dtype):
+    """out and (dq, dk, dv) through the JAX package's routing, with
+    jax.vjp over the function it picks."""
+    jx = [jnp.asarray(x, JDT[dtype]) for x in (q, k, v)]
+    jcq, jck = jnp.asarray(cq), jnp.asarray(ck)
+    if JV.use_varlen_flash(jx[0], jx[1], causal):
+        def fn(q_, k_, v_):
+            return JV._varlen_attention(causal, scale, q_, k_, v_, jcq, jck)
+    else:
+        def fn(q_, k_, v_):
+            return JA._unpadded_impl(q_, k_, v_, jcq, jck, scale=scale,
+                                     causal=causal)
+    out, vjp = jax.vjp(fn, *jx)
+    return out, vjp(jnp.asarray(g, JDT[dtype]))
+
+
+def _torch_unpadded(q, k, v, g, cq, ck, causal, scale, dtype):
+    leaves = [torch.from_numpy(x).to(TDT[dtype]).requires_grad_(True)
+              for x in (q, k, v)]
+    out, soft = F.flash_attn_unpadded(*leaves, torch.from_numpy(cq),
+                                      torch.from_numpy(ck), 0, 0, scale,
+                                      causal=causal)
+    assert soft is None
+    out.backward(torch.from_numpy(g).to(TDT[dtype]))
+    return out, [x.grad for x in leaves]
+
+
+UNPADDED = {  # lens_q, lens_k, H, Hk, D
+    "packed": ([7, 130, 0, 55, 64], None, 2, 2, 64),
+    "gqa": ([40, 0, 25], None, 4, 2, 64),
+    "cross": ([30, 40, 5], [60, 0, 9], 2, 2, 64),
+    "d128": ([50, 14], None, 1, 1, 128),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,causal", _with_causal(UNPADDED))
+def test_flash_attn_unpadded_matches_jax(_interpret, name, causal, dtype):
+    lens_q, lens_k, H, Hk, D = UNPADDED[name]
+    args = _inputs(lens_q, lens_q if lens_k is None else lens_k, H, D, Hk,
+                   seed=3)
+    scale = 0.5 / np.sqrt(D)
+    out_j, grads_j = _jax_unpadded(*args, causal, scale, dtype)
+    out, grads = _torch_unpadded(*args, causal, scale, dtype)
+    tol_out, tol_grad = TOL[dtype]
+    assert out.shape == args[0].shape and out.dtype == TDT[dtype]
+    _close(out, out_j, tol_out)
+    for got, want in zip(grads, grads_j):
+        _close(got, want, tol_grad)
+
+
+@pytest.mark.parametrize("name", ["packed", "cross"])
+def test_kernel_route_matches_the_composition(name):
+    """The port's varlen route (plain versions on the CPU) against the JAX
+    composition, the function both packages fall back to: f32, outputs at
+    2e-5 and gradients at 2e-4."""
+    lens_q, lens_k, H, _, D = UNPADDED[name]
+    causal = lens_k is None
+    q, k, v, g, cq, ck = _inputs(lens_q, lens_q if causal else lens_k, H, D,
+                                 seed=5)
+    jx = [jnp.asarray(x) for x in (q, k, v)]
+    out_j, vjp = jax.vjp(lambda *a: JA._unpadded_impl(
+        *a, jnp.asarray(cq), jnp.asarray(ck), scale=D ** -0.5,
+        causal=causal), *jx)
+    out, grads = _torch_unpadded(q, k, v, g, cq, ck, causal, D ** -0.5,
+                                 "float32")
+    _close(out, out_j, 2e-5)
+    for got, want in zip(grads, vjp(jnp.asarray(g))):
+        _close(got, want, 2e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_unpadded_impl_matches_jax(causal):
+    """The composition alone, GQA at D 32 over offsets that differ between
+    queries and keys (a key-less sequence among them)."""
+    q, k, v, _, cq, ck = _inputs([9, 0, 20], [12, 3, 0], 4, 32, 2, seed=7)
+    want = JA._unpadded_impl(*(jnp.asarray(x) for x in (q, k, v)),
+                             jnp.asarray(cq), jnp.asarray(ck), scale=0.3,
+                             causal=causal)
+    got = TA._unpadded_impl(*(torch.from_numpy(x) for x in (q, k, v)),
+                            torch.from_numpy(cq), torch.from_numpy(ck),
+                            scale=0.3, causal=causal)
+    _close(got, want, 2e-5)
+
+
+def test_flash_attn_unpadded_refuses_dropout():
+    q, k, v, _, cq, ck = _inputs([5, 3], [5, 3], 2, 64)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        JA.flash_attn_unpadded(*(jnp.asarray(x) for x in (q, k, v)), cq, ck,
+                               5, 5, 0.125, dropout=0.1)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        F.flash_attn_unpadded(*(torch.from_numpy(x) for x in (q, k, v)), cq,
+                              ck, 5, 5, 0.125, dropout=0.1)
+    # not in training: dropout is ignored, as in the JAX package
+    out, _ = F.flash_attn_unpadded(*(torch.from_numpy(x) for x in (q, k, v)),
+                                   cq, ck, 5, 5, 0.125, dropout=0.1,
+                                   training=False)
+    assert out.shape == q.shape
+
+
+# ---------------------------------------------------------------------------
+# the wrappers on CPU tensors
+# ---------------------------------------------------------------------------
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    q, k, v, _, cq, ck = _inputs([5, 3], [5, 3], 2, 64)
+    t = [torch.from_numpy(x) for x in (q, k, v, cq, ck)]
+    before = fav.fwd_launch_count
+    with pytest.raises(RuntimeError, match="CUDA tensors only"):
+        fav._launch_fwd(*t, True, 0.125)
+    with pytest.raises(ValueError, match="head dim"):
+        fav._launch_fwd(*(x[..., :32].contiguous() for x in t[:3]), *t[3:],
+                        True, 0.125)
+    assert fav.fwd_launch_count == before
+
+
+def test_cpu_tensors_launch_nothing():
+    q, k, v, g, cq, ck = _inputs([50, 14], [50, 14], 2, 64)
+    counts = (fav.fwd_launch_count, fav.dkdv_launch_count,
+              fav.dq_launch_count)
+    _torch_unpadded(q, k, v, g, cq, ck, True, 0.125, "float32")
+    assert (fav.fwd_launch_count, fav.dkdv_launch_count,
+            fav.dq_launch_count) == counts

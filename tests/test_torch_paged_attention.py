@@ -201,3 +201,92 @@ def test_bf16_plain_version_tracks_f32():
     assert out16.dtype == torch.bfloat16
     np.testing.assert_allclose(out16.float().numpy(), out32.numpy(),
                                atol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# paged decode (block_multihead_attention's decode): the plain version, which
+# repeats the TPU decode kernel's rounding points, against that kernel run by
+# the Pallas interpreter (tests/test_paged_attention.py's parameter sets),
+# and the dense-gather reference against the JAX one.  float32 at TOL;
+# bfloat16 at 8e-3, one bf16 ulp at magnitude 1 (q * scale and p rounded at
+# the same points, p from per-page running maxima in the kernel and the
+# row's maximum in the plain version).
+# ---------------------------------------------------------------------------
+
+DECODE_SHAPES = [(8, 4, 64, 16, 5), (4, 4, 64, 8, 3), (10, 5, 128, 16, 4)]
+DECODE_IDS = ["gqa", "mha", "d128_gqa"]
+
+
+def _decode(seed, H, Hkv, D, bs, nblk, B=3, num_blocks=64):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, H, D).astype(np.float32)
+    kc = rng.randn(num_blocks, Hkv, bs, D).astype(np.float32)
+    vc = rng.randn(num_blocks, Hkv, bs, D).astype(np.float32)
+    bt = rng.choice(num_blocks, B * nblk, replace=False).reshape(
+        B, nblk).astype(np.int32)
+    lengths = rng.randint(1, nblk * bs + 1, B).astype(np.int32)
+    return q, kc, vc, bt, lengths
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", DECODE_SHAPES, ids=DECODE_IDS)
+def test_decode_plain_version_matches_pallas_kernel_interpreted(
+        _interpret, shape, dtype):
+    q, kc, vc, bt, lengths = _decode(0, *shape)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = jpa.paged_decode_attention(
+        *(jnp.asarray(x, jd) for x in (q, kc, vc)), jnp.asarray(bt),
+        jnp.asarray(lengths))
+    td = getattr(torch, dtype)
+    tq, tkc, tvc, tbt, tln = _torch(q, kc, vc, bt, lengths)
+    got = tpa.paged_decode_attention(tq.to(td), tkc.to(td), tvc.to(td), tbt,
+                                     tln)
+    assert got.shape == q.shape and got.dtype == td
+    tol = TOL if dtype == "float32" else dict(atol=8e-3, rtol=8e-3)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(jnp.asarray(want, jnp.float32)),
+                               **tol)
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES, ids=DECODE_IDS)
+def test_decode_reference_matches_jax(shape):
+    q, kc, vc, bt, lengths = _decode(1, *shape)
+    want = jpa.paged_decode_reference(
+        *(jnp.asarray(x) for x in (q, kc, vc, bt, lengths)))
+    got = tpa.paged_decode_reference(*_torch(q, kc, vc, bt, lengths))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_decode_minus_one_padded_block_tables(_interpret):
+    """-1 table padding past each row's pages clamps into range on both
+    sides (tests/test_paged_attention.py's case)."""
+    q, kc, vc, _, _ = _decode(7, 4, 4, 64, 8, 4, B=2, num_blocks=16)
+    bt = np.full((2, 4), -1, np.int32)
+    bt[0, :2] = [3, 7]
+    bt[1, :1] = [5]
+    lengths = np.asarray([11, 6], np.int32)
+    want = jpa.paged_decode_attention(
+        *(jnp.asarray(x) for x in (q, kc, vc, bt, lengths)))
+    got = tpa.paged_decode_attention(*_torch(q, kc, vc, bt, lengths))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("args", [
+    (2, 8, 4, 64, 16), (2, 4, 4, 128, 8), (2, 4, 4, 256, 8),
+    (2, 6, 4, 64, 16), (2, 4, 4, 96, 16), (2, 4, 4, 64, 12)],
+    ids=["gqa", "d128", "d256", "group_not_dividing", "d96", "bs12"])
+def test_decode_rule_matches_jax(args):
+    assert tpa.supports(*args) is jpa.supports(*args)
+
+
+def test_decode_cpu_tensors_never_count_and_kernel_refuses_them():
+    ops = _torch(*_decode(2, 4, 4, 64, 8, 3))
+    tpa.decode_launch_count = 0
+    out = tpa.paged_decode_attention_packed(*ops)
+    np.testing.assert_array_equal(out.numpy(),
+                                  tpa.paged_decode_plain(*ops).numpy())
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        tpa._launch_decode_kernel(*ops)
+    with pytest.raises(ValueError, match="paged decode kernel"):
+        tpa._launch_decode_kernel(ops[0], *ops[1:3], ops[3][:1], ops[4])
+    assert tpa.decode_launch_count == 0

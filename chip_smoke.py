@@ -24,9 +24,16 @@ LLaMA-7B's attention width (with controls that must fail, and
 ``flash_attn_unpadded``'s autograd through the varlen kernels), and
 ``blha_f32`` (2 layers) and ``blha_bf16`` (32 layers: a gate run, then
 the kernels alone) serve a prefill, a mixed and 16 or 32 decode steps
-through ``block_multihead_attention``.  Each 32- and 24-layer phase shows
-through the kernels' launch counters that a run on the kernels alone
-went through them.  Each
+through ``block_multihead_attention``.  ``paged_repair`` holds the three
+paged entries at the head dims and query groups their specialised
+kernels do not serve (D 256 and 384, G 16 and 32; decode also D 512 and
+1024), ``norms`` the fused RMSNorm / LayerNorm kernel over rows, widths
+and dtypes (controls, repeats bit for bit), and ``fused_decoder_f32`` (2
+layers, against the dense forward) and ``fused_decoder_bf16`` (32 layers:
+a gate run, then the kernels alone) serve a fused LLaMA-7B decoder built
+from ``incubate.nn.functional`` ops over ``block_multihead_attention``.
+Each 32- and 24-layer phase shows through the kernels' launch counters
+that a run on the kernels alone went through them.  Each
 phase prints one JSON line; the line before the last two is the kernel
 record, then the card's name and power limit as nvidia-smi gives them,
 then ``{"ok": true, ...}``.
@@ -134,12 +141,13 @@ def decode_lens(rng):
     return [100, 2000] + [int(x) for x in rng.integers(100, 2001, 6)]
 
 
-def attention_case(kind, Hkv, dtype, rng, gen):
+def attention_case(kind, Hkv, dtype, rng, gen, Hq=H, Dh=D):
     """An engine-shaped launch on the card: 8 rows, a [9, NBLK] table whose
     last row is the null row.  ``decode``: one token per row at kv lengths
     100..2000.  ``mixed``: a 512-token prefill chunk resuming at position
     188 (kv length 700) plus 7 decode rows, padded to the 576-token bucket
-    the engine would launch."""
+    the engine would launch.  Hq query heads of Dh (LLaMA-7B's by
+    default)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.ops import paged_attention as pa
@@ -167,9 +175,9 @@ def attention_case(kind, Hkv, dtype, rng, gen):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    q = randn(Tq, H, D)
-    kc = randn(num_blocks, Hkv, BS, D)
-    vc = randn(num_blocks, Hkv, BS, D)
+    q = randn(Tq, Hq, Dh)
+    kc = randn(num_blocks, Hkv, BS, Dh)
+    vc = randn(num_blocks, Hkv, BS, Dh)
     bt_d = torch.from_numpy(bt).to(dev)
     seg, rel = pa.ragged_segments(torch.from_numpy(cu).to(dev),
                                   torch.from_numpy(kvl).to(dev), Tq)
@@ -202,13 +210,14 @@ def bound(c, dtype_name):
     token's keys) over the dtype's peak."""
     import numpy as np
     isz = c["q"].element_size()
+    _, Hq, Dh = c["q"].shape
     Hkv = c["kc"].shape[1]
     live_keys = int(sum(kv for _, kv in c["rows"]))
     pages = int(sum(-(-kv // BS) for _, kv in c["rows"]))
-    nbytes = (2 * live_keys * Hkv * D * isz + 2 * c["q"].numel() * isz
+    nbytes = (2 * live_keys * Hkv * Dh * isz + 2 * c["q"].numel() * isz
               + pages * 4 + 8 * c["Tq"])
     keys_per_token = c["rel"].cpu().numpy().astype(np.int64) + 1
-    flops = 4 * int(keys_per_token.sum()) * H * D
+    flops = 4 * int(keys_per_token.sum()) * Hq * Dh
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
@@ -223,15 +232,16 @@ def library(c):
     import torch.nn.functional as F
     B = len(c["rows"])
     Smax = NBLK * BS
+    Dh = c["q"].shape[-1]
     pages = c["bt"][:B].long()
-    k = c["kc"][pages].permute(0, 2, 1, 3, 4).reshape(B, -1, Smax, D)
-    v = c["vc"][pages].permute(0, 2, 1, 3, 4).reshape(B, -1, Smax, D)
+    k = c["kc"][pages].permute(0, 2, 1, 3, 4).reshape(B, -1, Smax, Dh)
+    v = c["vc"][pages].permute(0, 2, 1, 3, 4).reshape(B, -1, Smax, Dh)
     kvl = torch.as_tensor(c["kvl"], device=k.device)
     mask = (torch.arange(Smax, device=k.device)[None, :]
             < kvl[:, None])[:, None, None, :]
     q = c["q"][:B, :, None, :]
     fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q, k, v, attn_mask=mask)
+        q, k, v, attn_mask=mask, enable_gqa=k.shape[1] != q.shape[1])
     return fn, fn()[:, :, 0, :]
 
 
@@ -293,11 +303,11 @@ def quantize_pages(pages):
     return q8.clamp(-127, 127).to(torch.int8), s
 
 
-def q8_case(kind, Hkv, dtype, rng, gen):
+def q8_case(kind, Hkv, dtype, rng, gen, Hq=H, Dh=D):
     """``attention_case``'s pack with its N(0, 1) pages quantized and q in
     ``dtype``."""
     import torch
-    c = attention_case(kind, Hkv, torch.float32, rng, gen)
+    c = attention_case(kind, Hkv, torch.float32, rng, gen, Hq, Dh)
     (kq, ks), (vq, vs) = quantize_pages(c["kc"]), quantize_pages(c["vc"])
     c.update(q=c["q"].to(dtype), kc=kq, vc=vq, ks=ks, vs=vs)
     return c
@@ -327,13 +337,14 @@ def bound_q8(c):
     (the kernel's arithmetic after dequantization)."""
     import numpy as np
     isz = c["q"].element_size()
+    _, Hq, Dh = c["q"].shape
     Hkv = c["kc"].shape[1]
     live_keys = int(sum(kv for _, kv in c["rows"]))
     pages = int(sum(-(-kv // BS) for _, kv in c["rows"]))
-    nbytes = (2 * live_keys * Hkv * D + 2 * pages * Hkv * 4
+    nbytes = (2 * live_keys * Hkv * Dh + 2 * pages * Hkv * 4
               + 2 * c["q"].numel() * isz + pages * 4 + 8 * c["Tq"])
     keys = int((c["rel"].cpu().numpy().astype(np.int64) + 1).sum())
-    flops = 4 * keys * H * D
+    flops = 4 * keys * Hq * Dh
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS["float32"] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
@@ -1066,7 +1077,8 @@ def phase_engine_w4(state):
 # and the rounding of q * sm_scale shows), and D 256 at a small size (the
 # CUDA-core kernels in both types, reached by scaled_dot_product_attention)
 FLASH_SHAPES = {"trainer": (2, 2048, 16, 4, 64), "7b": (1, 2048, 32, 32, 128),
-                "d256": (1, 512, 8, 2, 256)}
+                "d256": (1, 512, 8, 2, 256), "d384": (1, 512, 8, 2, 384),
+                "d512": (1, 512, 8, 2, 512)}
 # lse, f32 on both sides and summed in another order: absolute (values up
 # to ~20).  Gradients are held by two scale-free measures, max|d| / max|ref|
 # over the whole tensor (at TOLERANCE's token_rel) and ||d|| / ||ref||
@@ -1602,10 +1614,10 @@ def blha_tables(need, rng):
     return bt, num_blocks
 
 
-def decode_case(Hkv, dtype, rng, gen) -> dict:
-    """One blha decode launch at LLaMA-7B's attention width: 8 rows at kv
-    lengths 100..2000 (the fresh token included), bs 64, -1-padded
-    tables."""
+def decode_case(Hkv, dtype, rng, gen, Hq=H, Dh=D) -> dict:
+    """One blha decode launch at LLaMA-7B's attention width (Hq query
+    heads of Dh by default): 8 rows at kv lengths 100..2000 (the fresh
+    token included), bs 64, -1-padded tables."""
     import torch
     lens = decode_lens(rng)
     need = [-(-n // BLHA_BS) for n in lens]
@@ -1615,9 +1627,9 @@ def decode_case(Hkv, dtype, rng, gen) -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
     bt_d = torch.from_numpy(bt).to(dev)
-    return dict(q=randn(len(lens), H, D),
-                kc=randn(num_blocks, Hkv, BLHA_BS, D),
-                vc=randn(num_blocks, Hkv, BLHA_BS, D), bt=bt_d,
+    return dict(q=randn(len(lens), Hq, Dh),
+                kc=randn(num_blocks, Hkv, BLHA_BS, Dh),
+                vc=randn(num_blocks, Hkv, BLHA_BS, Dh), bt=bt_d,
                 btc=bt_d.clamp(0, num_blocks - 1).contiguous(),
                 lens=torch.tensor(lens, dtype=torch.int32, device=dev),
                 pages=sum(need), keys=sum(lens))
@@ -2410,6 +2422,586 @@ def phase_blha_bf16(state):
     return rec["ok"]
 
 
+# ---------------------------------------------------------------------------
+# repaired head dims and query groups: the paged kernels at every D and G the
+# JAX rules take (the specialised kernels serve D 64/128 with G <= 8, the
+# split kernel the rest), against their plain versions, timed in bf16
+# ---------------------------------------------------------------------------
+
+REPAIR_PAGED = {"d256": (16, 16, 256), "d384": (8, 8, 384),
+                "g16": (32, 2, 128), "g32": (32, 1, 128)}   # Hq, Hkv, D
+REPAIR_DECODE = dict(REPAIR_PAGED, d512=(8, 8, 512), d1024=(4, 4, 1024))
+
+
+def phase_paged_repair(state):
+    """Each paged entry (float ragged, int8-page ragged, decode) at the
+    repaired shapes, decode rows at kv lengths 100..2000: held to its
+    plain version at TOLERANCE in both dtypes; bf16 timed beside its plain
+    version, its bound and scaled_dot_product_attention on the pages
+    gathered dense."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 21)
+    cases, ok = {"ragged": {}, "ragged_q8": {}, "decode": {}}, True
+    for entry, shapes in (("ragged", REPAIR_PAGED),
+                          ("ragged_q8", REPAIR_PAGED),
+                          ("decode", REPAIR_DECODE)):
+        for sname, (Hq, Hkv, Dh) in shapes.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype).split(".")[-1]
+                rng = np.random.default_rng(SEED + 21)
+                if entry == "ragged":
+                    c = attention_case("decode", Hkv, dtype, rng, gen, Hq, Dh)
+                    run, ref = (lambda: kernel(c)), plain(c)
+                    plain_fn = lambda: plain(c)          # noqa: E731
+                    lib_c, bnd = c, bound(c, name)[:2]
+                elif entry == "ragged_q8":
+                    c = q8_case("decode", Hkv, dtype, rng, gen, Hq, Dh)
+                    run, ref = (lambda: kernel_q8(c)), plain_q8(c)
+                    plain_fn = lambda: plain_q8(c)       # noqa: E731
+                    lib_c, bnd = dequantized(c, dtype), bound_q8(c)[:2]
+                else:
+                    c = decode_case(Hkv, dtype, rng, gen, Hq, Dh)
+                    run, ref = (lambda: decode_kernel(c)), decode_plain(c)
+                    plain_fn = lambda: decode_plain(c)   # noqa: E731
+                    lib_c, bnd = c, decode_bound(c, name)[:2]
+                err = errors(run(), ref)
+                held = within(err, name)
+                ok &= held
+                rec = {"H": Hq, "H_kv": Hkv, "D": Dh, "held": held,
+                       "errors": err}
+                if dtype == torch.bfloat16:
+                    lib_fn, _ = (decode_library if entry == "decode"
+                                 else library)(lib_c)
+                    rec.update(ms=time_ms(run, reps=10),
+                               plain_ms=time_ms(plain_fn, reps=5),
+                               library_ms=time_ms(lib_fn, reps=10),
+                               bound_ms=bnd[0], bound_by=bnd[1])
+                    del lib_fn
+                cases[entry][f"{sname}_{name}"] = rec
+                del c, lib_c, ref
+                torch.cuda.empty_cache()
+    state["paged_repair"] = cases
+    emit({"phase": "paged_repair", "ok": ok, "tolerance": TOLERANCE,
+          "rows": "decode launch: 8 rows, kv lens 100..2000 (ragged: bs 16; "
+                  "decode: bs 64, -1 padded tables)", "cases": cases})
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# norms phase: the fused RMSNorm / LayerNorm kernel against its plain
+# version.  float32 x: each row's max |out - ref| / max |ref| <= 1e-5 (the
+# row sums in another order, the card's rsqrt within 2 ulp).  bfloat16 x:
+# every element within max(1e-2, one bf16 ulp of the reference) -- 1e-2 is
+# the JAX package's own hardware bound (tests/test_tpu_hardware.py), and
+# above 2 in magnitude a single rounding of two f32 values an ulp apart
+# exceeds it -- and ||out - ref|| / ||ref|| <= 1e-3, which a 0.5% shift
+# fails.
+# ---------------------------------------------------------------------------
+
+NORM_ROWS = (8, 2048)
+NORM_HIDDEN = (4096, 1024)
+NORM_TOL = {"float32": {"row_rel": 1e-5},
+            "bfloat16": {"abs_or_ulp": 1.0, "l2_rel": 1e-3}}
+NORM_EPS = {"rms": 1e-6, "ln": 1e-5}
+
+
+def norm_errors(out, ref) -> dict:
+    """max abs; each row's max |d| / max |ref| (worst row); the worst
+    |d| / max(1e-2, ulp_bf16(ref)); ||d|| / ||ref||."""
+    import torch
+    d = (out.float() - ref.float()).abs()
+    r = ref.float()
+    row = d.reshape(-1, d.shape[-1]).amax(1) / \
+        r.reshape(-1, r.shape[-1]).abs().amax(1).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(2.0 ** -126)))
+                     - 7).clamp_min(1e-2)
+    return {"abs": float(d.max()), "row_rel": float(row.max()),
+            "abs_or_ulp": float((d / ulp).max()),
+            "l2_rel": float(d.norm() / r.norm().clamp_min(1e-30))}
+
+
+def norm_within(errs, dtype_name) -> bool:
+    return all(errs[k] <= v for k, v in NORM_TOL[dtype_name].items())
+
+
+def norm_case(R, Hd, xdt, wdt, gen) -> dict:
+    import torch
+    return dict(x=torch.randn((R, Hd), generator=gen, device=DEV).to(xdt),
+                w=(1 + 0.1 * torch.randn(Hd, generator=gen, device=DEV))
+                .to(wdt),
+                b=(0.1 * torch.randn(Hd, generator=gen, device=DEV)).to(wdt))
+
+
+def norm_kernel(kind, c, eps=None, w=None):
+    from paddle_tpu_torch.ops import fused_norms as fn
+    eps = NORM_EPS[kind] if eps is None else eps
+    w = c["w"] if w is None else w
+    return fn._launch_rms(c["x"], w, eps) if kind == "rms" else \
+        fn._launch_ln(c["x"], w, c["b"], eps)
+
+
+def norm_plain(kind, c):
+    from paddle_tpu_torch.ops import fused_norms as fn
+    return fn.rms_ref(c["x"], c["w"], NORM_EPS[kind]) if kind == "rms" \
+        else fn.ln_ref(c["x"], c["w"], c["b"], NORM_EPS[kind])
+
+
+def norm_library(kind, c):
+    """Yardstick only (the port never calls it): torch.nn.functional's
+    rms_norm / layer_norm with the vectors cast to x's dtype beforehand;
+    None where this PyTorch has no rms_norm."""
+    import torch.nn.functional as F
+    x = c["x"]
+    w, b = c["w"].to(x.dtype), c["b"].to(x.dtype)
+    if kind == "rms":
+        if not hasattr(F, "rms_norm"):
+            return None
+        return lambda: F.rms_norm(x, (x.shape[-1],), w, NORM_EPS[kind])
+    return lambda: F.layer_norm(x, (x.shape[-1],), w, b, NORM_EPS[kind])
+
+
+def norm_bound(kind, c) -> tuple:
+    """Least time: x read and y written once, the weight (and bias) read
+    once, over HBM bandwidth (a few flops an element: far below the
+    card's ridge, so bytes bound it)."""
+    x = c["x"]
+    nbytes = 2 * x.numel() * x.element_size() + \
+        (1 if kind == "rms" else 2) * c["w"].numel() * c["w"].element_size()
+    return nbytes / PEAK_BYTES * 1e3, "bytes", nbytes
+
+
+NORM_CONTROLS = {
+    # the epsilon 1e-2 instead of 1e-6 / 1e-5: on these N(0, 1) rows every
+    # output ~0.5% smaller (on rows whose mean square is large, as deep in
+    # a decoder's residual stream, it moves nothing: the gate there uses
+    # the other two)
+    "eps_1e-2": lambda kind, c: norm_kernel(kind, c, eps=1e-2),
+    # the weight read one element off
+    "weight_rolled": lambda kind, c: norm_kernel(
+        kind, c, w=c["w"].roll(1).contiguous()),
+    # a normalisation fault: every output 0.5% too large
+    "scaled_0.5pct": lambda kind, c: norm_kernel(kind, c) * 1.005}
+GATE_CONTROLS = ("weight_rolled", "scaled_0.5pct")
+
+
+def phase_norms(state):
+    """Every (rows, hidden, x dtype, weight dtype) of the grid through both
+    entries: held to the plain version, ten repeats bit for bit, the
+    controls failing, and the kernel, plain, library and bound times.
+    Then the public functionals at the grid's bf16 shapes with f32
+    weights, the launches counted (LayerNorm's main path: the LLaMA
+    decoder below runs RMSNorm only)."""
+    import torch
+    from paddle_tpu_torch.incubate.nn import functional as F
+    from paddle_tpu_torch.ops import fused_norms as fn
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 31)
+    cases, ok = {}, True
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for R in NORM_ROWS:
+        for Hd in NORM_HIDDEN:
+            for xn, xdt in dts.items():
+                for wn, wdt in dts.items():
+                    c = norm_case(R, Hd, xdt, wdt, gen)
+                    for kind in ("rms", "ln"):
+                        out = norm_kernel(kind, c)
+                        ref = norm_plain(kind, c)
+                        err = norm_errors(out, ref)
+                        held = bool(torch.isfinite(out).all()) and \
+                            out.dtype == xdt and norm_within(err, xn)
+                        same = all(torch.equal(norm_kernel(kind, c), out)
+                                   for _ in range(10))
+                        ctl = {}
+                        for cname, control in NORM_CONTROLS.items():
+                            e = norm_errors(control(kind, c), ref)
+                            ctl[cname] = dict(e, fails=not norm_within(e, xn))
+                        ok &= held and same and all(
+                            v["fails"] for v in ctl.values())
+                        lib = norm_library(kind, c)
+                        b_ms, b_by, nbytes = norm_bound(kind, c)
+                        cases[f"{kind}_R{R}_H{Hd}_x{xn}_w{wn}"] = {
+                            "held": held, "repeats_bit_identical": same,
+                            "errors": err, "controls": ctl,
+                            "ms": time_ms(lambda: norm_kernel(kind, c)),
+                            "plain_ms": time_ms(lambda: norm_plain(kind, c)),
+                            "library_ms": None if lib is None
+                            else time_ms(lib),
+                            "bound_ms": b_ms, "bound_by": b_by,
+                            "bytes": nbytes}
+                    del c
+    # the functionals, launches counted
+    fn.rms_launch_count = fn.ln_launch_count = 0
+    calls = 0
+    for R in NORM_ROWS:
+        for Hd in NORM_HIDDEN:
+            c = norm_case(R, Hd, torch.bfloat16, torch.float32, gen)
+            res = torch.randn_like(c["x"])
+            F.fused_rms_norm(c["x"], c["w"], residual=res)
+            F.fused_layer_norm(c["x"], c["w"], c["b"], residual=res)
+            calls += 1
+    torch.cuda.synchronize()
+    launches = {"rms": fn.rms_launch_count, "ln": fn.ln_launch_count}
+    ok &= launches == {"rms": calls, "ln": calls}
+    state["norms"] = {"cases": cases, "functional_launches": launches}
+    emit({"phase": "norms", "ok": ok, "tolerance": NORM_TOL,
+          "controls": list(NORM_CONTROLS), "cases": cases,
+          "functional_launches": launches, "functional_calls": calls,
+          "bound_peaks": {"bytes_per_s": PEAK_BYTES}})
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# fused decoder phases: the LLaMA decoder Paddle's fused inference models
+# compose from incubate.nn.functional ops, served greedily over
+# block_multihead_attention.  Per layer: fused_rms_norm (residual in),
+# fused_linear qkv, fused_rotary_position_embedding on q and k at each
+# token's position, block_multihead_attention, fused_linear out,
+# fused_rms_norm (residual in), fused_linear gate and up, swiglu,
+# fused_linear down; then a final fused_rms_norm and the LM head.
+# ---------------------------------------------------------------------------
+
+FUSED_LAYERS, FUSED_DECODE = 32, 16
+FUSED_F32_LAYERS, FUSED_F32_DECODE = 2, 4
+# the f32 decoder against the dense forward: the same f32 math with other
+# kernels (varlen and decode attention, the norm kernel) and other product
+# shapes (fused qkv and gate/up), so sums in another order
+FUSED_F32_TOL = {"abs": 1e-3, "l2_rel": 1e-4}
+
+
+def fused_weights(cfg, dtype, gen, model=None) -> dict:
+    """The decoder's weights, qkv and gate/up fused on the output axis:
+    ``model``'s (a LlamaForCausalLM) when given, else N(0, 0.02) from
+    ``gen`` layer by layer, norm scales 1 + N(0, 0.1)."""
+    import torch
+    dev = torch.device(DEV)
+    Hd, f = cfg.hidden_size, cfg.intermediate_size
+
+    def rnd(*shape, std=0.02):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    if model is not None:
+        p = model.decode_params()
+        lay = p["layers"]
+        layers = [{"ln1": lay["ln1"][i], "ln2": lay["ln2"][i],
+                   "wqkv": torch.cat([lay["wq"][i], lay["wk"][i],
+                                      lay["wv"][i]], 1),
+                   "wo": lay["wo"][i],
+                   "gate_up": torch.cat([lay["gate"][i], lay["up"][i]], 1),
+                   "down": lay["down"][i]}
+                  for i in range(cfg.num_hidden_layers)]
+        return {"embed": p["embed"], "norm_f": p["norm_f"],
+                "head": p["head"], "layers": layers}
+    layers = [{"ln1": (1 + rnd(Hd, std=0.1).float()).to(dtype),
+               "ln2": (1 + rnd(Hd, std=0.1).float()).to(dtype),
+               "wqkv": rnd(Hd, 3 * Hd), "wo": rnd(Hd, Hd),
+               "gate_up": rnd(Hd, 2 * f), "down": rnd(f, Hd)}
+              for _ in range(cfg.num_hidden_layers)]
+    return {"embed": rnd(cfg.vocab_size, Hd), "head": rnd(Hd, cfg.vocab_size),
+            "norm_f": (1 + rnd(Hd, std=0.1).float()).to(dtype),
+            "layers": layers}
+
+
+def fused_trace(n_decode):
+    """8 slots: step 0 prefills slots 0-5 and step 1 slots 6-7 beside 6
+    decodes (prompt lengths from the seed, adjusted so both steps' token
+    counts are multiples of 8, where the norms' rule holds), ``n_decode``
+    steps decode all 8, and a last step decodes slots 0-6 only (7 rows,
+    off the rule: the norms there take the composition).  Returns (the
+    active slots of each step, prompt lengths)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 41)
+    p = [17, 700] + [int(x) for x in rng.integers(17, 701, 6)]
+    p[5] += -sum(p[:6]) % 8
+    p[7] += -(p[6] + p[7] + 6) % 8
+    plan = [list(range(6)), list(range(8))] + [list(range(8))] * n_decode \
+        + [list(range(7))]
+    return plan, p
+
+
+def fused_expected(layers, n_decode) -> dict:
+    """Launches of the trace on the kernels: the norm kernel 2 a layer +
+    1 a step in the steps whose token count is a multiple of 8 (all but
+    the last), the varlen forward a layer in the two prefill steps, the
+    decode kernel a layer in every step with decodes."""
+    return {"rms_norm": (2 * layers + 1) * (2 + n_decode), "layer_norm": 0,
+            "varlen_fwd": 2 * layers, "varlen_dkdv": 0, "varlen_dq": 0,
+            "decode": (2 + n_decode) * layers}
+
+
+def fused_counts() -> dict:
+    from paddle_tpu_torch.ops import fused_norms as fn
+    return dict(varlen_counts(), rms_norm=fn.rms_launch_count,
+                layer_norm=fn.ln_launch_count)
+
+
+def reset_fused_counts() -> None:
+    from paddle_tpu_torch.ops import fused_norms as fn
+    reset_varlen_counts()
+    fn.rms_launch_count = fn.ln_launch_count = 0
+
+
+def fused_step(W, cfg, caches, toks, pos, enc, dec, this, bt, last):
+    """One step of the decoder: tokens ``toks`` [T] at positions ``pos``
+    [T]; the logits (f32) of the rows ``last``."""
+    import torch
+    from paddle_tpu_torch.incubate.nn import functional as F
+    T = toks.shape[0]
+    Hh = cfg.num_attention_heads
+    Dh = cfg.hidden_size // Hh
+    eps = cfg.rms_norm_eps
+    x = W["embed"][toks]
+    pos_ids = pos[None]
+    res = None
+    for lw, (kc, vc) in zip(W["layers"], caches):
+        h, res = F.fused_rms_norm(x, lw["ln1"], epsilon=eps, residual=res)
+        qkv = F.fused_linear(h, lw["wqkv"]).view(T, 3, Hh, Dh)
+        q, k, _ = F.fused_rotary_position_embedding(
+            qkv[None, :, 0], qkv[None, :, 1], position_ids=pos_ids,
+            use_neox_rotary_style=True, rotary_emb_base=cfg.rope_theta)
+        qkv = torch.cat([q[0], k[0], qkv[:, 2]], 1).reshape(T, 3 * Hh * Dh)
+        out, _, _, _ = F.block_multihead_attention(
+            qkv, kc, vc, enc, dec, this, block_tables=bt,
+            block_size=BLHA_BS)
+        h, res = F.fused_rms_norm(F.fused_linear(out, lw["wo"]), lw["ln2"],
+                                  epsilon=eps, residual=res)
+        x = F.fused_linear(F.swiglu(F.fused_linear(h, lw["gate_up"])),
+                           lw["down"])
+    h, _ = F.fused_rms_norm(x, W["norm_f"], epsilon=eps, residual=res)
+    return F.fused_linear(h[last], W["head"]).float()
+
+
+def fused_serve(W, cfg, dtype, n_decode, caches=None):
+    """Serve ``fused_trace`` greedily.  Returns (each slot's tokens, the
+    logits of each step's sampled rows, their (slot, position), each
+    step's ms with the card synchronised, launches by kernel, caches,
+    each step's token count)."""
+    import numpy as np
+    import torch
+    plan, prompts = fused_trace(n_decode)
+    n = len(prompts)
+    Hh = cfg.num_attention_heads
+    Dh = cfg.hidden_size // Hh
+    rng = np.random.default_rng(SEED + 42)
+    seqs = [[int(t) for t in rng.integers(0, cfg.vocab_size, m)]
+            for m in prompts]
+    need = [-(-(m + n_decode + 3) // BLHA_BS) for m in prompts]
+    bt_np, num_blocks = blha_tables(need, np.random.default_rng(SEED + 43))
+    if caches is None:
+        caches = [tuple(torch.zeros((num_blocks, Hh, BLHA_BS, Dh),
+                                    dtype=dtype, device=DEV)
+                        for _ in range(2))
+                  for _ in range(cfg.num_hidden_layers)]
+    else:
+        for kc, vc in caches:
+            kc.zero_()
+            vc.zero_()
+    done = [0] * n
+    logits, rows, ms, counts = [], [], [], []
+    torch.cuda.synchronize()
+    reset_fused_counts()
+    for active in plan:
+        enc, dec, this = (np.zeros(n, np.int32) for _ in range(3))
+        toks, pos, last = [], [], []
+        for b in active:
+            new = seqs[b][done[b]:]
+            enc[b] = len(new) if done[b] == 0 else 0
+            dec[b] = done[b]
+            this[b] = len(new)
+            toks += new
+            pos += range(done[b], done[b] + len(new))
+            last.append(len(toks) - 1)
+        sel = [b for b in range(n) if this[b]]
+        counts.append(len(toks))
+        t0 = time.perf_counter()
+        lg = fused_step(
+            W, cfg, caches, torch.tensor(toks, device=DEV),
+            torch.tensor(pos, dtype=torch.int32, device=DEV),
+            enc[sel], dec[sel], this[sel],
+            torch.from_numpy(bt_np[sel]).to(DEV),
+            torch.tensor(last, device=DEV))
+        nxt = lg.argmax(-1).tolist()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg)
+        for b, r, t in zip(active, last, nxt):
+            rows.append((b, pos[r]))
+            done[b] += int(this[b])
+            seqs[b].append(int(t))
+    return seqs, logits, rows, ms, fused_counts(), caches, counts
+
+
+def phase_fused_decoder_f32(state):
+    """2 layers at LLaMA-7B widths in f32, on the kernels: the logits of
+    every sampled row within FUSED_F32_TOL of the port's dense
+    LlamaForCausalLM forward on the same tokens (teacher-forced), the
+    launch counts exact."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig.llama_7b()
+    cfg.num_hidden_layers = FUSED_F32_LAYERS
+    model = LlamaForCausalLM(cfg, device=DEV, generator=SEED + 44)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 45)
+    with torch.no_grad():                   # norm scales off one
+        for k in ("ln1", "ln2"):
+            model.layers[k].add_(0.1 * torch.randn(
+                model.layers[k].shape, generator=gen, device=DEV))
+        model.norm_f.add_(0.1 * torch.randn(
+            model.norm_f.shape, generator=gen, device=DEV))
+    W = fused_weights(cfg, torch.float32, gen, model)
+    n = FUSED_F32_DECODE
+    seqs, logits, rows, ms, launches, _, _ = fused_serve(
+        W, cfg, torch.float32, n)
+    flat = torch.cat(logits)
+    dense = {}
+    with torch.no_grad():
+        for b in sorted({b for b, _ in rows}):
+            dense[b] = model.forward_logits(
+                torch.tensor([seqs[b][:-1]], device=DEV))[0]
+    want = torch.stack([dense[b][p] for b, p in rows]).float()
+    d = (flat - want)
+    errs = {"abs": float(d.abs().max()),
+            "l2_rel": float(d.norm() / want.norm())}
+    expect = fused_expected(FUSED_F32_LAYERS, n)
+    checks = {"logits_within_f32_tolerance": all(
+                  errs[k] <= v for k, v in FUSED_F32_TOL.items()),
+              "logits_finite": bool(torch.isfinite(flat).all()),
+              "launches_as_expected": launches == expect}
+    rec = {"phase": "fused_decoder_f32", "ok": all(checks.values()),
+           "checks": checks, "layers": FUSED_F32_LAYERS,
+           "steps": len(ms), "decode_steps": n, "rows_compared": len(rows),
+           "errors_vs_dense": errs, "tolerance": FUSED_F32_TOL,
+           "launches": launches, "expected_launches": expect, "step_ms": ms}
+    emit(rec)
+    state["fused_decoder_f32"] = rec
+    del model, W, logits, dense
+    torch.cuda.empty_cache()
+    return rec["ok"]
+
+
+class norms_held:
+    """The gate's norms: at every kernel route the plain version runs and
+    the kernel is launched beside it on the same inputs, its errors and
+    its controls' logged; the decoder goes on with the plain results."""
+
+    def __init__(self, log):
+        self.log = log
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import fused_norms as fn
+        self.saved = fn._rms_forward
+        log = self.log
+
+        def rms(x, w, eps):
+            ref = fn.rms_ref(x, w, eps)
+            name = str(x.dtype).split(".")[-1]
+            c = {"x": x, "w": w}
+            log["rms"].append(norm_errors(fn._launch_rms(x, w, eps), ref))
+            for cname in GATE_CONTROLS:
+                e = norm_errors(NORM_CONTROLS[cname]("rms", c), ref)
+                log[cname].append(not norm_within(e, name))
+            return ref
+        fn._rms_forward = rms
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops import fused_norms as fn
+        fn._rms_forward = self.saved
+
+
+def profile_fused(W, cfg, caches, n_decode, wall_ms) -> dict:
+    """Device time of the kernels-alone trace under torch.profiler, by
+    kernel; the idle share divides the kernels' sum by the unprofiled
+    run's wall time; the norms' share of the busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fused_serve(W, cfg, torch.bfloat16, n_decode, caches)
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    norm_ms = sum(dev_us(e) for e in kernels
+                  if "fused_norm_kernel" in e.key) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    return {"device_busy_ms": busy_ms, "wall_ms": wall_ms,
+            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms
+            else "not measured",
+            "norm_kernel_ms": norm_ms,
+            "norm_share_of_busy": norm_ms / busy_ms if busy_ms
+            else "not measured",
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:90], "ms": dev_us(e) / 1e3,
+                             "calls": e.count} for e in top]}
+
+
+def phase_fused_decoder_bf16(state):
+    """LLaMA-7B (32 layers) in bf16, weights from the seed (~13 GB).  A
+    gate run on the plain norms launches the norm kernel beside every
+    call and holds it to NORM_TOL, its controls failing; then the main
+    path, the trace on the kernels alone: launch counts by kernel, the
+    prefill- and decode-step times; then the trace once more under the
+    profiler."""
+    import statistics as st
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    cfg = LlamaConfig.llama_7b()
+    cfg.num_hidden_layers = FUSED_LAYERS
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 46)
+    W = fused_weights(cfg, torch.bfloat16, gen)
+    n = FUSED_DECODE
+    log = {k: [] for k in ("rms", *GATE_CONTROLS)}
+    with norms_held(log):
+        _, _, _, gate_ms, _, caches, _ = fused_serve(
+            W, cfg, torch.bfloat16, n)
+    gate = {"calls": len(log["rms"]), "rms": {
+        k: max(e[k] for e in log["rms"]) for k in log["rms"][0]},
+        "controls_failing": {k: f"{sum(log[k])}/{len(log[k])}"
+                             for k in GATE_CONTROLS}}
+    del log
+    torch.cuda.reset_peak_memory_stats()
+    _, logits, _, ms, launches, caches, tokens = fused_serve(
+        W, cfg, torch.bfloat16, n, caches)
+    peak = torch.cuda.max_memory_allocated()
+    expect = fused_expected(FUSED_LAYERS, n)
+    _, prompts = fused_trace(n)
+    prof = profile_fused(W, cfg, caches, n, sum(ms))
+    checks = {
+        "gate_held_every_call": gate["calls"] == expect["rms_norm"],
+        "gate_norm_vs_plain": norm_within(gate["rms"], "bfloat16"),
+        "gate_controls_fail": all(
+            v.split("/")[0] == v.split("/")[1] and v != "0/0"
+            for v in gate["controls_failing"].values()),
+        "logits_finite": all(bool(torch.isfinite(x).all()) for x in logits),
+        "launches_as_expected": launches == expect}
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for lw in W["layers"] for t in lw.values()) + sum(
+        W[k].numel() * W[k].element_size()
+        for k in ("embed", "head", "norm_f"))
+    rec = {"phase": "fused_decoder_bf16", "ok": all(checks.values()),
+           "checks": checks, "layers": FUSED_LAYERS,
+           "steps": len(ms), "decode_steps": n, "slots": len(prompts),
+           "prompt_tokens": prompts,
+           "tokens_per_step": tokens,
+           "gate": gate, "gate_tolerance": NORM_TOL["bfloat16"],
+           "launches": launches, "expected_launches": expect,
+           "prefill_step_ms": ms[0], "mixed_step_ms": ms[1],
+           "decode_step_ms_p50": st.median(ms[2:-1]),
+           "off_rule_step_ms": ms[-1], "step_ms": ms,
+           "gate_step_ms_p50": st.median(gate_ms[2:-1]),
+           "weight_bytes": weight_bytes, "peak_memory_bytes": peak,
+           "profile": prof}
+    emit(rec)
+    state["fused_decoder_bf16"] = rec
+    del W, caches, logits
+    torch.cuda.empty_cache()
+    return rec["ok"]
+
+
 def blha_records(state) -> list:
     """The kernels line's entries of this slice's four kernels: the decode
     kernel timed at the decode phase's bf16 MHA case, the varlen kernels at
@@ -2440,7 +3032,8 @@ def blha_records(state) -> list:
                        "bfloat16",
         "by_case": {k: {f: c[f] for f in ("ms", "plain_ms", "bound_ms",
                                           "library_ms")}
-                    for k, c in dec.items()}}]
+                    for k, c in dec.items()},
+        "repaired_shapes": repaired(state, "decode")}]
     for kern, line, fn, err_keys, lib in (
             ("fwd", 101, "_vfwd_kernel", ("out",), "fwd"),
             ("dkdv", 143, "_vbwd_dkdv_kernel", ("dk", "dv"), "bwd_dq_dk_dv"),
@@ -2522,6 +3115,58 @@ def flash_records(state) -> list:
     return recs
 
 
+def norm_records(state) -> list:
+    """The kernels line's two fused-norm entries (one kernel, two C
+    entries), timed at the decode step's shape (8 rows of 4,096 in bf16,
+    bf16 weights), launches from the main path: RMSNorm's from
+    fused_decoder_bf16 on the kernels alone, LayerNorm's from the
+    functional run of the norms phase (the LLaMA decoder has none)."""
+    cases = state["norms"]["cases"]
+    fl = state["norms"]["functional_launches"]
+    recs = []
+    for kind, entry, line, fn in (
+            ("rms", "fused_rms_norm", 42, "_rms_kernel"),
+            ("ln", "fused_layer_norm", 49, "_ln_kernel")):
+        t = cases[f"{kind}_R{NORM_ROWS[0]}_H{NORM_HIDDEN[0]}_xbfloat16_"
+                  "wbfloat16"]
+        launches = (state["fused_decoder_bf16"]["launches"]["rms_norm"]
+                    if kind == "rms" else fl["ln"])
+        by_phase = {"norms_functional": fl[kind]}
+        if kind == "rms":
+            by_phase.update(
+                fused_decoder_bf16=launches,
+                fused_decoder_f32=state["fused_decoder_f32"]["launches"][
+                    "rms_norm"])
+        recs.append({
+            "name": entry, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/fused_norms.cu",
+            "replaces": f"paddle_tpu/ops/pallas/fused_norms.py:{line}",
+            "tpu_kernel": f"fused_norms.py::{fn}",
+            "launches": launches, "launches_by_phase": by_phase,
+            "max_abs_err": max(c["errors"]["abs"] for k, c in cases.items()
+                               if k.startswith(kind + "_")),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library": "torch.nn.functional." + (
+                "rms_norm" if kind == "rms" else "layer_norm") +
+                " with the vectors cast to x's dtype",
+            "timed_shape": f"R={NORM_ROWS[0]} H={NORM_HIDDEN[0]}, bfloat16 "
+                           "x and weights",
+            "by_case": {k[len(kind) + 1:]: {f: c[f] for f in (
+                "ms", "plain_ms", "bound_ms", "library_ms")}
+                for k, c in cases.items() if k.startswith(kind + "_")}})
+    return recs
+
+
+def repaired(state, entry) -> dict:
+    """A paged entry's numbers at the repaired head dims and groups."""
+    return {k: {f: c.get(f) for f in ("H", "H_kv", "D", "ms", "plain_ms",
+                                       "bound_ms", "library_ms")}
+            for k, c in state["paged_repair"][entry].items()
+            if k.endswith("bfloat16")}
+
+
 def kernel_records(state) -> list:
     """The kernels line: each kernel with its TPU original, its launches
     on the main path (the runs on the kernels alone) and its numbers from
@@ -2549,7 +3194,8 @@ def kernel_records(state) -> list:
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
         "timed_shape": "decode Tq=8 H=32 H_kv=32 D=128 bs=16, bfloat16",
-        "float32": state["kernel"]["timing"]["float32"]}, {
+        "float32": state["kernel"]["timing"]["float32"],
+        "repaired_shapes": repaired(state, "ragged")}, {
         "name": "ragged_paged_attention_q8", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/ops/pallas/paged_attention.py:283",
@@ -2564,7 +3210,8 @@ def kernel_records(state) -> list:
                    "gathered dense beforehand",
         "timed_shape": "decode Tq=8 H=32 H_kv=32 D=128 bs=16, int8 pages, "
                        "bfloat16 q",
-        "float32_q": state["kernel_q8"]["timing"]["float32"]}, {
+        "float32_q": state["kernel_q8"]["timing"]["float32"],
+        "repaired_shapes": repaired(state, "ragged_q8")}, {
         "name": "quant_matmul", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/quant_matmul.cu",
         "replaces": "paddle_tpu/ops/pallas/quant_matmul.py:227",
@@ -2585,7 +3232,7 @@ def kernel_records(state) -> list:
         "by_shape": {k: {f: c[f] for f in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")}
                      for k, c in qmm.items()}}] + flash_records(state) + \
-        blha_records(state)
+        blha_records(state) + norm_records(state)
 
 
 def main() -> int:
@@ -2628,7 +3275,9 @@ def main() -> int:
                      ("qmm", phase_qmm),
                      ("flash", phase_flash),
                      ("decode", phase_decode),
+                     ("paged_repair", phase_paged_repair),
                      ("varlen", phase_varlen),
+                     ("norms", phase_norms),
                      ("engine_f32", phase_engine_f32),
                      ("engine_quant_f32", phase_engine_quant_f32),
                      ("engine_bf16", phase_engine_bf16),
@@ -2637,7 +3286,9 @@ def main() -> int:
                      ("train_f32", phase_train_f32),
                      ("train_bf16", phase_train_bf16),
                      ("blha_f32", phase_blha_f32),
-                     ("blha_bf16", phase_blha_bf16)):
+                     ("blha_bf16", phase_blha_bf16),
+                     ("fused_decoder_f32", phase_fused_decoder_f32),
+                     ("fused_decoder_bf16", phase_fused_decoder_bf16)):
         t = time.perf_counter()
         try:
             passed = fn(state)

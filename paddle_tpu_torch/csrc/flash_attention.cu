@@ -6,10 +6,11 @@
 // [B, Sk, Hk, D], all row-major and read in place (a tile of 64 rows of one
 // head is 64 strided runs of D contiguous elements); lse and delta are
 // [B, H, Sq] float32.  Query head j reads kv head j / G (G = H / Hk).
-// Inputs are float or bfloat16 at D in {64, 128, 256}; every product sums
-// in f32.  float inputs, and bfloat16 at D = 256, take the first three
-// kernels, IEEE f32 FMAs on the CUDA cores (never TF32); bfloat16 at D in
-// {64, 128} the last three, mma.sync on the tensor cores.  The device code
+// Inputs are float or bfloat16 at D 64 or any multiple of 128; every
+// product sums in f32.  float inputs, and bfloat16 at D = 256, take the
+// first three kernels, IEEE f32 FMAs on the CUDA cores (never TF32);
+// bfloat16 at D in {64, 128} the mma.sync kernels on the tensor cores;
+// every D past 256 the chunked CUDA-core kernels.  The device code
 // they share with the varlen kernels is in attention_common.cuh.
 //
 // Rounding points, as in the TPU kernels: q * sm_scale is rounded to the
@@ -694,6 +695,334 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// CUDA cores at every other head dim (D a multiple of 128 past 256)
+//
+// The kernels above hold [64, D] f32 tiles and D / 16 accumulator columns
+// a thread, which fits the card only up to D = 256.  These three keep their
+// designs and rounding points but cut D into kDC-column chunks: every
+// product over the head dim (Q K^T, dO V^T, and their transposes) walks
+// the chunks, loading one chunk of each operand at a time and summing into
+// the same f32 registers in column order; and each block owns one chunk of
+// the output columns (grid z), so it recomputes its tile's scores once for
+// each of the D / kDC chunks.  Shared memory is that of a D = kDC kernel,
+// whatever D is.
+// ---------------------------------------------------------------------------
+
+constexpr int kDC = 64;              // head-dim columns of a chunk
+
+// acc[i][j] += A . B^T over one chunk: mm_abt without the zeroing
+template <int DC, int NB>
+__device__ __forceinline__ void mm_abt_add(float (&acc)[4][NB / 16],
+                                           const float* __restrict__ A,
+                                           const float* __restrict__ B,
+                                           int ty, int tx) {
+#pragma unroll 8
+  for (int d = 0; d < DC; ++d) {
+    float a[4], b[NB / 16];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * (DC + 1) + d];
+#pragma unroll
+    for (int j = 0; j < NB / 16; ++j) b[j] = B[(tx + 16 * j) * (DC + 1) + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NB / 16; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[4][N]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[i][j] = 0.f;
+}
+
+// Forward: flash_fwd_kernel's walk; block (query tile, b * H + h, chunk).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, T* __restrict__ out,
+                         float* __restrict__ lse, int Sq, int Sk, int H,
+                         int Hk, int D, int causal, float scale) {
+  constexpr int NB = kTile, kS = kDC + 1;
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                 // [64, kDC] chunk of the query tile
+  float* k_s = q_s + kTile * kS;     // [NB, kDC]
+  float* v_s = k_s + NB * kS;        // [NB, kDC]: the block's columns
+  float* p_s = v_s + NB * kS;        // [64, NB]
+
+  const int n_qt = (Sq + kTile - 1) / kTile;
+  const int qt = n_qt - 1 - blockIdx.x;   // longest causal rows first
+  const int bh = blockIdx.y;
+  const int c0 = blockIdx.z * kDC;        // the block's output columns
+  const int b = bh / H, h = bh - b * H;
+  const int hk = h / (H / Hk);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int q0 = qt * kTile;
+  const int q_rows = min(kTile, Sq - q0);
+
+  const T* q_base = q + (((size_t)b * Sq + q0) * H + h) * D;
+  const T* k_base = k + ((size_t)b * Sk * Hk + hk) * D;
+  const T* v_base = v + ((size_t)b * Sk * Hk + hk) * D;
+
+  float acc[4][kDC / 16], m[4], l[4];
+  zero(acc);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+
+  const int n_kt = (Sk + NB - 1) / NB;
+  const int kt_end = causal ? min((q0 + kTile - 1) / NB + 1, n_kt) : n_kt;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int k0 = kt * NB;
+    const T* k_tile = k_base + (size_t)k0 * Hk * D;
+    float s[4][NB / 16];
+    zero(s);
+    for (int d0 = 0; d0 < D; d0 += kDC) {
+      __syncthreads();               // the previous chunk's products are done
+      load_tile<T, kDC, kTile, true>(q_s, q_base + d0, (size_t)H * D, q_rows,
+                                     scale);
+      load_tile<T, kDC, NB>(k_s, k_tile + d0, (size_t)Hk * D, Sk - k0);
+      __syncthreads();
+      mm_abt_add<kDC, NB>(s, q_s, k_s, ty, tx);
+    }
+    load_tile<T, kDC, NB>(v_s, v_base + (size_t)k0 * Hk * D + c0,
+                          (size_t)Hk * D, Sk - k0);
+    if ((causal && k0 + NB - 1 > q0) || k0 + NB > Sk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NB / 16; ++j) {
+          const int qp = q0 + ty + 16 * i, kp = k0 + tx + 16 * j;
+          if ((causal && kp > qp) || kp >= Sk) s[i][j] = -INFINITY;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NB / 16; ++j) mx = fmaxf(mx, s[i][j]);
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NB / 16; ++j) {
+        const float p = expf(s[i][j] - m_use);
+        sum += p;
+        p_s[(ty + 16 * i) * (NB + 1) + tx + 16 * j] = round_to<T>(p);
+      }
+      const float alpha = expf(m[i] - m_use);
+      l[i] = alpha * l[i] + row_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < kDC / 16; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();
+    mm_ab<kDC, NB>(acc, p_s, v_s, ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    if (r < q_rows) {
+#pragma unroll
+      for (int j = 0; j < kDC / 16; ++j)
+        out[(((size_t)b * Sq + q0 + r) * H + h) * D + c0 + tx + 16 * j] =
+            from_f<T>(acc[i][j] / l[i]);
+      if (tx == 0 && blockIdx.z == 0)
+        lse[(size_t)bh * Sq + q0 + r] = m[i] + logf(l[i]);
+    }
+  }
+}
+
+// dK / dV: flash_bwd_dkdv_kernel's walk; block (key tile, b * Hk + hk,
+// chunk of the dK and dV columns).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_chunked_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const T* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              T* __restrict__ dk, T* __restrict__ dv, int Sq,
+                              int Sk, int H, int Hk, int D, int causal,
+                              float scale) {
+  constexpr int NQ = kTile, kS = kDC + 1;
+  extern __shared__ __align__(16) float smem[];
+  float* k_s = smem;                 // [64 keys, kDC]
+  float* v_s = k_s + kTile * kS;     // [64 keys, kDC]
+  float* q_s = v_s + kTile * kS;     // [NQ queries, kDC], scaled
+  float* do_s = q_s + NQ * kS;       // [NQ queries, kDC]
+  float* pt_s = do_s + NQ * kS;      // [64 keys, NQ queries]: p
+  float* dst_s = pt_s + kTile * (NQ + 1);  // dS
+  float* lse_s = dst_s + kTile * (NQ + 1); // [NQ]
+  float* delta_s = lse_s + NQ;             // [NQ]
+
+  const int kt = blockIdx.x;
+  const int bhk = blockIdx.y;
+  const int c0 = blockIdx.z * kDC;
+  const int b = bhk / Hk, hk = bhk - b * Hk;
+  const int G = H / Hk;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int k0 = kt * kTile;
+  const int k_rows = min(kTile, Sk - k0);
+  const T* k_base = k + (((size_t)b * Sk + k0) * Hk + hk) * D;
+  const T* v_base = v + (((size_t)b * Sk + k0) * Hk + hk) * D;
+
+  float dk_acc[4][kDC / 16], dv_acc[4][kDC / 16];
+  zero(dk_acc);
+  zero(dv_acc);
+
+  const int n_qt = (Sq + NQ - 1) / NQ;
+  for (int g = 0; g < G; ++g) {
+    const int h = hk * G + g;
+    const size_t row = (size_t)b * H + h;
+    for (int qt = causal ? k0 / NQ : 0; qt < n_qt; ++qt) {
+      const int q0 = qt * NQ;
+      const int q_rows = min(NQ, Sq - q0);
+      const T* q_base = q + (((size_t)b * Sq + q0) * H + h) * D;
+      const T* do_base = dout + (((size_t)b * Sq + q0) * H + h) * D;
+      float st[4][NQ / 16], dpt[4][NQ / 16];
+      zero(st);
+      zero(dpt);
+      for (int d0 = 0; d0 < D; d0 += kDC) {
+        __syncthreads();             // the previous products are done
+        if (d0 == 0 && tid < NQ) {
+          const bool ok = tid < q_rows;
+          lse_s[tid] = ok ? lse[row * Sq + q0 + tid] : INFINITY;
+          delta_s[tid] = ok ? delta[row * Sq + q0 + tid] : 0.f;
+        }
+        load_tile<T, kDC, kTile>(k_s, k_base + d0, (size_t)Hk * D, k_rows);
+        load_tile<T, kDC, kTile>(v_s, v_base + d0, (size_t)Hk * D, k_rows);
+        load_tile<T, kDC, NQ, true>(q_s, q_base + d0, (size_t)H * D, q_rows,
+                                    scale);
+        load_tile<T, kDC, NQ>(do_s, do_base + d0, (size_t)H * D, q_rows);
+        __syncthreads();
+        mm_abt_add<kDC, NQ>(st, k_s, q_s, ty, tx);    // [keys, queries]
+        mm_abt_add<kDC, NQ>(dpt, v_s, do_s, ty, tx);
+      }
+      const bool diag = causal && q0 < k0 + kTile - 1;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NQ / 16; ++j) {
+          const int qc = tx + 16 * j;
+          float s = st[i][j];
+          if (diag && q0 + qc < k0 + ty + 16 * i) s = -INFINITY;
+          const float p = expf(s - lse_s[qc]);
+          const float ds = p * (dpt[i][j] - delta_s[qc]);
+          pt_s[(ty + 16 * i) * (NQ + 1) + qc] = round_to<T>(p);
+          dst_s[(ty + 16 * i) * (NQ + 1) + qc] = round_to<T>(ds);
+        }
+      __syncthreads();               // the score products are done
+      load_tile<T, kDC, NQ, true>(q_s, q_base + c0, (size_t)H * D, q_rows,
+                                  scale);
+      load_tile<T, kDC, NQ>(do_s, do_base + c0, (size_t)H * D, q_rows);
+      __syncthreads();
+      mm_ab<kDC, NQ>(dv_acc, pt_s, do_s, ty, tx);
+      mm_ab<kDC, NQ>(dk_acc, dst_s, q_s, ty, tx);
+    }
+  }
+
+  const size_t off = (((size_t)b * Sk + k0) * Hk + hk) * D + c0;
+  store_tile<T, kDC>(dk + off, (size_t)Hk * D, k_rows, dk_acc, ty, tx);
+  store_tile<T, kDC>(dv + off, (size_t)Hk * D, k_rows, dv_acc, ty, tx);
+}
+
+// dQ: flash_bwd_dq_kernel's walk; block (query tile, b * H + h, chunk of
+// the dQ columns).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            T* __restrict__ dq, int Sq, int Sk, int H,
+                            int Hk, int D, int causal, float scale) {
+  constexpr int NK = kTile, kS = kDC + 1;
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                 // [64 queries, kDC], scaled
+  float* do_s = q_s + kTile * kS;    // [64 queries, kDC]
+  float* k_s = do_s + kTile * kS;    // [NK keys, kDC]
+  float* v_s = k_s + NK * kS;        // [NK keys, kDC]
+  float* ds_s = v_s + NK * kS;       // [64 queries, NK keys]: dS
+  float* lse_s = ds_s + kTile * (NK + 1);  // [64]
+  float* delta_s = lse_s + kTile;          // [64]
+
+  const int n_qt = (Sq + kTile - 1) / kTile;
+  const int qt = n_qt - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const int c0 = blockIdx.z * kDC;
+  const int b = bh / H, h = bh - b * H;
+  const int hk = h / (H / Hk);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int q0 = qt * kTile;
+  const int q_rows = min(kTile, Sq - q0);
+
+  const size_t q_off = (((size_t)b * Sq + q0) * H + h) * D;
+  if (tid < kTile) {
+    const bool ok = tid < q_rows;
+    lse_s[tid] = ok ? lse[(size_t)bh * Sq + q0 + tid] : 0.f;
+    delta_s[tid] = ok ? delta[(size_t)bh * Sq + q0 + tid] : 0.f;
+  }
+
+  float acc[4][kDC / 16];
+  zero(acc);
+
+  const T* k_base = k + ((size_t)b * Sk * Hk + hk) * D;
+  const T* v_base = v + ((size_t)b * Sk * Hk + hk) * D;
+  const int n_kt = (Sk + NK - 1) / NK;
+  const int kt_end = causal ? min((q0 + kTile - 1) / NK + 1, n_kt) : n_kt;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int k0 = kt * NK;
+    const T* k_tile = k_base + (size_t)k0 * Hk * D;
+    const T* v_tile = v_base + (size_t)k0 * Hk * D;
+    float s[4][NK / 16], dp[4][NK / 16];
+    zero(s);
+    zero(dp);
+    for (int d0 = 0; d0 < D; d0 += kDC) {
+      __syncthreads();               // the previous products are done
+      load_tile<T, kDC, kTile, true>(q_s, q + q_off + d0, (size_t)H * D,
+                                     q_rows, scale);
+      load_tile<T, kDC, kTile>(do_s, dout + q_off + d0, (size_t)H * D,
+                               q_rows);
+      load_tile<T, kDC, NK>(k_s, k_tile + d0, (size_t)Hk * D, Sk - k0);
+      load_tile<T, kDC, NK>(v_s, v_tile + d0, (size_t)Hk * D, Sk - k0);
+      __syncthreads();
+      mm_abt_add<kDC, NK>(s, q_s, k_s, ty, tx);       // [queries, keys]
+      mm_abt_add<kDC, NK>(dp, do_s, v_s, ty, tx);
+    }
+    const bool masked = (causal && k0 + NK - 1 > q0) || k0 + NK > Sk;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qr = ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < NK / 16; ++j) {
+        const int kc = tx + 16 * j;
+        float sv = s[i][j];
+        if (masked && ((causal && k0 + kc > q0 + qr) || k0 + kc >= Sk))
+          sv = -INFINITY;
+        const float p = expf(sv - lse_s[qr]);
+        ds_s[qr * (NK + 1) + kc] = round_to<T>(p * (dp[i][j] - delta_s[qr]));
+      }
+    }
+    __syncthreads();                 // the score products are done
+    // the block's columns of k * sm_scale, rounded to T
+    load_tile<T, kDC, NK, true>(k_s, k_tile + c0, (size_t)Hk * D, Sk - k0,
+                                scale);
+    __syncthreads();
+    mm_ab<kDC, NK>(acc, ds_s, k_s, ty, tx);
+  }
+
+  store_tile<T, kDC>(dq + q_off + c0, (size_t)H * D, q_rows, acc, ty, tx);
+}
+
 // dynamic shared memory of each kernel, in bytes
 template <int D, int NB>
 constexpr size_t fwd_smem() {
@@ -785,11 +1114,60 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
                 dq_smem<D, walk<D>()>());
 }
 
+// dynamic shared memory of the chunked kernels, in bytes
+constexpr size_t fwd_chunked_smem = fwd_smem<kDC, kTile>();
+constexpr size_t dkdv_chunked_smem = dkdv_smem<kDC, kTile>();
+constexpr size_t dq_chunked_smem = dq_smem<kDC, kTile>();
+
+template <typename T>
+int launch_fwd_chunked(const void* q, const void* k, const void* v,
+                       void* out, void* lse, int B, int Sq, int Sk, int H,
+                       int Hk, int causal, float scale, int D,
+                       cudaStream_t stream) {
+  const dim3 grid((Sq + kTile - 1) / kTile, B * H, D / kDC);
+  return launch(flash_fwd_chunked_kernel<T>, grid, kThreads,
+                fwd_chunked_smem, stream, static_cast<const T*>(q),
+                static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<T*>(out), static_cast<float*>(lse), Sq, Sk, H,
+                Hk, D, causal, scale);
+}
+
+template <typename T>
+int launch_dkdv_chunked(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        void* dk, void* dv, int B, int Sq, int Sk, int H,
+                        int Hk, int causal, float scale, int D,
+                        cudaStream_t stream) {
+  const dim3 grid((Sk + kTile - 1) / kTile, B * Hk, D / kDC);
+  return launch(flash_bwd_dkdv_chunked_kernel<T>, grid, kThreads,
+                dkdv_chunked_smem, stream, static_cast<const T*>(q),
+                static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<const T*>(dout), static_cast<const float*>(lse),
+                static_cast<const float*>(delta), static_cast<T*>(dk),
+                static_cast<T*>(dv), Sq, Sk, H, Hk, D, causal, scale);
+}
+
+template <typename T>
+int launch_dq_chunked(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, int B, int Sq, int Sk, int H, int Hk,
+                      int causal, float scale, int D, cudaStream_t stream) {
+  const dim3 grid((Sq + kTile - 1) / kTile, B * H, D / kDC);
+  return launch(flash_bwd_dq_chunked_kernel<T>, grid, kThreads,
+                dq_chunked_smem, stream, static_cast<const T*>(q),
+                static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<const T*>(dout), static_cast<const float*>(lse),
+                static_cast<const float*>(delta), static_cast<T*>(dq), Sq, Sk,
+                H, Hk, D, causal, scale);
+}
+
 }  // namespace
 
 // C entries, bound with ctypes by paddle_tpu_torch/ops/flash_attention.py,
-// which has already checked shapes, types, contiguity and alignment: D in
-// {64, 128, 256}, H % Hk == 0, Sq == Sk under causal, Sq, Sk >= 1.  dtype:
+// which has already checked shapes, types, contiguity and alignment: D 64
+// or a multiple of 128, H % Hk == 0, Sq == Sk under causal, Sq, Sk >= 1.
+// D in {64, 128, 256} takes the kernels of its own D, every larger D the
+// chunked ones.  dtype:
 // 0 = float32, 1 = bfloat16.  Each returns cudaGetLastError() after its
 // launch (0 on success).
 
@@ -803,6 +1181,10 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
     if (dtype == 1 && D == 64) return LAUNCH<bf16, 64>(__VA_ARGS__, s);     \
     if (dtype == 1 && D == 128) return LAUNCH<bf16, 128>(__VA_ARGS__, s);   \
     if (dtype == 1 && D == 256) return LAUNCH<bf16, 256>(__VA_ARGS__, s);   \
+    if (D > 256 && D % 128 == 0) {                                          \
+      if (dtype == 0) return LAUNCH##_chunked<float>(__VA_ARGS__, D, s);    \
+      if (dtype == 1) return LAUNCH##_chunked<bf16>(__VA_ARGS__, D, s);     \
+    }                                                                       \
     return (int)cudaErrorInvalidValue;                                      \
   } while (0)
 

@@ -457,6 +457,191 @@ int launch_q8(const void* q, const void* kc, const void* vc, const void* ks,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// Every other head dim and query group
+//
+// The kernels above keep the query group in registers (qr[kMaxG][D / 32])
+// and give each output column kThreads / D threads, which holds for D in
+// {64, 128} and G <= kMaxG only.  This kernel takes the rest of what the
+// JAX rules (paged_attention.py supports / ragged_supports) take: D 64 or
+// any multiple of 128, any G = H / H_kv.  Grid (Tq, H_kv, n_gc * n_dc): the
+// query group is split into chunks of at most kMaxG heads and the output
+// columns into chunks of kThreads, one column a thread; every block walks
+// its row's keys for its own pair of chunks.  It scores its query heads
+// against the whole head dim, reading q and each key row straight from
+// device memory (lane i takes elements i, i + 32, ...), keeps the online
+// softmax of the kernels above, and accumulates its columns of p @ v.  So
+// shared memory does not grow with D, and a block re-reads its pages once
+// for each chunk pair: simple and right, not fast.  The rounding points
+// are those of the kernel it stands in for: kQuant the int8-page kernel's
+// (q * scale in f32, p unrounded), otherwise the float kernel's (q * scale
+// and p rounded to T).  kDecode as above.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+
+template <typename T, typename KV, bool kQuant, bool kDecode>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_any_kernel(const T* __restrict__ q,
+                           const KV* __restrict__ kc,
+                           const KV* __restrict__ vc,
+                           const float* __restrict__ ks,
+                           const float* __restrict__ vs,
+                           const int* __restrict__ bt,
+                           const int* __restrict__ seg,
+                           const int* __restrict__ rel,
+                           T* __restrict__ out, int H, int Hkv, int D,
+                           int bs, int num_blocks, int R, int nblk, int n_dc,
+                           float scale) {
+  const int G = H / Hkv;
+  const int t = blockIdx.x;
+  const int h = blockIdx.y;
+  const int gc = blockIdx.z / n_dc;
+  const int col = (blockIdx.z - gc * n_dc) * kThreads + threadIdx.x;
+  const int g0 = gc * kMaxG;
+  const int Gc = min(kMaxG, G - g0);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  __shared__ float p_tile[kMaxG][kTileKeys];
+  __shared__ float m_s[kMaxG], l_s[kMaxG], alpha_s[kMaxG];
+  __shared__ size_t key_off[kTileKeys];    // element offset of each key row
+  __shared__ float ksc_s[kTileKeys], vsc_s[kTileKeys];
+
+  const int row = kDecode ? t : min(max(seg[t], 0), R - 1);
+  const int r = kDecode ? rel[t] - 1 : rel[t];
+  const int n_keys = min(r + 1, nblk * bs);
+  const int* bt_row = bt + (size_t)row * nblk;
+  const T* q_t = q + ((size_t)t * H + (size_t)h * G + g0) * D;
+
+  if (tid < kMaxG) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+  float acc[kMaxG];
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) acc[g] = 0.f;
+
+  for (int base = 0; base < n_keys; base += kTileKeys) {
+    const int nk = min(kTileKeys, n_keys - base);
+
+    // 1. where each key of the tile lives (and its page's scales)
+    if (tid < nk) {
+      const int key = base + tid;
+      const int blk = min(max(bt_row[key / bs], 0), num_blocks - 1);
+      key_off[tid] = (((size_t)blk * Hkv + h) * bs + key % bs) * D;
+      if (kQuant) {
+        ksc_s[tid] = ks[(size_t)blk * Hkv + h];
+        vsc_s[tid] = vs[(size_t)blk * Hkv + h];
+      }
+    }
+    __syncthreads();
+
+    // 2. scores s[g, j] = q[g] . k[j] over the whole head dim, f32
+    for (int j = warp; j < nk; j += kWarps) {
+      const KV* krow = kc + key_off[j];
+      const float ksc = kQuant ? ksc_s[j] : 1.f;
+      float s[kMaxG];
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
+      for (int i = lane; i < D; i += 32) {
+        const float kf = kQuant ? to_f(krow[i]) * ksc : to_f(krow[i]);
+#pragma unroll
+        for (int g = 0; g < kMaxG; ++g) {
+          if (g < Gc) {
+            const float qs = to_f(q_t[g * D + i]) * scale;
+            s[g] = fmaf(kQuant ? qs : to_f(from_f<T>(qs)), kf, s[g]);
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g < Gc) {
+          const float v = warp_sum(s[g]);
+          if (lane == 0) p_tile[g][j] = v;
+        }
+      }
+    }
+    __syncthreads();
+
+    // 3. online softmax, one warp per query row
+    for (int g = warp; g < Gc; g += kWarps) {
+      float mx = -INFINITY;
+      for (int j = lane; j < nk; j += 32) mx = fmaxf(mx, p_tile[g][j]);
+      mx = warp_max(mx);
+      const float m_prev = m_s[g];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int j = lane; j < nk; j += 32) {
+        const float p = expf(p_tile[g][j] - m_new);
+        sum += p;
+        p_tile[g][j] = kQuant ? p : to_f(from_f<T>(p));
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        alpha_s[g] = alpha;
+        l_s[g] = alpha * l_s[g] + sum;
+        m_s[g] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // 4. this thread's column: acc = acc * alpha + p @ v
+    if (col < D) {
+      float pv[kMaxG];
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) pv[g] = 0.f;
+      for (int j = 0; j < nk; ++j) {
+        const float vf = kQuant ? to_f(vc[key_off[j] + col]) * vsc_s[j]
+                                : to_f(vc[key_off[j] + col]);
+#pragma unroll
+        for (int g = 0; g < kMaxG; ++g) pv[g] = fmaf(p_tile[g][j], vf, pv[g]);
+      }
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g)
+        if (g < Gc) acc[g] = acc[g] * alpha_s[g] + pv[g];
+    }
+    __syncthreads();
+  }
+
+  if (col < D) {
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g < Gc)
+        out[((size_t)t * H + (size_t)h * G + g0 + g) * D + col] =
+            from_f<T>(acc[g] / l_s[g]);
+    }
+  }
+}
+
+template <typename T, typename KV, bool kQuant, bool kDecode>
+int launch_any(const void* q, const void* kc, const void* vc, const void* ks,
+               const void* vs, const void* bt, const void* seg,
+               const void* rel, void* out, int Tq, int H, int Hkv, int D,
+               int bs, int num_blocks, int R, int nblk, float scale,
+               cudaStream_t stream) {
+  const int n_gc = (H / Hkv + kMaxG - 1) / kMaxG;
+  const int n_dc = (D + kThreads - 1) / kThreads;
+  dim3 grid(Tq, Hkv, n_gc * n_dc);
+  paged_attention_any_kernel<T, KV, kQuant, kDecode>
+      <<<grid, kThreads, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const KV*>(kc),
+          static_cast<const KV*>(vc), static_cast<const float*>(ks),
+          static_cast<const float*>(vs), static_cast<const int*>(bt),
+          static_cast<const int*>(seg), static_cast<const int*>(rel),
+          static_cast<T*>(out), H, Hkv, D, bs, num_blocks, R, nblk, n_dc,
+          scale);
+  return (int)cudaGetLastError();
+}
+
+// the kernels above where they apply, this one elsewhere
+bool specialised(int H, int Hkv, int D) {
+  return (D == 64 || D == 128) && H / Hkv <= kMaxG;
+}
+
 }  // namespace
 
 // C entry of the int8-page kernel, bound with ctypes.  As the float entry,
@@ -469,6 +654,17 @@ extern "C" int paddle_ragged_paged_attention_q8(
     int nblk, int dtype, float scale, void* stream) {
   if (Tq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!specialised(H, Hkv, D)) {
+    if (dtype == 0)
+      return launch_any<float, int8_t, true, false>(
+          q, kc, vc, ks, vs, bt, seg, rel, out, Tq, H, Hkv, D, bs,
+          num_blocks, R, nblk, scale, s);
+    if (dtype == 1)
+      return launch_any<__nv_bfloat16, int8_t, true, false>(
+          q, kc, vc, ks, vs, bt, seg, rel, out, Tq, H, Hkv, D, bs,
+          num_blocks, R, nblk, scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == 0 && D == 64)
     return launch_q8<float, 64>(q, kc, vc, ks, vs, bt, seg, rel, out, Tq, H,
                                 Hkv, bs, num_blocks, R, nblk, scale, s);
@@ -489,8 +685,9 @@ extern "C" int paddle_ragged_paged_attention_q8(
 // C entry, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16.  Returns
 // cudaGetLastError() after the launch (0 on success); the caller checks it.
 // The wrapper (paddle_tpu_torch/ops/paged_attention.py) has already checked
-// shapes, types and contiguity: D in {64, 128}, H % Hkv == 0, H / Hkv <= 8,
-// bs % 8 == 0.
+// shapes, types and contiguity: D 64 or a multiple of 128, H % Hkv == 0,
+// bs % 8 == 0.  D in {64, 128} with H / Hkv <= 8 takes the specialised
+// kernel, every other shape paged_attention_any_kernel.
 extern "C" int paddle_ragged_paged_attention(
     const void* q, const void* kc, const void* vc, const void* bt,
     const void* seg, const void* rel, void* out, int Tq, int H, int Hkv,
@@ -498,6 +695,17 @@ extern "C" int paddle_ragged_paged_attention(
     void* stream) {
   if (Tq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!specialised(H, Hkv, D)) {
+    if (dtype == 0)
+      return launch_any<float, float, false, false>(
+          q, kc, vc, nullptr, nullptr, bt, seg, rel, out, Tq, H, Hkv, D, bs,
+          num_blocks, R, nblk, scale, s);
+    if (dtype == 1)
+      return launch_any<__nv_bfloat16, __nv_bfloat16, false, false>(
+          q, kc, vc, nullptr, nullptr, bt, seg, rel, out, Tq, H, Hkv, D, bs,
+          num_blocks, R, nblk, scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == 0 && D == 64)
     return launch<float, 64>(q, kc, vc, bt, seg, rel, out, Tq, H, Hkv, bs,
                              num_blocks, R, nblk, scale, s);
@@ -523,6 +731,17 @@ extern "C" int paddle_paged_decode_attention(
     int num_blocks, int nblk, int dtype, float scale, void* stream) {
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!specialised(H, Hkv, D)) {
+    if (dtype == 0)
+      return launch_any<float, float, false, true>(
+          q, kc, vc, nullptr, nullptr, bt, nullptr, lens, out, B, H, Hkv, D,
+          bs, num_blocks, B, nblk, scale, s);
+    if (dtype == 1)
+      return launch_any<__nv_bfloat16, __nv_bfloat16, false, true>(
+          q, kc, vc, nullptr, nullptr, bt, nullptr, lens, out, B, H, Hkv, D,
+          bs, num_blocks, B, nblk, scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == 0 && D == 64)
     return launch<float, 64, true>(q, kc, vc, bt, nullptr, lens, out, B, H,
                                    Hkv, bs, num_blocks, B, nblk, scale, s);

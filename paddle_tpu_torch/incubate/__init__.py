@@ -1,2 +1,2 @@
 """``paddle.incubate`` surface of the PyTorch port (ported so far: paged
-block attention in ``incubate.nn.functional``)."""
+block attention and the fused ops in ``incubate.nn.functional``)."""

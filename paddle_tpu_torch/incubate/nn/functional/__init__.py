@@ -1,6 +1,8 @@
 """``paddle.incubate.nn.functional`` surface of the PyTorch port: paged-KV
 block attention (counterpart of block_multihead_attention and
-blha_get_max_len in paddle_tpu/incubate/nn/functional/__init__.py).
+blha_get_max_len in paddle_tpu/incubate/nn/functional/__init__.py) and
+the fused ops of ``fused_ops`` (fused_rms_norm, fused_layer_norm,
+fused_rotary_position_embedding, swiglu, fused_matmul_bias, fused_linear).
 
 ``block_multihead_attention`` serves a batch of sequences whose K/V live in
 pages ``[max_blocks, H, block_size, D]`` addressed by block tables.  Its
@@ -21,8 +23,14 @@ import torch
 from ....nn.functional.attention import _unpadded_impl
 from ....ops import flash_attention_varlen as _fav
 from ....ops import paged_attention as _pa
+from .fused_ops import (fused_layer_norm, fused_linear, fused_matmul_bias,
+                        fused_rms_norm, fused_rotary_position_embedding,
+                        swiglu)
 
-__all__ = ["block_multihead_attention", "blha_get_max_len"]
+__all__ = ["block_multihead_attention", "blha_get_max_len",
+           "fused_rms_norm", "fused_layer_norm",
+           "fused_rotary_position_embedding", "swiglu", "fused_matmul_bias",
+           "fused_linear"]
 
 
 def _host(x):

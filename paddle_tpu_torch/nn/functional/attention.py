@@ -59,7 +59,7 @@ def _flash_eligible(q, k, causal) -> bool:
     lowering probe aside: 4-D inputs, head dim 64, 128, 256 or a multiple
     of 128, sequence lengths multiples of 128, the GQA group dividing the
     heads, Sq == Sk under causal, float32 or bfloat16.  On CUDA tensors the
-    flash kernels take head dims up to 256 and raise past it."""
+    flash kernels take every such shape."""
     if q.dim() != 4 or k.dim() != 4:
         return False
     b, s, h, d = q.shape

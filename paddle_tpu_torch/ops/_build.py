@@ -33,6 +33,7 @@ SOURCES = {
     "quant_matmul": "csrc/quant_matmul.cu",
     "flash_attention": "csrc/flash_attention.cu",
     "flash_attention_varlen": "csrc/flash_attention_varlen.cu",
+    "fused_norms": "csrc/fused_norms.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

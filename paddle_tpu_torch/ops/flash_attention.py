@@ -20,8 +20,9 @@ rounded to k's type for dQ; dK and dV are summed over each GQA group.
 tensors its forward launches the forward kernel and its backward the dK/dV
 and dQ kernels of ``paddle_tpu_torch/csrc/flash_attention.cu`` (float32,
 and bfloat16 at head dim 256, on the CUDA cores; bfloat16 at 64 and 128 on
-the tensor cores; it raises on what they do not take, head dims past 256
-among them); on CPU tensors both run the plain versions.
+the tensor cores; every other multiple of 128 on CUDA-core kernels that
+walk the head dim in chunks; it raises on what they do not take); on CPU
+tensors both run the plain versions.
 ``fwd_launch_count``, ``dkdv_launch_count`` and ``dq_launch_count`` count
 kernel launches, one per launch.
 """
@@ -44,7 +45,6 @@ dkdv_launch_count = 0
 dq_launch_count = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 256)
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +183,8 @@ def _check_operands(q, k, v, causal, do=None, lse=None, delta=None):
     need(q.dtype in _DTYPES, f"dtype {q.dtype} not in float32/bfloat16")
     need(k.dtype == q.dtype and v.dtype == q.dtype,
          f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
-    need(D in _HEAD_DIMS, f"head dim {D} not in {_HEAD_DIMS}")
+    need(D == 64 or (D >= 128 and D % 128 == 0),
+         f"head dim {D} is neither 64 nor a multiple of 128")
     need(Hk >= 1 and H % Hk == 0, f"H={H} not a multiple of Hk={Hk}")
     need(Sq >= 1 and Sk >= 1, f"empty sequence (Sq={Sq}, Sk={Sk})")
     need(not causal or Sq == Sk,

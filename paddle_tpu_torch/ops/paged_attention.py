@@ -58,7 +58,8 @@ __all__ = ["ragged_segments", "ragged_paged_reference_segrel",
            "ragged_paged_attention_quant_segrel_packed",
            "paged_decode_plain", "paged_decode_reference",
            "paged_decode_attention", "paged_decode_attention_packed",
-           "supports", "launch_count", "quant_launch_count",
+           "supports", "ragged_supports", "launch_count",
+           "quant_launch_count",
            "decode_launch_count"]
 
 # kernel launches made by the CUDA route, one count per kernel (plain-
@@ -68,8 +69,6 @@ quant_launch_count = 0
 decode_launch_count = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
-_MAX_GROUP = 8
 
 
 def ragged_segments(cu_seqlens, kv_lens, n_tokens):
@@ -150,12 +149,11 @@ def _check_operands(q, key_cache, value_cache, block_tables, vectors,
     need(key_cache.dtype == cache_dtype and value_cache.dtype == cache_dtype,
          f"cache dtypes {key_cache.dtype}/{value_cache.dtype} must be "
          f"{cache_dtype}")
-    need(D in _HEAD_DIMS and Dc == D, f"head dim {D} (cache {Dc}) not in "
-         f"{_HEAD_DIMS}")
-    need(Hkv >= 1 and H % Hkv == 0, f"H={H} not a multiple of H_kv={Hkv}")
-    need(H // Hkv <= _MAX_GROUP, f"query group G={H // Hkv} exceeds "
-         f"{_MAX_GROUP}")
-    need(bs >= 8 and bs % 8 == 0, f"block size {bs} not a multiple of 8")
+    need(Dc == D, f"cache head dim {Dc} differs from q's {D}")
+    need(D >= 1 and bs >= 1, f"empty head dim or page (D={D}, bs={bs})")
+    need(H >= 1 and Hkv >= 1 and ragged_supports(H, Hkv, D, bs),
+         f"H={H}, H_kv={Hkv}, D={D}, bs={bs} outside the rule: H a multiple "
+         "of H_kv, D 64 or a multiple of 128, bs a multiple of 8")
     need(block_tables.dim() == 2 and block_tables.dtype == torch.int32,
          f"block_tables must be int32 [R, nblk], got {block_tables.dtype} "
          f"{tuple(block_tables.shape)}")
@@ -440,7 +438,18 @@ def supports(B, H, Hkv, D, bs) -> bool:
     """The JAX package's shape rule for its decode kernel (without its
     lowering probe): H a multiple of H_kv, D 64 or a multiple of 128, bs a
     multiple of 8.  Where it holds, blha decodes through
-    ``paged_decode_attention`` (whose CUDA kernel raises on shapes outside
-    its own scope: D in {64, 128}, G <= 8, float32/bfloat16); elsewhere
-    through ``paged_decode_reference``."""
+    ``paged_decode_attention`` (whose CUDA kernel takes every such shape in
+    float32/bfloat16); elsewhere through ``paged_decode_reference``."""
     return H % Hkv == 0 and (D % 128 == 0 or D == 64) and bs % 8 == 0
+
+
+def ragged_supports(H, Hkv, D, bs) -> bool:
+    """The JAX package's shape rule for its ragged kernels, float and
+    int8-page (without the lowering probe): H and H_kv at least 1, H a
+    multiple of H_kv, D 64 or a multiple of 128, bs a multiple of 8.  The
+    three CUDA kernels take exactly these shapes (``_check_operands``):
+    D in {64, 128} with G = H / H_kv <= 8 on their specialised kernels,
+    every other shape on the kernel that splits G and D over blocks."""
+    if H < 1 or Hkv < 1 or H % Hkv != 0:
+        return False
+    return (D % 128 == 0 or D == 64) and bs % 8 == 0

@@ -83,7 +83,7 @@ def test_sdpa_matches_jax(name):
 def test_flash_route_reaches_the_flash_attention_function(D, monkeypatch):
     """Every head dim the JAX rule takes (64, 128, 256, multiples of 128)
     goes to ``ops.flash_attention.attention``; on CUDA tensors that
-    launches the kernels up to 256 and raises past it."""
+    launches the kernels at every one of them."""
     calls = []
     real = TA._fa.attention
 

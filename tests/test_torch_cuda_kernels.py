@@ -32,6 +32,7 @@ import torch
 
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import flash_attention_varlen as fav
+from paddle_tpu_torch.ops import fused_norms as fn
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import quant_matmul as qm
 
@@ -402,20 +403,16 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take(dev):
                        v[..., :32].contiguous(), False)
 
 
-@pytest.mark.parametrize("D", [64, 128, 256, 384])
+@pytest.mark.parametrize("D", [64, 128, 256, 384, 512])
 def test_sdpa_routes_head_dims_by_the_jax_rule(dev, D):
     """``scaled_dot_product_attention`` sends every head dim the JAX rule
-    takes to the flash kernels: up to 256 they launch (forward and both
-    backward kernels once each), past it the wrapper raises; no plain
-    version runs on the card."""
+    takes to the flash kernels, which launch at each of them (forward and
+    both backward kernels once each); no plain version runs on the
+    card."""
     from paddle_tpu_torch.nn import functional as F
     q, k, v, do = _flash_case(dev, torch.bfloat16, 1, 128, 4, 2, D, seed=2)
     q.requires_grad_(True)
     counts = (fa.fwd_launch_count, fa.dkdv_launch_count, fa.dq_launch_count)
-    if D > 256:
-        with pytest.raises(ValueError, match="head dim"):
-            F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        return
     out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
     out.backward(do)
     torch.cuda.synchronize()
@@ -524,9 +521,9 @@ def test_decode_kernel_refuses_what_it_does_not_take(dev):
                                   ops[2].half(), *ops[3:])
     with pytest.raises(ValueError, match="paged decode kernel"):
         pa.paged_decode_attention_packed(*ops[:4], ops[4][:1])
-    big = _decode_case(dev, torch.float32, 2, 4, 4, 256, 8, [5, 9])
-    with pytest.raises(ValueError, match="head dim"):
-        pa.paged_decode_attention(*big)
+    off_rule = _decode_case(dev, torch.float32, 2, 4, 4, 96, 8, [5, 9])
+    with pytest.raises(ValueError, match="rule"):
+        pa.paged_decode_attention(*off_rule)
 
 
 # ---------------------------------------------------------------------------
@@ -745,3 +742,177 @@ def test_block_multihead_attention_goes_through_the_kernels(dev):
         _assert_within(got, want, torch.float32)
     assert torch.equal(runs["cuda"][1], runs["cpu"][1])
     assert torch.equal(runs["cuda"][2], runs["cpu"][2])
+
+
+# ---------------------------------------------------------------------------
+# the repaired shapes: every head dim and query group the JAX rules take
+# (the specialised kernels keep D 64/128 with G <= 8; the rest goes to the
+# kernel that splits G and D over blocks, and to the chunked flash
+# kernels), each held to its plain version at TOL
+# ---------------------------------------------------------------------------
+
+REPAIR_PAGED = [  # H, Hkv, D, bs
+    (4, 2, 256, 16), (4, 4, 384, 16), (16, 1, 128, 16), (32, 1, 64, 8),
+    (32, 2, 128, 16), (16, 1, 256, 32), (32, 1, 384, 16)]
+REPAIR_IDS = ["d256", "d384", "g16", "g32_d64", "g16_hkv2", "g16_d256",
+              "g32_d384"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,Hkv,D,bs", REPAIR_PAGED, ids=REPAIR_IDS)
+def test_paged_entries_at_repaired_shapes(dev, dtype, H, Hkv, D, bs):
+    """The float and int8-page ragged entries and the decode entry, each
+    one launch, against their plain versions."""
+    rows = [(9, 9), (5, 40), (1, 300), (1, 1), (0, 0), (3, 77)]
+    nblk = -(-300 // bs)
+    ops = _case(dev, dtype, H, Hkv, D, bs, rows, 24, nblk)
+    before = pa.launch_count
+    out = pa.ragged_paged_attention_segrel_packed(*ops)
+    torch.cuda.synchronize()
+    assert pa.launch_count == before + 1
+    _assert_within(out, pa.ragged_paged_reference_segrel(*ops), dtype)
+    qops = _quant_case(dev, dtype, H, Hkv, D, bs, rows, 24, nblk)
+    before = pa.quant_launch_count
+    out = pa.ragged_paged_attention_quant_segrel_packed(*qops)
+    torch.cuda.synchronize()
+    assert pa.quant_launch_count == before + 1
+    _assert_within(out, pa.ragged_paged_reference_quant_segrel(
+        qops[0].float(), *qops[1:]), dtype)
+    lens = [1, 9, 300, 64, 65, 130]
+    dops = _decode_case(dev, dtype, len(lens), H, Hkv, D, bs, lens)
+    before = pa.decode_launch_count
+    out = pa.paged_decode_attention(*dops)
+    torch.cuda.synchronize()
+    assert pa.decode_launch_count == before + 1
+    _assert_within(out, pa.paged_decode_plain(*dops), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,Hkv,D", [(4, 4, 512), (8, 2, 1024),
+                                     (32, 1, 1024)],
+                         ids=["d512", "d1024_gqa", "d1024_g32"])
+def test_decode_entry_at_large_head_dims(dev, dtype, H, Hkv, D):
+    lens = [1, 17, 200, 64]
+    ops = _decode_case(dev, dtype, len(lens), H, Hkv, D, 16, lens, seed=4)
+    before = pa.decode_launch_count
+    out = pa.paged_decode_attention(*ops)
+    torch.cuda.synchronize()
+    assert pa.decode_launch_count == before + 1
+    _assert_within(out, pa.paged_decode_plain(*ops), dtype)
+
+
+def test_specialised_paged_shapes_repeat_bit_for_bit(dev):
+    """The shapes both kernels could serve stay on the specialised one:
+    D 128 with G 8 gives the same bits launch after launch."""
+    ops = _case(dev, torch.bfloat16, 32, 4, 128, 16,
+                [(1, 700), (5, 40), (1, 1)], 8, 44, seed=5)
+    first = pa.ragged_paged_attention_segrel_packed(*ops)
+    for _ in range(3):
+        assert torch.equal(pa.ragged_paged_attention_segrel_packed(*ops),
+                           first)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,Hk,D", [(1, 130, 4, 2, 384),
+                                        (2, 64, 2, 2, 512),
+                                        (1, 200, 4, 1, 512)],
+                         ids=["d384_gqa_S130", "d512_S64", "d512_mqa_S200"])
+def test_flash_kernels_at_large_head_dims(dev, B, S, H, Hk, D, dtype,
+                                          causal):
+    test_flash_kernels_match_plain_versions(dev, B, S, H, Hk, D, dtype,
+                                            causal)
+
+
+# ---------------------------------------------------------------------------
+# fused RMSNorm / LayerNorm: the kernel against its plain version.  float32
+# x: each row's max |out - ref| / max |ref| <= 1e-5 (the same f32 math,
+# the row sums in another order, the card's rsqrt within 2 ulp).  bfloat16
+# x: every element within max(1e-2, one bf16 ulp of the reference) -- 1e-2
+# is the JAX package's own hardware bound, and above 2 in magnitude one
+# rounding of two f32 values an ulp apart is larger than that -- and
+# ||out - ref|| / ||ref|| <= 1e-3, which a 0.5% shift fails.
+# ---------------------------------------------------------------------------
+
+def _assert_norm_within(out, ref):
+    d = (out.float() - ref.float()).abs()
+    r = ref.float()
+    if out.dtype == torch.float32:
+        rows = d.reshape(-1, d.shape[-1]).amax(1) / \
+            r.reshape(-1, r.shape[-1]).abs().amax(1).clamp_min(1e-30)
+        assert rows.max().item() <= 1e-5, rows.max().item()
+        return
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    assert bool((d <= torch.maximum(ulp, torch.full_like(ulp, 1e-2))).all())
+    assert (d.norm() / r.norm()).item() <= 1e-3
+
+
+def _norm_case(dev, R, H, xdt, wdt, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((R, H), generator=g, device=dev).to(xdt)
+    w = (1 + 0.1 * torch.randn(H, generator=g, device=dev)).to(wdt)
+    b = (0.1 * torch.randn(H, generator=g, device=dev)).to(wdt)
+    return x, w, b
+
+
+NORM_SHAPES = [(8, 4096), (2048, 1024), (16, 128), (8, 32768), (24, 11008)]
+
+
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16],
+                         ids=["w_f32", "w_bf16"])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16],
+                         ids=["x_f32", "x_bf16"])
+@pytest.mark.parametrize("R,H", NORM_SHAPES, ids=str)
+def test_norm_kernel_matches_plain_version(dev, R, H, xdt, wdt):
+    x, w, b = _norm_case(dev, R, H, xdt, wdt)
+    counts = (fn.rms_launch_count, fn.ln_launch_count)
+    y = fn._launch_rms(x, w, 1e-6)
+    y2 = fn._launch_ln(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert (fn.rms_launch_count, fn.ln_launch_count) == (counts[0] + 1,
+                                                         counts[1] + 1)
+    assert y.dtype == y2.dtype == xdt
+    _assert_norm_within(y, fn.rms_ref(x, w, 1e-6))
+    _assert_norm_within(y2, fn.ln_ref(x, w, b, 1e-5))
+    assert torch.equal(fn._launch_rms(x, w, 1e-6), y)
+    assert torch.equal(fn._launch_ln(x, w, b, 1e-5), y2)
+
+
+def test_norm_kernel_controls_fail_the_gate(dev):
+    x, w, b = _norm_case(dev, 64, 4096, torch.bfloat16, torch.float32, 1)
+    ref = fn.rms_ref(x, w, 1e-6)
+    for bad in (fn._launch_rms(x, w, 1e-2),
+                fn._launch_rms(x, torch.roll(w, 1), 1e-6)):
+        with pytest.raises(AssertionError):
+            _assert_norm_within(bad, ref)
+
+
+def test_fused_ops_take_the_norm_kernel_on_the_card(dev):
+    """The functionals launch the kernel where the rule holds (RMS with a
+    weight, LayerNorm with weight and bias), the compositions elsewhere;
+    autograd through the kernel's forward equals the CPU run's."""
+    from paddle_tpu_torch.incubate.nn import functional as F
+    x, w, b = _norm_case(dev, 16, 256, torch.float32, torch.float32, 2)
+    counts = (fn.rms_launch_count, fn.ln_launch_count)
+    F.fused_rms_norm(x, w)
+    F.fused_layer_norm(x, w, b)
+    F.fused_rms_norm(x[:7], w)                  # rows off the rule
+    F.fused_layer_norm(x, w, None)              # no bias
+    torch.cuda.synchronize()
+    assert (fn.rms_launch_count, fn.ln_launch_count) == (counts[0] + 1,
+                                                         counts[1] + 1)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        leaves = [t.detach().to(where).requires_grad_(True)
+                  for t in (x, w, b)]
+        out, res = F.fused_layer_norm(leaves[0], leaves[1], leaves[2],
+                                      residual=leaves[0])
+        (out.float() * torch.linspace(-1, 1, 256, device=where)) \
+            .sum().backward()
+        grads[where] = [t.grad.cpu() for t in leaves]
+    for g, c in zip(grads["cuda"], grads["cpu"]):
+        _assert_grad_within(g, c, GRAD_TOL[torch.float32])

@@ -210,6 +210,12 @@ def _ops(shape=(1, 64, 4, 64), kv=(1, 64, 2, 64), dtype=torch.float32):
         "empty"])
 def test_cuda_wrapper_refuses_what_the_kernels_do_not_take(ops, causal,
                                                           match):
+    """Head dim 384 is inside the contract (the JAX rule takes every
+    multiple of 128), so there only the CPU device is refused."""
+    if ops[0].shape[-1] == 384:
+        with pytest.raises(RuntimeError, match="CUDA tensors only"):
+            fa._launch_fwd(*ops, causal)
+        return
     with pytest.raises(ValueError, match=match):
         fa._launch_fwd(*ops, causal)
 
@@ -240,3 +246,23 @@ def test_attention_refuses_causal_across_lengths_on_every_device():
         fa.attention(q, k, v, causal=True)
     out = fa.attention(q, k, v, causal=False)
     assert out.shape == q.shape
+
+
+@pytest.mark.parametrize("G", [1, 4, 8, 16, 32])
+@pytest.mark.parametrize("D", [64, 96, 128, 256, 384, 512])
+def test_kernel_contract_head_dims_equal_jax_rule(D, G):
+    """The kernels take every head dim and group the JAX ``_shapes_eligible``
+    sends to its kernels (64, 128, 256 and every multiple of 128): there
+    only the CPU device is refused."""
+    H, Hk = G, 1
+    rule = FA._shapes_eligible((1, 128, H, D), "float32", (1, 128, Hk, D),
+                               causal=True)
+    q, k, v = _ops((1, 128, H, D), (1, 128, Hk, D))
+    with pytest.raises(RuntimeError if rule else ValueError,
+                       match="CUDA tensors only" if rule else "head dim"):
+        fa._launch_fwd(q, k, v, True)
+    lse = torch.zeros((1, H, 128))
+    for launch in (fa._launch_dkdv, fa._launch_dq):
+        with pytest.raises(RuntimeError if rule else ValueError,
+                           match="CUDA tensors only" if rule else "head dim"):
+            launch(q, k, v, q, lse, lse, True)

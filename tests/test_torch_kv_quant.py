@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import paddle_tpu.ops.pallas.paged_attention as jpa
+from paddle_tpu.core import random_state
 import paddle_tpu_torch.ops.paged_attention as tpa
 from paddle_tpu.inference import LLMEngine as JaxEngine
 from paddle_tpu.models.llama import LlamaConfig as JaxConfig
@@ -215,7 +216,19 @@ class Pair:
 
 @pytest.fixture(scope="module")
 def pairs():
-    return {k: Pair(c) for k, c in CFGS.items()}
+    """The models, drawn from the JAX package's global random state seeded
+    to 0 and restored afterwards.  Unseeded, that state takes its root key
+    from numpy's entropy, so every process tested other weights; torch and
+    XLA round their f32 norms, matmuls, rotary sin/cos and exp apart by an
+    ulp or two, and on some weight draws a K/V value sat within those ulps
+    of a .5 tie of round(x / scale), flipping one int8 code.  A fixed draw
+    makes the exact comparison repeatable."""
+    saved = dict(random_state._state)
+    random_state.seed(0)
+    try:
+        return {k: Pair(c) for k, c in CFGS.items()}
+    finally:
+        random_state._state.update(saved)
 
 
 def _kw(**kw):

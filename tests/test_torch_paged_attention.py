@@ -185,7 +185,14 @@ def _bad(name):
     "noncontiguous_q", "int64_table", "group_above_8", "head_dim_32",
     "block_size_12", "float16", "cache_dtype_mismatch", "seg_length"])
 def test_kernel_wrapper_rejects_bad_operands(name):
+    """Every operand outside the contract is refused before any launch.  A
+    query group above 8 is inside it (the JAX rule takes any G), so there
+    only the CPU device is refused."""
     ops = _bad(name)
+    if name == "group_above_8":
+        with pytest.raises(RuntimeError, match="CUDA tensors"):
+            tpa._launch_kernel(*ops)
+        return
     with pytest.raises(ValueError, match="ragged paged attention kernel"):
         tpa._launch_kernel(*ops)
 
@@ -290,3 +297,46 @@ def test_decode_cpu_tensors_never_count_and_kernel_refuses_them():
     with pytest.raises(ValueError, match="paged decode kernel"):
         tpa._launch_decode_kernel(ops[0], *ops[1:3], ops[3][:1], ops[4])
     assert tpa.decode_launch_count == 0
+
+
+# the repaired rules: every D and G the JAX rules take reaches the kernels
+
+RULE_DIMS = [64, 96, 128, 256, 384, 512]
+RULE_GROUPS = [1, 4, 8, 16, 32]
+
+
+@pytest.mark.parametrize("bs", [8, 12, 16])
+@pytest.mark.parametrize("G", RULE_GROUPS)
+@pytest.mark.parametrize("D", RULE_DIMS)
+def test_rules_and_kernel_contracts_equal_jax(D, G, bs):
+    """The port's decode and ragged rules equal the JAX package's shape
+    rules (without their lowering probes), and each of the three kernel
+    wrappers takes an operand set exactly where the rule holds: there only
+    the CPU device is refused."""
+    for Hkv in (1, 2):
+        H = G * Hkv
+        assert tpa.supports(1, H, Hkv, D, bs) is jpa.supports(1, H, Hkv, D,
+                                                              bs)
+        rule = jpa.ragged_supports(4, H, Hkv, D, bs)
+        assert tpa.ragged_supports(H, Hkv, D, bs) is rule
+        q = torch.zeros((4, H, D))
+        kc = torch.zeros((3, Hkv, bs, D))
+        bt = torch.zeros((4, 2), dtype=torch.int32)
+        v4 = torch.zeros(4, dtype=torch.int32)
+        k8 = kc.to(torch.int8)
+        sc = torch.ones((3, Hkv))
+        for launch in (
+                lambda: tpa._launch_kernel(q, kc, kc, bt, v4, v4),
+                lambda: tpa._launch_quant_kernel(q, k8, k8, sc, sc, bt, v4,
+                                                 v4),
+                lambda: tpa._launch_decode_kernel(q, kc, kc, bt, v4)):
+            with pytest.raises(RuntimeError if rule else ValueError,
+                               match="CUDA tensors" if rule else "rule"):
+                launch()
+
+
+def test_group_not_dividing_heads_is_refused_everywhere():
+    assert not tpa.ragged_supports(6, 4, 128, 16)
+    assert not jpa.ragged_supports(4, 6, 4, 128, 16)
+    with pytest.raises(ValueError, match="rule"):
+        tpa._launch_kernel(*_operands(H=6, Hkv=4))

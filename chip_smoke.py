@@ -448,6 +448,87 @@ def swap_nibbles(q):
     return (((b & 0xF) << 4) | (b >> 4)).to(torch.uint8).view(torch.int8)
 
 
+# the same cases' times on the CUDA-core kernel that the tensor-core one
+# replaced (PERF.md section 6, "was"; NVIDIA H100 80GB HBM3, 700.00 W; bf16
+# x, M 8 timed with the weights warm in L2), for the comparison the phase
+# prints
+QMM_WAS_MS = {
+    "qkvo_int8_M8": 0.0551, "qkvo_int8_M512": 0.8815,
+    "qkvo_int4_M8": 0.0517, "qkvo_int4_M512": 0.7769,
+    "gate_up_int8_M8": 0.1514, "gate_up_int8_M512": 2.1969,
+    "gate_up_int4_M8": 0.1208, "gate_up_int4_M512": 2.0106,
+    "down_int8_M8": 0.1504, "down_int8_M512": 2.3822,
+    "down_int4_M8": 0.1248, "down_int4_M512": 2.1468,
+    "head_int8_M8": 0.344, "head_int8_M512": 5.918,
+    "head_int4_M8": 0.311, "head_int4_M512": 5.513}
+# f32 x: the logit head at the engine's decode M, and a projection at a
+# prefill's (the f32 engine, engine_quant_f32)
+QMM_F32_CASES = (("head", 8), ("qkvo", 512))
+# the M 8 cases are timed with the weights cold in L2 (50 MB), as the
+# engine, which streams 6.7 GB of weights a step, finds them: each call
+# takes the next of enough copies to pass twice the L2
+L2_BYTES = 50 * 2 ** 20
+
+
+def rotating(make, nbytes):
+    """A call that cycles over enough copies made by ``make()`` (each
+    ``nbytes`` bytes) to pass twice the L2, so each call reads its
+    operands from device memory."""
+    copies = [make() for _ in range(max(2, -(-2 * L2_BYTES // nbytes)))]
+    state = {"i": 0}
+
+    def nxt():
+        state["i"] = (state["i"] + 1) % len(copies)
+        return copies[state["i"]]
+    return nxt
+
+
+def qmm_case(qm, x, q, s, wdt, w_lib, name):
+    """One case of the qmm phase: the kernel held to its plain version,
+    its time (L2-cold at M <= 16, and warm too), the plain version's, the
+    library's (bf16 x @ the weight dequantized to bf16 beforehand, cold
+    and warm alike) and the bound."""
+    import torch
+    M, K = x.shape
+    N = q.shape[1]
+    out = qm._launch_kernel(x, q, s, wdt)
+    ref = qm.reference_matmul(x, q, s, wdt)
+    err = qmm_errors(out, ref)
+    ok = bool(torch.isfinite(out).all()) and qmm_within(err)
+    xb = x.element_size()
+    nbytes = q.numel() + s.numel() * 4 + x.numel() * xb + M * N * 4
+    flops = 2 * M * K * N
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    # bf16 x: one bf16 tensor-core product.  f32 x: the exact product
+    # on the tensor cores is three bf16 ones (x split into h + m + l,
+    # 24 bits; TF32's 10 would not be exact), so 3 x the flops at the bf16
+    # rate
+    t_ops = (1 if x.dtype == torch.bfloat16 else 3) * flops \
+        / PEAK_FLOPS["bfloat16"] * 1e3
+    xl = x.to(torch.bfloat16)
+    warm = time_ms(lambda: qm._launch_kernel(x, q, s, wdt))
+    lib_warm = time_ms(lambda: xl @ w_lib)
+    rec = dict(err, M=M, K=K, N=N, weight_dtype=wdt,
+               x_dtype=str(x.dtype).replace("torch.", ""),
+               plain_ms=time_ms(lambda: qm.reference_matmul(x, q, s, wdt),
+                                reps=20),
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, flops=flops,
+               was_ms=QMM_WAS_MS.get(name) if x.dtype == torch.bfloat16
+               else None)
+    if M <= 16:
+        wq = rotating(lambda: (q.clone(), s.clone()), q.numel())
+        wl = rotating(lambda: w_lib.clone(), w_lib.numel() * 2)
+        rec.update(ms=time_ms(lambda: qm._launch_kernel(x, *wq(), wdt)),
+                   library_ms=time_ms(lambda: xl @ wl()), ms_l2_warm=warm,
+                   library_ms_l2_warm=lib_warm, l2="cold")
+        del wq, wl
+    else:
+        rec.update(ms=warm, library_ms=lib_warm, l2="warm")
+    return ok, rec
+
+
 def phase_qmm(state):
     import torch
     from paddle_tpu_torch.ops import quant_matmul as qm
@@ -462,40 +543,54 @@ def phase_qmm(state):
             for M in (8, 512):
                 x = torch.randn((M, K), generator=gen,
                                 device=DEV).to(torch.bfloat16)
-                out = qm._launch_kernel(x, q, s, wdt)
-                ref = qm.reference_matmul(x, q, s, wdt)
-                err = qmm_errors(out, ref)
-                ok &= bool(torch.isfinite(out).all()) and qmm_within(err)
-                nbytes = (q.numel() + s.numel() * 4 + x.numel() * 2
-                          + M * N * 4)
-                flops = 2 * M * K * N
-                t_bytes = nbytes / PEAK_BYTES * 1e3
-                t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-                cases[f"{shape}_{wdt}_M{M}"] = dict(
-                    err, M=M, K=K, N=N, weight_dtype=wdt,
-                    ms=time_ms(lambda: qm._launch_kernel(x, q, s, wdt)),
-                    plain_ms=time_ms(
-                        lambda: qm.reference_matmul(x, q, s, wdt), reps=20),
-                    library_ms=time_ms(lambda: x @ w_lib),
-                    bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    bytes=nbytes, flops=flops)
+                name = f"{shape}_{wdt}_M{M}"
+                passed, cases[name] = qmm_case(qm, x, q, s, wdt, w_lib, name)
+                ok &= passed
                 if shape == "qkvo" and wdt == "int4" and M == 8:
                     control = qmm_errors(
-                        qm._launch_kernel(x, swap_nibbles(q), s, wdt), ref)
+                        qm._launch_kernel(x, swap_nibbles(q), s, wdt),
+                        qm.reference_matmul(x, q, s, wdt))
                     control["fails"] = not qmm_within(control)
                     ok &= control["fails"]
-                del x, out, ref
+                if (shape, M) in QMM_F32_CASES:
+                    x = torch.randn((M, K), generator=gen, device=DEV)
+                    name = f"{shape}_{wdt}_M{M}_xf32"
+                    passed, cases[name] = qmm_case(qm, x, q, s, wdt, w_lib,
+                                                   name)
+                    ok &= passed
+                del x
             del q, s, w_lib
         del w
     torch.cuda.empty_cache()
+    # repeats bit for bit where K is split (qkvo at M 8: 8 splits)
+    w = torch.randn((4096, 4096), generator=gen, device=DEV) * 0.02
+    repeats = {}
+    for wdt in ("int8", "int4"):
+        q, s = qm.quantize_weight(w, wdt)
+        x = torch.randn((8, 4096), generator=gen, device=DEV).bfloat16()
+        first = qm._launch_kernel(x, q, s, wdt)
+        repeats[wdt] = all(torch.equal(qm._launch_kernel(x, q, s, wdt),
+                                       first) for _ in range(10))
+    ok &= all(repeats.values())
+    del w, q, s, x, first
+    torch.cuda.empty_cache()
     state["qmm"] = cases
     emit({"phase": "qmm", "ok": ok, "tolerance": QMM_TOLERANCE,
-          "x_dtype": "bfloat16", "control_int4_nibbles_swapped": control,
+          "control_int4_nibbles_swapped": control,
+          "repeats_bit_for_bit_qkvo_M8": repeats,
+          "was": "was_ms: the CUDA-core kernel this one replaced, bf16 x, "
+                 "L2 warm (compare ms_l2_warm at M 8)",
           "cases": cases,
           "bound_peaks": {"bytes_per_s": PEAK_BYTES,
                           "flops_per_s": PEAK_FLOPS["bfloat16"],
-                          "flops_peak": "bf16 dense tensor cores"}})
+                          "flops_peak": "bf16 dense tensor cores; f32 x "
+                                        "counts 3 x the flops (three exact "
+                                        "bf16 products)"}})
+    print("chip_smoke: qmm ms (L2 cold at M 8; warm) | was | library:",
+          file=sys.stderr)
+    for name, c in cases.items():
+        print(f"  {name:24s} {c['ms']:.4f} ({c.get('ms_l2_warm', c['ms']):.4f})"
+              f" | {c['was_ms']} | {c['library_ms']:.4f}", file=sys.stderr)
     return ok
 
 
@@ -918,9 +1013,15 @@ def phase_engine_bf16(state):
     state["engine_bf16"] = rec
     del run, script, plain_log
     state["profile"] = profile_decode(model)
+    state["sampling_cost"] = sampling_cost(model)
     del model
     torch.cuda.empty_cache()
-    return rec["ok"]
+    return rec["ok"] and state["sampling_cost"]["ok"]
+
+
+# the dequant matmul's kernels in a trace: decode tiles, prefill tiles
+# (bf16 x above 16 rows) and the ordered sum of the K splits
+QMM_KERNEL_NAMES = ("qmm_kernel", "qmm_wgmma_kernel", "sum_splits_kernel")
 
 
 def profile_decode(model, name="profile", **engine_opts):
@@ -949,6 +1050,8 @@ def profile_decode(model, name="profile", **engine_opts):
                        getattr(e, "self_cuda_time_total", 0.0))
 
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    qmm_ms = sum(dev_us(e) for e in kernels
+                 if any(k in e.key for k in QMM_KERNEL_NAMES)) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
     rec = {"phase": name, **engine_opts, "requests": 8,
            "prompt_tokens": 128,
@@ -962,6 +1065,94 @@ def profile_decode(model, name="profile", **engine_opts):
            "block_ms_p50": s["block_ms_p50"], "itl_p50_ms": s["itl_p50_ms"],
            "top_kernels": [{"name": e.key[:90], "ms": dev_us(e) / 1e3,
                             "calls": e.count} for e in top]}
+    if engine_opts.get("weight_dtype"):
+        rec.update(qmm_device_ms=qmm_ms, qmm_share_of_busy=qmm_ms / busy_ms
+                   if busy_ms else "not measured")
+    emit(rec)
+    return rec
+
+
+def generator_draw(lg, keys):
+    """The sampled draw that threefry keys replaced, for its cost alone:
+    per row, a torch.Generator seeded from (seed, index) and a Gumbel-max
+    pick over its torch.rand noise."""
+    import torch
+    out = []
+    for i, (seed, index) in enumerate(keys):
+        gen = torch.Generator(device=lg.device).manual_seed(
+            (int(seed) << 32) | int(index))
+        u = torch.rand(lg[i:i + 1].shape, generator=gen, device=lg.device)
+        g = -torch.log(-torch.log(u.clamp_min(
+            torch.finfo(torch.float32).tiny)))
+        out.append(torch.argmax(lg[i:i + 1] + g, dim=-1))
+    return torch.cat(out)
+
+
+def wall_ms(fn, reps=30, warm=3) -> float:
+    """Median host wall time of one call to a synchronized result: the
+    host's dispatch and the card's work, as the engine's step sees them."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def sampling_cost(model) -> dict:
+    """What sampling costs a step: the engine's sampler over 8 sampled
+    rows (T 0.8, top-p 0.9) at the model's vocabulary, and its draw alone
+    (threefry over the [8, V] counters, replayed from a CUDA graph, and
+    the same ops launched one by one) against the per-row torch.Generator
+    draw it replaced, on the card (time_ms) and on the host's clock
+    (wall_ms); then the profile's 8 requests served greedy and sampled,
+    twice each in turn, ITL p50 of each run.  Checks: the graph's noise
+    equals the eager ops' bit for bit, and the card's threefry bits the
+    CPU's."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference import prng, sampling
+    B, V = 8, model.config.vocab_size
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 16)
+    logits = torch.randn((B, V), generator=gen, device=DEV) * 3
+    samp = sampling.make_samp(B, V)
+    samp["temps"][:] = 0.8
+    samp["top_p"][:] = 0.9
+    samp["keys"][:] = np.stack([prng.request_key(7, i) for i in range(B)])
+    keys = [(7, i) for i in range(B)]
+
+    def dev_keys():
+        return torch.from_numpy(samp["keys"].astype(np.int64)).to(DEV)
+    k = dev_keys()
+    checks = {"graph_equals_eager": torch.equal(
+        prng._gumbel_graphed(k, V).clone(), prng.gumbel(k, V)),
+        "bits_equal_cpu": torch.equal(prng.random_bits(k, V).cpu(),
+                                      prng.random_bits(k.cpu(), V))}
+    calls = {"sample_tokens": lambda: sampling.sample_tokens(logits, samp),
+             "threefry_draw": lambda: prng.categorical(dev_keys(), logits),
+             "threefry_draw_eager": lambda: torch.argmax(
+                 prng.gumbel(dev_keys(), V) + logits, dim=-1),
+             "generator_draw": lambda: generator_draw(logits, keys)}
+    rec = {"phase": "sampling_cost", "ok": all(checks.values()), **checks,
+           "rows": B, "vocab": V,
+           **{f"{k}_ms": time_ms(fn) for k, fn in calls.items()},
+           **{f"{k}_wall_ms": wall_ms(fn) for k, fn in calls.items()}}
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(0, V, 128).tolist() for _ in range(8)]
+    itl = {"greedy": [], "sampled": []}
+    for _ in range(2):
+        for kind, opts in (("greedy", {}), ("sampled", {
+                "temperature": 0.8, "top_p": 0.9})):
+            eng = serve(model, [(p, 32, dict(opts, seed=i))
+                                for i, p in enumerate(prompts)])[0]
+            itl[kind].append(eng.summary()["itl_p50_ms"])
+            del eng
+    rec.update(itl_p50_ms=itl)
     emit(rec)
     return rec
 
@@ -3228,10 +3419,14 @@ def kernel_records(state) -> list:
         "library_ms": qmm[qmm_timed]["library_ms"],
         "library": "torch.matmul against the weight dequantized to bf16 "
                    "beforehand",
-        "timed_shape": "M=8 K=4096 N=11008 int8, bfloat16 x",
-        "by_shape": {k: {f: c[f] for f in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms")}
-                     for k, c in qmm.items()}}] + flash_records(state) + \
+        "timed_shape": "M=8 K=4096 N=11008 int8, bfloat16 x, L2 cold",
+        "prefill": {f: qmm["gate_up_int8_M512"][f] for f in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        | {"timed_shape": "M=512 K=4096 N=11008 int8, bfloat16 x"},
+        "by_shape": {k: {f: c.get(f) for f in (
+            "ms", "ms_l2_warm", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for k, c in qmm.items()}}] + \
+        flash_records(state) + \
         blha_records(state) + norm_records(state)
 
 

@@ -15,25 +15,25 @@ requests:
     top_p   [B] f32   (1.0 -> off; top token always kept)
     penalty [B] f32   (1.0 -> off)
     seen    [B,V] bool (prompt + generated token mask for the penalty)
-    keys    [B,2] i64  (seed, token index) of each sampled row's draw
+    keys    [B,2] u32  threefry key of each sampled row's draw
 
-Sampled rows draw from a ``torch.Generator`` seeded from (seed, token
-index) alone, so a request's stream is reproducible across scheduling
-orders and preemptions, as the JAX package's ``fold_in(PRNGKey(seed),
-index)`` keys make it.  The draws are not the JAX package's threefry
-bits (ROADMAP Queue 1 lists bit-equal threefry as later work).
+A sampled row draws with ``jax.random.categorical``'s Gumbel-max rule
+from its key (``prng.py``), which the engine makes as the JAX package's
+does: ``fold_in(PRNGKey(seed), token index)``.  So a request's stream
+depends on (seed, index) alone -- reproducible across scheduling orders
+and preemptions -- and equals the JAX engine's token for token.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..models.llama import _gumbel_pick
+from . import prng
 
 __all__ = [
     "LogitProcessor", "RepetitionPenaltyProcessor", "TemperatureProcessor",
     "TopKProcessor", "TopPProcessor", "DEFAULT_CHAIN", "make_samp",
-    "sample_tokens", "draw_seed",
+    "sample_tokens",
 ]
 
 _NEG_INF = float("-inf")
@@ -115,14 +115,8 @@ def make_samp(B: int, V: int) -> dict:
         "top_p": np.ones((B,), np.float32),
         "penalty": np.ones((B,), np.float32),
         "seen": np.zeros((B, V), bool),
-        "keys": np.zeros((B, 2), np.int64),
+        "keys": np.zeros((B, 2), np.uint32),
     }
-
-
-def draw_seed(seed: int, index: int) -> int:
-    """The generator seed of token ``index`` of a request seeded
-    ``seed``: a pure function of the pair."""
-    return ((int(seed) & 0xFFFFFFFF) << 32) | (int(index) & 0xFFFFFFFF)
 
 
 def sample_tokens(logits, samp, chain=DEFAULT_CHAIN):
@@ -130,7 +124,7 @@ def sample_tokens(logits, samp, chain=DEFAULT_CHAIN):
 
     Greedy rows (temps <= 0) argmax after the greedy-visible stages --
     byte-compatible with generate()'s greedy branch -- while sampled rows
-    run the full chain into a Gumbel-max draw from their own generator.
+    run the full chain into a Gumbel-max draw from their own key.
     Only what the launch needs crosses to the device: the greedy-visible
     stages (the penalty, an identity at 1.0) run when some row has a
     penalty, the sampled stages when some row samples.  Returns [B]
@@ -154,9 +148,8 @@ def sample_tokens(logits, samp, chain=DEFAULT_CHAIN):
         if not proc.greedy_visible:
             lg = proc(lg, st)
     out = greedy_tok.clone()
-    ks = np.asarray(samp["keys"])
-    for i in sampled_rows:
-        gen = torch.Generator(device=dev).manual_seed(
-            draw_seed(ks[i, 0], ks[i, 1]))
-        out[i] = _gumbel_pick(lg[i:i + 1], gen)[0].to(torch.int32)
+    rows = torch.from_numpy(sampled_rows).to(dev)
+    keys = torch.from_numpy(
+        np.asarray(samp["keys"])[sampled_rows].astype(np.int64)).to(dev)
+    out[rows] = prng.categorical(keys, lg[rows]).to(torch.int32)
     return out

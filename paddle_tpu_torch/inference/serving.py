@@ -56,6 +56,7 @@ from ..models.llama import _rms_weight, _rope_positions, resolve_device
 from ..ops import paged_attention as _pa
 from ..ops import quant_matmul as _qm
 from ..profiler.serving import ServingStats
+from . import prng
 from .kv_cache import NULL_BLOCK, BlockManager, BlockPoolExhausted
 from .policy import pack_prefill_chunks
 from .sampling import make_samp, sample_tokens
@@ -1053,6 +1054,7 @@ class LLMEngine:
         return result, [], list(range(n))
 
     def _req_key(self, req):
-        # the draw for token i of request r depends only on (seed, i):
-        # sampling is reproducible across scheduling orders and preemptions
-        return np.asarray([req.seed, len(req.generated)], np.int64)
+        # the key for token i of request r depends only on (seed, i):
+        # sampling is reproducible across scheduling orders and
+        # preemptions, and equals the JAX engine's fold_in(PRNGKey(seed), i)
+        return prng.request_key(req.seed, len(req.generated))

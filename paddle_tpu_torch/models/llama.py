@@ -166,16 +166,6 @@ def _make_decode_fwd(cfg, all_logits=False):
     return fwd
 
 
-def _gumbel_pick(lg, generator):
-    """One categorical draw per row of lg [B, V] (log-probabilities up
-    to a constant; -inf entries are never drawn) by the Gumbel-max rule,
-    with the noise taken from ``generator``."""
-    u = torch.rand(lg.shape, generator=generator, device=lg.device,
-                   dtype=torch.float32)
-    g = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
-    return torch.argmax(lg + g, dim=-1)
-
-
 class LlamaForCausalLM(nn.Module):
     """LLaMA decoder weights in the stacked decode layout, on one device.
 
@@ -258,19 +248,22 @@ class LlamaForCausalLM(nn.Module):
 
         input_ids: [B, S0] ints.  Returns [B, S0+max_new_tokens] int64
         (generation frozen at eos when eos_token_id is given).  Sampled
-        draws come from a ``torch.Generator`` seeded with ``seed``; they do
-        not reproduce the JAX package's threefry draws."""
+        draws take the JAX ``generate()``'s threefry keys: ``PRNGKey(seed)``
+        split once before each step's draw, so they equal its tokens."""
+        from ..inference import prng
         cfg = self.config
         dev = self.device
         ids = torch.as_tensor(input_ids, device=dev).long()
         B, S0 = ids.shape
         max_new = int(max_new_tokens)
         T = S0 + max_new
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        key = prng.prng_key(seed, dev)
         params = self.decode_params()
         fwd = _make_decode_fwd(cfg)
 
         def sample(logits, seen=None):
+            nonlocal key
+            key, sub = prng.split(key)
             if repetition_penalty is not None and seen is not None:
                 pen = torch.where(logits > 0, logits / repetition_penalty,
                                   logits * repetition_penalty)
@@ -286,10 +279,10 @@ class LlamaForCausalLM(nn.Module):
                 srt = torch.gather(lg, -1, idx)
                 sp = torch.softmax(srt, -1)
                 keep = torch.cumsum(sp, -1) - sp <= top_p
-                pick = _gumbel_pick(torch.where(keep, srt, float("-inf")),
-                                    gen)
+                pick = prng.categorical(
+                    sub, torch.where(keep, srt, float("-inf")))
                 return torch.gather(idx, -1, pick[:, None])[:, 0]
-            return _gumbel_pick(lg, gen)
+            return prng.categorical(sub, lg)
 
         logits, ck, cv = self._dense(ids, T)
         V = params["head"].shape[-1]

@@ -24,6 +24,12 @@ computes ``reference_matmul`` on CPU tensors; ``launch_count`` counts the
 kernel's launches.  The JAX package's tuned block geometry and its
 lowering probe (``supports``) have no counterpart: the CUDA kernel takes
 every M, N and K (even K for int4) and raises on anything else.
+
+The kernel feeds the tensor cores the integer codes themselves (exact in
+bf16) and applies the scales after the sums; f32 x goes in as three exact
+bf16 terms.  ``split_bf16x3`` and ``grouped_reference`` state that
+algebra on the CPU, for the tests: the kernel's order of operations in
+plain PyTorch.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ from . import _build
 
 __all__ = ["GROUP", "quantize_weight", "unpack_int4", "dequantize_weight",
            "quantize_embedding", "dequantize_rows", "reference_matmul",
-           "matmul", "launch_count"]
+           "split_bf16x3", "grouped_reference", "matmul", "launch_count"]
 
 GROUP = 128             # int4 scale-group length along K
 
@@ -163,6 +169,50 @@ def reference_matmul(x, q, s, weight_dtype: str):
     return x.float() @ dequantize_weight(q, s, weight_dtype)
 
 
+def split_bf16x3(x):
+    """f32 ``x`` as three bfloat16 tensors ``(h, m, l)`` with ``h + m + l
+    == x`` exactly for zero and every finite |x| >= 2**-110: ``h`` keeps
+    the top 16 bits of x (its sign, exponent and 7 mantissa bits:
+    truncation, so +-FLT_MAX does not round to inf), ``m`` the top 16 bits
+    of ``x - h`` (exact in f32) and ``l`` those of ``x - h - m``, which has
+    at most 8 significant bits left.  Below 2**-110 that rest is subnormal
+    and ``l`` may drop bits worth less than 2**-133.  The kernel's split
+    of f32 x before its bf16 products."""
+    x = x.float()
+
+    def top(v):
+        return (v.view(torch.int32) & -65536).view(torch.float32)
+
+    h = top(x)
+    r1 = x - h
+    m = top(r1)
+    r2 = r1 - m
+    return h.bfloat16(), m.bfloat16(), r2.bfloat16()
+
+
+def grouped_reference(x, q, s, weight_dtype: str):
+    """The kernel's algebra in plain PyTorch: integer codes times x (f32 x
+    split by ``split_bf16x3``, one product per term, summed in order),
+    the scales applied after the sums -- int8 ``s[n] * sum_k x q``, int4
+    per 128-row group ``acc += s[g, n] * (x_g @ q_g)`` in group order.
+    Differs from ``reference_matmul`` only by f32 rounding order."""
+    terms = split_bf16x3(x) if x.dtype == torch.float32 else (x,)
+    terms = [v.float() for v in terms]
+    if weight_dtype == "int8":
+        codes = q.float()
+        return sum(v @ codes for v in terms) * s[None, :]
+    if weight_dtype == "int4":
+        codes = unpack_int4(q).float()
+        acc = torch.zeros((x.shape[0], q.shape[1]), dtype=torch.float32,
+                          device=x.device)
+        for g in range(s.shape[0]):
+            rows = slice(g * GROUP, (g + 1) * GROUP)
+            part = sum(v[:, rows] @ codes[rows] for v in terms)
+            acc = acc + s[g][None, :] * part
+        return acc
+    raise _bad_dtype(weight_dtype)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel
 # ---------------------------------------------------------------------------
@@ -207,7 +257,8 @@ def _launch_kernel(x, q, s, weight_dtype):
     refused launch (the C entry returns ``cudaGetLastError()``).  For a
     small output the kernel splits K over several blocks and a second
     kernel sums the partial products in a fixed order; the scratch comes
-    from here, sized by the C side (``paddle_quant_matmul_scratch``)."""
+    from here, sized by the C side (``paddle_quant_matmul_scratch``, by
+    shape, x type and pool type)."""
     global launch_count
     _check_operands(x, q, s, weight_dtype)
     if x.device.type != "cuda":
@@ -221,11 +272,12 @@ def _launch_kernel(x, q, s, weight_dtype):
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
             [ctypes.c_void_p]
         scratch_fn.restype = ctypes.c_longlong
-        scratch_fn.argtypes = [ctypes.c_int] * 3
+        scratch_fn.argtypes = [ctypes.c_int] * 5
     M, K = x.shape
     N = q.shape[1]
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    n_scratch = scratch_fn(M, N, K)
+    n_scratch = scratch_fn(M, N, K, _X_DTYPES[x.dtype],
+                           int(weight_dtype == "int4"))
     scratch = torch.empty((max(n_scratch, 1),), dtype=torch.float32,
                           device=x.device)
     with torch.cuda.device(x.device):

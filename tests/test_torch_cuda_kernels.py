@@ -18,10 +18,11 @@ q * scale and p to bf16 where the plain version stays in f32; the norm
 ratio averages single-element rounding out and catches a 1% shift).
 The int8-page kernel keeps q * scale and p in f32 and rounds only its
 output, so with bf16 q it is held to the plain version computed in f32 at
-the same bf16 tolerances.  The dequant matmul and its plain version both
-compute in f32 from exactly upcast operands and differ only in summation
-order: ||out - ref|| / ||ref|| <= 1e-5 and max|out - ref| / max|ref| <=
-1e-4.
+the same bf16 tolerances.  The dequant matmul feeds the tensor cores exact
+bf16 operands (the integer codes; bf16 x, or f32 x split into three exact
+bf16 terms), sums in f32 and scales after the sums, so it differs from its
+plain version only in summation order: ||out - ref|| / ||ref|| <= 1e-5
+and max|out - ref| / max|ref| <= 1e-4.
 """
 import os
 import shutil
@@ -209,7 +210,13 @@ def _assert_qmm_within(out, ref):
 @pytest.mark.parametrize("M,K,N", [
     (1, 2, 1), (8, 32, 97), (8, 64, 32), (5, 200, 130), (8, 4096, 4096),
     (17, 130, 66), (64, 64, 16), (512, 4096, 11008), (8, 11008, 4096),
-    (8, 4096, 32000), (300, 1000, 77)])
+    (8, 4096, 32000), (300, 1000, 77),
+    # the tensor-core tiles' edges: M around the m16 / 64 / 128 row tiles,
+    # N % 16 != 0 (plain loads instead of cp.async), a partial int4 group,
+    # down's K (86 groups, split), the head's N
+    (7, 256, 96), (9, 256, 8), (16, 512, 4098), (63, 384, 256),
+    (64, 200, 4096), (65, 512, 4098), (513, 1024, 384), (1, 11008, 128),
+    (17, 11008, 1024), (16, 4096, 32000), (129, 200, 32000)])
 @pytest.mark.parametrize("wdt", ["int8", "int4"])
 def test_qmm_kernel_matches_plain_version(dev, wdt, M, K, N, xdt):
     g = torch.Generator(device=dev).manual_seed(M * 7 + K + N)
@@ -222,6 +229,45 @@ def test_qmm_kernel_matches_plain_version(dev, wdt, M, K, N, xdt):
     assert qm.launch_count == before + 1
     assert out.dtype == torch.float32 and out.shape == (M, N)
     _assert_qmm_within(out, qm.reference_matmul(x, q, s, wdt))
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("wdt", ["int8", "int4"])
+def test_qmm_kernel_takes_unaligned_operands(dev, wdt, xdt):
+    """x, q and s starting off a 16-byte boundary (contiguous views one
+    element into a buffer) take the plain loads of the same kernel."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    M, K, N = 24, 384, 160
+    q0, s0 = qm.quantize_weight(
+        torch.randn((K, N), generator=g, device=dev) * 0.02, wdt)
+    qb = torch.empty(q0.numel() + 1, dtype=torch.int8, device=dev)
+    q = qb[1:].view(q0.shape)
+    q.copy_(q0)
+    sb = torch.empty(s0.numel() + 1, device=dev)
+    s = sb[1:].view(s0.shape)
+    s.copy_(s0)
+    xb = torch.randn(M * K + 1, generator=g, device=dev).to(xdt)
+    x = xb[1:].view(M, K)
+    assert x.data_ptr() % 16 and q.data_ptr() % 16 and s.data_ptr() % 16
+    out = qm.matmul(x, q, s, wdt)
+    torch.cuda.synchronize()
+    _assert_qmm_within(out, qm.reference_matmul(x, q0, s0, wdt))
+
+
+@pytest.mark.parametrize("M", [8, 512])
+@pytest.mark.parametrize("wdt", ["int8", "int4"])
+def test_qmm_kernel_repeats_bit_for_bit(dev, wdt, M):
+    """At qkvo's shape the decode tile splits K over 8 blocks; the splits
+    are summed in a fixed order, so ten launches give one result."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, s = qm.quantize_weight(
+        torch.randn((4096, 4096), generator=g, device=dev) * 0.02, wdt)
+    x = torch.randn((M, 4096), generator=g, device=dev).bfloat16()
+    first = qm.matmul(x, q, s, wdt)
+    for _ in range(9):
+        assert torch.equal(qm.matmul(x, q, s, wdt), first)
+    _assert_qmm_within(first, qm.reference_matmul(x, q, s, wdt))
 
 
 def test_qmm_kernel_refuses_bad_operands(dev):
@@ -916,3 +962,18 @@ def test_fused_ops_take_the_norm_kernel_on_the_card(dev):
         grads[where] = [t.grad.cpu() for t in leaves]
     for g, c in zip(grads["cuda"], grads["cpu"]):
         _assert_grad_within(g, c, GRAD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8])
+def test_sampled_draw_graph_matches_eager_ops(dev, rows):
+    """The sampler's Gumbel noise replayed from its CUDA graph equals the
+    same ops launched one by one, bit for bit, as the keys change between
+    replays; the card's threefry bits equal the CPU's."""
+    from paddle_tpu_torch.inference import prng
+    for seed in (0, 7, 2 ** 32 - 1):
+        keys = prng.fold_in(prng.prng_key(seed),
+                            torch.arange(rows)).to(dev)
+        assert torch.equal(prng._gumbel_graphed(keys, 32000).clone(),
+                           prng.gumbel(keys, 32000))
+        assert torch.equal(prng.random_bits(keys, 32000).cpu(),
+                           prng.random_bits(keys.cpu(), 32000))

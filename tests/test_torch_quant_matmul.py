@@ -5,7 +5,12 @@ unpacking and row dequantization), the plain version against JAX's
 and the CUDA wrapper's refusals on the CPU.
 
 Tolerance for the products: atol = rtol = 1e-5 in float32 -- the same
-dequantized weight and the same f32 products, summed in another order."""
+dequantized weight and the same f32 products, summed in another order.
+The CUDA kernel's algebra (``grouped_reference``: integer codes times x,
+f32 x split into three exact bf16 terms by ``split_bf16x3``, scales after
+the sums) is held to both references within the card's gate,
+QMM_TOLERANCE: ||out - ref|| / ||ref|| <= 1e-5 and max|out - ref| /
+max|ref| <= 1e-4 (chip_smoke.py), unchanged from the kernel's."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +20,7 @@ import paddle_tpu.ops.pallas.quant_matmul as jqm
 import paddle_tpu_torch.ops.quant_matmul as tqm
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+QMM_TOLERANCE = {"l2_rel": 1e-5, "max_rel": 1e-4}
 WDTS = ["int8", "int4"]
 # K: whole 128-row groups, a partial last group, and the tiny engine
 # configs' widths (one partial group); N: lane-aligned and ragged
@@ -94,6 +100,72 @@ def test_plain_matmul_matches_jax_reference(wdt, K, N, xdt):
         out.numpy(), tqm.reference_matmul(x, tq, ts, wdt).numpy())
 
 
+def _qmm_within(out, ref):
+    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+    d = out - ref
+    errs = {"l2_rel": np.linalg.norm(d) / np.linalg.norm(ref),
+            "max_rel": np.abs(d).max() / np.abs(ref).max()}
+    assert all(errs[k] <= v for k, v in QMM_TOLERANCE.items()), errs
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("K,N", SHAPES + [(384, 160)], ids=lambda v: str(v))
+@pytest.mark.parametrize("wdt", WDTS)
+def test_kernel_algebra_matches_references(wdt, K, N, xdt):
+    """grouped_reference (the kernel's order: codes times x, scales after
+    the sums, int4 group by group) against the plain version and JAX's
+    reference_matmul, within QMM_TOLERANCE."""
+    w = _weight(K, N, seed=7)
+    x = torch.from_numpy(np.random.RandomState(8).randn(16, K)
+                         .astype(np.float32)).to(xdt)
+    tq, ts = tqm.quantize_weight(torch.from_numpy(w), wdt)
+    got = tqm.grouped_reference(x, tq, ts, wdt)
+    assert got.dtype == torch.float32 and got.shape == (16, N)
+    _qmm_within(got.numpy(), tqm.reference_matmul(x, tq, ts, wdt).numpy())
+    jq, js = jqm.quantize_weight(w, wdt)
+    ref = jqm.reference_matmul(jnp.asarray(x.float().numpy()).astype(
+        jnp.bfloat16 if xdt == torch.bfloat16 else jnp.float32), jq, js, wdt)
+    _qmm_within(got.numpy(), np.asarray(ref))
+
+
+def _straddling():
+    """f32 values that need all three bf16 terms, or sit at the edges of
+    the exponent range: +-max, +-tiny (the least normal), 2**-110 (the
+    least magnitude the split is exact for), powers of two one ulp above
+    and below, values rounding up across a power of two in bf16, and
+    1 + 2**-8 + 2**-16 + 2**-23 at many exponents."""
+    f = np.finfo(np.float32)
+    v = [f.max, f.tiny, np.float32(2.0 ** -110), np.float32(1.0),
+         np.float32(65504.1), np.float32(3.0e38)]
+    for e in range(-100, 128, 7):
+        p = np.float32(2.0) ** np.float32(e)
+        v += [np.nextafter(p, np.float32(0)), np.nextafter(p, np.float32(np.inf)),
+              p * np.float32(1 + 2 ** -8 + 2 ** -16 + 2 ** -23),
+              p * np.float32(2 - 2 ** -9), p * np.float32(1.5 + 2 ** -23)]
+    v = np.asarray(v, np.float32)
+    v = v[np.isfinite(v)]
+    return np.concatenate([v, -v, [np.float32(0)]])
+
+
+@pytest.mark.parametrize("kind", ["random", "straddling"])
+def test_split_bf16x3_is_exact(kind):
+    if kind == "random":
+        rng = np.random.RandomState(9)
+        x = (rng.randn(4096) * np.exp(rng.uniform(-70, 80, 4096))) \
+            .astype(np.float32)
+        x = x[np.isfinite(x) & (np.abs(x) >= 2.0 ** -110)]
+    else:
+        x = _straddling()
+    h, m, l = tqm.split_bf16x3(torch.from_numpy(x))
+    assert h.dtype == m.dtype == l.dtype == torch.bfloat16
+    total = h.double() + m.double() + l.double()
+    np.testing.assert_array_equal(total.numpy(), x.astype(np.float64))
+    # h keeps x's top bits: never rounds up, never overflows to inf
+    assert torch.isfinite(h).all()
+    assert (h.double().abs() <= torch.from_numpy(x).double().abs()).all()
+
+
 @pytest.fixture
 def _interpret():
     old = jqm.INTERPRET
@@ -112,6 +184,25 @@ def test_plain_matmul_matches_pallas_kernel_interpreted(_interpret, wdt):
     tq, ts = tqm.quantize_weight(torch.from_numpy(w), wdt)
     out = tqm.matmul(torch.from_numpy(x), tq, ts, wdt)
     np.testing.assert_allclose(out.numpy(), np.asarray(kern), **TOL)
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("wdt", WDTS)
+def test_kernel_algebra_matches_pallas_kernel_interpreted(_interpret, wdt,
+                                                          xdt):
+    """grouped_reference against the Pallas kernel run in interpret mode,
+    within QMM_TOLERANCE (K 320: two whole groups and a partial one)."""
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randn(8, 320).astype(np.float32)).to(xdt)
+    w = rng.randn(320, 384).astype(np.float32)
+    jq, js = jqm.quantize_weight(w, wdt)
+    kern = jqm.matmul(jnp.asarray(x.float().numpy()).astype(
+        jnp.bfloat16 if xdt == torch.bfloat16 else jnp.float32), jq, js,
+        weight_dtype=wdt)
+    tq, ts = tqm.quantize_weight(torch.from_numpy(w), wdt)
+    _qmm_within(tqm.grouped_reference(x, tq, ts, wdt).numpy(),
+                np.asarray(kern))
 
 
 def _operands(wdt="int8", M=8, K=64, N=32, xdt=torch.float32):

@@ -1,15 +1,18 @@
 """PyTorch port, logit chain and sampler: each processor and the greedy
 path against the JAX package on the same logits, and the sampled path's
-reproducibility and distribution.  Sampled rows draw from torch
-generators, not threefry, so they are checked against ``target_dist``
-(the JAX package's host-side distribution of the same chain), not
-against JAX's draws."""
+reproducibility and distribution against ``target_dist`` (the JAX
+package's host-side distribution of the same chain).  Sampled rows draw
+from the JAX engine's threefry keys, so mixed launches also equal JAX's
+``sample_tokens`` token for token (tests/test_torch_sampling_keys.py
+holds the keys and draws bit for bit)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu.inference import sampling as js
+from paddle_tpu_torch.inference import prng
 from paddle_tpu_torch.inference import sampling as ts
 
 V = 50
@@ -22,8 +25,8 @@ def _samp(rng, B):
     samp["top_p"][:] = rng.choice([1.0, 0.9, 0.5], B)
     samp["penalty"][:] = rng.choice([1.0, 1.3, 0.8], B)
     samp["seen"][:] = rng.rand(B, V) < 0.3
-    samp["keys"][:, 0] = rng.randint(0, 1000, B)
-    samp["keys"][:, 1] = rng.randint(0, 100, B)
+    samp["keys"][:] = [prng.request_key(s, i) for s, i in
+                       zip(rng.randint(0, 1000, B), rng.randint(0, 100, B))]
     return samp
 
 
@@ -34,9 +37,7 @@ def _logits(rng, B):
 
 
 def _jax_samp(samp):
-    out = {k: jnp.asarray(v) for k, v in samp.items() if k != "keys"}
-    out["keys"] = jnp.zeros((len(samp["temps"]), 2), jnp.uint32)
-    return out
+    return {k: jnp.asarray(v) for k, v in samp.items()}
 
 
 @pytest.mark.parametrize("proc", ["RepetitionPenaltyProcessor",
@@ -78,12 +79,26 @@ def test_mixed_launch_greedy_rows_unaffected_by_sampled_rows():
                                   np.asarray(ref)[greedy])
 
 
+@pytest.mark.parametrize("seed", [2, 5, 8])
+def test_mixed_launch_equals_jax_token_for_token(seed):
+    """Every row, greedy and sampled, equals JAX's sample_tokens on the
+    same logits and keys (the sampled rows through the full chain)."""
+    rng = np.random.RandomState(seed)
+    B = 16
+    lg, samp = _logits(rng, B), _samp(rng, B)
+    ref = js.sample_tokens(jnp.asarray(lg), _jax_samp(samp))
+    out = ts.sample_tokens(torch.from_numpy(lg), samp)
+    assert (samp["temps"] > 0).sum() >= 4
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
 def test_sampled_draw_depends_only_on_seed_and_index():
     rng = np.random.RandomState(3)
     lg = _logits(rng, 1)[0]
     samp = ts.make_samp(4, V)
     samp["temps"][:] = 1.0
-    samp["keys"][:] = [[5, 9], [6, 9], [5, 9], [5, 10]]
+    pairs = [(5, 9), (6, 9), (5, 9), (5, 10)]
+    samp["keys"][:] = [prng.request_key(*p) for p in pairs]
     logits = torch.from_numpy(np.stack([lg] * 4))
     a = ts.sample_tokens(logits, samp).numpy()
     assert a[0] == a[2]                        # same (seed, index), any row
@@ -91,9 +106,15 @@ def test_sampled_draw_depends_only_on_seed_and_index():
     # the same pair in a differently shaped launch draws the same token
     one = ts.make_samp(1, V)
     one["temps"][:] = 1.0
-    one["keys"][:] = [[5, 9]]
+    one["keys"][:] = [prng.request_key(5, 9)]
     assert ts.sample_tokens(logits[:1], one).numpy()[0] == a[0]
-    assert ts.draw_seed(5, 9) != ts.draw_seed(5, 10) != ts.draw_seed(6, 9)
+    # a key is a function of the pair alone: the JAX engine's
+    # fold_in(PRNGKey(seed), index), distinct for distinct pairs
+    keys = [prng.request_key(*p) for p in ((5, 9), (5, 10), (6, 9))]
+    assert len({k.tobytes() for k in keys}) == 3
+    for (s, i), k in zip(((5, 9), (5, 10), (6, 9)), keys):
+        np.testing.assert_array_equal(
+            k, np.asarray(jax.random.fold_in(jax.random.PRNGKey(s), i)))
 
 
 @pytest.mark.parametrize("temp,top_k,top_p,penalty", [
@@ -113,8 +134,7 @@ def test_sampled_distribution_matches_target_dist(temp, top_k, top_p,
     samp["top_p"][:] = top_p
     samp["penalty"][:] = penalty
     samp["seen"][:] = seen
-    samp["keys"][:, 0] = 11
-    samp["keys"][:, 1] = np.arange(N)
+    samp["keys"][:] = [prng.request_key(11, i) for i in range(N)]
     toks = ts.sample_tokens(torch.from_numpy(np.tile(row, (N, 1))),
                             samp).numpy()
     p = js.target_dist(row, temperature=temp, top_k=top_k, top_p=top_p,

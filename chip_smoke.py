@@ -1277,6 +1277,11 @@ FLASH_SHAPES = {"trainer": (2, 2048, 16, 4, 64), "7b": (1, 2048, 32, 32, 128),
 # analytically (query 0 sees one key), so neither an absolute nor a
 # per-row bound fits.
 LSE_ABS = 1e-3
+# the two backward kernels' times at the trainer's attention in bf16 on
+# the mma.sync kernels the wgmma ones replaced (PERF.md section 6, "was";
+# NVIDIA H100 80GB HBM3, 700.00 W): the flash phase's record carries them
+# beside this run's
+FLASH_WAS_MS = {"trainer_bfloat16": {"dkdv": 0.6572, "dq": 0.2721}}
 
 
 def rows(x):
@@ -1444,6 +1449,9 @@ def phase_flash(state):
                         q, k, v, do, lse_ref, delta, True)),
                     "dq": time_ms(lambda: fa.flash_bwd_dq_reference(
                         q, k, v, do, lse_ref, delta, True))},
+                # the port's whole backward: delta, dK/dV and dQ
+                "bwd_total_ms": time_ms(lambda: fa._backward(
+                    q, k, v, ref, lse_ref, do, True)),
                 "library_ms": {"fwd": time_ms(lib_fwd),
                                "bwd_dq_dk_dv": time_ms(lib_bwd)},
                 "library_max_abs_err": float(
@@ -1452,6 +1460,8 @@ def phase_flash(state):
                 kern: dict(zip(("ms", "by", "bytes", "flops"),
                                flash_bound(shape, name, kern)))
                 for kern in ("fwd", "dkdv", "dq")}
+            if f"{sname}_{name}" in FLASH_WAS_MS:
+                timing["was_ms"] = FLASH_WAS_MS[f"{sname}_{name}"]
             cases[f"{sname}_{name}"] = {"shape": dict(zip(
                 ("B", "S", "H", "Hk", "D"), shape)), "held": held,
                 "repeats_bit_identical": repeats,
@@ -1630,6 +1640,26 @@ def held_flash(log):
 
 # cuBLAS's kernel names hold one of these (CUDA 12.8's bf16 GEMMs: nvjet)
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+# every kernel of csrc/flash_attention.cu, by the launch it serves (bf16 D
+# 64/128: mma.sync forward, wgmma backward; f32 and bf16 D 256: CUDA-core;
+# D > 256: chunked)
+FLASH_KERNEL_NAMES = {
+    "fwd": ("flash_fwd_mma_kernel", "flash_fwd_kernel",
+            "flash_fwd_chunked_kernel"),
+    "dkdv": ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dkdv_kernel",
+             "flash_bwd_dkdv_chunked_kernel"),
+    "dq": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_kernel",
+           "flash_bwd_dq_chunked_kernel")}
+
+
+def flash_kernel(key: str):
+    """The launch ("fwd", "dkdv", "dq") a profiled kernel name serves, or
+    None: the name must hold one of FLASH_KERNEL_NAMES as a whole word."""
+    import re
+    for kern, names in FLASH_KERNEL_NAMES.items():
+        if any(re.search(rf"\b{n}\b", key) for n in names):
+            return kern
+    return None
 
 
 def profile_train_step(step, params, opt, batch, step_ms):
@@ -1648,14 +1678,17 @@ def profile_train_step(step, params, opt, batch, step_ms):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    flash_ms = sum(dev_us(e) for e in kernels if "flash_" in e.key) / 1e3
-    gemm_ms = sum(dev_us(e) for e in kernels
-                  if any(w in e.key.lower() for w in GEMM_NAMES)) / 1e3
+    flash_split = {kern: sum(dev_us(e) for e in kernels
+                             if flash_kernel(e.key) == kern) / 1e3
+                   for kern in FLASH_KERNEL_NAMES}
+    gemm_ms = sum(dev_us(e) for e in kernels if flash_kernel(e.key) is None
+                  and any(w in e.key.lower() for w in GEMM_NAMES)) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
     return {"device_busy_ms": busy_ms,
             "device_idle_share": (1 - busy_ms / step_ms) if busy_ms
             else "not measured",
-            "flash_kernels_ms": flash_ms, "gemm_ms": gemm_ms,
+            "flash_kernels_ms": sum(flash_split.values()),
+            "flash_kernels_ms_by_launch": flash_split, "gemm_ms": gemm_ms,
             "kernel_launches": sum(e.count for e in kernels),
             "top_kernels": [{"name": e.key[:90], "ms": dev_us(e) / 1e3,
                              "calls": e.count} for e in top]}
@@ -3459,7 +3492,8 @@ def main() -> int:
               "seconds": time.perf_counter() - t0,
               "built": {k: {"seconds": s, "ptxas": [
                   ln.strip() for ln in log.splitlines()
-                  if "registers" in ln or "Compiling entry" in ln]}
+                  if "registers" in ln or "Compiling entry" in ln
+                  or "spill" in ln]}
                   for k, (s, log) in report.items()}})
     except Exception:
         traceback.print_exc()

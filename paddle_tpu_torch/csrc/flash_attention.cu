@@ -9,9 +9,11 @@
 // Inputs are float or bfloat16 at D 64 or any multiple of 128; every
 // product sums in f32.  float inputs, and bfloat16 at D = 256, take the
 // first three kernels, IEEE f32 FMAs on the CUDA cores (never TF32);
-// bfloat16 at D in {64, 128} the mma.sync kernels on the tensor cores;
-// every D past 256 the chunked CUDA-core kernels.  The device code
-// they share with the varlen kernels is in attention_common.cuh.
+// bfloat16 at D in {64, 128} the forward on mma.sync and the backward on
+// wgmma fed by TMA (the two *_wgmma_kernel, warp-specialised); every D
+// past 256 the chunked CUDA-core kernels.  The device code they share
+// with the varlen kernels is in attention_common.cuh, the Hopper helpers
+// (wgmma, mbarriers, TMA, tensor maps) in hopper.cuh.
 //
 // Rounding points, as in the TPU kernels: q * sm_scale is rounded to the
 // input type; the forward rounds p to it before the PV product while the
@@ -20,10 +22,11 @@
 // delta) for dK; the dQ kernel rounds dS and uses k * sm_scale rounded.
 //
 // Shared design.  One block per (64-row tile, head): the forward and dQ
-// walk the K/V tiles of their kv head up to the diagonal under causal; dK/dV
-// walks, for its 64 keys, the G query heads of its group and their query
-// tiles from the diagonal on, so the GQA group sum happens in registers.
-// The CUDA-core kernels walk tiles of 64 rows, 32 at D = 256.  The kernels
+// (128 rows, two warpgroups, in the wgmma kernel) walk the K/V tiles of
+// their kv head up to the diagonal under causal; dK/dV walks, for its 64
+// keys, the G query heads of its group and their query tiles from the
+// diagonal on, so the GQA group sum happens inside the block.  The
+// CUDA-core kernels walk tiles of 64 rows, 32 at D = 256.  The kernels
 // mask the causal diagonal and the ragged sequence edge themselves (S need
 // not be a multiple of 64): a padded key gets score -inf; a padded query
 // row reads zeros and lse = +inf in the backward (so its p is exactly 0)
@@ -36,15 +39,15 @@
 // The bound is the tensor cores' 989 TFLOP/s for bf16, 67 TFLOP/s of f32
 // FMAs for f32.  The f32 kernels do every product with scalar FMAs out of
 // shared memory (two shared loads for every four FMAs, which caps them
-// near half the f32 FMA rate).  The bf16 kernels feed the tensor cores
-// with mma.sync, which reaches a fraction of what wgmma would, from tiles
-// loaded synchronously (no load/compute overlap).  What a later version
-// should change: wgmma from shared memory, K/V tiles double-buffered with
-// cp.async or TMA, and the dK/dV grid (one block per 64 keys and kv head,
-// 256 blocks at the trainer's shape, the first walking 32 times the query
-// tiles of the last) split further.
+// near half the f32 FMA rate).  The bf16 forward feeds the tensor cores
+// with mma.sync from tiles loaded synchronously; the bf16 backward runs
+// at about a third of the bf16 peak at D 64 (PERF.md), where the
+// exponentials and dS of a tile wait for its score products and the two
+// consumer warpgroups overlap each other's; at D 128 the dK/dV kernel's
+// accumulators fill half the registers and ptxas spills.
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -472,227 +475,643 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// dK/dV, bf16: the design of flash_bwd_dkdv_kernel, products on the
-// tensor cores.  Warp w owns keys k0 + 16 w .. + 15 and accumulates their
-// dK and dV rows over the group's heads and query tiles.  A query tile is
-// walked in chunks of NQ queries (32 at D = 128, so that the two 16 x D
-// accumulators and the chunk's score tiles fit the registers).  Q and dO
-// sit in shared memory twice: by rows (B of K Q^T and V dO^T) and
-// transposed (B of P^T dO and dS^T Q).
+// ---------------------------------------------------------------------------
+// bf16 backward on Hopper (D in {64, 128}): wgmma from TMA-filled shared
+// memory, warp-specialised
+//
+// A block is three warpgroups: two consumers (240 registers a thread after
+// setmaxnreg) run every product as wgmma.mma_async (bf16 operands, f32
+// accumulators), and one producer (24 registers) whose first warp fills an
+// mbarrier ring of tiles with TMA, so the next tiles' copies are in flight
+// while this tile's products run.  Tiles are 64 rows of one head, copied as
+// boxes of 64 rows x 64 columns (128 bytes) from a 3D tensor map over
+// [B, S, heads * D] in the 128-byte swizzle: rows past S read zeros, and a
+// tile wider than 64 columns is two boxes (hopper.cuh's layout).  Every
+// operand is read in place from its box: K-major where the product sums
+// over the head dim (scores and dP), N-major (wgmma's transpose flag) where
+// it sums over the rows (dV, dK, dQ); no tile is ever stored transposed.
+// The probabilities and dS go from the score accumulators straight into
+// register A operands.
+//
+// Rounding points (the plain versions'): q * sm_scale and k * sm_scale
+// rounded to bf16, p rounded for dV, dS for dK and dQ, every sum f32.  At
+// D 64, sm_scale = 2^-3, so bf16(q * sm_scale) = q * 2^-3 exactly (outside
+// bf16's subnormal range) and a sum of products with it is 2^-3 times the
+// same sum with q, bit for bit in any fixed order: the kernels read q and k
+// as they are and scale the f32 scores, dK and dQ instead
+// (tests/test_torch_flash_attention.py holds the identity).  At D 128
+// (sm_scale 2^-3.5) that is not exact, and the consumers rewrite the
+// landed tile to bf16(x * sm_scale) in shared memory before its products.
+// exp is exp2 of a log2(e)-scaled argument (lse is scaled as it lands).
+// No atomics: each block writes its own rows once, so repeats are bit for
+// bit.
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 384;          // consumers 0, 1; producer 2
+constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the SFU (ex2.approx, relative error 2^-22; results below 2^-126
+// flush to 0, where p is rounded to bf16 next anyway)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// byte offset of k16 step kk in a K-major 64-row tile (column blocks of
+// 64 x 128 bytes), and in an N-major one (16 rows a step)
+__device__ __forceinline__ uint32_t kmajor_step(int kk) {
+  return (kk >> 2) * 8192 + (kk & 3) * 32;
+}
+__device__ __forceinline__ uint32_t nmajor_step(int kk) { return kk * 2048; }
+
+// d (+)= A . B over one tile product with B N-major: N = D
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          int Sq, int Sk, int H, int Hk, int causal,
-                          float scale) {
-  constexpr int LD = D + 8;
-  constexpr int NQ = D == 128 ? 32 : 64;   // queries per chunk
-  constexpr int NT = NQ / 8, KS = NQ / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);   // [64 keys][LD]
-  bf16* v_s = k_s + kTile * LD;                     // [64 keys][LD]
-  bf16* q_s = v_s + kTile * LD;                     // [64 queries][LD]
-  bf16* do_s = q_s + kTile * LD;                    // [64 queries][LD]
-  bf16* qt_s = do_s + kTile * LD;                   // [D][kLdT]
-  bf16* dot_s = qt_s + D * kLdT;                    // [D][kLdT]
-  float* lse_s = reinterpret_cast<float*>(dot_s + D * kLdT);  // [64]
-  float* delta_s = lse_s + kTile;                             // [64]
+__device__ __forceinline__ void wgmma_rs_nd(float (&d)[D / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  if constexpr (D == 64)
+    wgmma_rs_n64<1>(d, a, desc_b, 1);
+  else
+    wgmma_rs_n128<1>(d, a, desc_b, 1);
+}
 
-  const int kt = blockIdx.x;
-  const int bhk = blockIdx.y;
-  const int b = bhk / Hk, hk = bhk - b * Hk;
-  const int G = H / Hk;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = kt * kTile;
-  const int kr0 = k0 + 16 * w + g;        // this thread's keys kr0, kr0 + 8
+// d = A . B + (scale_d ? d : 0), A and B K-major in shared memory, N wide
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  if constexpr (N == 64)
+    wgmma_ss_n64(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_ss_n32(d, desc_a, desc_b, scale_d);
+}
 
-  const size_t kv_off = (((size_t)b * Sk + k0) * Hk + hk) * D;
-  load_bf16<D, false, false>(k_s, k + kv_off, (size_t)Hk * D,
-                             min(kTile, Sk - k0), 0.f);
-  load_bf16<D, false, false>(v_s, v + kv_off, (size_t)Hk * D,
-                             min(kTile, Sk - k0), 0.f);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+// acc (64 x 16 KS, accumulator layout) packed to bf16 A operands
+template <int KS>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[KS][4],
+                                         const float (&x)[8 * KS]) {
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  const int n_qt = (Sq + kTile - 1) / kTile;
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = hk * G + gi;
-    const size_t row = (size_t)b * H + h;
-    for (int qt = causal ? kt : 0; qt < n_qt; ++qt) {
-      const int q0 = qt * kTile;
-      const int q_rows = min(kTile, Sq - q0);
-      const size_t q_off = (((size_t)b * Sq + q0) * H + h) * D;
-      __syncthreads();               // the previous tile's products are done
-      load_bf16<D, true, false>(q_s, q + q_off, (size_t)H * D, q_rows, scale);
-      load_bf16<D, true, true>(qt_s, q + q_off, (size_t)H * D, q_rows, scale);
-      load_bf16<D, false, false>(do_s, dout + q_off, (size_t)H * D, q_rows,
-                                 0.f);
-      load_bf16<D, false, true>(dot_s, dout + q_off, (size_t)H * D, q_rows,
-                                0.f);
-      if (threadIdx.x < kTile) {
-        const bool ok = threadIdx.x < q_rows;
-        lse_s[threadIdx.x] = ok ? lse[row * Sq + q0 + threadIdx.x] : INFINITY;
-        delta_s[threadIdx.x] = ok ? delta[row * Sq + q0 + threadIdx.x] : 0.f;
-      }
-      __syncthreads();
-      const bool diag = causal && qt == kt;
-
-#pragma unroll 1
-      for (int c0 = 0; c0 < kTile; c0 += NQ) {
-        float st[NT][4], dpt[NT][4];
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-        mma_abt<D, NT>(st, k_s, LD, 16 * w, q_s, LD, c0, g, t);
-        mma_abt<D, NT>(dpt, v_s, LD, 16 * w, do_s, LD, c0, g, t);
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qc = c0 + 8 * n + 2 * t + (e & 1);   // query in tile
-            float s = st[n][e];
-            if (diag && q0 + qc < kr0 + (e >> 1) * 8) s = -INFINITY;
-            const float p = expf(s - lse_s[qc]);
-            st[n][e] = p;
-            dpt[n][e] = p * (dpt[n][e] - delta_s[qc]);
-          }
-        uint32_t pa[KS][4], dsa[KS][4];
-        to_a<KS>(pa, st);            // p rounded to bf16 for dV
-        to_a<KS>(dsa, dpt);          // dS rounded to bf16 for dK
-        mma_pb<KS, D / 8>(dv_acc, pa, dot_s, kLdT, c0, g, t);
-        mma_pb<KS, D / 8>(dk_acc, dsa, qt_s, kLdT, c0, g, t);
-      }
-    }
+  for (int kk = 0; kk < KS; ++kk) {
+    a[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
   }
+}
 
+// 64-row tile `src` (64 x D bf16) rewritten as bf16(x * scale) into `dst`
+// by `threads` threads, thread index `i0`; elementwise, so the swizzle
+// stays as it landed
+template <int D>
+__device__ __forceinline__ void scale_tile(unsigned char* dst,
+                                           const unsigned char* src,
+                                           float scale, int i0,
+                                           int threads) {
+  for (int i = i0; i < 64 * D / 8; i += threads) {
+    uint4 raw = reinterpret_cast<const uint4*>(src)[i];
+    bf16* e = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * scale);
+    reinterpret_cast<uint4*>(dst)[i] = raw;
+  }
+}
+
+// one 64-row tile of head column `col` (in elements) at row `row` of
+// batch b, as D / 64 boxes
+template <int D>
+__device__ __forceinline__ void tma_tile(unsigned char* dst,
+                                         const CUtensorMap* map, int col,
+                                         int row, int b, uint64_t* bar) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    tma_3d(dst + c * 8192, map, col + 64 * c, row, b, bar);
+}
+
+// Rows r0 and r0 + 8 (accumulator layout) of a 64 x D f32 tile, times
+// `mul`, rounded to bf16 and stored at dst + row * stride (rows >= n
+// skipped).
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
+                                           size_t stride, int r0, int n,
+                                           const float (&acc)[D / 2],
+                                           float mul, int t) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = kr0 + 8 * i;
-    if (r < Sk) {
-      const size_t off = (((size_t)b * Sk + r) * Hk + hk) * D + 2 * t;
+    const int r = r0 + 8 * i;
+    if (r < n) {
+      bf16* p = dst + (size_t)r * stride + 2 * t;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        *reinterpret_cast<uint32_t*>(dk + off + 8 * n) =
-            pack_bf16(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
-        *reinterpret_cast<uint32_t*>(dv + off + 8 * n) =
-            pack_bf16(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
-      }
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(p + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
     }
   }
 }
 
-// dQ, bf16: the design of flash_bwd_dq_kernel, products on the tensor
-// cores.  Warp w owns queries q0 + 16 w .. + 15; the K tile sits in
-// shared memory by rows (B of Q K^T) and, scaled by sm_scale and rounded,
-// transposed (B of dS Ks); V by rows (B of dO V^T).
+// dK/dV.  Replaces paddle_tpu/ops/pallas/flash_attention.py ::
+// _bwd_dkdv_kernel and the XLA group sum after it.  One block per (b * Hk +
+// hk, 64-key tile); its work is the group's G heads x the query tiles from
+// the diagonal on, G (n_qt - kt) items of 64 queries, dealt out in turn to
+// the two consumer warpgroups, which each hold dK and dV for all 64 keys
+// in f32 and add the two halves in shared memory at the end (the GQA sum
+// in the block, no partials, no atomics; per-head partials and a group
+// sum, the JAX package's grid, measured slower at the trainer's shape:
+// tools/perf/torch_flash_bwd_ab.py).  An item: S^T = K Q^T and dP^T =
+// V dO^T (K and V from shared memory, both K-major), p = exp(S^T - lse)
+// and dS = p (dP^T - delta) per query column, then dV += P^T dO and dK +=
+// dS^T Q with P^T and dS^T as register operands and dO, Q read N-major.
+// The ring stage is the item's Q and dO tiles (TMA) and its 64 lse (times
+// log2 e; +inf past Sq, so padded queries get p = 0) and delta values,
+// which the producer warp's lanes store.  The grid runs key tile 0 of
+// every head first: under causal it has the most items.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int Sq, int Sk, int H, int Hk,
-                        int causal, float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // [64 queries][LD]
-  bf16* do_s = q_s + kTile * LD;                    // [64 queries][LD]
-  bf16* k_s = do_s + kTile * LD;                    // [64 keys][LD]
-  bf16* v_s = k_s + kTile * LD;                     // [64 keys][LD]
-  bf16* kst_s = v_s + kTile * LD;                   // [D][kLdT]
+struct DkdvSmem {
+  static constexpr int kStages = D == 64 ? 6 : 4;
+  // queries a step: a D 128 step of 64 spills the scores
+  static constexpr int kNq = D == 64 ? 64 : 32;
+  static constexpr int kTile = 64 * D * 2;
+  static constexpr int kStage = 2 * kTile + 1024;      // Q, dO, lse, delta
+  static constexpr int kRing = 2 * kTile;              // after K and V
+  static constexpr int kBytes = kRing + kStages * kStage;
+  static constexpr size_t kDynamic = kBytes + 8 * (2 * kStages + 1) + 1024;
+};
 
-  const int n_qt = (Sq + kTile - 1) / kTile;
-  const int qt = n_qt - 1 - blockIdx.x;   // longest causal rows first
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh - b * H;
-  const int hk = h / (H / Hk);
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kTile;
-  const int r0 = q0 + 16 * w + g;         // this thread's rows r0, r0 + 8
+// What a dK/dV consumer warpgroup's steps read besides its registers.
+struct DkdvCtx {
+  unsigned char* ring;
+  uint64_t *full, *empty;
+  uint64_t k_desc, v_desc;
+  float scale, s_mul;
+  int nq, qt0, kt, causal, kr, t, tid, wg;
+};
 
-  const size_t q_off = (((size_t)b * Sq + q0) * H + h) * D;
-  load_bf16<D, true, false>(q_s, q + q_off, (size_t)H * D,
-                            min(kTile, Sq - q0), scale);
-  load_bf16<D, false, false>(do_s, dout + q_off, (size_t)H * D,
-                             min(kTile, Sq - q0), 0.f);
-  float lse_r[2], delta_r[2];             // padded rows: finite, unwritten
+template <int N>
+__device__ __forceinline__ void keep_frags(uint32_t (&a)[N][4]) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + 8 * i;
-    lse_r[i] = r < Sq ? lse[(size_t)bh * Sq + r] : 0.f;
-    delta_r[i] = r < Sq ? delta[(size_t)bh * Sq + r] : 0.f;
-  }
+  for (int i = 0; i < N; ++i) keep(a[i]);
+}
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const bf16* k_base = k + ((size_t)b * Sk * Hk + hk) * D;
-  const bf16* v_base = v + ((size_t)b * Sk * Hk + hk) * D;
-  const int n_kt = (Sk + kTile - 1) / kTile;
-  const int kt_end = causal ? min(qt + 1, n_kt) : n_kt;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kTile;
-    const int k_rows = min(kTile, Sk - k0);
-    __syncthreads();                 // the previous tile's products are done
-    load_bf16<D, false, false>(k_s, k_base + (size_t)k0 * Hk * D,
-                               (size_t)Hk * D, k_rows, 0.f);
-    load_bf16<D, true, true>(kst_s, k_base + (size_t)k0 * Hk * D,
-                             (size_t)Hk * D, k_rows, scale);
-    load_bf16<D, false, false>(v_s, v_base + (size_t)k0 * Hk * D,
-                               (size_t)Hk * D, k_rows, 0.f);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_abt<D, 8>(s, q_s, LD, 16 * w, k_s, LD, 0, g, t);
-    mma_abt<D, 8>(dp, do_s, LD, 16 * w, v_s, LD, 0, g, t);
-    const bool masked = (causal && kt == qt) || k0 + kTile > Sk;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kp = k0 + 8 * n + 2 * t + (e & 1);
-        const int i = e >> 1;
-        float sv = s[n][e];
-        if (masked && ((causal && kp > r0 + 8 * i) || kp >= Sk))
-          sv = -INFINITY;
-        const float p = expf(sv - lse_r[i]);
-        dp[n][e] = p * (dp[n][e] - delta_r[i]);
-      }
-    uint32_t dsa[4][4];
-    to_a<4>(dsa, dp);                // dS rounded to bf16
-    mma_pb<4, D / 8>(acc, dsa, kst_s, kLdT, 0, g, t);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + 8 * i;
-    if (r < Sq) {
-      bf16* dst = dq + (((size_t)b * Sq + r) * H + h) * D + 2 * t;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(dst + 8 * n) =
-            pack_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
+// Step h of item i: S^T = K Q^T and dP^T = V dO^T over the item's
+// queries kNq h .. kNq h + kNq - 1 into (sa, dpa), committed.  Step 0 waits
+// for the item's stage (and at D 128 rescales its Q tile).
+template <int D>
+__device__ __forceinline__ void dkdv_scores(
+    const DkdvCtx& c, int i, int h, float (&sa)[DkdvSmem<D>::kNq / 2],
+    float (&dpa)[DkdvSmem<D>::kNq / 2]) {
+  using L = DkdvSmem<D>;
+  const int s = i % L::kStages;
+  unsigned char* st = c.ring + s * L::kStage;
+  if (h == 0) {
+    mbar_wait(c.full + s, (i / L::kStages) & 1);
+    if constexpr (D != 64) {
+      scale_tile<D>(st, st, c.scale, c.tid, 128);  // Q -> bf16(q * sm_scale)
+      fence_async_smem();
+      named_sync(2 + c.wg, 128);
     }
   }
+  const uint64_t q_desc = sw128_desc(st + L::kNq * h * 128);
+  const uint64_t do_desc = sw128_desc(st + L::kTile + L::kNq * h * 128);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<L::kNq>(sa, c.k_desc + (kmajor_step(kk) >> 4),
+                     q_desc + (kmajor_step(kk) >> 4), kk);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<L::kNq>(dpa, c.v_desc + (kmajor_step(kk) >> 4),
+                     do_desc + (kmajor_step(kk) >> 4), kk);
+  wgmma_commit();
+}
+
+// p and dS of step h of item i from its landed scores, then dV += P^T dO
+// and dK += dS^T Q over the step's queries, committed
+template <int D>
+__device__ __forceinline__ void dkdv_products(
+    const DkdvCtx& c, int i, int h, float (&sa)[DkdvSmem<D>::kNq / 2],
+    float (&dpa)[DkdvSmem<D>::kNq / 2],
+    uint32_t (&pa)[DkdvSmem<D>::kNq / 16][4],
+    uint32_t (&da)[DkdvSmem<D>::kNq / 16][4], float (&dk)[D / 2],
+    float (&dv)[D / 2]) {
+  using L = DkdvSmem<D>;
+  constexpr int kNq = L::kNq;
+  unsigned char* st = c.ring + (i % L::kStages) * L::kStage;
+  const float* stats =
+      reinterpret_cast<const float*>(st + 2 * L::kTile) + kNq * h;
+  // column j of the step is query q0 + kNq h + j; under causal the
+  // diagonal item (q0 == k0) drops the queries before each key
+  const bool diag = c.causal && c.qt0 + i % c.nq == c.kt;
+#pragma unroll
+  for (int j = 0; j < kNq / 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(stats + 8 * j + 2 * c.t);
+    const float2 dl =
+        *reinterpret_cast<const float2*>(stats + 64 + 8 * j + 2 * c.t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = kNq * h + 8 * j + 2 * c.t + (e & 1);
+      float p = ex2(sa[4 * j + e] * c.s_mul - ((e & 1) ? l2.y : l2.x));
+      if (diag && col < c.kr + 8 * (e >> 1)) p = 0.f;
+      sa[4 * j + e] = p;
+      dpa[4 * j + e] = p * (dpa[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+    }
+  }
+  acc_to_a(pa, sa);                          // p rounded to bf16 for dV
+  acc_to_a(da, dpa);                         // dS rounded to bf16 for dK
+  const uint64_t do_mn = sw128_desc_mn(st + L::kTile + kNq * h * 128, 8192);
+  const uint64_t q_mn = sw128_desc_mn(st + kNq * h * 128, 8192);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kNq / 16; ++kk) {
+    wgmma_rs_nd<D>(dv, pa[kk], do_mn + (nmajor_step(kk) >> 4));
+    wgmma_rs_nd<D>(dk, da[kk], q_mn + (nmajor_step(kk) >> 4));
+  }
+  wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int Sq, int Sk, int H, int Hk, int causal,
+                            float scale) {
+  using L = DkdvSmem<D>;
+  constexpr bool kFold = D == 64;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* smem = smem_wg + ((1024 - (smem_u32(smem_wg) & 1023)) & 1023);
+  unsigned char* k_s = smem;
+  unsigned char* v_s = smem + L::kTile;
+  unsigned char* ring = smem + L::kRing;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBytes);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* kv_full = empty + L::kStages;
+
+  const int bhk = blockIdx.x, kt = blockIdx.y;
+  const int b = bhk / Hk, hk = bhk - b * Hk;
+  const int G = H / Hk;
+  const int k0 = kt * 64;
+  const int qt0 = causal ? kt : 0;          // causal: Sq == Sk
+  const int nq = (Sq + 63) / 64 - qt0;      // query tiles a head
+  const int n_items = G * nq;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full + s, 32);              // the producer warp's lanes
+      mbar_init(empty + s, 128);            // the consuming warpgroup
+    }
+    mbar_init(kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer ----
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x >= 288) return;         // its first warp only
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_expect(kv_full, 2 * L::kTile);
+      tma_tile<D>(k_s, &tk, hk * D, k0, b, kv_full);
+      tma_tile<D>(v_s, &tv, hk * D, k0, b, kv_full);
+    }
+    for (int i = 0; i < n_items; ++i) {
+      const int s = i % L::kStages;
+      mbar_wait(empty + s, ((i / L::kStages) & 1) ^ 1);
+      const int gi = i / nq;
+      const int h = hk * G + gi, q0 = (qt0 + i - gi * nq) * 64;
+      unsigned char* st = ring + s * L::kStage;
+      float* stats = reinterpret_cast<float*>(st + 2 * L::kTile);
+      const size_t row = ((size_t)b * H + h) * Sq;
+      for (int r = lane; r < 64; r += 32) {
+        const bool ok = q0 + r < Sq;
+        stats[r] = ok ? lse[row + q0 + r] * kLog2e : INFINITY;
+        stats[64 + r] = ok ? delta[row + q0 + r] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect(full + s, 2 * L::kTile);
+        tma_tile<D>(st, &tq, h * D, q0, b, full + s);
+        tma_tile<D>(st + L::kTile, &tdo, h * D, q0, b, full + s);
+      } else {
+        mbar_arrive(full + s);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  regs_inc<kConsumerRegs>();
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31, g8 = lane >> 2, t = lane & 3;
+  const int kr = 16 * (tid >> 5) + g8;      // this thread's keys kr, kr + 8
+  // scores: raw q . k times 2^-3 log2 e at D 64, the scaled q's times
+  // log2 e at D 128
+  const float s_mul = kFold ? scale * kLog2e : kLog2e;
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+  constexpr int kNq = L::kNq, kSteps = 64 / kNq;
+  uint32_t pa[kNq / 16][4] = {}, da[kNq / 16][4] = {};   // P^T, dS^T (bf16)
+  const DkdvCtx c{ring, full, empty, sw128_desc(k_s), sw128_desc(v_s),
+                  scale, s_mul, nq, qt0, kt, causal, kr, t, tid, wg};
+  float sa[kNq / 2] = {}, dpa[kNq / 2] = {};
+  mbar_wait(kv_full, 0);
+  if constexpr (D == 64) {
+    // An item's dV and dK products stay in flight behind the next item's
+    // score products; its stage is released at the next wait.
+    int pending = -1;
+    if (wg < n_items) dkdv_scores<D>(c, wg, 0, sa, dpa);
+    for (int i = wg; i < n_items; i += 2) {
+      wgmma_wait<0>();
+      keep(sa);
+      keep(dpa);
+      keep_frags(pa);
+      keep_frags(da);
+      keep(dk_acc);
+      keep(dv_acc);
+      if (pending >= 0) mbar_arrive(empty + pending);
+      dkdv_products<D>(c, i, 0, sa, dpa, pa, da, dk_acc, dv_acc);
+      pending = i % L::kStages;
+      if (i + 2 < n_items) dkdv_scores<D>(c, i + 2, 0, sa, dpa);
+    }
+    wgmma_wait<0>();
+    keep_frags(pa);
+    keep_frags(da);
+    keep(dk_acc);
+    keep(dv_acc);
+    if (pending >= 0) mbar_arrive(empty + pending);
+  } else {
+    // D 128: one step at a time, nothing in flight across steps (the dK
+    // and dV accumulators fill half the registers)
+    for (int i = wg; i < n_items; i += 2) {
+#pragma unroll 1
+      for (int h = 0; h < kSteps; ++h) {
+        dkdv_scores<D>(c, i, h, sa, dpa);
+        wgmma_wait<0>();
+        keep(sa);
+        keep(dpa);
+        dkdv_products<D>(c, i, h, sa, dpa, pa, da, dk_acc, dv_acc);
+        wgmma_wait<0>();
+        keep_frags(pa);
+        keep_frags(da);
+        keep(dk_acc);
+        keep(dv_acc);
+      }
+      mbar_arrive(empty + i % L::kStages);
+    }
+  }
+
+  // The two halves meet in the (now idle) ring: warpgroup 0 finishes dV,
+  // warpgroup 1 dK, each adding the other's partial element by element
+  // (thread tid of both holds the same elements).
+  named_sync(1, 256);
+  float* xch = reinterpret_cast<float*>(ring);
+  float* mine = xch + wg * (D / 2) * 128;
+  const float* theirs = xch + (1 - wg) * (D / 2) * 128;
+  const size_t off = (((size_t)b * Sk + k0) * Hk + hk) * D;
+  if (wg == 0) {
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) mine[e * 128 + tid] = dk_acc[e];
+    named_sync(1, 256);
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) dv_acc[e] += theirs[e * 128 + tid];
+    store_rows<D>(dv + off, (size_t)Hk * D, kr, Sk - k0, dv_acc, 1.f, t);
+  } else {
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) mine[e * 128 + tid] = dv_acc[e];
+    named_sync(1, 256);
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) dk_acc[e] += theirs[e * 128 + tid];
+    store_rows<D>(dk + off, (size_t)Hk * D, kr, Sk - k0, dk_acc,
+                  kFold ? scale : 1.f, t);
+  }
+}
+
+// dQ.  Replaces paddle_tpu/ops/pallas/flash_attention.py :: _bwd_dq_kernel.
+// One block per (b * H + h, 128 queries), heaviest causal rows first;
+// consumer warpgroup w owns queries q0 + 64 w .. + 63, whose Q and dO tiles
+// land once, and both walk the K/V tiles of kv head h / G up to their
+// diagonal through the ring: S = Q K^T and dP = dO V^T (both K-major), p
+// and dS, then dQ += dS Ks with dS a register operand and the key tile read
+// N-major.  At D 128 the two warpgroups first write Ks = bf16(k * sm_scale)
+// beside K in the stage, half each; at D 64 Ks is K and dQ is scaled at
+// the end.
+template <int D>
+struct DqSmem {
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr int kTile = 64 * D * 2;
+  static constexpr int kStage = (D == 64 ? 2 : 3) * kTile;   // K, V (, Ks)
+  static constexpr int kRing = 4 * kTile;                     // Q, dO x 2
+  static constexpr int kBytes = kRing + kStages * kStage;
+  static constexpr size_t kDynamic = kBytes + 8 * (2 * kStages + 1) + 1024;
+};
+
+// What a dQ consumer warpgroup's steps read besides its registers.
+struct DqCtx {
+  unsigned char* ring;
+  uint64_t *full, *empty;
+  uint64_t q_desc, do_desc;
+  float scale, s_mul, lse2[2], dl[2];
+  int causal, Sk, qw, r0, t;
+};
+
+template <int D>
+__device__ __forceinline__ unsigned char* dq_stage(const DqCtx& c, int kt) {
+  return c.ring + (kt % DqSmem<D>::kStages) * DqSmem<D>::kStage;
+}
+// the key tile dQ reads: Ks = bf16(k * sm_scale), or K itself at D 64
+template <int D>
+__device__ __forceinline__ unsigned char* dq_ks(const DqCtx& c, int kt) {
+  return dq_stage<D>(c, kt) + (D == 64 ? 0 : 2 * DqSmem<D>::kTile);
+}
+// Wait for tile kt; at D 128 both warpgroups then write its Ks (half
+// each).  Every warpgroup takes every tile.
+template <int D>
+__device__ __forceinline__ unsigned char* dq_tile(const DqCtx& c, int kt) {
+  using L = DqSmem<D>;
+  mbar_wait(c.full + kt % L::kStages, (kt / L::kStages) & 1);
+  unsigned char* st = dq_stage<D>(c, kt);
+  if constexpr (D != 64) {
+    scale_tile<D>(dq_ks<D>(c, kt), st, c.scale, threadIdx.x, 256);
+    fence_async_smem();
+    named_sync(1, 256);
+  }
+  return st;
+}
+
+// tile kt, then S = Q K^T and dP = dO V^T into (sa, dpa), committed
+template <int D>
+__device__ __forceinline__ void dq_scores(const DqCtx& c, int kt,
+                                          float (&sa)[32], float (&dpa)[32]) {
+  unsigned char* st = dq_tile<D>(c, kt);
+  const uint64_t k_desc = sw128_desc(st);
+  const uint64_t v_desc = sw128_desc(st + DqSmem<D>::kTile);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(sa, c.q_desc + (kmajor_step(kk) >> 4),
+                 k_desc + (kmajor_step(kk) >> 4), kk);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(dpa, c.do_desc + (kmajor_step(kk) >> 4),
+                 v_desc + (kmajor_step(kk) >> 4), kk);
+  wgmma_commit();
+}
+
+// dS of tile kt from its landed scores, then dQ += dS Ks, committed
+template <int D>
+__device__ __forceinline__ void dq_product(const DqCtx& c, int kt,
+                                           float (&sa)[32], float (&dpa)[32],
+                                           uint32_t (&da)[4][4],
+                                           float (&acc)[D / 2]) {
+  // column j is key kt * 64 + j: masked past the diagonal and past Sk
+  const int k0 = kt * 64;
+  const bool edge = (c.causal && k0 + 63 > c.qw) || k0 + 64 > c.Sk;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * j + 2 * c.t + (e & 1);
+      const int i = e >> 1;
+      float p = ex2(sa[4 * j + e] * c.s_mul - c.lse2[i]);
+      if (edge && ((c.causal && key > c.r0 + 8 * i) || key >= c.Sk)) p = 0.f;
+      dpa[4 * j + e] = p * (dpa[4 * j + e] - c.dl[i]);
+    }
+  acc_to_a(da, dpa);                          // dS rounded to bf16
+  const uint64_t ks_mn = sw128_desc_mn(dq_ks<D>(c, kt), 8192);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_nd<D>(acc, da[kk], ks_mn + (nmajor_step(kk) >> 4));
+  wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int Sq, int Sk, int H,
+                          int Hk, int causal, float scale) {
+  using L = DqSmem<D>;
+  constexpr bool kFold = D == 64;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* smem = smem_wg + ((1024 - (smem_u32(smem_wg) & 1023)) & 1023);
+  unsigned char* ring = smem + L::kRing;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBytes);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* qdo_full = empty + L::kStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int hk = h / (H / Hk);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 128;
+  const int n_kt = (Sk + 63) / 64;
+  const int kt_end = causal ? min(q0 / 64 + 2, n_kt) : n_kt;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 256);            // both consumers
+    }
+    mbar_init(qdo_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer ----
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x != 256) return;
+    mbar_expect(qdo_full, 4 * L::kTile);
+    for (int w = 0; w < 2; ++w) {
+      tma_tile<D>(smem + 2 * w * L::kTile, &tq, h * D, q0 + 64 * w, b,
+                  qdo_full);
+      tma_tile<D>(smem + (2 * w + 1) * L::kTile, &tdo, h * D, q0 + 64 * w,
+                  b, qdo_full);
+    }
+    for (int kt = 0; kt < kt_end; ++kt) {
+      const int s = kt % L::kStages;
+      mbar_wait(empty + s, ((kt / L::kStages) & 1) ^ 1);
+      unsigned char* st = ring + s * L::kStage;
+      mbar_expect(full + s, 2 * L::kTile);
+      tma_tile<D>(st, &tk, hk * D, kt * 64, b, full + s);
+      tma_tile<D>(st + L::kTile, &tv, hk * D, kt * 64, b, full + s);
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  regs_inc<kConsumerRegs>();
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31, g8 = lane >> 2, t = lane & 3;
+  const int qw = q0 + 64 * wg;                  // this warpgroup's rows
+  const int r0 = qw + 16 * (tid >> 5) + g8;     // this thread's r0, r0 + 8
+  const float s_mul = kFold ? scale * kLog2e : kLog2e;
+  float lse2[2], dl[2];                         // padded rows: finite
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    lse2[i] = r < Sq ? lse[(size_t)bh * Sq + r] * kLog2e : 0.f;
+    dl[i] = r < Sq ? delta[(size_t)bh * Sq + r] : 0.f;
+  }
+  // the key tiles this warpgroup needs
+  const int my_end = causal ? min(qw / 64 + 1, kt_end) : kt_end;
+
+  unsigned char* q_s = smem + 2 * wg * L::kTile;
+  unsigned char* do_s = q_s + L::kTile;
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  uint32_t da[4][4] = {};                       // dS, bf16 A operands
+  mbar_wait(qdo_full, 0);
+  if constexpr (!kFold) {
+    scale_tile<D>(q_s, q_s, scale, tid, 128);   // Q -> bf16(q * sm_scale)
+    fence_async_smem();
+    named_sync(2 + wg, 128);
+  }
+  const DqCtx c{ring, full, empty, sw128_desc(q_s), sw128_desc(do_s), scale,
+                s_mul, {lse2[0], lse2[1]}, {dl[0], dl[1]}, causal, Sk, qw,
+                r0, t};
+  // The tiles this warpgroup needs come first (every key past my_end is
+  // masked for all its rows; none when its rows start past Sq).  Tile
+  // kt's dQ product stays in flight behind tile kt + 1's score products;
+  // tile kt's stage is released at the wait for both.  Then the tiles it
+  // does not need are only waited for (and at D 128 rescaled) and released.
+  const int n_act = qw < Sq ? my_end : 0;
+  float sa[32] = {}, dpa[32] = {};
+  if (n_act > 0) dq_scores<D>(c, 0, sa, dpa);
+  for (int kt = 0; kt < n_act; ++kt) {
+    wgmma_wait<0>();
+    keep(sa);
+    keep(dpa);
+    keep_frags(da);
+    keep(acc);
+    if (kt > 0) mbar_arrive(empty + (kt - 1) % L::kStages);
+    dq_product<D>(c, kt, sa, dpa, da, acc);
+    if (kt + 1 < n_act) dq_scores<D>(c, kt + 1, sa, dpa);
+  }
+  wgmma_wait<0>();
+  keep_frags(da);
+  keep(acc);
+  if (n_act > 0) mbar_arrive(empty + (n_act - 1) % L::kStages);
+  for (int kt = n_act; kt < kt_end; ++kt) {
+    dq_tile<D>(c, kt);
+    mbar_arrive(empty + kt % L::kStages);
+  }
+
+  store_rows<D>(dq + (((size_t)b * Sq + qw) * H + h) * D, (size_t)H * D,
+                r0 - qw, Sq - qw, acc, kFold ? scale : 1.f, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -1043,14 +1462,22 @@ template <int D>
 constexpr size_t fwd_mma_smem() {
   return (2 * (size_t)kTile * (D + 8) + (size_t)D * kLdT) * sizeof(bf16);
 }
-template <int D>
-constexpr size_t dkdv_mma_smem() {
-  return (4 * (size_t)kTile * (D + 8) + 2 * (size_t)D * kLdT) *
-             sizeof(bf16) + 2 * kTile * sizeof(float);
+// a [B, S, heads * D] bf16 tensor as TMA boxes of 64 rows x 64 columns
+// in the 128-byte swizzle (rows past S read zeros)
+bool head_map(CUtensorMap* m, const void* p, int B, int S, int heads, int D) {
+  const uint64_t row = (uint64_t)heads * D * sizeof(bf16);
+  return tensor_map_3d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p,
+                       (uint64_t)heads * D, S, B, row, row * S, 64, 64,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
 }
-template <int D>
-constexpr size_t dq_mma_smem() {
-  return (4 * (size_t)kTile * (D + 8) + (size_t)D * kLdT) * sizeof(bf16);
+
+// the four tensor maps of a wgmma backward kernel, or false
+bool bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k,
+              const void* v, const void* dout, int B, int Sq, int Sk, int H,
+              int Hk, int D) {
+  return head_map(&m[0], q, B, Sq, H, D) && head_map(&m[1], k, B, Sk, Hk, D)
+         && head_map(&m[2], v, B, Sk, Hk, D) &&
+         head_map(&m[3], dout, B, Sq, H, D);
 }
 
 template <typename T, int D>
@@ -1076,21 +1503,26 @@ int launch_dkdv(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 void* dk, void* dv, int B, int Sq, int Sk, int H, int Hk,
                 int causal, float scale, cudaStream_t stream) {
-  const dim3 grid((Sk + kTile - 1) / kTile, B * Hk);
-  auto args = [&](auto kern, int threads, size_t smem) {
-    return launch(kern, grid, threads, smem, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), static_cast<const T*>(dout),
+  if constexpr (kMma<T, D>) {
+    CUtensorMap m[4];
+    if (!bwd_maps(m, q, k, v, dout, B, Sq, Sk, H, Hk, D))
+      return (int)cudaErrorInvalidValue;
+    // key tile 0 of every kv head first (x fastest)
+    return launch(flash_bwd_dkdv_wgmma_kernel<D>,
+                  dim3(B * Hk, (Sk + kTile - 1) / kTile), kWgThreads,
+                  DkdvSmem<D>::kDynamic, stream, m[0], m[1], m[2], m[3],
                   static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), static_cast<bf16*>(dk),
+                  static_cast<bf16*>(dv), Sq, Sk, H, Hk, causal, scale);
+  } else {
+    return launch(flash_bwd_dkdv_kernel<T, D, walk<D>()>,
+                  dim3((Sk + kTile - 1) / kTile, B * Hk), kThreads,
+                  dkdv_smem<D, walk<D>()>(), stream, static_cast<const T*>(q),
+                  static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const T*>(dout), static_cast<const float*>(lse),
                   static_cast<const float*>(delta), static_cast<T*>(dk),
                   static_cast<T*>(dv), Sq, Sk, H, Hk, causal, scale);
-  };
-  if constexpr (kMma<T, D>)
-    return args(flash_bwd_dkdv_mma_kernel<D>, kMmaThreads,
-                dkdv_mma_smem<D>());
-  else
-    return args(flash_bwd_dkdv_kernel<T, D, walk<D>()>, kThreads,
-                dkdv_smem<D, walk<D>()>());
+  }
 }
 
 template <typename T, int D>
@@ -1098,20 +1530,26 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int Sq,
               int Sk, int H, int Hk, int causal, float scale,
               cudaStream_t stream) {
-  const dim3 grid((Sq + kTile - 1) / kTile, B * H);
-  auto args = [&](auto kern, int threads, size_t smem) {
-    return launch(kern, grid, threads, smem, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), static_cast<const T*>(dout),
+  if constexpr (kMma<T, D>) {
+    CUtensorMap m[4];
+    if (!bwd_maps(m, q, k, v, dout, B, Sq, Sk, H, Hk, D))
+      return (int)cudaErrorInvalidValue;
+    // the last (longest causal) 128 queries of every head first
+    return launch(flash_bwd_dq_wgmma_kernel<D>,
+                  dim3(B * H, (Sq + 127) / 128), kWgThreads,
+                  DqSmem<D>::kDynamic, stream, m[0], m[1], m[2], m[3],
                   static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), static_cast<bf16*>(dq),
+                  Sq, Sk, H, Hk, causal, scale);
+  } else {
+    return launch(flash_bwd_dq_kernel<T, D, walk<D>()>,
+                  dim3((Sq + kTile - 1) / kTile, B * H), kThreads,
+                  dq_smem<D, walk<D>()>(), stream, static_cast<const T*>(q),
+                  static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const T*>(dout), static_cast<const float*>(lse),
                   static_cast<const float*>(delta), static_cast<T*>(dq), Sq,
                   Sk, H, Hk, causal, scale);
-  };
-  if constexpr (kMma<T, D>)
-    return args(flash_bwd_dq_mma_kernel<D>, kMmaThreads, dq_mma_smem<D>());
-  else
-    return args(flash_bwd_dq_kernel<T, D, walk<D>()>, kThreads,
-                dq_smem<D, walk<D>()>());
+  }
 }
 
 // dynamic shared memory of the chunked kernels, in bytes

@@ -88,10 +88,8 @@
 // tile, a producer warp and a persistent grid are the next steps (PERF.md,
 // ROADMAP).
 
-#include <cuda.h>
-#include <dlfcn.h>
-
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -504,93 +502,6 @@ qmm_kernel(const XT* __restrict__ x, const int8_t* __restrict__ q,
 // sets, wgmma.wait_group 1 before a set is rewritten).
 // ---------------------------------------------------------------------------
 
-// d = A . B + (scale_d ? d : 0) for one m64n64k16 step: A (64 x 16 bf16)
-// from the warpgroup's registers, B (16 x 64 bf16, K-major) from shared
-// memory
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// registers an in-flight wgmma reads or writes stay where they are until
-// here (the compiler may not reuse or move them across this point)
-template <int N>
-__device__ __forceinline__ void keep(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void keep(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// TMA: one thread copies a 2D box of a tensor into shared memory, and the
-// stage's mbarrier counts the bytes in
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-// Waits for the phase; a copy that never lands (a fault in the tensor
-// map) traps after about 4M tries instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  for (int tries = 0; !done; ++tries) {
-    if (tries == (1 << 22)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
-                                       int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(map), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // The wgmma tile, one ring stage: the x tile as two TMA boxes of 64 K by
 // BT tokens, 128-byte swizzled (wgmma's K-major SW128 layout: 8-row atoms
 // of 1024 bytes), then per warpgroup a box of the raw weight bytes (128
@@ -607,13 +518,6 @@ struct WTile {
   static constexpr int kTx = kSOff + (INT4 ? kBN * 4 : 0);
   static constexpr int kStage = (kTx + 1023) / 1024 * 1024;
 };
-
-// wgmma's descriptor of a K-major bf16 tile in the 128-byte swizzle: start
-// address, stride between 8-row atoms 1024 bytes, swizzle mode 1
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return (uint64_t)((smem_u32(p) >> 4) & 0x3FFF) | (1ull << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
 
 // The A fragments of k16 step kk for both m64 tiles: tile T's rows g and
 // g + 8 of warp w' (w % 4) are the warpgroup's columns 32 w' + 4 g + 2 T
@@ -676,8 +580,8 @@ __device__ __forceinline__ void wgmma_stage(float (&c)[2][BT / 2],
         desc + (uint64_t)(((kk >> 2) * T::kXBox + (kk & 3) * 32) >> 4);
     const int scale_d = kk == 0 ? 0 : 1;
     wgmma_fence();
-    wgmma_n64(c[0], a[cur][0], d, scale_d);
-    wgmma_n64(c[1], a[cur][1], d, scale_d);
+    wgmma_rs_n64<0>(c[0], a[cur][0], d, scale_d);
+    wgmma_rs_n64<0>(c[1], a[cur][1], d, scale_d);
     wgmma_commit();
     if (kk + 1 < kBK / 16) {
       wgmma_wait<1>();               // step kk - 1 is done with a[cur ^ 1]
@@ -866,40 +770,6 @@ int launch_mma(const Geom& g, const void* x, const void* q, const void* s,
                 static_cast<const XT*>(x), static_cast<const int8_t*>(q),
                 static_cast<const float*>(s), dst, M, N, K, g.k_per_split,
                 vec_x, vec_w, vec_out);
-}
-
-// cuTensorMapEncodeTiled from libcuda, found at run time (the library
-// links only the CUDA runtime)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
-    return h ? reinterpret_cast<EncodeTiled>(
-                   dlsym(h, "cuTensorMapEncodeTiled"))
-             : nullptr;
-  }();
-  return fn;
-}
-
-// a 2D map of inner x outer elements, outer stride in bytes, one box
-bool tensor_map(CUtensorMap* m, CUtensorMapDataType dt, const void* p,
-                uint64_t inner, uint64_t outer, uint64_t stride,
-                uint32_t box_in, uint32_t box_out, CUtensorMapSwizzle sw) {
-  const EncodeTiled fn = encoder();
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {stride};
-  const cuuint32_t box[2] = {box_in, box_out};
-  const cuuint32_t step[2] = {1, 1};
-  return fn && fn(m, dt, 2, const_cast<void*>(p), dims, strides, box, step,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <bool INT4>

@@ -20,9 +20,10 @@ rounded to k's type for dQ; dK and dV are summed over each GQA group.
 tensors its forward launches the forward kernel and its backward the dK/dV
 and dQ kernels of ``paddle_tpu_torch/csrc/flash_attention.cu`` (float32,
 and bfloat16 at head dim 256, on the CUDA cores; bfloat16 at 64 and 128 on
-the tensor cores; every other multiple of 128 on CUDA-core kernels that
-walk the head dim in chunks; it raises on what they do not take); on CPU
-tensors both run the plain versions.
+the tensor cores, the backward pair on ``wgmma`` fed by TMA; every other
+multiple of 128 on CUDA-core kernels that walk the head dim in chunks; it
+raises on what they do not take); on CPU tensors both run the plain
+versions.
 ``fwd_launch_count``, ``dkdv_launch_count`` and ``dq_launch_count`` count
 kernel launches, one per launch.
 """
@@ -115,7 +116,7 @@ def flash_fwd_reference(q, k, v, causal):
 def attention_delta(out, do):
     """delta = rowsum(dO * O) in f32, ``[B, H, Sq]`` (computed outside
     the kernels, as the JAX package does)."""
-    return (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    return (do.float() * out).sum(-1).permute(0, 2, 1).contiguous()
 
 
 def _probs_and_ds(q, k, v, lse, delta, do, causal):

@@ -372,6 +372,17 @@ FLASH_SHAPES = [  # B, S, H, Hk, D
     (1, 200, 4, 2, 256)]
 FLASH_IDS = ["mha", "gqa_S200", "mqa_d128_S100", "gqa4_S256", "d128_S130",
              "S1", "d256_gqa_S200"]
+# the bf16 wgmma backward kernels' tile edges at D 64 and 128: one row
+# short of and past a 64-row tile (and of a dQ block's 128 rows), the
+# trainer's length, a GQA group of 8, and S 65 and 1 (a tile of one row)
+WGMMA_SHAPES = [  # B, S, H, Hk, D
+    (1, 127, 8, 1, 64), (2, 129, 4, 4, 64), (1, 65, 8, 2, 64),
+    (1, 2048, 16, 2, 64), (1, 127, 4, 2, 128), (1, 129, 8, 1, 128),
+    (1, 2048, 4, 4, 128), (1, 1, 8, 1, 128)]
+WGMMA_IDS = ["g8_S127", "mha_S129", "gqa4_S65", "g8_S2048", "d128_S127",
+             "d128_g8_S129", "d128_S2048", "d128_g8_S1"]
+FLASH_SHAPES += WGMMA_SHAPES
+FLASH_IDS += WGMMA_IDS
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
@@ -405,6 +416,42 @@ def test_flash_kernels_match_plain_versions(dev, B, S, H, Hk, D, dtype,
             assert got.float().abs().max().item() <= 1e-5
         else:
             _assert_grad_within(got, want, GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("B,S,H,Hk,D", WGMMA_SHAPES, ids=WGMMA_IDS)
+def test_wgmma_backward_kernels_repeat_bit_for_bit(dev, B, S, H, Hk, D,
+                                                   causal):
+    """Ten more launches of each bf16 backward kernel on the same inputs
+    give the first launch's dK, dV and dQ bit for bit (no atomics, one
+    fixed summation order)."""
+    q, k, v, do = _flash_case(dev, torch.bfloat16, B, S, H, Hk, D, seed=3)
+    ref, lse = fa.flash_fwd_reference(q, k, v, causal)
+    delta = fa.attention_delta(ref, do)
+    first = (*fa._launch_dkdv(q, k, v, do, lse, delta, causal),
+             fa._launch_dq(q, k, v, do, lse, delta, causal))
+    for _ in range(10):
+        again = (*fa._launch_dkdv(q, k, v, do, lse, delta, causal),
+                 fa._launch_dq(q, k, v, do, lse, delta, causal))
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+@pytest.mark.parametrize("B,S,H,Hk,D", WGMMA_SHAPES, ids=WGMMA_IDS)
+def test_wgmma_backward_kernels_count_one_launch_a_call(dev, B, S, H, Hk, D):
+    """dkdv_launch_count and dq_launch_count rise by one a call, and only
+    through their own kernel."""
+    q, k, v, do = _flash_case(dev, torch.bfloat16, B, S, H, Hk, D, seed=4)
+    ref, lse = fa.flash_fwd_reference(q, k, v, True)
+    delta = fa.attention_delta(ref, do)
+    for n in range(3):
+        counts = (fa.dkdv_launch_count, fa.dq_launch_count)
+        fa._launch_dkdv(q, k, v, do, lse, delta, True)
+        assert (fa.dkdv_launch_count, fa.dq_launch_count) == \
+            (counts[0] + 1, counts[1])
+        fa._launch_dq(q, k, v, do, lse, delta, True)
+        assert (fa.dkdv_launch_count, fa.dq_launch_count) == \
+            (counts[0] + 1, counts[1] + 1)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

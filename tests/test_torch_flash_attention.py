@@ -10,17 +10,24 @@ gradients 2e-4 (the backward takes differences of f32 sums, delta and dP,
 and multiplies them by p).  The JAX lse is [B*H, 1, S]; the port's is
 [B, H, S] and is reshaped for the comparison.
 """
+import re
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from paddle_tpu.ops.pallas import flash_attention as FA
 from paddle_tpu_torch.ops import flash_attention as fa
 
 FWD_TOL = 2e-5
 BWD_TOL = 2e-4
+REPO = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True)
@@ -189,6 +196,106 @@ def test_bf16_plain_version_rounds_where_the_kernel_does():
     _close(lse, np.asarray(lse_j).reshape(B, H, S), 1e-4)
 
 
+# The bf16 backward kernels at D 64 read q and k unscaled and multiply the
+# f32 scores, dK and dQ by sm_scale = 2^-3 instead of rounding q * sm_scale
+# and k * sm_scale to bf16 first (csrc/flash_attention.cu).  Both are the
+# same bits: a bf16 value times 2^-3 is a bf16 value (outside the subnormal
+# range), bf16 x bf16 products are exact in f32, and scaling every addend
+# of an f32 sum by a power of two scales each partial sum exactly, in any
+# fixed summation order.
+
+def _bf16_values(bits):
+    """bf16 numbers from their 16-bit patterns, as f32 tensors."""
+    return torch.tensor(np.asarray(bits, np.uint16).view(np.int16)).view(
+        torch.bfloat16).float()
+
+
+def _sequential_sum(x):
+    """f32 sum, left to right (numpy float32 additions)."""
+    acc = np.float32(0)
+    for v in x.numpy():
+        acc = np.float32(acc + v)
+    return acc
+
+
+# normal bf16 values with exponents in [-60, 60]: q * 2^-3 stays normal and
+# no product or 64-term sum leaves the f32 range
+_BF16_NORMAL = st.builds(lambda sgn, e, m: (sgn << 15) | ((e + 127) << 7) | m,
+                         st.integers(0, 1), st.integers(-60, 60),
+                         st.integers(0, 127))
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.lists(st.tuples(_BF16_NORMAL, _BF16_NORMAL), min_size=1,
+                max_size=64))
+def test_d64_scale_fold_is_bit_exact(pairs):
+    """sum_i bf16(q_i * 2^-3) * k_i == 2^-3 * sum_i q_i * k_i, bit for bit,
+    summed left to right and in torch's own order."""
+    q = _bf16_values([a for a, _ in pairs])
+    k = _bf16_values([b for _, b in pairs])
+    qs = (q * 0.125).to(torch.bfloat16).float()     # the rounding point
+    assert torch.equal(qs, q * 0.125)
+    folded = np.float32(0.125) * _sequential_sum(q * k)
+    assert _sequential_sum(qs * k).tobytes() == folded.tobytes()
+    assert torch.equal((qs * k).sum(), 0.125 * (q * k).sum())
+
+
+def test_d64_scale_fold_fails_only_below_the_normal_range():
+    """The named exception: where q * 2^-3 falls below 2^-126, bf16 keeps
+    fewer significant bits, so rounding q * sm_scale to bf16 loses one the
+    fold keeps.  Here q = 2^-126 (1 + 2^-7), q * 2^-3 = 2^-129 (1 + 2^-7)
+    rounds to 2^-129.  Attention activations that small do not occur; the
+    random inputs of the card tests are N(0, 1)."""
+    q = _bf16_values([(1 << 7) | 1])                # 2^-126 (1 + 2^-7)
+    assert q.item() == 2.0 ** -126 * (1 + 2.0 ** -7)
+    qs = (q * 0.125).to(torch.bfloat16).float()
+    assert qs.item() == 2.0 ** -129
+    assert not torch.equal(qs, q * 0.125)
+
+
+def _folded_backward(q, k, v, do, lse, delta, causal):
+    """The plain backward computed as the D 64 kernels compute it: scores
+    of the unscaled q, times sm_scale in f32; dK and dQ from the unscaled q
+    and k, times sm_scale at the end."""
+    sm_scale = 1.0 / np.sqrt(q.shape[-1])
+    G = q.shape[2] // k.shape[2]
+    kf, vf = fa._repeat_kv(k, G).float(), fa._repeat_kv(v, G).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * sm_scale
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool).tril()
+        s = torch.where(keep, s, float("-inf"))
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
+    ds = fa._round(p * (dp - delta[..., None]), q.dtype)
+    dv = torch.einsum("bhqk,bqhd->bkhd", fa._round(p, do.dtype), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * sm_scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * sm_scale
+    hk = k.shape[2]
+    return (dq.to(q.dtype), fa._group_sum(dk, hk).to(k.dtype),
+            fa._group_sum(dv, hk).to(v.dtype))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_folded_backward_equals_plain_version_at_d64_only(D, causal):
+    """bf16 inputs: the folded backward gives the plain versions' dQ, dK
+    and dV bit for bit at D 64; at D 128 (sm_scale 2^-3.5) it does not,
+    which is why the D 128 kernels round the scaled tiles in shared
+    memory."""
+    q, k, v, g = (torch.from_numpy(x).to(torch.bfloat16)
+                  for x in _inputs(1, 96, 8, 2, D, seed=8))
+    out, lse = fa.flash_fwd_reference(q, k, v, causal)
+    delta = fa.attention_delta(out, g)
+    dk, dv = fa.flash_bwd_dkdv_reference(q, k, v, g, lse, delta, causal)
+    dq = fa.flash_bwd_dq_reference(q, k, v, g, lse, delta, causal)
+    got = _folded_backward(q, k, v, g, lse, delta, causal)
+    same = [torch.equal(a, b) for a, b in zip(got, (dq, dk, dv))]
+    if D == 64:
+        assert all(same)
+    else:
+        assert not any(same)                    # p moves, so dV does too
+
+
 # the CUDA wrapper's refusals: checked before any launch, so they show on
 # CPU tensors too; an acceptable CPU operand is refused for its device
 
@@ -266,3 +373,26 @@ def test_kernel_contract_head_dims_equal_jax_rule(D, G):
         with pytest.raises(RuntimeError if rule else ValueError,
                            match="CUDA tensors only" if rule else "head dim"):
             launch(q, k, v, q, lse, lse, True)
+
+
+def test_profile_split_names_every_flash_kernel():
+    """chip_smoke.py splits the train step's flash time by launch through
+    FLASH_KERNEL_NAMES: the list holds every kernel that
+    csrc/flash_attention.cu defines, each profiled symbol goes to its own
+    launch by whole name (flash_fwd_kernel is not flash_fwd_mma_kernel),
+    and cuBLAS and CUTLASS GEMM symbols go to none."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    src = (REPO / "paddle_tpu_torch/csrc/flash_attention.cu").read_text()
+    defined = set(re.findall(r"__global__ void[^\n]*\n(\w+)\(", src))
+    named = {n for names in cs.FLASH_KERNEL_NAMES.values() for n in names}
+    assert defined == named
+    for kern, names in cs.FLASH_KERNEL_NAMES.items():
+        for n in names:
+            sym = f"void (anonymous namespace)::{n}<64>(CUtensorMap_st, int)"
+            assert cs.flash_kernel(sym) == kern
+    for sym in ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
+                "cutlass_80_tensorop_bf16_s16816gemm_bf16_64x64_64x4_tn",
+                "nvjet_tst_128x256_64x4_2x1_v_bz_coopA_TNT",
+                "void (anonymous namespace)::vbwd_dkdv_kernel<float, 64>()"):
+        assert cs.flash_kernel(sym) is None

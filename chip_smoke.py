@@ -1277,11 +1277,12 @@ FLASH_SHAPES = {"trainer": (2, 2048, 16, 4, 64), "7b": (1, 2048, 32, 32, 128),
 # analytically (query 0 sees one key), so neither an absolute nor a
 # per-row bound fits.
 LSE_ABS = 1e-3
-# the two backward kernels' times at the trainer's attention in bf16 on
-# the mma.sync kernels the wgmma ones replaced (PERF.md section 6, "was";
+# the three kernels' times at the trainer's attention in bf16 on the
+# mma.sync kernels the wgmma ones replaced (PERF.md section 6, "was";
 # NVIDIA H100 80GB HBM3, 700.00 W): the flash phase's record carries them
-# beside this run's
-FLASH_WAS_MS = {"trainer_bfloat16": {"dkdv": 0.6572, "dq": 0.2721}}
+# beside this run's (the kernels line holds only this run's numbers)
+FLASH_WAS_MS = {"trainer_bfloat16": {"fwd": 0.2349, "dkdv": 0.6572,
+                                     "dq": 0.2721}}
 
 
 def rows(x):
@@ -1380,6 +1381,40 @@ def flash_repeats_identical(c, first, lse_ref, delta, n=10) -> bool:
     return bool(same)
 
 
+def dev_us(e):
+    """A profiler event's own device time in microseconds."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def named(key: str, names) -> bool:
+    """Does a profiled kernel name hold one of ``names`` as a whole word?"""
+    import re
+    return any(re.search(rf"\b{n}\b", key) for n in names)
+
+
+def profiled_kernel_ms(fn, names, reps=10):
+    """The kernel's own device time a call (kernels named one of
+    ``names``), under torch.profiler over ``reps`` calls after one warm-up:
+    time_ms also counts the wrapper's small device ops and any gap the
+    host leaves between them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and named(e.key, names)]
+    if sum(e.count for e in hits) != reps:
+        return "not measured"
+    return sum(dev_us(e) for e in hits) / 1e3 / reps
+
+
 def flash_library(c):
     """Yardstick only (the port never calls it): PyTorch's
     scaled_dot_product_attention, causal with GQA, on the same inputs in
@@ -1460,6 +1495,10 @@ def phase_flash(state):
                 kern: dict(zip(("ms", "by", "bytes", "flops"),
                                flash_bound(shape, name, kern)))
                 for kern in ("fwd", "dkdv", "dq")}
+            if dtype == torch.bfloat16 and shape[4] <= 128:   # wgmma
+                timing["kernel_ms"] = {"fwd": profiled_kernel_ms(
+                    lambda: fa._launch_fwd(q, k, v, True),
+                    FLASH_KERNEL_NAMES["fwd"])}
             if f"{sname}_{name}" in FLASH_WAS_MS:
                 timing["was_ms"] = FLASH_WAS_MS[f"{sname}_{name}"]
             cases[f"{sname}_{name}"] = {"shape": dict(zip(
@@ -1641,10 +1680,9 @@ def held_flash(log):
 # cuBLAS's kernel names hold one of these (CUDA 12.8's bf16 GEMMs: nvjet)
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 # every kernel of csrc/flash_attention.cu, by the launch it serves (bf16 D
-# 64/128: mma.sync forward, wgmma backward; f32 and bf16 D 256: CUDA-core;
-# D > 256: chunked)
+# 64/128: wgmma; f32 and bf16 D 256: CUDA-core; D > 256: chunked)
 FLASH_KERNEL_NAMES = {
-    "fwd": ("flash_fwd_mma_kernel", "flash_fwd_kernel",
+    "fwd": ("flash_fwd_wgmma_kernel", "flash_fwd_kernel",
             "flash_fwd_chunked_kernel"),
     "dkdv": ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dkdv_kernel",
              "flash_bwd_dkdv_chunked_kernel"),
@@ -1655,9 +1693,8 @@ FLASH_KERNEL_NAMES = {
 def flash_kernel(key: str):
     """The launch ("fwd", "dkdv", "dq") a profiled kernel name serves, or
     None: the name must hold one of FLASH_KERNEL_NAMES as a whole word."""
-    import re
     for kern, names in FLASH_KERNEL_NAMES.items():
-        if any(re.search(rf"\b{n}\b", key) for n in names):
+        if named(key, names):
             return kern
     return None
 
@@ -1673,13 +1710,12 @@ def profile_train_step(step, params, opt, batch, step_ms):
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     flash_split = {kern: sum(dev_us(e) for e in kernels
                              if flash_kernel(e.key) == kern) / 1e3
+                   for kern in FLASH_KERNEL_NAMES}
+    flash_calls = {kern: sum(e.count for e in kernels
+                             if flash_kernel(e.key) == kern)
                    for kern in FLASH_KERNEL_NAMES}
     gemm_ms = sum(dev_us(e) for e in kernels if flash_kernel(e.key) is None
                   and any(w in e.key.lower() for w in GEMM_NAMES)) / 1e3
@@ -1688,7 +1724,12 @@ def profile_train_step(step, params, opt, batch, step_ms):
             "device_idle_share": (1 - busy_ms / step_ms) if busy_ms
             else "not measured",
             "flash_kernels_ms": sum(flash_split.values()),
-            "flash_kernels_ms_by_launch": flash_split, "gemm_ms": gemm_ms,
+            "flash_kernels_ms_by_launch": flash_split,
+            "flash_launches": flash_calls,
+            "flash_ms_per_launch": {
+                kern: flash_split[kern] / n if n else "not measured"
+                for kern, n in flash_calls.items()},
+            "gemm_ms": gemm_ms,
             "kernel_launches": sum(e.count for e in kernels),
             "top_kernels": [{"name": e.key[:90], "ms": dev_us(e) / 1e3,
                              "calls": e.count} for e in top]}
@@ -1976,6 +2017,12 @@ VARLEN_CASES = {
     "empty_seq": ([500, 0, 300, 1], None, 8, 64, True),
 }
 VARLEN_TIMED = ("7b", "trainer_d64")    # plain and library times too
+# the forward's time at the 7B case in bf16 on the mma.sync kernel the
+# wgmma one replaced (PERF.md section 6, "was"; NVIDIA H100 80GB HBM3,
+# 700.00 W): the varlen phase's record carries it
+VARLEN_WAS_MS = {"7b_bfloat16": {"fwd": 1.6082}}
+# the varlen forward kernels (bf16 D 64/128: wgmma; else CUDA-core)
+VARLEN_FWD_NAMES = ("varlen_fwd_wgmma_kernel", "varlen_fwd_kernel")
 # the plain versions' [H, Tq, Tk] f32 scores, at most this many elements at
 # once: sequences are taken in runs that fit (the 7B case's whole [32,
 # 8192, 8192] would be 8.6 GB a tensor)
@@ -2334,7 +2381,12 @@ def phase_varlen(state):
                                      "bwd_dq_dk_dv": time_ms(lib_bwd)}
                 rec["library_max_abs_err"] = float(
                     (lib_out.float() - ref.float()).abs().max())
+                rec["kernel_ms"] = {"fwd": profiled_kernel_ms(
+                    lambda: fav._launch_fwd(q, k, v, *args),
+                    VARLEN_FWD_NAMES)}
                 del lib_fwd, lib_bwd, lib_out
+            if f"{cname}_{name}" in VARLEN_WAS_MS:
+                rec["was_ms"] = VARLEN_WAS_MS[f"{cname}_{name}"]
             cases[f"{cname}_{name}"] = rec
             del c, q, k, v, do, ref, lse_ref, delta, first, out, lse, dq, dk
             del dv
@@ -3281,6 +3333,7 @@ def blha_records(state) -> list:
             "max_abs_err": max(c["errors"][e]["abs"] for c in vcases.values()
                                for e in err_keys),
             "ms": vt["ms"][kern], "plain_ms": vt["plain_ms"][kern],
+            "kernel_ms": vt["kernel_ms"].get(kern),
             "bound_ms": b["ms"], "bound_by": b["by"],
             "library_ms": vt["library_ms"][lib],
             "library": vt["library"] + (" forward" if kern == "fwd" else
@@ -3324,6 +3377,7 @@ def flash_records(state) -> list:
                 "max_rel", c["errors"][e].get("token_rel"))
                 for c in cases.values() for e in err_keys),
             "ms": t["ms"][kern], "plain_ms": t["plain_ms"][kern],
+            "kernel_ms": t["kernel_ms"].get(kern),
             "bound_ms": b["ms"], "bound_by": b["by"],
             "library_ms": t["library_ms"]["fwd" if kern == "fwd"
                                           else "bwd_dq_dk_dv"],

@@ -9,11 +9,11 @@
 // Inputs are float or bfloat16 at D 64 or any multiple of 128; every
 // product sums in f32.  float inputs, and bfloat16 at D = 256, take the
 // first three kernels, IEEE f32 FMAs on the CUDA cores (never TF32);
-// bfloat16 at D in {64, 128} the forward on mma.sync and the backward on
-// wgmma fed by TMA (the two *_wgmma_kernel, warp-specialised); every D
-// past 256 the chunked CUDA-core kernels.  The device code they share
-// with the varlen kernels is in attention_common.cuh, the Hopper helpers
-// (wgmma, mbarriers, TMA, tensor maps) in hopper.cuh.
+// bfloat16 at D in {64, 128} the three *_wgmma_kernel, wgmma fed by TMA
+// (warp-specialised); every D past 256 the chunked CUDA-core kernels.  The
+// device code they share with the varlen kernels is in
+// attention_common.cuh (the wgmma forward's walk among it), the Hopper
+// helpers (wgmma, mbarriers, TMA, tensor maps) in hopper.cuh.
 //
 // Rounding points, as in the TPU kernels: q * sm_scale is rounded to the
 // input type; the forward rounds p to it before the PV product while the
@@ -21,11 +21,11 @@
 // scaled domain; the dK/dV kernel rounds p to it for dV and dS = p * (dP -
 // delta) for dK; the dQ kernel rounds dS and uses k * sm_scale rounded.
 //
-// Shared design.  One block per (64-row tile, head): the forward and dQ
-// (128 rows, two warpgroups, in the wgmma kernel) walk the K/V tiles of
-// their kv head up to the diagonal under causal; dK/dV walks, for its 64
-// keys, the G query heads of its group and their query tiles from the
-// diagonal on, so the GQA group sum happens inside the block.  The
+// Shared design.  The forward and dQ own query rows (64 a block on the
+// CUDA cores, 128 in the wgmma kernels, two warpgroups) and walk the K/V
+// tiles of their kv head up to the diagonal under causal; dK/dV walks, for
+// its 64 keys, the G query heads of its group and their query tiles from
+// the diagonal on, so the GQA group sum happens inside the block.  The
 // CUDA-core kernels walk tiles of 64 rows, 32 at D = 256.  The kernels
 // mask the causal diagonal and the ragged sequence edge themselves (S need
 // not be a multiple of 64): a padded key gets score -inf; a padded query
@@ -39,11 +39,11 @@
 // The bound is the tensor cores' 989 TFLOP/s for bf16, 67 TFLOP/s of f32
 // FMAs for f32.  The f32 kernels do every product with scalar FMAs out of
 // shared memory (two shared loads for every four FMAs, which caps them
-// near half the f32 FMA rate).  The bf16 forward feeds the tensor cores
-// with mma.sync from tiles loaded synchronously; the bf16 backward runs
-// at about a third of the bf16 peak at D 64 (PERF.md), where the
-// exponentials and dS of a tile wait for its score products and the two
-// consumer warpgroups overlap each other's; at D 128 the dK/dV kernel's
+// near half the f32 FMA rate).  The bf16 kernels keep the next tiles'
+// copies in flight behind this tile's products (the ring) and overlap one
+// tile's exponentials with another's products (the forward: the next
+// tile's Q K^T and this one's P V; the backward: the next item's score
+// products); PERF.md has their rates.  At D 128 the dK/dV kernel's
 // accumulators fill half the registers and ptxas spills.
 
 #include "attention_common.cuh"
@@ -357,185 +357,21 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (D in {64, 128})
-//
-// For bf16 inputs every product above runs as mma.sync.m16n8k16 (bf16
-// operands, f32 accumulators; attention_common.cuh's fragment layout).  The
-// TPU kernels' rounding points are exactly the operands' type here: q *
-// sm_scale, p and dS are rounded to bf16 because that is what the tensor
-// core takes, and every sum is f32.  Warp w owns 16 rows (queries in the
-// forward and dQ, keys in dK/dV) of the block's 64.
-// ---------------------------------------------------------------------------
-
-// Forward, bf16: the design of flash_fwd_kernel, products on the tensor
-// cores.  Each warp keeps its 16 query rows' running max, sum and 16 x D
-// accumulator in registers; the K tile is read as B of Q K^T from its
-// rows, the V tile transposed as B of P V.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out,
-                     float* __restrict__ lse, int Sq, int Sk, int H, int Hk,
-                     int causal, float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // [64][LD]
-  bf16* k_s = q_s + kTile * LD;                     // [64][LD]
-  bf16* vt_s = k_s + kTile * LD;                    // [D][kLdT]
-
-  const int n_qt = (Sq + kTile - 1) / kTile;
-  const int qt = n_qt - 1 - blockIdx.x;   // longest causal rows first
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh - b * H;
-  const int hk = h / (H / Hk);
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kTile;
-  const int r0 = q0 + 16 * w + g;         // this thread's rows r0, r0 + 8
-
-  load_bf16<D, true, false>(q_s, q + (((size_t)b * Sq + q0) * H + h) * D,
-                            (size_t)H * D, min(kTile, Sq - q0), scale);
-  const bf16* k_base = k + ((size_t)b * Sk * Hk + hk) * D;
-  const bf16* v_base = v + ((size_t)b * Sk * Hk + hk) * D;
-
-  float o[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  const int n_kt = (Sk + kTile - 1) / kTile;
-  const int kt_end = causal ? min(qt + 1, n_kt) : n_kt;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();                 // the previous tile's products are done
-    load_bf16<D, false, false>(k_s, k_base + (size_t)k0 * Hk * D,
-                               (size_t)Hk * D, min(kTile, Sk - k0), 0.f);
-    load_bf16<D, false, true>(vt_s, v_base + (size_t)k0 * Hk * D,
-                              (size_t)Hk * D, min(kTile, Sk - k0), 0.f);
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    mma_abt<D, 8>(s, q_s, LD, 16 * w, k_s, LD, 0, g, t);
-    if ((causal && kt == qt) || k0 + kTile > Sk) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kp = k0 + 8 * n + 2 * t + (e & 1);
-          const int qp = r0 + (e >> 1) * 8;
-          if ((causal && kp > qp) || kp >= Sk) s[n][e] = -INFINITY;
-        }
-    }
-    float alpha[2], m_use[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
-      const float m_new = fmaxf(m[i], quad_max(mx));
-      m_use[i] = m_new == -INFINITY ? 0.f : m_new;
-      alpha[i] = expf(m[i] - m_use[i]);
-      m[i] = m_new;
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m_use[e >> 1]);
-        sum[e >> 1] += s[n][e];
-      }
-    uint32_t pa[4][4];
-    to_a<4>(pa, s);                  // p rounded to bf16 for P V
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + quad_sum(sum[i]);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-    mma_pb<4, D / 8>(o, pa, vt_s, kLdT, 0, g, t);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + 8 * i;
-    if (r < Sq) {
-      bf16* dst = out + (((size_t)b * Sq + r) * H + h) * D + 2 * t;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(dst + 8 * n) =
-            pack_bf16(o[n][2 * i] / l[i], o[n][2 * i + 1] / l[i]);
-      if (t == 0) lse[(size_t)bh * Sq + r] = m[i] + logf(l[i]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 backward on Hopper (D in {64, 128}): wgmma from TMA-filled shared
-// memory, warp-specialised
-//
-// A block is three warpgroups: two consumers (240 registers a thread after
-// setmaxnreg) run every product as wgmma.mma_async (bf16 operands, f32
-// accumulators), and one producer (24 registers) whose first warp fills an
-// mbarrier ring of tiles with TMA, so the next tiles' copies are in flight
-// while this tile's products run.  Tiles are 64 rows of one head, copied as
-// boxes of 64 rows x 64 columns (128 bytes) from a 3D tensor map over
-// [B, S, heads * D] in the 128-byte swizzle: rows past S read zeros, and a
-// tile wider than 64 columns is two boxes (hopper.cuh's layout).  Every
-// operand is read in place from its box: K-major where the product sums
-// over the head dim (scores and dP), N-major (wgmma's transpose flag) where
-// it sums over the rows (dV, dK, dQ); no tile is ever stored transposed.
-// The probabilities and dS go from the score accumulators straight into
-// register A operands.
+// bf16 on Hopper (D in {64, 128}): the forward and the backward pair on
+// wgmma fed by TMA, warp-specialised (attention_common.cuh's layout: a
+// producer warp filling an mbarrier ring of 64-row boxes from 3D tensor
+// maps over [B, S, heads * D], two consumer warpgroups)
 //
 // Rounding points (the plain versions'): q * sm_scale and k * sm_scale
-// rounded to bf16, p rounded for dV, dS for dK and dQ, every sum f32.  At
-// D 64, sm_scale = 2^-3, so bf16(q * sm_scale) = q * 2^-3 exactly (outside
-// bf16's subnormal range) and a sum of products with it is 2^-3 times the
-// same sum with q, bit for bit in any fixed order: the kernels read q and k
-// as they are and scale the f32 scores, dK and dQ instead
+// rounded to bf16, p rounded for P V and dV, dS for dK and dQ, every sum
+// f32.  At D 64, sm_scale = 2^-3, so bf16(q * sm_scale) = q * 2^-3 exactly
+// (outside bf16's subnormal range) and a sum of products with it is 2^-3
+// times the same sum with q, bit for bit in any fixed order: the kernels
+// read q and k as they are and scale the f32 scores, dK and dQ instead
 // (tests/test_torch_flash_attention.py holds the identity).  At D 128
 // (sm_scale 2^-3.5) that is not exact, and the consumers rewrite the
 // landed tile to bf16(x * sm_scale) in shared memory before its products.
-// exp is exp2 of a log2(e)-scaled argument (lse is scaled as it lands).
-// No atomics: each block writes its own rows once, so repeats are bit for
-// bit.
 // ---------------------------------------------------------------------------
-
-constexpr int kWgThreads = 384;          // consumers 0, 1; producer 2
-constexpr int kConsumerRegs = 240, kProducerRegs = 24;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the SFU (ex2.approx, relative error 2^-22; results below 2^-126
-// flush to 0, where p is rounded to bf16 next anyway)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// byte offset of k16 step kk in a K-major 64-row tile (column blocks of
-// 64 x 128 bytes), and in an N-major one (16 rows a step)
-__device__ __forceinline__ uint32_t kmajor_step(int kk) {
-  return (kk >> 2) * 8192 + (kk & 3) * 32;
-}
-__device__ __forceinline__ uint32_t nmajor_step(int kk) { return kk * 2048; }
-
-// d (+)= A . B over one tile product with B N-major: N = D
-template <int D>
-__device__ __forceinline__ void wgmma_rs_nd(float (&d)[D / 2],
-                                            const uint32_t (&a)[4],
-                                            uint64_t desc_b) {
-  if constexpr (D == 64)
-    wgmma_rs_n64<1>(d, a, desc_b, 1);
-  else
-    wgmma_rs_n128<1>(d, a, desc_b, 1);
-}
 
 // d = A . B + (scale_d ? d : 0), A and B K-major in shared memory, N wide
 template <int N>
@@ -545,48 +381,6 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
     wgmma_ss_n64(d, desc_a, desc_b, scale_d);
   else
     wgmma_ss_n32(d, desc_a, desc_b, scale_d);
-}
-
-// acc (64 x 16 KS, accumulator layout) packed to bf16 A operands
-template <int KS>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[KS][4],
-                                         const float (&x)[8 * KS]) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    a[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
-    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
-    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
-    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
-  }
-}
-
-// 64-row tile `src` (64 x D bf16) rewritten as bf16(x * scale) into `dst`
-// by `threads` threads, thread index `i0`; elementwise, so the swizzle
-// stays as it landed
-template <int D>
-__device__ __forceinline__ void scale_tile(unsigned char* dst,
-                                           const unsigned char* src,
-                                           float scale, int i0,
-                                           int threads) {
-  for (int i = i0; i < 64 * D / 8; i += threads) {
-    uint4 raw = reinterpret_cast<const uint4*>(src)[i];
-    bf16* e = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * scale);
-    reinterpret_cast<uint4*>(dst)[i] = raw;
-  }
-}
-
-// one 64-row tile of head column `col` (in elements) at row `row` of
-// batch b, as D / 64 boxes
-template <int D>
-__device__ __forceinline__ void tma_tile(unsigned char* dst,
-                                         const CUtensorMap* map, int col,
-                                         int row, int b, uint64_t* bar) {
-#pragma unroll
-  for (int c = 0; c < D / 64; ++c)
-    tma_3d(dst + c * 8192, map, col + 64 * c, row, b, bar);
 }
 
 // Rows r0 and r0 + 8 (accumulator layout) of a 64 x D f32 tile, times
@@ -608,6 +402,100 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
             pack_bf16(acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
     }
   }
+}
+
+// Forward.  Replaces paddle_tpu/ops/pallas/flash_attention.py ::
+// _fwd_kernel.  One block per (b * H + h, 128 queries), the heaviest
+// causal rows first; attention_common.cuh's fwd_walk over the K/V tiles of
+// kv head h / G up to the block's diagonal (all of them without causal).
+// A warpgroup masks only its diagonal tile (causal) and the tile across
+// Sk, and only waits for the tile past its diagonal.  Rows past Sq read zeros and
+// are never written.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       bf16* __restrict__ out, float* __restrict__ lse,
+                       int Sq, int Sk, int H, int Hk, int causal,
+                       float scale) {
+  using L = FwdSmem<D, 0>;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* smem = smem_wg + ((1024 - (smem_u32(smem_wg) & 1023)) & 1023);
+  unsigned char* ring = smem + L::kRing;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBytes);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* q_full = empty + L::kStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int hk = h / (H / Hk);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 128;
+  const int n_kt = (Sk + 63) / 64;
+  const int kt_end = causal ? min(q0 / 64 + 2, n_kt) : n_kt;
+  const int wg = uniform(threadIdx.x >> 7);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 256);            // both consumers
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer ----
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x != 256) return;
+    mbar_expect(q_full, 2 * L::kTile);
+    tma_tile<D>(smem, &tq, h * D, q0, b, q_full);
+    tma_tile<D>(smem + L::kTile, &tq, h * D, q0 + 64, b, q_full);
+    for (int kt = 0; kt < kt_end; ++kt) {
+      const int s = kt % L::kStages;
+      mbar_wait(empty + s, ((kt / L::kStages) & 1) ^ 1);
+      unsigned char* st = ring + s * L::kStage;
+      mbar_expect(full + s, 2 * L::kTile);
+      tma_tile<D>(st, &tk, hk * D, kt * 64, b, full + s);
+      tma_tile<D>(st + L::kTile, &tv, hk * D, kt * 64, b, full + s);
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  regs_inc<kConsumerRegs>();
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31, t = lane & 3;
+  const int qw = q0 + 64 * wg;                  // this warpgroup's rows
+  const int r0 = qw + 16 * (tid >> 5) + (lane >> 2);   // and r0 + 8
+  unsigned char* q_s = smem + wg * L::kTile;
+  mbar_wait(q_full, 0);
+  if constexpr (D != 64) {
+    scale_tile<D>(q_s, q_s, scale, tid, 128);   // Q -> bf16(q * sm_scale)
+    fence_async_smem();
+    named_sync(2 + wg, 128);
+  }
+  // log2-domain scores: raw q . k times 2^-3 log2 e at D 64, the scaled
+  // q's times log2 e at D 128
+  const float s_mul = D == 64 ? scale * kLog2e : kLog2e;
+  // this warpgroup's tiles: up to its diagonal (causal), none past Sq
+  const int diag = qw / 64;
+  const int a1 = qw < Sq ? (causal ? min(diag + 1, kt_end) : kt_end) : 0;
+  auto masked = [&](int kt, const unsigned char*) {
+    return (causal && kt == diag) || kt * 64 + 64 > Sk;
+  };
+  auto visible = [&](int kt, const unsigned char*, int col, int i) {
+    const int key = kt * 64 + col;
+    return key < Sk && (!causal || key <= r0 + 8 * i);
+  };
+  float o[D / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+  fwd_walk<D, L>(ring, full, empty, 0, kt_end, 0, a1, sw128_desc(q_s),
+                 s_mul, t, masked, visible, o, m, l);
+  fwd_store<D>(out + ((size_t)b * Sq * H + h) * D, (size_t)H * D,
+               lse + (size_t)bh * Sq, r0, Sq, o, m, l, t);
 }
 
 // dK/dV.  Replaces paddle_tpu/ops/pallas/flash_attention.py ::
@@ -646,12 +534,6 @@ struct DkdvCtx {
   float scale, s_mul;
   int nq, qt0, kt, causal, kr, t, tid, wg;
 };
-
-template <int N>
-__device__ __forceinline__ void keep_frags(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) keep(a[i]);
-}
 
 // Step h of item i: S^T = K Q^T and dP^T = V dO^T over the item's
 // queries kNq h .. kNq h + kNq - 1 into (sa, dpa), committed.  Step 0 waits
@@ -1458,19 +1340,6 @@ constexpr size_t dq_smem() {
   return ((size_t)(2 * kTile + 2 * NK) * (D + 1) + (size_t)kTile * (NK + 1) +
           2 * kTile) * sizeof(float);
 }
-template <int D>
-constexpr size_t fwd_mma_smem() {
-  return (2 * (size_t)kTile * (D + 8) + (size_t)D * kLdT) * sizeof(bf16);
-}
-// a [B, S, heads * D] bf16 tensor as TMA boxes of 64 rows x 64 columns
-// in the 128-byte swizzle (rows past S read zeros)
-bool head_map(CUtensorMap* m, const void* p, int B, int S, int heads, int D) {
-  const uint64_t row = (uint64_t)heads * D * sizeof(bf16);
-  return tensor_map_3d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p,
-                       (uint64_t)heads * D, S, B, row, row * S, 64, 64,
-                       CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 // the four tensor maps of a wgmma backward kernel, or false
 bool bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k,
               const void* v, const void* dout, int B, int Sq, int Sk, int H,
@@ -1484,18 +1353,24 @@ template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                void* lse, int B, int Sq, int Sk, int H, int Hk, int causal,
                float scale, cudaStream_t stream) {
-  const dim3 grid((Sq + kTile - 1) / kTile, B * H);
-  auto args = [&](auto kern, int threads, size_t smem) {
-    return launch(kern, grid, threads, smem, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), static_cast<T*>(out),
-                  static_cast<float*>(lse), Sq, Sk, H, Hk, causal, scale);
-  };
-  if constexpr (kMma<T, D>)
-    return args(flash_fwd_mma_kernel<D>, kMmaThreads, fwd_mma_smem<D>());
-  else
-    return args(flash_fwd_kernel<T, D, walk<D>()>, kThreads,
-                fwd_smem<D, walk<D>()>());
+  if constexpr (kMma<T, D>) {
+    CUtensorMap m[3];
+    if (!head_map(&m[0], q, B, Sq, H, D) || !head_map(&m[1], k, B, Sk, Hk, D)
+        || !head_map(&m[2], v, B, Sk, Hk, D))
+      return (int)cudaErrorInvalidValue;
+    // the last (longest causal) 128 queries of every head first
+    return launch(flash_fwd_wgmma_kernel<D>, dim3(B * H, (Sq + 127) / 128),
+                  kWgThreads, FwdSmem<D, 0>::kDynamic, stream, m[0], m[1],
+                  m[2], static_cast<bf16*>(out), static_cast<float*>(lse),
+                  Sq, Sk, H, Hk, causal, scale);
+  } else {
+    return launch(flash_fwd_kernel<T, D, walk<D>()>,
+                  dim3((Sq + kTile - 1) / kTile, B * H), kThreads,
+                  fwd_smem<D, walk<D>()>(), stream, static_cast<const T*>(q),
+                  static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<T*>(out), static_cast<float*>(lse), Sq, Sk, H,
+                  Hk, causal, scale);
+  }
 }
 
 template <typename T, int D>

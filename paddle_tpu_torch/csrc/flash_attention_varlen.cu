@@ -16,8 +16,8 @@
 //
 // What keeps the work O(sum s_i^2) and not O(T^2): per-block tile ranges
 // [lo, hi), computed by the wrapper from the offsets (the TPU kernels'
-// scalar-prefetched bounds).  One block per (64-row tile, head): the
-// forward and dQ own 64 queries and walk the key tiles lo..hi of their
+// scalar-prefetched bounds).  The forward and dQ own query rows (64 a
+// block, 128 in the wgmma forward) and walk the key tiles lo..hi of their
 // block; dK/dV owns 64 keys and walks query tiles.  Rows past T are read
 // as zeros and never written.
 //
@@ -30,23 +30,27 @@
 // is 0 anyway).  No atomics: dK/dV sums its query tiles in a fixed order,
 // so reruns are bit-identical.
 //
-// Two families of kernels.  float inputs (every D) and bfloat16 at D = 256
-// take CUDA-core kernels: operands widened to f32 in shared memory, IEEE
-// f32 FMAs (never TF32), walked tiles of 64 rows (32 at D = 256, where
-// four 64-row f32 tiles would not fit the 227 KB of shared memory).
-// bfloat16 at D in {64, 128} takes tensor-core kernels: mma.sync m16n8k16
-// with f32 accumulators, p and dS passed from the score registers to the
-// next product's A fragments (the rounding points are exactly the mma
-// operand type).  Both are the structure of csrc/flash_attention.cu with
-// segment masks and tile ranges in place of the causal triangle, and share
-// its device code (attention_common.cuh).
+// Three families of kernels.  float inputs (every D) and bfloat16 at D =
+// 256 take CUDA-core kernels: operands widened to f32 in shared memory,
+// IEEE f32 FMAs (never TF32), walked tiles of 64 rows (32 at D = 256,
+// where four 64-row f32 tiles would not fit the 227 KB of shared memory).
+// bfloat16 at D in {64, 128}: the forward runs on wgmma fed by TMA
+// (attention_common.cuh's warp-specialised walk, shared with the
+// fixed-length forward), dK/dV and dQ on mma.sync m16n8k16 with f32
+// accumulators, p and dS passed from the score registers to the next
+// product's A fragments (the rounding points are exactly the mma operand
+// type).  All are the structure of csrc/flash_attention.cu with segment
+// masks and tile ranges in place of the causal triangle.
 //
 // What bounds them: operations.  LLaMA-7B's attention over 8 packed causal
 // sequences (8,192 tokens, H 32, D 128) does 2 * 2 * D * H * sum s(s+1)/2
-// = 150 GFLOP forward on 67 MB.  A simple first version: tiles loaded
-// synchronously (no cp.async/TMA overlap), mma.sync rather than wgmma.
+// = 150 GFLOP forward on 67 MB.  The bf16 forward keeps K/V copies in
+// flight behind its products and masks only the tiles that need it; the
+// backward kernels are a simple first version (tiles loaded synchronously,
+// mma.sync rather than wgmma).
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -342,126 +346,124 @@ varlen_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores (D in {64, 128})
-//
-// attention_common.cuh's mma.sync layout: warp w owns 16 rows (queries in
-// the forward and dQ, keys in dK/dV) of the block's 64; p and dS pass from
-// the score registers to the next product's A fragments.
+// bfloat16 forward on Hopper (D in {64, 128})
 // ---------------------------------------------------------------------------
 
-// Forward, bf16: varlen_fwd_kernel's design, products on the tensor
-// cores.  The K tile is B of Q K^T from its rows, V transposed B of P V.
+// Forward.  attention_common.cuh's fwd_walk: one block per (head, 128
+// queries), launched in the order the wrapper gives (the blocks with the
+// most key tiles first).  Warpgroup w walks the key tiles lo[2 qb + w] ..
+// hi[2 qb + w] of its 64 rows, the producer the union of the two ranges;
+// with each key tile it copies the keys' segment ids and positions into
+// the stage.  A tile whose keys and rows all lie in one segment (and,
+// causal, whose first row comes at or after its last key) takes every
+// score; the others are masked element by element.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-varlen_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const int* __restrict__ seg_q,
-                      const int* __restrict__ rel_q,
-                      const int* __restrict__ seg_k,
-                      const int* __restrict__ rel_k,
-                      const int* __restrict__ lo, const int* __restrict__ hi,
-                      bf16* __restrict__ out, float* __restrict__ lse, int Tq,
-                      int Tk, int H, int causal, float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // [64][LD]
-  bf16* k_s = q_s + kTile * LD;                     // [64][LD]
-  bf16* vt_s = k_s + kTile * LD;                    // [D][kLdT]
-  int* sk_s = reinterpret_cast<int*>(vt_s + D * kLdT);  // [64]
-  int* rk_s = sk_s + kTile;                             // [64]
+__global__ void __launch_bounds__(kWgThreads, 1)
+varlen_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const int* __restrict__ seg_q,
+                        const int* __restrict__ rel_q,
+                        const int* __restrict__ seg_k,
+                        const int* __restrict__ rel_k,
+                        const int* __restrict__ lo,
+                        const int* __restrict__ hi, bf16* __restrict__ out,
+                        float* __restrict__ lse, int Tq, int H, int causal,
+                        float scale) {
+  using L = FwdSmem<D, 1024>;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* smem = smem_wg + ((1024 - (smem_u32(smem_wg) & 1023)) & 1023);
+  unsigned char* ring = smem + L::kRing;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBytes);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* q_full = empty + L::kStages;
 
-  const int qt = blockIdx.x, h = blockIdx.y;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kTile;
-  const int r0 = q0 + 16 * w + g;         // this thread's rows r0, r0 + 8
-  const size_t ld = (size_t)H * D;
+  const int h = blockIdx.x;
+  const int qb = uniform(lo[2 * gridDim.y + blockIdx.y]);   // launch order
+  const int q0 = qb * 128;
+  const int wg = uniform(threadIdx.x >> 7);
+  // the warpgroups' ranges (an empty one adds nothing to the block's)
+  const int l0 = uniform(lo[2 * qb]), h0 = uniform(hi[2 * qb]);
+  const int l1 = uniform(lo[2 * qb + 1]), h1 = uniform(hi[2 * qb + 1]);
+  const bool n0 = h0 > l0, n1 = h1 > l1;
+  const int t0 = n0 ? (n1 ? min(l0, l1) : l0) : (n1 ? l1 : 0);
+  const int t1 = n0 ? (n1 ? max(h0, h1) : h0) : (n1 ? h1 : 0);
 
-  load_bf16<D, false, false>(q_s, q + (size_t)q0 * ld + (size_t)h * D, ld,
-                      Tq - q0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 256);            // both consumers
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer ----
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x != 256) return;
+    mbar_expect(q_full, 2 * L::kTile);
+    tma_tile<D>(smem, &tq, h * D, q0, 0, q_full);
+    tma_tile<D>(smem + L::kTile, &tq, h * D, q0 + 64, 0, q_full);
+    for (int kt = t0; kt < t1; ++kt) {
+      const int i = kt - t0, s = i % L::kStages;
+      mbar_wait(empty + s, ((i / L::kStages) & 1) ^ 1);
+      unsigned char* st = ring + s * L::kStage;
+      mbar_expect(full + s, 2 * L::kTile + 512);
+      tma_tile<D>(st, &tk, h * D, kt * 64, 0, full + s);
+      tma_tile<D>(st + L::kTile, &tv, h * D, kt * 64, 0, full + s);
+      bulk_copy(st + 2 * L::kTile, seg_k + kt * 64, 256, full + s);
+      bulk_copy(st + 2 * L::kTile + 256, rel_k + kt * 64, 256, full + s);
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  regs_inc<kConsumerRegs>();
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31, t = lane & 3;
+  const int qw = q0 + 64 * wg;                  // this warpgroup's rows
+  const int r0 = qw + 16 * (tid >> 5) + (lane >> 2);   // and r0 + 8
+  // this thread's rows' (segment, position), and the warpgroup's first and
+  // last row's (the metadata is padded past Tq to whole 128-row blocks)
   int sq[2], rq[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     sq[i] = seg_q[r0 + 8 * i];
     rq[i] = rel_q[r0 + 8 * i];
   }
-  float o[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int s_first = uniform(seg_q[qw]), s_last = uniform(seg_q[qw + 63]);
+  const int r_first = uniform(rel_q[qw]);
+  mbar_wait(q_full, 0);
+  auto masked = [&](int, const unsigned char* st) {
+    const int* mk = reinterpret_cast<const int*>(st + 2 * L::kTile);
+    const int k_first = uniform(mk[0]), k_last = uniform(mk[63]);
+    const bool one = k_first == k_last && s_first == s_last &&
+                     k_first == s_first;
+    return !(one && (!causal || r_first >= uniform(mk[127])));
+  };
+  auto sees = [&](int, const unsigned char* st, int col, int i) {
+    const int* mk = reinterpret_cast<const int*>(st + 2 * L::kTile);
+    return visible(sq[i], rq[i], mk[col], mk[64 + col], causal);
+  };
+  float o[D / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  for (int kt = lo[qt]; kt < hi[qt]; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();                 // the previous tile's products are done
-    const bf16* k_t = k + (size_t)k0 * ld + (size_t)h * D;
-    load_bf16<D, false, false>(k_s, k_t, ld, Tk - k0);
-    load_bf16<D, false, true>(vt_s, v + (size_t)k0 * ld + (size_t)h * D, ld,
-                       Tk - k0);
-    load_meta(sk_s, rk_s, seg_k, rel_k, k0, kTile);
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    mma_abt<D, 8>(s, q_s, LD, 16 * w, k_s, LD, 0, g, t);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kc = 8 * n + 2 * t + (e & 1);
-        const int i = e >> 1;
-        s[n][e] = visible(sq[i], rq[i], sk_s[kc], rk_s[kc], causal)
-                      ? s[n][e] * scale : -INFINITY;
-      }
-    float alpha[2], m_safe[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
-      const float m_new = fmaxf(m[i], quad_max(mx));
-      m_safe[i] = m_new == -INFINITY ? 0.f : m_new;
-      alpha[i] = m[i] == -INFINITY ? 0.f : expf(m[i] - m_safe[i]);
-      m[i] = m_new;
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m_safe[e >> 1]);
-        sum[e >> 1] += s[n][e];
-      }
-    uint32_t pa[4][4];
-    to_a<4>(pa, s);                  // p rounded to bf16 for P V
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + quad_sum(sum[i]);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-    mma_pb<4, D / 8>(o, pa, vt_s, kLdT, 0, g, t);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + 8 * i;
-    if (r < Tq) {
-      const bool has = l[i] > 0.f;
-      bf16* dst = out + (size_t)r * ld + (size_t)h * D + 2 * t;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(dst + 8 * n) =
-            has ? pack_bf16(o[n][2 * i] / l[i], o[n][2 * i + 1] / l[i])
-                : pack_bf16(0.f, 0.f);
-      if (t == 0)
-        lse[(size_t)h * Tq + r] = has ? m[i] + logf(l[i]) : -INFINITY;
-    }
-  }
+  for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+  fwd_walk<D, L>(ring, full, empty, t0, t1, wg ? l1 : l0, wg ? h1 : h0,
+                 sw128_desc(smem + wg * L::kTile), scale * kLog2e, t, masked,
+                 sees, o, m, l);
+  fwd_store<D>(out + (size_t)h * D, (size_t)H * D, lse + (size_t)h * Tq, r0,
+               Tq, o, m, l, t);
 }
+
+// ---------------------------------------------------------------------------
+// bfloat16 backward on the tensor cores (D in {64, 128})
+//
+// attention_common.cuh's mma.sync layout: warp w owns 16 rows (queries in
+// dQ, keys in dK/dV) of the block's 64; p and dS pass from the score
+// registers to the next product's A fragments.
+// ---------------------------------------------------------------------------
 
 // dK/dV, bf16: varlen_bwd_dkdv_kernel's design, products on the tensor
 // cores.  Warp w owns keys k0 + 16 w .. + 15.  A query tile is walked in
@@ -508,8 +510,8 @@ varlen_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
   const size_t ld = (size_t)H * D;
 
   const size_t kv_off = (size_t)k0 * ld + (size_t)h * D;
-  load_bf16<D, false, false>(k_s, k + kv_off, ld, Tk - k0);
-  load_bf16<D, false, false>(v_s, v + kv_off, ld, Tk - k0);
+  load_bf16<D, false>(k_s, k + kv_off, ld, Tk - k0);
+  load_bf16<D, false>(v_s, v + kv_off, ld, Tk - k0);
   int sk[2], rk[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -527,10 +529,10 @@ varlen_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
     const int q_rows = Tq - q0;
     const size_t q_off = (size_t)q0 * ld + (size_t)h * D;
     __syncthreads();                 // the previous tile's products are done
-    load_bf16<D, false, false>(q_s, q + q_off, ld, q_rows);
-    load_bf16<D, false, true>(qt_s, q + q_off, ld, q_rows);
-    load_bf16<D, false, false>(do_s, dout + q_off, ld, q_rows);
-    load_bf16<D, false, true>(dot_s, dout + q_off, ld, q_rows);
+    load_bf16<D, false>(q_s, q + q_off, ld, q_rows);
+    load_bf16<D, true>(qt_s, q + q_off, ld, q_rows);
+    load_bf16<D, false>(do_s, dout + q_off, ld, q_rows);
+    load_bf16<D, true>(dot_s, dout + q_off, ld, q_rows);
     if (threadIdx.x < kTile) {
       const int i = threadIdx.x;
       const bool ok = i < q_rows;
@@ -624,8 +626,8 @@ varlen_bwd_dq_mma_kernel(const bf16* __restrict__ q,
   const size_t ld = (size_t)H * D;
 
   const size_t q_off = (size_t)q0 * ld + (size_t)h * D;
-  load_bf16<D, false, false>(q_s, q + q_off, ld, Tq - q0);
-  load_bf16<D, false, false>(do_s, dout + q_off, ld, Tq - q0);
+  load_bf16<D, false>(q_s, q + q_off, ld, Tq - q0);
+  load_bf16<D, false>(do_s, dout + q_off, ld, Tq - q0);
   int sq[2], rq[2];
   float lse_r[2], delta_r[2];             // rows past Tq: finite, unwritten
 #pragma unroll
@@ -646,9 +648,9 @@ varlen_bwd_dq_mma_kernel(const bf16* __restrict__ q,
     const int k0 = kt * kTile;
     const size_t kv_off = (size_t)k0 * ld + (size_t)h * D;
     __syncthreads();                 // the previous tile's products are done
-    load_bf16<D, false, false>(k_s, k + kv_off, ld, Tk - k0);
-    load_bf16<D, false, true>(kt_s, k + kv_off, ld, Tk - k0);
-    load_bf16<D, false, false>(v_s, v + kv_off, ld, Tk - k0);
+    load_bf16<D, false>(k_s, k + kv_off, ld, Tk - k0);
+    load_bf16<D, true>(kt_s, k + kv_off, ld, Tk - k0);
+    load_bf16<D, false>(v_s, v + kv_off, ld, Tk - k0);
     load_meta(sk_s, rk_s, seg_k, rel_k, k0, kTile);
     __syncthreads();
 
@@ -709,11 +711,6 @@ constexpr size_t dq_smem() {
           (size_t)kTile * (NK + 1)) * sizeof(float) + 2 * NK * sizeof(int);
 }
 template <int D>
-constexpr size_t fwd_mma_smem() {
-  return (2 * (size_t)kTile * (D + 8) + (size_t)D * kLdT) * sizeof(bf16) +
-         2 * kTile * sizeof(int);
-}
-template <int D>
 constexpr size_t dkdv_mma_smem() {
   return (4 * (size_t)kTile * (D + 8) + 2 * (size_t)D * kLdT) *
              sizeof(bf16) + 2 * kTile * (sizeof(float) + sizeof(int));
@@ -732,19 +729,26 @@ template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, Meta mt,
                void* out, void* lse, int Tq, int Tk, int H, int causal,
                float scale, cudaStream_t stream) {
-  const dim3 grid((Tq + kTile - 1) / kTile, H);
-  auto args = [&](auto kern, int threads, size_t smem) {
-    return launch(kern, grid, threads, smem, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), mt.seg_q, mt.rel_q, mt.seg_k,
-                  mt.rel_k, mt.lo, mt.hi, static_cast<T*>(out),
-                  static_cast<float*>(lse), Tq, Tk, H, causal, scale);
-  };
-  if constexpr (kMma<T, D>)
-    return args(varlen_fwd_mma_kernel<D>, kMmaThreads, fwd_mma_smem<D>());
-  else
-    return args(varlen_fwd_kernel<T, D, walk<D>()>, kThreads,
-                fwd_smem<D, walk<D>()>());
+  if constexpr (kMma<T, D>) {
+    CUtensorMap m[3];
+    if (!head_map(&m[0], q, 1, Tq, H, D) || !head_map(&m[1], k, 1, Tk, H, D)
+        || !head_map(&m[2], v, 1, Tk, H, D))
+      return (int)cudaErrorInvalidValue;
+    // every head of the first block of the launch order first
+    return launch(varlen_fwd_wgmma_kernel<D>, dim3(H, (Tq + 127) / 128),
+                  kWgThreads, FwdSmem<D, 1024>::kDynamic, stream, m[0], m[1],
+                  m[2], mt.seg_q, mt.rel_q, mt.seg_k, mt.rel_k, mt.lo, mt.hi,
+                  static_cast<bf16*>(out), static_cast<float*>(lse), Tq, H,
+                  causal, scale);
+  } else {
+    return launch(varlen_fwd_kernel<T, D, walk<D>()>,
+                  dim3((Tq + kTile - 1) / kTile, H), kThreads,
+                  fwd_smem<D, walk<D>()>(), stream, static_cast<const T*>(q),
+                  static_cast<const T*>(k), static_cast<const T*>(v),
+                  mt.seg_q, mt.rel_q, mt.seg_k, mt.rel_k, mt.lo, mt.hi,
+                  static_cast<T*>(out), static_cast<float*>(lse), Tq, Tk, H,
+                  causal, scale);
+  }
 }
 
 template <typename T, int D>
@@ -796,8 +800,11 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 // C entries, bound with ctypes by paddle_tpu_torch/ops/flash_attention_
 // varlen.py, which has already checked shapes, types, contiguity and
 // alignment (D in {64, 128, 256}, Tq, Tk >= 1) and computed the segment
-// metadata (seg/rel padded to multiples of 64 rows) and the tile ranges
-// lo/hi of each block (tiles of 64 rows, walked tiles of 32 at D = 256).
+// metadata (seg/rel padded to multiples of 64 rows, the queries' to 128 for
+// the bf16 forward at D 64 and 128) and the tile ranges lo/hi of each
+// 64-row tile (walked tiles of 32 at D = 256).  The bf16 forward at D 64
+// and 128 owns 128 queries a block: after its 2 * ceil(Tq / 128) ranges,
+// its lo holds the blocks' launch order (ceil(Tq / 128) ints).
 // dtype: 0 = float32, 1 = bfloat16.  Each returns cudaGetLastError() after
 // its launch (0 on success).
 

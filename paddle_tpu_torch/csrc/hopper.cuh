@@ -1,8 +1,9 @@
 // Hopper (sm_90a) device code shared by the kernels that feed the tensor
 // cores through wgmma from TMA-filled shared memory: the dequant matmul's
-// prefill kernel (quant_matmul.cu) and the flash attention backward kernels
-// (flash_attention.cu).  The wgmma products and their fences, mbarrier
-// waits and arrivals, TMA tile copies, the shared-memory matrix
+// prefill kernel (quant_matmul.cu) and the flash attention kernels
+// (flash_attention.cu, flash_attention_varlen.cu, through
+// attention_common.cuh).  The wgmma products and their fences, mbarrier
+// waits and arrivals, TMA tile and bulk copies, the shared-memory matrix
 // descriptors of the 128-byte swizzle, warp-specialisation helpers, and the
 // host-side tensor-map encoder (cuTensorMapEncodeTiled, looked up in
 // libcuda at run time, since the libraries link only the CUDA runtime).
@@ -53,6 +54,30 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d = A . B (the first k16 step of a sum: d is only written, so nothing
+// that last wrote d has to finish before the product starts)
+__device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
 }
 
 // the same with B 16 x 32
@@ -246,9 +271,28 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one thread copies `bytes` contiguous bytes (a multiple of 16, both
+// addresses 16-byte aligned) into shared memory, and the mbarrier counts
+// them in
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // warp specialisation
 // ---------------------------------------------------------------------------
+
+// x as every lane of the warp holds it from lane 0: for a value that is the
+// same in every lane, this tells the compiler so (a wgmma under a branch it
+// cannot prove warp-uniform is serialized)
+__device__ __forceinline__ int uniform(int x) {
+  return __shfl_sync(0xffffffffu, x, 0);
+}
 
 // the calling warpgroup's register budget, a thread (a multiple of 8)
 template <int N>

@@ -23,8 +23,10 @@ lse as 0 (its p is 0 wherever it is masked).
 
 ``varlen_attention`` applies ``VarlenAttention``.  On CUDA tensors its
 forward launches the forward kernel and its backward the dK/dV and dQ
-kernels of ``paddle_tpu_torch/csrc/flash_attention_varlen.cu`` (it raises
-on what they do not take); on CPU tensors both run the plain versions.
+kernels of ``paddle_tpu_torch/csrc/flash_attention_varlen.cu`` (the bf16
+forward at D 64 and 128 on ``wgmma`` fed by TMA, 128 queries a block,
+launched in ``launch_order``; it raises on what they do not take); on CPU
+tensors both run the plain versions.
 ``use_varlen_kernel`` is the JAX package's shape rule (``use_varlen_flash``
 without its flag, probe and interpreter branch): shapes it refuses take the
 segment-masked composition, as the JAX package routes them.
@@ -43,8 +45,8 @@ __all__ = ["varlen_attention", "VarlenAttention", "use_varlen_kernel",
            "segments",
            "varlen_fwd_reference", "varlen_bwd_reference",
            "varlen_bwd_dkdv_reference", "varlen_bwd_dq_reference",
-           "varlen_delta", "fwd_launch_count", "dkdv_launch_count",
-           "dq_launch_count"]
+           "varlen_delta", "pair_tiles", "launch_order", "fwd_launch_count",
+           "dkdv_launch_count", "dq_launch_count"]
 
 fwd_launch_count = 0
 dkdv_launch_count = 0
@@ -56,37 +58,53 @@ HEAD_DIMS = (64, 128, 256)
 # dK/dV); the tiles it walks are 64 rows too, 32 at D = 256 (the CUDA-core
 # kernels' shared memory)
 TILE = 64
+# queries a block of the wgmma forward (bf16 at D 64 and 128): two
+# warpgroups of 64 rows
+WGMMA_BLOCK_Q = 128
 
 
 def walk_tile(head_dim: int) -> int:
     return 32 if head_dim == 256 else TILE
 
 
+def fwd_block_q(q) -> int:
+    """Queries a block of the forward kernel that takes q."""
+    return WGMMA_BLOCK_Q if q.dtype == torch.bfloat16 and \
+        q.shape[2] <= 128 else TILE
+
+
 # ---------------------------------------------------------------------------
 # segment metadata and block bounds (torch ops on the tensors' device)
 # ---------------------------------------------------------------------------
 
+def _segment_ids(cu, pos):
+    """Index of the ``[cu[i], cu[i + 1])`` interval holding each position
+    (``nseq`` past ``cu[-1]``), int32: the one segment rule of the varlen
+    kernels' metadata, the segment-masked composition and blha's
+    prefill."""
+    return torch.searchsorted(cu, pos, right=True, out_int32=True) - 1
+
+
 def segments(cu, n):
-    """Segment id (index of the containing ``[cu[i], cu[i + 1])``
-    interval; ``nseq`` past ``cu[-1]``) and position within it of each of
-    n tokens, both int32: the one segment rule of the varlen kernels'
-    metadata, the segment-masked composition and blha's prefill."""
+    """Segment id (``_segment_ids``) and position within it of each of n
+    tokens, both int32."""
     cu = cu.to(torch.int32)
     pos = torch.arange(n, dtype=torch.int32, device=cu.device)
-    seg = torch.searchsorted(cu, pos, right=True, out_int32=True) - 1
+    seg = _segment_ids(cu, pos)
     return seg, pos - cu[seg.long()]
 
 
 def _segment_meta(cu, total, pad_to, pad_seg):
     """seg[pad_to] (rows at or past ``total`` get ``pad_seg``) and
     rel[pad_to], both int32; rel counts from the last sequence's start
-    past ``cu[-1]``, as the JAX package's."""
+    past ``cu[-1]``, as the JAX package's.  Few device ops: the forward
+    kernel's wrapper runs this on every call."""
     cu = cu.to(torch.int32)
-    seg, _ = segments(cu, pad_to)
     pos = torch.arange(pad_to, dtype=torch.int32, device=cu.device)
-    seg = torch.where(pos < total, seg, pad_seg)
-    rel = pos - cu[torch.clamp(seg, 0, cu.shape[0] - 2).long()]
-    return seg.to(torch.int32), rel.to(torch.int32)
+    seg = _segment_ids(cu, pos)
+    if pad_to > total:
+        seg = torch.where(pos < total, seg, pad_seg)
+    return seg, pos - cu.index_select(0, seg.clamp(0, cu.shape[0] - 2))
 
 
 def _clip_bounds(lo, hi, n):
@@ -101,15 +119,16 @@ def _block_bounds_q(seg_q, rel_q, cu_k, block_q, block_k, nkb, causal):
     cu_k = cu_k.to(torch.int32)
     nseq = cu_k.shape[0] - 1
     valid = seg_q < nseq                       # pad rows contribute nothing
-    seg_c = torch.clamp(seg_q, 0, nseq - 1).long()
-    row_lo = torch.where(valid, cu_k[seg_c], 2 ** 30)
+    seg_c = torch.clamp(seg_q, 0, nseq - 1)
+    start = cu_k.index_select(0, seg_c)
+    row_lo = torch.where(valid, start, 2 ** 30)
     if causal:
-        row_hi = torch.where(valid, cu_k[seg_c] + rel_q + 1, 0)
+        row_hi = torch.where(valid, start + rel_q + 1, 0)
     else:
-        row_hi = torch.where(valid, cu_k[seg_c + 1], 0)
+        row_hi = torch.where(valid, cu_k.index_select(0, seg_c + 1), 0)
     nqb = seg_q.shape[0] // block_q
     lo = row_lo.reshape(nqb, block_q).amin(1) // block_k
-    hi = -(-row_hi.reshape(nqb, block_q).amax(1) // block_k)
+    hi = (row_hi.reshape(nqb, block_q).amax(1) + block_k - 1) // block_k
     return _clip_bounds(lo, hi, nkb)
 
 
@@ -131,14 +150,32 @@ def _block_bounds_k(seg_k, rel_k, cu_q, block_q, block_k, nqb, causal):
     return _clip_bounds(lo, hi, nqb)
 
 
-def _prep(tq, tk, cu_q, cu_k):
-    """The kernels' segment metadata: seg/rel of queries and keys, each
-    padded to a multiple of TILE rows with the sentinel segments (queries
-    ``nseq``, keys ``nseq + 1``).  The kernels read q, k and v unpadded and
-    treat rows past T as zeros, so no token is copied (the JAX package's
-    ``_pad_tokens`` has no counterpart)."""
+def pair_tiles(lo, hi):
+    """Key tiles each block of two 64-query tiles walks, from the tiles'
+    ranges [lo, hi): the span of the union of its non-empty ones (0 when
+    both are empty).  The wgmma forward's blocks, 128 queries each."""
+    lo2, hi2 = lo.view(-1, 2), hi.view(-1, 2)
+    some = hi2 > lo2
+    top = torch.where(some, hi2, 0).amax(1)
+    return top - torch.where(some, lo2, top[:, None]).amin(1)
+
+
+def launch_order(tiles):
+    """The order in which the wgmma forward launches its blocks: most key
+    tiles first, ties by block index (an int32 permutation, computed on
+    the device of ``tiles``)."""
+    return torch.argsort(tiles, descending=True, stable=True).to(
+        torch.int32)
+
+
+def _prep(tq, tk, cu_q, cu_k, block_q=TILE):
+    """The kernels' segment metadata: seg/rel of queries and keys, padded
+    to multiples of ``block_q`` and TILE rows with the sentinel segments
+    (queries ``nseq``, keys ``nseq + 1``).  The kernels read q, k and v
+    unpadded and treat rows past T as zeros, so no token is copied (the
+    JAX package's ``_pad_tokens`` has no counterpart)."""
     nseq = cu_q.shape[0] - 1
-    pad_q = -(-tq // TILE) * TILE
+    pad_q = -(-tq // block_q) * block_q
     pad_k = -(-tk // TILE) * TILE
     return (*_segment_meta(cu_q, tq, pad_q, nseq),
             *_segment_meta(cu_k, tk, pad_k, nseq + 1))
@@ -312,13 +349,18 @@ def _meta_ptrs(meta, lo, hi):
 
 
 def _launch_fwd(q, k, v, cu_q, cu_k, causal, scale):
-    """The forward kernel: ``(out, lse)``."""
+    """The forward kernel: ``(out, lse)``.  Bounds are per 64-query tile
+    (a warpgroup's rows in the wgmma kernel, whose ``lo`` carries the
+    launch order of its 128-query blocks after them)."""
     global fwd_launch_count
     _check_operands(q, k, v, cu_q, cu_k)
-    meta = _prep(q.shape[0], k.shape[0], cu_q, cu_k)
+    bq = fwd_block_q(q)
+    meta = _prep(q.shape[0], k.shape[0], cu_q, cu_k, bq)
     bk = walk_tile(q.shape[2])
     lo, hi = _block_bounds_q(meta[0], meta[1], cu_k, TILE, bk,
                              meta[2].shape[0] // bk, causal)
+    if bq == WGMMA_BLOCK_Q:
+        lo = torch.cat([lo, launch_order(pair_tiles(lo, hi))])
     out = torch.empty_like(q)
     lse = torch.empty((q.shape[1], q.shape[0]), dtype=torch.float32,
                       device=q.device)

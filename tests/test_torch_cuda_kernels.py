@@ -454,6 +454,64 @@ def test_wgmma_backward_kernels_count_one_launch_a_call(dev, B, S, H, Hk, D):
     torch.cuda.synchronize()
 
 
+# the bf16 wgmma forward's block edges: S one row short of, at and past a
+# warpgroup's 64 rows and a block's 128, one row, and the trainer's
+# length; GQA groups 1, 4 and 8 (H, Hk); D 64 and 128
+FWD_EDGE_S = [1, 63, 64, 65, 127, 128, 129, 2048]
+FWD_EDGE_HEADS = [(4, 4), (8, 2), (8, 1)]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("H,Hk", FWD_EDGE_HEADS, ids=["g1", "g4", "g8"])
+@pytest.mark.parametrize("S", FWD_EDGE_S)
+def test_wgmma_forward_at_block_edges(dev, S, H, Hk, D, causal):
+    """The bf16 forward kernel against its plain version (out at TOL, lse
+    within LSE_ABS), one launch a call; two sequences a batch below 2,048
+    rows, so a block's rows never run into the next sequence's."""
+    B = 2 if S < 2048 else 1
+    q, k, v, _ = _flash_case(dev, torch.bfloat16, B, S, H, Hk, D, seed=5)
+    n = fa.fwd_launch_count
+    out, lse = fa._launch_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.fwd_launch_count == n + 1
+    ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal)
+    assert out.dtype == torch.bfloat16 and lse.shape == (B, H, S)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    _assert_within(_rows(out), _rows(ref), torch.bfloat16)
+    assert (lse - lse_ref).abs().max().item() <= LSE_ABS
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("B,S,H,Hk,D", WGMMA_SHAPES, ids=WGMMA_IDS)
+def test_wgmma_forward_repeats_bit_for_bit(dev, B, S, H, Hk, D, causal):
+    """Ten more launches of the bf16 forward on the same inputs give the
+    first launch's out and lse bit for bit."""
+    q, k, v, _ = _flash_case(dev, torch.bfloat16, B, S, H, Hk, D, seed=6)
+    first = fa._launch_fwd(q, k, v, causal)
+    for _ in range(10):
+        again = fa._launch_fwd(q, k, v, causal)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+@pytest.mark.parametrize("B,S,H,Hk,D", WGMMA_SHAPES, ids=WGMMA_IDS)
+def test_wgmma_forward_counts_one_launch_a_call(dev, B, S, H, Hk, D):
+    """fwd_launch_count rises by one a call of the forward kernel and not
+    through the backward kernels."""
+    q, k, v, do = _flash_case(dev, torch.bfloat16, B, S, H, Hk, D, seed=7)
+    for _ in range(3):
+        counts = (fa.fwd_launch_count, fa.dkdv_launch_count,
+                  fa.dq_launch_count)
+        out, lse = fa._launch_fwd(q, k, v, True)
+        assert (fa.fwd_launch_count, fa.dkdv_launch_count,
+                fa.dq_launch_count) == (counts[0] + 1, *counts[1:])
+        delta = fa.attention_delta(out, do)
+        fa._launch_dkdv(q, k, v, do, lse, delta, True)
+        fa._launch_dq(q, k, v, do, lse, delta, True)
+        assert fa.fwd_launch_count == counts[0] + 1
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("B,S,H,Hk,D", [(2, 200, 8, 2, 64),
@@ -691,6 +749,67 @@ def test_varlen_kernels_match_plain_versions(dev, case, dtype, causal):
         _assert_grad_within(got, want, GRAD_TOL[dtype])
     if lens_k is not None:                  # key-less query rows
         assert (out[30:70] == 0).all() and (dq[30:70] == 0).all()
+
+
+# the bf16 wgmma varlen forward's edges (128 queries a block, 64 a
+# warpgroup): fewer than 128 tokens; a block whose second warpgroup has no
+# rows (Tq 60, and Tq 140's second block); empty and one-token sequences;
+# cross attention; a sequence with no keys (its rows: 0 and lse -inf)
+VARLEN_FWD_EDGES = {  # lens_q, lens_k or None for self attention
+    "tq80": ([50, 30], None),
+    "tq60_wg1_empty": ([40, 20], None),
+    "tq140": ([100, 40], None),
+    "empty_and_one": ([0, 1, 70, 0, 1, 130], None),
+    "long_mixed": ([700, 1, 300, 129], None),
+    "cross": ([100, 60, 5], [300, 20, 200]),
+    "keyless": ([30, 40, 50], [100, 0, 70]),
+}
+
+
+def _varlen_fwd_edge_params():
+    for name, (_, lens_k) in VARLEN_FWD_EDGES.items():
+        for causal in (True, False):
+            if not (causal and lens_k):
+                yield pytest.param(name, causal,
+                                   id=f"{name}-{'causal' if causal else 'full'}")
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case,causal", list(_varlen_fwd_edge_params()))
+def test_varlen_wgmma_forward_at_block_edges(dev, case, causal, D):
+    """The bf16 varlen forward kernel against its plain version (out at
+    TOL, lse finite and within LSE_ABS where the plain version's is, -inf
+    where it is), one launch a call; key-less rows are exactly 0."""
+    lens_q, lens_k = VARLEN_FWD_EDGES[case]
+    q, k, v, _, cu_q, cu_k = _varlen_case(dev, torch.bfloat16, lens_q,
+                                          lens_k, 4, D, seed=8)
+    args = (cu_q, cu_k, causal, D ** -0.5)
+    n = fav.fwd_launch_count
+    out, lse = fav._launch_fwd(q, k, v, *args)
+    torch.cuda.synchronize()
+    assert fav.fwd_launch_count == n + 1
+    ref, lse_ref = fav.varlen_fwd_reference(q, k, v, *args)
+    assert out.dtype == torch.bfloat16 and lse.shape == (4, q.shape[0])
+    assert torch.isfinite(out).all()
+    _assert_within(out.flatten(1), ref.flatten(1), torch.bfloat16)
+    _assert_lse(lse, lse_ref)
+    keyless = torch.isneginf(lse_ref).all(0)
+    assert (out[keyless] == 0).all()
+    if case == "keyless":
+        assert keyless[30:70].all()
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", ["tq140", "long_mixed", "cross"])
+def test_varlen_wgmma_forward_repeats_bit_for_bit(dev, case, D):
+    lens_q, lens_k = VARLEN_FWD_EDGES[case]
+    q, k, v, _, cu_q, cu_k = _varlen_case(dev, torch.bfloat16, lens_q,
+                                          lens_k, 4, D, seed=9)
+    args = (cu_q, cu_k, lens_k is None, D ** -0.5)
+    first = fav._launch_fwd(q, k, v, *args)
+    for _ in range(10):
+        again = fav._launch_fwd(q, k, v, *args)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
 def test_varlen_kernels_at_the_7b_shape(dev):

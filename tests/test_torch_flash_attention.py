@@ -379,7 +379,7 @@ def test_profile_split_names_every_flash_kernel():
     """chip_smoke.py splits the train step's flash time by launch through
     FLASH_KERNEL_NAMES: the list holds every kernel that
     csrc/flash_attention.cu defines, each profiled symbol goes to its own
-    launch by whole name (flash_fwd_kernel is not flash_fwd_mma_kernel),
+    launch by whole name (flash_fwd_kernel is not flash_fwd_wgmma_kernel),
     and cuBLAS and CUTLASS GEMM symbols go to none."""
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs

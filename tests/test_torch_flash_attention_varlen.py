@@ -136,15 +136,17 @@ BOUNDS = {  # cu_q, cu_k (Tq = cu_q[-1], Tk = cu_k[-1])
 }
 
 
-@pytest.mark.parametrize("blocks", [(64, 64), (64, 32), (32, 64)],
-                         ids=["64x64", "64x32", "32x64"])
+@pytest.mark.parametrize("blocks", [(64, 64), (64, 32), (32, 64), (128, 64)],
+                         ids=["64x64", "64x32", "32x64", "128x64"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("name", list(BOUNDS))
 def test_block_bounds_match_jax_at_equal_block_sizes(name, causal, blocks):
+    """(128, 64) is the bf16 wgmma forward's pair: 128 queries a block
+    (its metadata padded to whole blocks), 64-key tiles."""
     cu_q, cu_k = BOUNDS[name]
     block_q, block_k = blocks
     tq, tk, nseq = cu_q[-1], cu_k[-1], len(cu_q) - 1
-    pad_q = -(-tq // 64) * 64
+    pad_q = -(-tq // max(64, block_q)) * max(64, block_q)
     pad_k = -(-tk // 64) * 64
     nqb, nkb = pad_q // block_q, pad_k // block_k
     jcq, jck = jnp.asarray(cu_q, jnp.int32), jnp.asarray(cu_k, jnp.int32)
@@ -163,6 +165,81 @@ def test_block_bounds_match_jax_at_equal_block_sizes(name, causal, blocks):
     for g, w in zip(got, want):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("weights", [
+    [3, 1, 4, 1, 5, 9, 2, 6], [2, 2, 2, 2], [0], [0, 7, 0, 7, 1],
+    list(range(40)), [5, 0, 5, 5, 0, 12, 1, 5]],
+    ids=["mixed", "all_tied", "one", "ties_and_zeros", "ascending",
+         "runs"])
+def test_launch_order_is_heaviest_first_ties_by_index(weights):
+    """``launch_order`` gives a permutation of the blocks, most key tiles
+    first, equal counts in block order."""
+    order = fav.launch_order(torch.tensor(weights, dtype=torch.int32))
+    assert order.dtype == torch.int32 and order.shape == (len(weights),)
+    assert order.tolist() == sorted(range(len(weights)),
+                                    key=lambda i: (-weights[i], i))
+
+
+PAIR_CASES = dict(BOUNDS, keyless=([0, 30, 70, 200], [0, 64, 64, 300]))
+
+
+@pytest.mark.parametrize("name,causal", [
+    pytest.param(n, c, id=f"{n}-{'causal' if c else 'full'}")
+    for n, (cq, ck) in PAIR_CASES.items() for c in (True, False)
+    if cq == ck or not c])
+def test_pair_tiles_span_the_halves_within_the_jax_block_bounds(name,
+                                                                causal):
+    """A 128-query block of the wgmma forward walks the union of its two
+    64-query tiles' ranges: ``pair_tiles`` counts it (brute force here),
+    and the union lies inside the JAX package's bounds for 128-query
+    blocks, so the kernel walks no tile the JAX kernel at that block size
+    would skip."""
+    cu_q, cu_k = PAIR_CASES[name]
+    tq, tk, nseq = cu_q[-1], cu_k[-1], len(cu_q) - 1
+    pad_q, pad_k = -(-tq // 128) * 128, -(-tk // 64) * 64
+    tcq = torch.tensor(cu_q, dtype=torch.int32)
+    tck = torch.tensor(cu_k, dtype=torch.int32)
+    sq, rq = fav._segment_meta(tcq, tq, pad_q, nseq)
+    lo, hi = fav._block_bounds_q(sq, rq, tck, 64, 64, pad_k // 64, causal)
+    jsq, jrq = JV._segment_meta(jnp.asarray(cu_q, jnp.int32), tq, pad_q,
+                                nseq)
+    jlo, jhi = (np.asarray(x) for x in JV._block_bounds_q(
+        jsq, jrq, jnp.asarray(cu_k, jnp.int32), 128, 64, pad_k // 64,
+        causal))
+    tiles = fav.pair_tiles(lo, hi)
+    assert tiles.dtype == torch.int32 and tiles.shape == (pad_q // 128,)
+    for b in range(pad_q // 128):
+        walked = set()
+        for w in (2 * b, 2 * b + 1):
+            walked |= set(range(int(lo[w]), int(hi[w])))
+        span = range(min(walked), max(walked) + 1) if walked else range(0)
+        assert int(tiles[b]) == len(span)
+        assert all(jlo[b] <= kt < jhi[b] for kt in span)
+
+
+def test_forward_pads_query_metadata_to_its_block():
+    """The bf16 forward at D 64 and 128 owns 128 queries a block, so its
+    query metadata is padded to a multiple of 128 (sentinel segment nseq);
+    its warpgroups' bounds (64 rows each) over the padding are the JAX
+    ``_block_bounds_q``'s; every other forward keeps 64-row blocks."""
+    cu = torch.tensor([0, 50, 51, 180], dtype=torch.int32)
+    for dtype, D, want in ((torch.bfloat16, 64, 128),
+                           (torch.bfloat16, 128, 128),
+                           (torch.bfloat16, 256, 64),
+                           (torch.float32, 64, 64)):
+        assert fav.fwd_block_q(torch.empty((180, 2, D), dtype=dtype)) == want
+    seg, rel, seg_k, _ = fav._prep(180, 180, cu, cu, 128)
+    assert seg.shape == (256,) and seg_k.shape == (192,)
+    assert (seg[180:] == 3).all() and (seg_k[180:] == 4).all()
+    jsq, jrq = JV._segment_meta(jnp.asarray(cu.numpy()), 180, 256, 3)
+    np.testing.assert_array_equal(seg.numpy(), np.asarray(jsq))
+    np.testing.assert_array_equal(rel.numpy(), np.asarray(jrq))
+    lo, hi = fav._block_bounds_q(seg, rel, cu, 64, 64, 3, True)
+    jlo, jhi = JV._block_bounds_q(jsq, jrq, jnp.asarray(cu.numpy()), 64,
+                                  64, 3, True)
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo))
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(jhi))
 
 
 @pytest.mark.parametrize("shape,rule", [

@@ -2017,12 +2017,19 @@ VARLEN_CASES = {
     "empty_seq": ([500, 0, 300, 1], None, 8, 64, True),
 }
 VARLEN_TIMED = ("7b", "trainer_d64")    # plain and library times too
-# the forward's time at the 7B case in bf16 on the mma.sync kernel the
-# wgmma one replaced (PERF.md section 6, "was"; NVIDIA H100 80GB HBM3,
-# 700.00 W): the varlen phase's record carries it
-VARLEN_WAS_MS = {"7b_bfloat16": {"fwd": 1.6082}}
-# the varlen forward kernels (bf16 D 64/128: wgmma; else CUDA-core)
-VARLEN_FWD_NAMES = ("varlen_fwd_wgmma_kernel", "varlen_fwd_kernel")
+# the bf16 kernels' times on the mma.sync kernels the wgmma ones replaced
+# (PERF.md section 6, "was": the 7B case from chip_smoke.py runs, the
+# trainer's backward from tools/perf/torch_varlen_bwd_ab.py on the parent
+# tree; NVIDIA H100 80GB HBM3, 700.00 W): the varlen phase's records carry
+# them
+VARLEN_WAS_MS = {"7b_bfloat16": {"fwd": 1.6082, "dkdv": 2.8326,
+                                 "dq": 1.8123},
+                 "trainer_d64_bfloat16": {"dkdv": 0.6250, "dq": 0.4255}}
+# the varlen kernels by launch (bf16 D 64/128: wgmma; else CUDA-core)
+VARLEN_NAMES = {
+    "fwd": ("varlen_fwd_wgmma_kernel", "varlen_fwd_kernel"),
+    "dkdv": ("varlen_bwd_dkdv_wgmma_kernel", "varlen_bwd_dkdv_kernel"),
+    "dq": ("varlen_bwd_dq_wgmma_kernel", "varlen_bwd_dq_kernel")}
 # the plain versions' [H, Tq, Tk] f32 scores, at most this many elements at
 # once: sequences are taken in runs that fit (the 7B case's whole [32,
 # 8192, 8192] would be 8.6 GB a tensor)
@@ -2381,9 +2388,23 @@ def phase_varlen(state):
                                      "bwd_dq_dk_dv": time_ms(lib_bwd)}
                 rec["library_max_abs_err"] = float(
                     (lib_out.float() - ref.float()).abs().max())
-                rec["kernel_ms"] = {"fwd": profiled_kernel_ms(
-                    lambda: fav._launch_fwd(q, k, v, *args),
-                    VARLEN_FWD_NAMES)}
+                rec["kernel_ms"] = {
+                    kern: profiled_kernel_ms(fn, VARLEN_NAMES[kern])
+                    for kern, fn in (
+                        ("fwd", lambda: fav._launch_fwd(q, k, v, *args)),
+                        ("dkdv", lambda: fav._launch_dkdv(
+                            q, k, v, do, lse_ref, delta, *args)),
+                        ("dq", lambda: fav._launch_dq(
+                            q, k, v, do, lse_ref, delta, *args)))}
+                # the whole backward (delta, metadata, both launches),
+                # beside the library's, which also computes its own delta,
+                # and its two parts besides the kernels
+                rec["bwd_total_ms"] = time_ms(lambda: fav._backward(
+                    q, k, v, ref, lse_ref, do, *args))
+                rec["bwd_parts_ms"] = {
+                    "delta": time_ms(lambda: fav.varlen_delta(ref, do)),
+                    "metadata": time_ms(lambda: fav._bwd_meta(
+                        q, k, c["cu_q"], c["cu_k"], c["causal"]))}
                 del lib_fwd, lib_bwd, lib_out
             if f"{cname}_{name}" in VARLEN_WAS_MS:
                 rec["was_ms"] = VARLEN_WAS_MS[f"{cname}_{name}"]
@@ -3338,6 +3359,7 @@ def blha_records(state) -> list:
             "library_ms": vt["library_ms"][lib],
             "library": vt["library"] + (" forward" if kern == "fwd" else
                                         " backward (dq, dk and dv together)"),
+            **({} if kern == "fwd" else {"bwd_total_ms": vt["bwd_total_ms"]}),
             "timed_shape": "8 packed causal sequences, 8,192 tokens, H=32 "
                            "D=128, bfloat16",
             "by_case": {name: {"ms": c["ms"][kern],
@@ -3547,7 +3569,7 @@ def main() -> int:
               "built": {k: {"seconds": s, "ptxas": [
                   ln.strip() for ln in log.splitlines()
                   if "registers" in ln or "Compiling entry" in ln
-                  or "spill" in ln]}
+                  or "spill" in ln or "C75" in ln]}
                   for k, (s, log) in report.items()}})
     except Exception:
         traceback.print_exc()

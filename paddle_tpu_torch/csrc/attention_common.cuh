@@ -1,12 +1,12 @@
 // Device code shared by the flash attention kernels of flash_attention.cu
 // (fixed-length, causal and GQA) and flash_attention_varlen.cu (packed
 // sequences with segment masks): tile loads, the f32 products on the CUDA
-// cores, the bf16 mma.sync fragments and products, the Hopper pieces of the
-// wgmma kernels (their constants, operand steps, tile copies and the
-// forward's online-softmax walk, which both families run), row reductions
-// and the launch helper.  The two families differ only in their masks,
-// their tile walks and their rounding points, which stay in their own
-// files.  Each .cu file includes this header once; everything here has
+// cores, the bf16 packing and mma.sync product (the dequant matmul's), the
+// Hopper pieces of the wgmma kernels (their constants, operand steps, tile
+// copies, row stores and the forward's online-softmax walk, which both families
+// run), row reductions and the launch helper.  The two families differ only in
+// their masks, their tile walks and their rounding points, which stay in their
+// own files.  Each .cu file includes this header once; everything here has
 // internal linkage.
 
 #pragma once
@@ -169,30 +169,16 @@ __device__ __forceinline__ void store_tile(T* __restrict__ dst, size_t stride,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
-//
-// mma.sync.m16n8k16 with bf16 operands and f32 accumulators.  A block is 4
-// warps; warp w owns 16 rows of the block's 64 and keeps its accumulators
-// in the mma C layout: thread (g = lane / 4, t = lane % 4) holds rows g and
-// g + 8, columns 2t and 2t + 1 of each 8-wide n-tile.  A score tile in
-// that layout is already the A operand of the next product once packed to
-// bf16 pairs (the FA2 register trick), so p and dS never touch shared
-// memory.  Tiles sit in shared memory as bf16 with rows padded by 8
-// elements (every 32-bit fragment load of a warp hits 32 distinct banks);
-// an operand read along its rows by one product and along its columns by
-// another is stored twice, once transposed.
+// bf16 on the tensor cores: mma.sync.m16n8k16 with bf16 operands and f32
+// accumulators (the dequant matmul's decode tiles), and the C layout's
+// packing and row reductions, which the wgmma accumulators share: thread
+// (g = lane / 4, t = lane % 4) of a warp holds rows g and g + 8, columns
+// 2t and 2t + 1 of each 8-wide n-tile.
 // ---------------------------------------------------------------------------
-
-constexpr int kMmaThreads = 128;     // 4 warps x 16 rows = one 64-row tile
-constexpr int kLdT = kTile + 8;      // row stride of a transposed tile
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // d += a . b for one m16n8k16 tile (a row-major 16 x 16, b 16 x 8)
@@ -203,92 +189,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment (16 rows x 16 of k) at rows [r, r + 16), columns
-// [c, c + 16) of a row-major bf16 tile with row stride ld.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld,
-                                       int r, int c, int g, int t) {
-  const bf16* p = s + (r + g) * ld + c + 2 * t;
-  a[0] = lds32(p);
-  a[1] = lds32(p + 8 * ld);
-  a[2] = lds32(p + 8);
-  a[3] = lds32(p + 8 * ld + 8);
-}
-
-// acc[n][.] += A . B^T over n-tiles n of 8 rows of B: A is the warp's 16
-// rows at row r of a (row-major, stride lda), B rows [n0 + 8 n, ...) of b
-// (row-major, stride ldb), the shared dimension K long.
-template <int K, int N>
-__device__ __forceinline__ void mma_abt(float (&acc)[N][4], const bf16* a,
-                                        int lda, int r, const bf16* b, int ldb,
-                                        int n0, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t af[4];
-    load_a(af, a, lda, r, kk * 16, g, t);
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const bf16* p = b + (n0 + 8 * n + g) * ldb + kk * 16 + 2 * t;
-      mma_bf16(acc[n], af, lds32(p), lds32(p + 8));
-    }
-  }
-}
-
-// acc[n][.] += P . B over n-tiles of 8 columns: P the warp's 16 x (16 KS)
-// operand as packed A fragments, B^T given transposed (bt[col][k], stride
-// ldt) from k offset k0.
-template <int KS, int N>
-__device__ __forceinline__ void mma_pb(float (&acc)[N][4],
-                                       const uint32_t (&pa)[KS][4],
-                                       const bf16* bt, int ldt, int k0, int g,
-                                       int t) {
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const bf16* p = bt + (8 * n + g) * ldt + k0 + kk * 16 + 2 * t;
-      mma_bf16(acc[n], pa[kk], lds32(p), lds32(p + 8));
-    }
-  }
-}
-
-// Pack a 16 x (16 KS) tile held in C layout (x[2 kk + h][.]) into A
-// fragments of the next product.
-template <int KS>
-__device__ __forceinline__ void to_a(uint32_t (&pa)[KS][4],
-                                     const float (&x)[2 * KS][4]) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    pa[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    pa[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    pa[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    pa[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-  }
-}
-
-// Copy rows [0, rows) of a 64-row bf16 tile (row r at src + r * stride)
-// into shared memory, zeros past `rows`: row-major (dst[r][c], stride D +
-// 8) or, with kTrans, transposed (dst[c][r], stride kLdT).
-template <int D, bool kTrans>
-__device__ __forceinline__ void load_bf16(bf16* __restrict__ dst,
-                                          const bf16* __restrict__ src,
-                                          size_t stride, int rows) {
-  constexpr int kVecs = D / 8;
-  for (int i = threadIdx.x; i < kTile * kVecs; i += kMmaThreads) {
-    const int r = i / kVecs;
-    const int c = (i - r * kVecs) * 8;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows)
-      raw = *reinterpret_cast<const uint4*>(src + (size_t)r * stride + c);
-    if (kTrans) {
-      const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst[(c + j) * kLdT + r] = e[j];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = raw;
-    }
-  }
 }
 
 // max and sum over the 4 lanes that share a row of the C layout
@@ -309,7 +209,9 @@ __device__ __forceinline__ float quad_sum(float v) {
 // setmaxnreg) run every product as wgmma.mma_async (bf16 operands, f32
 // accumulators), and one producer (24 registers) whose first warp fills an
 // mbarrier ring of tiles with TMA, so the next tiles' copies are in flight
-// while this tile's products run.  Tiles are 64 rows of one head, copied as
+// while this tile's products run (the varlen backward, whose dK and dV
+// accumulators need more registers than ptxas gives beside a producer
+// warp, fills its ring from the consumers: flash_attention_varlen.cu).  Tiles are 64 rows of one head, copied as
 // boxes of 64 rows x 64 columns (128 bytes) from a 3D tensor map over
 // [B, S, heads * D] in the 128-byte swizzle: rows past S read zeros, and a
 // tile wider than 64 columns is two boxes (hopper.cuh's layout).  Every
@@ -350,6 +252,47 @@ __device__ __forceinline__ void wgmma_rs_nd(float (&d)[D / 2],
     wgmma_rs_n64<1>(d, a, desc_b, 1);
   else
     wgmma_rs_n128<1>(d, a, desc_b, 1);
+}
+
+// d = A . B + (scale_d ? d : 0), A and B K-major in shared memory, N wide
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  if constexpr (N == 64)
+    wgmma_ss_n64(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_ss_n32(d, desc_a, desc_b, scale_d);
+}
+// d = A . B, write-only (the first k16 step of a sum)
+template <int N>
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[N / 2],
+                                               uint64_t desc_a,
+                                               uint64_t desc_b) {
+  if constexpr (N == 64)
+    wgmma_ss_n64_first(d, desc_a, desc_b);
+  else
+    wgmma_ss_n32_first(d, desc_a, desc_b);
+}
+
+// Rows r0 and r0 + 8 (accumulator layout) of a 64 x D f32 tile, times
+// `mul`, rounded to bf16 and stored at dst + row * stride (rows >= n
+// skipped).
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
+                                           size_t stride, int r0, int n,
+                                           const float (&acc)[D / 2],
+                                           float mul, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (r < n) {
+      bf16* p = dst + (size_t)r * stride + 2 * t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(p + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
+    }
+  }
 }
 
 // acc (64 x 16 KS, accumulator layout) packed to bf16 A operands

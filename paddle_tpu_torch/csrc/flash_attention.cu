@@ -373,37 +373,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // landed tile to bf16(x * sm_scale) in shared memory before its products.
 // ---------------------------------------------------------------------------
 
-// d = A . B + (scale_d ? d : 0), A and B K-major in shared memory, N wide
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
-                                         uint64_t desc_b, int scale_d) {
-  if constexpr (N == 64)
-    wgmma_ss_n64(d, desc_a, desc_b, scale_d);
-  else
-    wgmma_ss_n32(d, desc_a, desc_b, scale_d);
-}
-
-// Rows r0 and r0 + 8 (accumulator layout) of a 64 x D f32 tile, times
-// `mul`, rounded to bf16 and stored at dst + row * stride (rows >= n
-// skipped).
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
-                                           size_t stride, int r0, int n,
-                                           const float (&acc)[D / 2],
-                                           float mul, int t) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + 8 * i;
-    if (r < n) {
-      bf16* p = dst + (size_t)r * stride + 2 * t;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<uint32_t*>(p + 8 * j) =
-            pack_bf16(acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
-    }
-  }
-}
-
 // Forward.  Replaces paddle_tpu/ops/pallas/flash_attention.py ::
 // _fwd_kernel.  One block per (b * H + h, 128 queries), the heaviest
 // causal rows first; attention_common.cuh's fwd_walk over the K/V tiles of

@@ -98,6 +98,25 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d = A . B with B 16 x 32, write-only as wgmma_ss_n64_first
+__device__ __forceinline__ void wgmma_ss_n32_first(float (&d)[16],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
 // d = A . B + (scale_d ? d : 0), A (64 x 16) from the warpgroup's
 // registers, B (16 x 64) from shared memory
 template <int kTB>

@@ -23,10 +23,10 @@ lse as 0 (its p is 0 wherever it is masked).
 
 ``varlen_attention`` applies ``VarlenAttention``.  On CUDA tensors its
 forward launches the forward kernel and its backward the dK/dV and dQ
-kernels of ``paddle_tpu_torch/csrc/flash_attention_varlen.cu`` (the bf16
-forward at D 64 and 128 on ``wgmma`` fed by TMA, 128 queries a block,
-launched in ``launch_order``; it raises on what they do not take); on CPU
-tensors both run the plain versions.
+kernels of ``paddle_tpu_torch/csrc/flash_attention_varlen.cu`` (bf16 at D
+64 and 128 on ``wgmma`` fed by TMA, 128 rows a block, launched in
+``launch_order``; it raises on what they do not take); on CPU tensors both
+run the plain versions.
 ``use_varlen_kernel`` is the JAX package's shape rule (``use_varlen_flash``
 without its flag, probe and interpreter branch): shapes it refuses take the
 segment-masked composition, as the JAX package routes them.
@@ -58,9 +58,10 @@ HEAD_DIMS = (64, 128, 256)
 # dK/dV); the tiles it walks are 64 rows too, 32 at D = 256 (the CUDA-core
 # kernels' shared memory)
 TILE = 64
-# queries a block of the wgmma forward (bf16 at D 64 and 128): two
-# warpgroups of 64 rows
+# rows a block of the wgmma kernels (bf16 at D 64 and 128: queries in the
+# forward and dQ, keys in dK/dV): two warpgroups of 64 rows
 WGMMA_BLOCK_Q = 128
+LOG2E = 1.4426950408889634
 
 
 def walk_tile(head_dim: int) -> int:
@@ -68,7 +69,8 @@ def walk_tile(head_dim: int) -> int:
 
 
 def fwd_block_q(q) -> int:
-    """Queries a block of the forward kernel that takes q."""
+    """Rows a block of the kernels that take q (queries in the forward and
+    dQ, keys in dK/dV)."""
     return WGMMA_BLOCK_Q if q.dtype == torch.bfloat16 and \
         q.shape[2] <= 128 else TILE
 
@@ -151,9 +153,10 @@ def _block_bounds_k(seg_k, rel_k, cu_q, block_q, block_k, nqb, causal):
 
 
 def pair_tiles(lo, hi):
-    """Key tiles each block of two 64-query tiles walks, from the tiles'
-    ranges [lo, hi): the span of the union of its non-empty ones (0 when
-    both are empty).  The wgmma forward's blocks, 128 queries each."""
+    """Tiles each block of two 64-row tiles walks, from the tiles' ranges
+    [lo, hi): the span of the union of its non-empty ones (0 when both are
+    empty).  The wgmma kernels' blocks, 128 rows each (key tiles of 128
+    queries in the forward and dQ, query tiles of 128 keys in dK/dV)."""
     lo2, hi2 = lo.view(-1, 2), hi.view(-1, 2)
     some = hi2 > lo2
     top = torch.where(some, hi2, 0).amax(1)
@@ -161,24 +164,46 @@ def pair_tiles(lo, hi):
 
 
 def launch_order(tiles):
-    """The order in which the wgmma forward launches its blocks: most key
-    tiles first, ties by block index (an int32 permutation, computed on
-    the device of ``tiles``)."""
+    """The order in which a wgmma kernel launches its blocks: most tiles
+    first, ties by block index (an int32 permutation, computed on the
+    device of ``tiles``)."""
     return torch.argsort(tiles, descending=True, stable=True).to(
         torch.int32)
 
 
-def _prep(tq, tk, cu_q, cu_k, block_q=TILE):
+def _prep(tq, tk, cu_q, cu_k, block_q=TILE, block_k=TILE):
     """The kernels' segment metadata: seg/rel of queries and keys, padded
-    to multiples of ``block_q`` and TILE rows with the sentinel segments
-    (queries ``nseq``, keys ``nseq + 1``).  The kernels read q, k and v
-    unpadded and treat rows past T as zeros, so no token is copied (the
-    JAX package's ``_pad_tokens`` has no counterpart)."""
+    to multiples of ``block_q`` and ``block_k`` rows with the sentinel
+    segments (queries ``nseq``, keys ``nseq + 1``).  The kernels read q, k
+    and v unpadded and treat rows past T as zeros, so no token is copied
+    (the JAX package's ``_pad_tokens`` has no counterpart)."""
     nseq = cu_q.shape[0] - 1
     pad_q = -(-tq // block_q) * block_q
-    pad_k = -(-tk // TILE) * TILE
+    pad_k = -(-tk // block_k) * block_k
     return (*_segment_meta(cu_q, tq, pad_q, nseq),
             *_segment_meta(cu_k, tk, pad_k, nseq + 1))
+
+
+def _bwd_meta(q, k, cu_q, cu_k, causal):
+    """What both backward kernels read, computed once a backward: ``(seg_q,
+    rel_q, seg_k, rel_k, lo_k, hi_k, lo_q, hi_q)``.  ``lo_k``/``hi_k``:
+    the query tiles each 64-key tile walks (dK/dV), ``lo_q``/``hi_q``: the
+    key tiles each 64-query tile walks (dQ); tiles of 64 rows, walked tiles
+    of 32 at D 256.  The wgmma kernels (bf16 at D 64 and 128) own 128 rows
+    a block, so their metadata is padded to whole 128-row blocks on both
+    sides and each ``lo`` carries after the ranges the launch order of its
+    blocks (``launch_order`` over ``pair_tiles``)."""
+    blk = fwd_block_q(q)
+    meta = _prep(q.shape[0], k.shape[0], cu_q, cu_k, blk, blk)
+    bt = walk_tile(q.shape[2])
+    lo_k, hi_k = _block_bounds_k(meta[2], meta[3], cu_q, bt, TILE,
+                                 meta[0].shape[0] // bt, causal)
+    lo_q, hi_q = _block_bounds_q(meta[0], meta[1], cu_k, TILE, bt,
+                                 meta[2].shape[0] // bt, causal)
+    if blk == WGMMA_BLOCK_Q:
+        lo_k = torch.cat([lo_k, launch_order(pair_tiles(lo_k, hi_k))])
+        lo_q = torch.cat([lo_q, launch_order(pair_tiles(lo_q, hi_q))])
+    return (*meta, lo_k, hi_k, lo_q, hi_q)
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +247,7 @@ def varlen_fwd_reference(q, k, v, cu_q, cu_k, causal, scale):
 def varlen_delta(out, do):
     """delta = rowsum(dO * O) in f32, ``[H, Tq]`` (computed outside the
     kernels, as the JAX package does)."""
-    return (do.float() * out.float()).sum(-1).t().contiguous()
+    return (do * out.float()).sum(-1).t().contiguous()
 
 
 def _probs_and_ds(q, k, v, lse, delta, do, cu_q, cu_k, causal, scale):
@@ -372,36 +397,51 @@ def _launch_fwd(q, k, v, cu_q, cu_k, causal, scale):
     return out, lse
 
 
-def _launch_dkdv(q, k, v, do, lse, delta, cu_q, cu_k, causal, scale):
-    """The dK/dV kernel: ``(dk, dv)``."""
+def _dkdv_stats(lse, delta, pad):
+    """lse and delta as the wgmma dK/dV kernel copies them beside each
+    query tile: ``[H, pad]`` f32, lse times log2 e (0 where not finite, so
+    a key-less row reads lse 0 as in the plain version; +inf past Tq, so a
+    padded query gets p = 0) and delta 0 past Tq."""
+    tail = (0, pad - lse.shape[1])
+    lse2 = torch.where(torch.isfinite(lse), lse * LOG2E, 0.0)
+    return (torch.nn.functional.pad(lse2, tail, value=float("inf")),
+            torch.nn.functional.pad(delta, tail))
+
+
+def _launch_dkdv(q, k, v, do, lse, delta, cu_q, cu_k, causal, scale,
+                 meta=None):
+    """The dK/dV kernel: ``(dk, dv)``.  ``meta``: ``_bwd_meta``'s tuple,
+    computed here when not given."""
     global dkdv_launch_count
     _check_operands(q, k, v, cu_q, cu_k, do, lse, delta)
-    meta = _prep(q.shape[0], k.shape[0], cu_q, cu_k)
-    bq = walk_tile(q.shape[2])
-    lo, hi = _block_bounds_k(meta[2], meta[3], cu_q, bq, TILE,
-                             meta[0].shape[0] // bq, causal)
+    if meta is None:
+        meta = _bwd_meta(q, k, cu_q, cu_k, causal)
+    if fwd_block_q(q) == WGMMA_BLOCK_Q:
+        lse, delta = _dkdv_stats(lse, delta, meta[0].shape[0])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("paddle_varlen_attention_bwd_dkdv",
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr()] + _meta_ptrs(meta, lo, hi) +
-            [dk.data_ptr(), dv.data_ptr()], q, k, causal, scale)
+             lse.data_ptr(), delta.data_ptr()] +
+            _meta_ptrs(meta[:4], *meta[4:6]) + [dk.data_ptr(), dv.data_ptr()],
+            q, k, causal, scale)
     dkdv_launch_count += 1
     return dk, dv
 
 
-def _launch_dq(q, k, v, do, lse, delta, cu_q, cu_k, causal, scale):
-    """The dQ kernel: dq."""
+def _launch_dq(q, k, v, do, lse, delta, cu_q, cu_k, causal, scale,
+               meta=None):
+    """The dQ kernel: dq.  ``meta``: ``_bwd_meta``'s tuple, computed here
+    when not given."""
     global dq_launch_count
     _check_operands(q, k, v, cu_q, cu_k, do, lse, delta)
-    meta = _prep(q.shape[0], k.shape[0], cu_q, cu_k)
-    bk = walk_tile(q.shape[2])
-    lo, hi = _block_bounds_q(meta[0], meta[1], cu_k, TILE, bk,
-                             meta[2].shape[0] // bk, causal)
+    if meta is None:
+        meta = _bwd_meta(q, k, cu_q, cu_k, causal)
     dq = torch.empty_like(q)
     _launch("paddle_varlen_attention_bwd_dq",
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr()] + _meta_ptrs(meta, lo, hi) +
-            [dq.data_ptr()], q, k, causal, scale)
+             lse.data_ptr(), delta.data_ptr()] +
+            _meta_ptrs(meta[:4], *meta[6:8]) + [dq.data_ptr()],
+            q, k, causal, scale)
     dq_launch_count += 1
     return dq
 
@@ -419,14 +459,15 @@ def _forward(q, k, v, cu_q, cu_k, causal, scale):
 
 
 def _backward(q, k, v, out, lse, do, cu_q, cu_k, causal, scale):
-    """``(dq, dk, dv)``: the dK/dV and dQ kernels on CUDA tensors, the
-    plain version on CPU tensors."""
+    """``(dq, dk, dv)``: the dK/dV and dQ kernels on CUDA tensors (one
+    ``_bwd_meta`` for both), the plain version on CPU tensors."""
     if q.device.type == "cuda":
         delta = varlen_delta(out, do)
+        meta = _bwd_meta(q, k, cu_q, cu_k, causal)
         dk, dv = _launch_dkdv(q, k, v, do, lse, delta, cu_q, cu_k, causal,
-                              scale)
+                              scale, meta)
         return (_launch_dq(q, k, v, do, lse, delta, cu_q, cu_k, causal,
-                           scale), dk, dv)
+                           scale, meta), dk, dv)
     return varlen_bwd_reference(q, k, v, out, lse, do, cu_q, cu_k, causal,
                                 scale)
 

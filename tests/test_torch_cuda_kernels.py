@@ -766,16 +766,17 @@ VARLEN_FWD_EDGES = {  # lens_q, lens_k or None for self attention
 }
 
 
-def _varlen_fwd_edge_params():
-    for name, (_, lens_k) in VARLEN_FWD_EDGES.items():
+def _edge_params(cases):
+    """(name, causal) of each case: causal for self attention only."""
+    for name, (_, lens_k) in cases.items():
         for causal in (True, False):
             if not (causal and lens_k):
-                yield pytest.param(name, causal,
-                                   id=f"{name}-{'causal' if causal else 'full'}")
+                yield pytest.param(
+                    name, causal, id=f"{name}-{'causal' if causal else 'full'}")
 
 
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("case,causal", list(_varlen_fwd_edge_params()))
+@pytest.mark.parametrize("case,causal", list(_edge_params(VARLEN_FWD_EDGES)))
 def test_varlen_wgmma_forward_at_block_edges(dev, case, causal, D):
     """The bf16 varlen forward kernel against its plain version (out at
     TOL, lse finite and within LSE_ABS where the plain version's is, -inf
@@ -810,6 +811,96 @@ def test_varlen_wgmma_forward_repeats_bit_for_bit(dev, case, D):
     for _ in range(10):
         again = fav._launch_fwd(q, k, v, *args)
         assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+# the bf16 wgmma varlen backward's edges (128 rows a block, 64 a
+# warpgroup, on both sides): fewer than 64 and than 128 tokens; blocks
+# whose second warpgroup has no rows and no keys (Tq = Tk = 140); empty and
+# one-token sequences; lengths off multiples of 64; cross attention; a
+# sequence without keys (its rows' dq is 0) and one without queries (its
+# keys' dk and dv are 0)
+VARLEN_BWD_EDGES = {  # lens_q, lens_k or None for self attention
+    "tq50": ([30, 20], None),
+    "tq100": ([60, 40], None),
+    "tq140_wg1_empty": ([100, 40], None),
+    "empty_and_one": ([0, 1, 70, 0, 1, 130], None),
+    "off_64": ([65, 127, 129, 200, 3], None),
+    "cross": ([100, 60, 5], [300, 20, 200]),
+    "keyless": ([30, 40, 50], [100, 0, 70]),
+    "queryless": ([30, 0, 50], [100, 80, 70]),
+}
+
+
+def _varlen_bwd_inputs(dev, case, D, seed, causal=None):
+    """The case's bf16 inputs and the plain forward's lse and delta, which
+    both backward kernels and their plain versions are fed."""
+    lens_q, lens_k = VARLEN_BWD_EDGES[case]
+    q, k, v, do, cu_q, cu_k = _varlen_case(dev, torch.bfloat16, lens_q,
+                                           lens_k, 4, D, seed=seed)
+    causal = lens_k is None if causal is None else causal
+    args = (cu_q, cu_k, causal, D ** -0.5)
+    ref, lse = fav.varlen_fwd_reference(q, k, v, *args)
+    return (q, k, v, do, lse, fav.varlen_delta(ref, do)), args
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case,causal", list(_edge_params(VARLEN_BWD_EDGES)))
+def test_varlen_wgmma_backward_at_block_edges(dev, case, causal, D):
+    """The bf16 varlen dK/dV and dQ kernels against their plain versions
+    (GRAD_TOL), one launch of each a call; dq of key-less rows and dk, dv
+    of query-less keys are exactly 0."""
+    x, args = _varlen_bwd_inputs(dev, case, D, 10, causal)
+    counts = (fav.dkdv_launch_count, fav.dq_launch_count)
+    dk, dv = fav._launch_dkdv(*x, *args)
+    dq = fav._launch_dq(*x, *args)
+    torch.cuda.synchronize()
+    assert (fav.dkdv_launch_count, fav.dq_launch_count) == \
+        (counts[0] + 1, counts[1] + 1)
+    want = (*fav.varlen_bwd_dkdv_reference(*x, *args),
+            fav.varlen_bwd_dq_reference(*x, *args))
+    for got, ref in zip((dk, dv, dq), want):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        _assert_grad_within(got, ref, GRAD_TOL[torch.bfloat16])
+    if case == "keyless":
+        assert (dq[30:70] == 0).all()
+    if case == "queryless":
+        assert (dk[100:180] == 0).all() and (dv[100:180] == 0).all()
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", ["tq140_wg1_empty", "off_64", "cross"])
+def test_varlen_wgmma_backward_repeats_bit_for_bit(dev, case, D):
+    """Ten more launches of each bf16 varlen backward kernel give the
+    first launch's dK, dV and dQ bit for bit (no atomics, one summation
+    order)."""
+    x, args = _varlen_bwd_inputs(dev, case, D, 11)
+    first = (*fav._launch_dkdv(*x, *args), fav._launch_dq(*x, *args))
+    for _ in range(10):
+        again = (*fav._launch_dkdv(*x, *args), fav._launch_dq(*x, *args))
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_varlen_backward_computes_its_metadata_once_a_call(dev, D,
+                                                           monkeypatch):
+    """``_backward`` on CUDA tensors: one ``_bwd_meta`` and one launch of
+    each backward kernel a call, and the gradients its launches give
+    alone."""
+    x, args = _varlen_bwd_inputs(dev, "off_64", D, 12)
+    q, k, v, do, lse, _ = x
+    out, _ = fav.varlen_fwd_reference(q, k, v, *args)
+    made = []
+    real = fav._bwd_meta
+    monkeypatch.setattr(fav, "_bwd_meta",
+                        lambda *a: made.append(1) or real(*a))
+    for n in range(1, 4):
+        counts = (fav.dkdv_launch_count, fav.dq_launch_count)
+        dq, dk, dv = fav._backward(q, k, v, out, lse, do, *args)
+        assert len(made) == n
+        assert (fav.dkdv_launch_count, fav.dq_launch_count) == \
+            (counts[0] + 1, counts[1] + 1)
+    alone = (fav._launch_dq(*x, *args), *fav._launch_dkdv(*x, *args))
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), alone))
 
 
 def test_varlen_kernels_at_the_7b_shape(dev):

@@ -136,18 +136,20 @@ BOUNDS = {  # cu_q, cu_k (Tq = cu_q[-1], Tk = cu_k[-1])
 }
 
 
-@pytest.mark.parametrize("blocks", [(64, 64), (64, 32), (32, 64), (128, 64)],
-                         ids=["64x64", "64x32", "32x64", "128x64"])
+@pytest.mark.parametrize("blocks", [(64, 64), (64, 32), (32, 64), (128, 64),
+                                    (64, 128)],
+                         ids=["64x64", "64x32", "32x64", "128x64", "64x128"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("name", list(BOUNDS))
 def test_block_bounds_match_jax_at_equal_block_sizes(name, causal, blocks):
-    """(128, 64) is the bf16 wgmma forward's pair: 128 queries a block
-    (its metadata padded to whole blocks), 64-key tiles."""
+    """(128, 64) is the bf16 wgmma forward's and dQ's pair: 128 queries a
+    block (its metadata padded to whole blocks), 64-key tiles; (64, 128)
+    the wgmma dK/dV's: 128 keys a block over 64-query tiles."""
     cu_q, cu_k = BOUNDS[name]
     block_q, block_k = blocks
     tq, tk, nseq = cu_q[-1], cu_k[-1], len(cu_q) - 1
     pad_q = -(-tq // max(64, block_q)) * max(64, block_q)
-    pad_k = -(-tk // 64) * 64
+    pad_k = -(-tk // max(64, block_k)) * max(64, block_k)
     nqb, nkb = pad_q // block_q, pad_k // block_k
     jcq, jck = jnp.asarray(cu_q, jnp.int32), jnp.asarray(cu_k, jnp.int32)
     tcq = torch.tensor(cu_q, dtype=torch.int32)
@@ -216,6 +218,148 @@ def test_pair_tiles_span_the_halves_within_the_jax_block_bounds(name,
         span = range(min(walked), max(walked) + 1) if walked else range(0)
         assert int(tiles[b]) == len(span)
         assert all(jlo[b] <= kt < jhi[b] for kt in span)
+
+
+@pytest.mark.parametrize("name,causal", [
+    pytest.param(n, c, id=f"{n}-{'causal' if c else 'full'}")
+    for n, (cq, ck) in PAIR_CASES.items() for c in (True, False)
+    if cq == ck or not c])
+def test_pair_tiles_span_the_key_halves_within_the_jax_block_bounds(name,
+                                                                    causal):
+    """A 128-key block of the wgmma dK/dV walks the union of its two
+    64-key tiles' query ranges (``_block_bounds_k`` at 64-query tiles):
+    ``pair_tiles`` counts it (brute force here), and the union lies inside
+    the JAX package's ``_block_bounds_k`` for 128-key blocks."""
+    cu_q, cu_k = PAIR_CASES[name]
+    tq, tk, nseq = cu_q[-1], cu_k[-1], len(cu_q) - 1
+    pad_q, pad_k = -(-tq // 128) * 128, -(-tk // 128) * 128
+    tcq = torch.tensor(cu_q, dtype=torch.int32)
+    tck = torch.tensor(cu_k, dtype=torch.int32)
+    sk, rk = fav._segment_meta(tck, tk, pad_k, nseq + 1)
+    lo, hi = fav._block_bounds_k(sk, rk, tcq, 64, 64, pad_q // 64, causal)
+    jsk, jrk = JV._segment_meta(jnp.asarray(cu_k, jnp.int32), tk, pad_k,
+                                nseq + 1)
+    jlo, jhi = (np.asarray(x) for x in JV._block_bounds_k(
+        jsk, jrk, jnp.asarray(cu_q, jnp.int32), 64, 128, pad_q // 64,
+        causal))
+    tiles = fav.pair_tiles(lo, hi)
+    assert tiles.dtype == torch.int32 and tiles.shape == (pad_k // 128,)
+    for b in range(pad_k // 128):
+        walked = set()
+        for w in (2 * b, 2 * b + 1):
+            walked |= set(range(int(lo[w]), int(hi[w])))
+        span = range(min(walked), max(walked) + 1) if walked else range(0)
+        assert int(tiles[b]) == len(span)
+        assert all(jlo[b] <= qt < jhi[b] for qt in span)
+
+
+# the backward's kernel routes: (dtype, D) -> rows a block (128: wgmma)
+BWD_ROUTES = {"bf16_d64": (torch.bfloat16, 64, 128),
+              "bf16_d128": (torch.bfloat16, 128, 128),
+              "f32_d64": (torch.float32, 64, 64),
+              "bf16_d256": (torch.bfloat16, 256, 64)}
+
+
+def _heaviest_first(lo, hi):
+    """Blocks of two tiles by the span of their non-empty ranges, most
+    first, ties by index (brute force over numpy bounds)."""
+    spans = []
+    for b in range(len(lo) // 2):
+        walked = set()
+        for w in (2 * b, 2 * b + 1):
+            walked |= set(range(int(lo[w]), int(hi[w])))
+        spans.append(max(walked) - min(walked) + 1 if walked else 0)
+    return sorted(range(len(spans)), key=lambda b: (-spans[b], b))
+
+
+@pytest.mark.parametrize("route", list(BWD_ROUTES))
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("name", list(BOUNDS))
+def test_backward_metadata_matches_jax(name, causal, route):
+    """``_bwd_meta``, computed once a backward and passed to both
+    launches: seg/rel padded to the route's block on both sides (as the
+    JAX ``_segment_meta``), the dK/dV and dQ bounds at 64-row tiles (32-row
+    walked tiles at D 256) as the JAX ``_block_bounds_k`` /
+    ``_block_bounds_q``, and on the wgmma route each ``lo`` followed by
+    its blocks' launch order, heaviest first."""
+    cu_q, cu_k = BOUNDS[name]
+    dtype, D, blk = BWD_ROUTES[route]
+    tq, tk, nseq = cu_q[-1], cu_k[-1], len(cu_q) - 1
+    tcq = torch.tensor(cu_q, dtype=torch.int32)
+    tck = torch.tensor(cu_k, dtype=torch.int32)
+    q = torch.empty((tq, 2, D), dtype=dtype)
+    k = torch.empty((tk, 2, D), dtype=dtype)
+    sq, rq, sk, rk, lo_k, hi_k, lo_q, hi_q = fav._bwd_meta(q, k, tcq, tck,
+                                                           causal)
+    pad_q, pad_k = -(-tq // blk) * blk, -(-tk // blk) * blk
+    jcq, jck = jnp.asarray(cu_q, jnp.int32), jnp.asarray(cu_k, jnp.int32)
+    jsq, jrq = JV._segment_meta(jcq, tq, pad_q, nseq)
+    jsk, jrk = JV._segment_meta(jck, tk, pad_k, nseq + 1)
+    for got, want in ((sq, jsq), (rq, jrq), (sk, jsk), (rk, jrk)):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    bt = 32 if D == 256 else 64
+    jlo_k, jhi_k = (np.asarray(x) for x in JV._block_bounds_k(
+        jsk, jrk, jcq, bt, 64, pad_q // bt, causal))
+    jlo_q, jhi_q = (np.asarray(x) for x in JV._block_bounds_q(
+        jsq, jrq, jck, 64, bt, pad_k // bt, causal))
+    for lo, hi, jlo, jhi in ((lo_k, hi_k, jlo_k, jhi_k),
+                             (lo_q, hi_q, jlo_q, jhi_q)):
+        assert lo.dtype == torch.int32 and hi.dtype == torch.int32
+        np.testing.assert_array_equal(hi.numpy(), jhi)
+        np.testing.assert_array_equal(lo.numpy()[:len(jhi)], jlo)
+        order = lo.numpy()[len(jhi):].tolist()
+        assert order == (_heaviest_first(jlo, jhi) if blk == 128 else [])
+
+
+def test_dkdv_stats_follow_the_plain_versions_rules():
+    """The wgmma dK/dV kernel's copies of lse and delta: lse times log2 e
+    where finite and 0 where not (a key-less row reads lse 0), +inf past
+    Tq (a padded query's p is 0), delta as given and 0 past Tq."""
+    lse = torch.tensor([[0.5, float("-inf"), 3.0], [float("inf"), 1.0, 2.0]])
+    delta = torch.tensor([[0.25, -1.0, 2.0], [0.0, 3.0, -0.5]])
+    l2, d = fav._dkdv_stats(lse, delta, 128)
+    assert l2.shape == d.shape == (2, 128)
+    assert l2.dtype == d.dtype == torch.float32
+    want = torch.where(torch.isfinite(lse), lse * float(np.log2(np.e)), 0.0)
+    torch.testing.assert_close(l2[:, :3], want, rtol=1e-7, atol=0)
+    assert torch.isposinf(l2[:, 3:]).all()
+    assert torch.equal(d[:, :3], delta) and (d[:, 3:] == 0).all()
+
+
+def test_backward_launches_share_one_metadata(monkeypatch):
+    """Each backward launch computes ``_bwd_meta`` itself when called
+    alone, and takes the one it is given (no device op of its own):
+    dK/dV reads seg/rel and the key tiles' bounds, dQ the same seg/rel and
+    the query tiles' bounds.  The C entries are replaced by a recorder."""
+    q, k, v, g, cq, ck = _inputs([70, 0, 90], [70, 0, 90], 2, 64)
+    t = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, g)]
+    cu = torch.from_numpy(cq)
+    lse = torch.zeros((2, q.shape[0]))
+    calls, made = [], []
+    real = fav._bwd_meta
+    monkeypatch.setattr(fav, "_launch",
+                        lambda name, ptrs, *a: calls.append((name, ptrs)))
+    monkeypatch.setattr(fav, "_bwd_meta",
+                        lambda *a: made.append(real(*a)) or made[-1])
+    args = (*t[:3], t[3], lse, lse, cu, cu, True, 0.125)
+    counts = (fav.dkdv_launch_count, fav.dq_launch_count)
+    fav._launch_dkdv(*args)
+    fav._launch_dq(*args)
+    assert len(made) == 2
+    for a, b in zip(*made):
+        assert torch.equal(a, b)
+    meta = real(t[0], t[1], cu, cu, True)
+    fav._launch_dkdv(*args, meta=meta)
+    fav._launch_dq(*args, meta=meta)
+    assert len(made) == 2
+    assert (fav.dkdv_launch_count, fav.dq_launch_count) == \
+        (counts[0] + 2, counts[1] + 2)
+    ptrs = [x.data_ptr() for x in meta]
+    (n_kv, kv), (n_q, qq) = calls[2:]
+    assert n_kv.endswith("dkdv") and n_q.endswith("dq")
+    assert kv[6:12] == ptrs[:4] + ptrs[4:6]
+    assert qq[6:12] == ptrs[:4] + ptrs[6:8]
 
 
 def test_forward_pads_query_metadata_to_its_block():

@@ -245,13 +245,75 @@ def library(c):
     return fn, fn()[:, :, 0, :]
 
 
+def library_mixed(c):
+    """Yardstick of a ``mixed`` launch, two PyTorch calls (the port never
+    makes them): scaled_dot_product_attention of the chunk's row (queries
+    at positions 188..699 over keys 0..699, keypos <= rel) over its pages
+    gathered dense, plus ``library``'s decode yardstick on the 7 decode
+    rows.  Returns the function making both calls and its outputs for the
+    live tokens, in token order."""
+    import torch
+    import torch.nn.functional as F
+    n_chunk, kv = c["rows"][0]
+    B = len(c["rows"])
+    Dh = c["q"].shape[-1]
+    Hkv = c["kc"].shape[1]
+    pages = c["bt"][0, :-(-kv // BS)].long()
+    k0 = c["kc"][pages].permute(1, 0, 2, 3).reshape(1, Hkv, -1, Dh)[:, :, :kv]
+    v0 = c["vc"][pages].permute(1, 0, 2, 3).reshape(1, Hkv, -1, Dh)[:, :, :kv]
+    q0 = c["q"][:n_chunk].permute(1, 0, 2)[None]
+    rel0 = c["rel"][:n_chunk].long()
+    mask0 = (torch.arange(kv, device=k0.device)[None, :]
+             <= rel0[:, None])[None, None]
+    dec = dict(c, q=c["q"][n_chunk:n_chunk + B - 1],
+               bt=c["bt"][1:].contiguous(), rows=c["rows"][1:],
+               kvl=c["kvl"][1:])
+    dec_fn, _ = library(dec)
+
+    def fn():
+        return F.scaled_dot_product_attention(
+            q0, k0, v0, attn_mask=mask0,
+            enable_gqa=Hkv != q0.shape[1]), dec_fn()
+    a, b = fn()
+    return fn, torch.cat([a[0].permute(1, 0, 2), b[:, :, 0, :]])
+
+
+# the bf16 (unless named) times of the one-block-a-token kernels the walk
+# replaced, at the same cases (PERF.md section 6, "was"; NVIDIA H100 80GB
+# HBM3, 700.00 W): the kernel, kernel_q8 and decode phases' records carry
+# them beside this run's (the kernels line holds only this run's numbers)
+PAGED_WAS_MS = {"kernel_decode": 0.2516, "kernel_q8_decode": 0.3166,
+                "decode_mha": 0.2517, "decode_gqa": 0.4036,
+                "decode_gqa_float32": 0.4958}
+# the paged attention kernels in a trace
+PAGED_KERNEL_NAMES = ("paged_walk_kernel", "paged_attention_any_kernel")
+
+
+def mixed_timing(c, run, run_plain, lib, b, ref):
+    """Times of a ``mixed`` launch: kernel, plain version, the two library
+    calls, and the bound ``b`` (``bound``'s or ``bound_q8``'s tuple); the
+    library's error on the live tokens against ``ref``."""
+    lib_fn, lib_out = lib
+    live = sum(n for n, _ in c["rows"])
+    return {"ms": time_ms(run), "plain_ms": time_ms(run_plain, reps=5,
+                                                    warm=1),
+            "library_ms": time_ms(lib_fn),
+            "library": "two calls: scaled_dot_product_attention of the "
+                       "chunk's row over its gathered pages (keypos <= rel), "
+                       "plus the decode yardstick on the 7 decode rows",
+            "library_max_abs_err": float(
+                (lib_out.float() - ref[:live].float()).abs().max()),
+            "bound_ms": b[0], "bound_by": b[1], "bytes": b[2],
+            "flops": b[3]}
+
+
 def phase_kernel(state):
     import numpy as np
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEV).manual_seed(SEED)
-    errs, timing, ok = {}, {}, True
+    errs, timing, mixed, ok = {}, {}, {}, True
     for kind, Hkv in (("decode", H), ("mixed", H), ("mixed_gqa", H // 4)):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
@@ -274,16 +336,22 @@ def phase_kernel(state):
                         (lib_out.float() - ref.float()).abs().max()),
                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                     "flops": flops, "live_keys": keys}
+                if name == "bfloat16":
+                    timing[name]["was_ms"] = PAGED_WAS_MS["kernel_decode"]
+            else:
+                mixed[f"{kind}_{name}"] = mixed_timing(
+                    c, lambda: kernel(c), lambda: plain(c),
+                    library_mixed(c), bound(c, name), ref)
             del c, out, ref
-    torch.cuda.empty_cache()
-    state["kernel"] = {"errors": errs, "timing": timing}
+            torch.cuda.empty_cache()
+    state["kernel"] = {"errors": errs, "timing": timing, "mixed": mixed}
     emit({"phase": "kernel", "ok": ok, "tolerance": TOLERANCE,
           "shapes": {"H": H, "D": D, "bs": BS, "nblk": NBLK,
                      "decode": "Tq=8, kv lens 100..2000",
                      "mixed": "Tq=576: 512-token chunk at kv 700 + 7 "
                               "decode rows + 57 pad tokens",
                      "mixed_gqa": "mixed with H_kv=8"},
-          "errors": errs, "decode_timing": timing,
+          "errors": errs, "decode_timing": timing, "mixed_timing": mixed,
           "bound_peaks": {"bytes_per_s": PEAK_BYTES,
                           "flops_per_s": PEAK_FLOPS}})
     return ok
@@ -333,9 +401,14 @@ def kernel_q8(c):
 def bound_q8(c):
     """Least time for an int8-page launch: each row's live keys' int8 K
     and V and their pages' scales, q, out, the table entries and seg/rel
-    once over HBM bandwidth, and the QK and PV flops over the f32 rate
-    (the kernel's arithmetic after dequantization)."""
+    once over HBM bandwidth, and the QK and PV flops at the rate of the
+    units the kernel runs them on.  f32 q: every product on the CUDA cores
+    in f32.  bf16 q: the tiles of more than 8 (token, head) rows (a
+    prefill chunk's) on the tensor cores at the bf16 rate, each product
+    taken twice (q * scale and p * vscale as two bf16 terms), the others
+    (decode tokens) on the CUDA cores in f32; the two times add."""
     import numpy as np
+    import torch
     isz = c["q"].element_size()
     _, Hq, Dh = c["q"].shape
     Hkv = c["kc"].shape[1]
@@ -343,12 +416,20 @@ def bound_q8(c):
     pages = int(sum(-(-kv // BS) for _, kv in c["rows"]))
     nbytes = (2 * live_keys * Hkv * Dh + 2 * pages * Hkv * 4
               + 2 * c["q"].numel() * isz + pages * 4 + 8 * c["Tq"])
-    keys = int((c["rel"].cpu().numpy().astype(np.int64) + 1).sum())
-    flops = 4 * keys * Hq * Dh
-    t_bytes = nbytes / PEAK_BYTES * 1e3
+    keys = c["rel"].cpu().numpy().astype(np.int64) + 1
+    flops = 4 * int(keys.sum()) * Hq * Dh
     t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    if c["q"].dtype != torch.float32:
+        seg = c["seg"].cpu().numpy()
+        n_tok = np.bincount(seg, minlength=seg.max() + 1)[seg]
+        tc = n_tok * (Hq // Hkv) > 8               # tokens on the tensor cores
+        f_tc = 4 * int(keys[tc].sum()) * Hq * Dh
+        t_ops = (2 * f_tc / PEAK_FLOPS["bfloat16"]
+                 + (flops - f_tc) / PEAK_FLOPS["float32"]) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", nbytes, flops)
+
 
 
 def dequantized(c, dtype):
@@ -378,7 +459,7 @@ def phase_kernel_q8(state):
     import numpy as np
     import torch
     gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
-    errs, timing, controls, ok = {}, {}, {}, True
+    errs, timing, mixed, controls, ok = {}, {}, {}, {}, True
     for kind, Hkv in (("decode", H), ("mixed", H), ("mixed_gqa", H // 4)):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
@@ -406,14 +487,21 @@ def phase_kernel_q8(state):
                         (lib_out.float() - ref).abs().max()),
                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                     "flops": flops}
+                if name == "bfloat16":
+                    timing[name]["was_ms"] = PAGED_WAS_MS["kernel_q8_decode"]
                 del lib_fn, lib_out
+            else:
+                mixed[f"{kind}_{name}"] = mixed_timing(
+                    c, lambda: kernel_q8(c), lambda: plain_q8(c),
+                    library_mixed(dequantized(c, dtype)), bound_q8(c), ref)
             del c, out, ref
-    torch.cuda.empty_cache()
-    state["kernel_q8"] = {"errors": errs, "timing": timing}
+            torch.cuda.empty_cache()
+    state["kernel_q8"] = {"errors": errs, "timing": timing, "mixed": mixed}
     emit({"phase": "kernel_q8", "ok": ok, "tolerance": TOLERANCE,
           "reference": "plain version in f32 (q upcast), pages int8 with "
                        "per-page-per-head scales amax/127 from N(0, 1)",
           "errors": errs, "controls": controls, "decode_timing": timing,
+          "mixed_timing": mixed,
           "bound_peaks": {"bytes_per_s": PEAK_BYTES,
                           "flops_per_s": PEAK_FLOPS["float32"]}})
     return ok
@@ -1052,6 +1140,8 @@ def profile_decode(model, name="profile", **engine_opts):
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     qmm_ms = sum(dev_us(e) for e in kernels
                  if any(k in e.key for k in QMM_KERNEL_NAMES)) / 1e3
+    att = [e for e in kernels if any(k in e.key for k in PAGED_KERNEL_NAMES)]
+    att_ms = sum(dev_us(e) for e in att) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
     rec = {"phase": name, **engine_opts, "requests": 8,
            "prompt_tokens": 128,
@@ -1063,6 +1153,10 @@ def profile_decode(model, name="profile", **engine_opts):
            / s["engine_steps"],
            "dispatch_ms_p50": s["dispatch_ms_p50"],
            "block_ms_p50": s["block_ms_p50"], "itl_p50_ms": s["itl_p50_ms"],
+           "attention_device_ms": att_ms,
+           "attention_share_of_busy": att_ms / busy_ms if busy_ms
+           else "not measured",
+           "attention_launches": sum(e.count for e in att),
            "top_kernels": [{"name": e.key[:90], "ms": dev_us(e) / 1e3,
                             "calls": e.count} for e in top]}
     if engine_opts.get("weight_dtype"):
@@ -1985,7 +2079,10 @@ def phase_decode(state):
                     (lib_out.float() - ref.float()).abs().max()),
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                 "flops": flops, "live_pages": c["pages"],
-                "live_keys": c["keys"]}
+                "live_keys": c["keys"],
+                "was_ms": PAGED_WAS_MS.get(
+                    f"decode_{kind}" + ("" if name == "bfloat16"
+                                        else f"_{name}"))}
             del c, out, ref, lib_fn, lib_out
             torch.cuda.empty_cache()
     state["decode"] = cases
@@ -2019,7 +2116,7 @@ VARLEN_CASES = {
 VARLEN_TIMED = ("7b", "trainer_d64")    # plain and library times too
 # the bf16 kernels' times on the mma.sync kernels the wgmma ones replaced
 # (PERF.md section 6, "was": the 7B case from chip_smoke.py runs, the
-# trainer's backward from tools/perf/torch_varlen_bwd_ab.py on the parent
+# trainer's backward from tools/perf/torch_ab.py varlen_bwd on the parent
 # tree; NVIDIA H100 80GB HBM3, 700.00 W): the varlen phase's records carry
 # them
 VARLEN_WAS_MS = {"7b_bfloat16": {"fwd": 1.6082, "dkdv": 2.8326,
@@ -2648,9 +2745,14 @@ def profile_blha(caches, layers, n_decode, wall_ms) -> dict:
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    att_ms = sum(dev_us(e) for e in kernels
+                 if any(k in e.key for k in PAGED_KERNEL_NAMES)) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
     return {"device_busy_ms": busy_ms, "wall_ms": wall_ms,
             "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms
+            else "not measured",
+            "attention_device_ms": att_ms,
+            "attention_share_of_busy": att_ms / busy_ms if busy_ms
             else "not measured",
             "kernel_launches": sum(e.count for e in kernels),
             "top_kernels": [{"name": e.key[:90], "ms": dev_us(e) / 1e3,
@@ -3494,6 +3596,7 @@ def kernel_records(state) -> list:
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
         "timed_shape": "decode Tq=8 H=32 H_kv=32 D=128 bs=16, bfloat16",
+        "mixed": state["kernel"]["mixed"],
         "float32": state["kernel"]["timing"]["float32"],
         "repaired_shapes": repaired(state, "ragged")}, {
         "name": "ragged_paged_attention_q8", "route": "cuda",
@@ -3510,6 +3613,7 @@ def kernel_records(state) -> list:
                    "gathered dense beforehand",
         "timed_shape": "decode Tq=8 H=32 H_kv=32 D=128 bs=16, int8 pages, "
                        "bfloat16 q",
+        "mixed": state["kernel_q8"]["mixed"],
         "float32_q": state["kernel_q8"]["timing"]["float32"],
         "repaired_shapes": repaired(state, "ragged_q8")}, {
         "name": "quant_matmul", "route": "cuda",

@@ -44,6 +44,7 @@ counted in ``decode_launch_count``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -178,14 +179,80 @@ def _check_operands(q, key_cache, value_cache, block_tables, vectors,
         "caches must be 16-byte aligned")
 
 
+# The walk's plan (csrc/ragged_paged_attention.cu, paged_walk_kernel): a
+# tile of at most 8 rows splits its keys in pieces of about _SPLIT_KEYS,
+# and a launch's f32 split scratch stays under _SCRATCH_BYTES
+_SPLIT_KEYS = 512
+_SCRATCH_BYTES = 32 << 20
+
+# per (device, stream): the walk's int32 counters (the splits' [tiles,
+# H_kv], then the item queue's two), zeroed when allocated or grown --
+# every launch leaves them at zero -- and its f32 split scratch.  Launches
+# on one stream run in order, so no two launches share them at once.
+_workspace: dict = {}
+
+
+def _specialised(H, Hkv, D) -> bool:
+    """The shapes the walk takes (the C entries' ``specialised``): D 64 or
+    128 and G = H / H_kv <= 8; paged_attention_any_kernel takes the rest."""
+    return D in (64, 128) and H // Hkv <= 8
+
+
+@functools.lru_cache(maxsize=1024)
+def _walk_plan(Tq, H, Hkv, D, bs, R, nblk, dtype, quant=False,
+               decode=False, split_keys=_SPLIT_KEYS):
+    """The walk's launch plan, computed on the host from shapes alone (no
+    device op; cached, as a step's layers repeat one shape):
+    ``(TT, split, nsplit, ntiles_max)``.
+
+    TT: tokens of a query tile -- 64 / G for bfloat16 q (tiles of more
+    than 8 rows run on the tensor cores), 8 / G for float32 (at least 1),
+    1 for the decode entry.  split: keys of a split, a multiple of the
+    kernel's stage (64 keys, 128 for int8 pages, 32 for float32), about
+    ``split_keys``.  nsplit: splits of the longest row (nblk * bs keys).
+    ntiles_max: a bound on the tiles of a launch whose seg is
+    non-decreasing: each run of equal seg (at most min(R + 1, Tq) of them)
+    gives ceil(run / TT) tiles.  The split scratch [ntiles_max, H_kv,
+    nsplit, 8, D + 2] f32 stays under _SCRATCH_BYTES (fewer, longer splits
+    where it would not)."""
+    G = H // Hkv
+    kt = 128 if quant else (32 if dtype == torch.float32 else 64)
+    if decode:
+        tt, ntiles = 1, Tq
+    else:
+        tt = 64 // G if dtype == torch.bfloat16 else max(1, 8 // G)
+        ntiles = min(Tq, -(-Tq // tt) + min(R + 1, Tq))
+    ntiles = max(ntiles, 1)
+    cap = nblk * bs
+    per_split = ntiles * Hkv * 8 * (D + 2) * 4
+    nsplit = max(1, min(-(-cap // split_keys), _SCRATCH_BYTES // per_split))
+    split = -(-(-(-cap // nsplit)) // kt) * kt
+    return tt, split, -(-cap // split), ntiles
+
+
+def _walk_workspace(device, stream, n_cnt, n_part):
+    """The walk's (counters, scratch) on ``stream`` of ``device``: at least
+    n_cnt int32 counters, zero between launches, and n_part f32."""
+    cnt, part = _workspace.get((device, stream), (None, None))
+    if cnt is None or cnt.numel() < n_cnt:
+        cnt = torch.zeros(max(n_cnt, 1024), dtype=torch.int32,
+                          device=device)
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    _workspace[device, stream] = cnt, part
+    return cnt, part
+
+
 def _launch(entry, q, key_cache, value_cache, block_tables, vectors,
             scales=()):
-    """Launch one of the three CUDA kernels on PyTorch's current stream:
+    """Launch one of the three CUDA entries on PyTorch's current stream:
     ``vectors`` are the int32 operands after the block table (seg and
-    rel, or lengths).  Raises on CPU tensors and on a refused launch (the
-    C entry returns ``cudaGetLastError()``, or the error of raising the
-    block's shared-memory limit when a block size needs more than the
-    card has)."""
+    rel, or lengths).  Allocates the output with ``torch.empty`` and takes
+    the walk's counters and split scratch from the stream's workspace (no
+    device op but the counters' one zeroing).  Raises on CPU tensors and
+    on a refused launch (the C entry returns ``cudaGetLastError()``, or
+    the error of encoding a tensor map or of raising the block's
+    shared-memory limit)."""
     if q.device.type != "cuda":
         raise RuntimeError(
             "the paged attention kernels run on CUDA tensors only; "
@@ -194,21 +261,34 @@ def _launch(entry, q, key_cache, value_cache, block_tables, vectors,
     fn = getattr(_build.library("ragged_paged_attention"), entry)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * (5 + len(scales) + len(vectors)) \
-            + [ctypes.c_int] * (8 if decode else 9) + \
+        fn.argtypes = [ctypes.c_void_p] * (7 + len(scales) + len(vectors)) \
+            + [ctypes.c_int] * (10 if decode else 13) + \
             [ctypes.c_float, ctypes.c_void_p]
     Tq, H, D = q.shape
     NB, Hkv, bs, _ = key_cache.shape
     R, nblk = block_tables.shape
     out = torch.empty_like(q)
-    ptrs = [q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr()] + \
-        [x.data_ptr() for x in scales] + [block_tables.data_ptr()] + \
-        [x.data_ptr() for x in vectors] + [out.data_ptr()]
-    dims = [Tq, H, Hkv, D, bs, NB] + ([] if decode else [R]) + \
-        [nblk, _DTYPES[q.dtype]]
+    tt, split, nsplit, ntiles = _walk_plan(Tq, H, Hkv, D, bs, R, nblk,
+                                           q.dtype, bool(scales), decode,
+                                           _SPLIT_KEYS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*ptrs, *dims, 1.0 / (D ** 0.5), stream)
+        cnt = part = 0
+        if _specialised(H, Hkv, D):
+            c, p = _walk_workspace(q.device, stream, ntiles * Hkv + 2,
+                                   ntiles * Hkv * nsplit * 8 * (D + 2)
+                                   if nsplit > 1 else 1)
+            cnt, part = c.data_ptr(), p.data_ptr()
+        ptrs = [q.data_ptr(), key_cache.data_ptr(),
+                value_cache.data_ptr()] + [x.data_ptr() for x in scales] + \
+            [block_tables.data_ptr()] + [x.data_ptr() for x in vectors] + \
+            [out.data_ptr(), part, cnt]
+        if decode:
+            dims = [Tq, H, Hkv, D, bs, NB, nblk, split, nsplit]
+        else:
+            dims = [Tq, H, Hkv, D, bs, NB, R, nblk, tt, split, nsplit,
+                    ntiles]
+        err = fn(*ptrs, *dims, _DTYPES[q.dtype], 1.0 / (D ** 0.5), stream)
     if err != 0:
         raise RuntimeError(f"paged attention kernel {entry} launch failed: "
                            f"CUDA error {err}")
@@ -262,8 +342,10 @@ def ragged_paged_attention_segrel_packed(q, key_cache, value_cache,
                                          block_tables, seg, rel):
     """The engine's entry: ragged attention with precomputed (seg, rel),
     for callers that guarantee the packing invariant (int32 operands,
-    table entries in [0, num_blocks), seg naming a real table row -- the
-    engine's [B+1]-row table makes the pad sentinel B its null row).
+    table entries in [0, num_blocks), seg naming a real table row and
+    non-decreasing, as ``ragged_segments`` gives it -- the engine's
+    [B+1]-row table makes the pad sentinel B its null row, last).  Where
+    seg falls, the walk writes NaN over the whole output.
 
     CUDA tensors go through the CUDA kernel (which raises on an operand it
     does not take); CPU tensors take the plain version.  Returns
@@ -275,21 +357,42 @@ def ragged_paged_attention_segrel_packed(q, key_cache, value_cache,
                                          block_tables, seg, rel)
 
 
+def _segrel(packed, q, key_cache, value_cache, block_tables, seg, rel,
+            scales=(), ordered=False):
+    """The unpacked entries' common part: clamp the table entries (blha -1
+    padding) and seg into range, cast to int32, order the tokens by seg
+    (unless ``ordered``: seg is non-decreasing already, as
+    ``ragged_segments`` gives it), call ``packed`` and hand the outputs
+    back in the caller's order."""
+    R = block_tables.shape[0]
+    block_tables = torch.clamp(block_tables.to(torch.int32), 0,
+                               key_cache.shape[0] - 1).contiguous()
+    seg = torch.clamp(seg.to(torch.int32), 0, R - 1)
+    rel = rel.to(torch.int32)
+    scales = tuple(x.float().contiguous() for x in scales)
+    if ordered:
+        return packed(q.contiguous(), key_cache, value_cache, *scales,
+                      block_tables, seg.contiguous(), rel.contiguous())
+    order = torch.argsort(seg, stable=True)
+    out = packed(q[order].contiguous(), key_cache, value_cache, *scales,
+                 block_tables, seg[order].contiguous(),
+                 rel[order].contiguous())
+    res = torch.empty_like(out)
+    res[order] = out
+    return res
+
+
 def ragged_paged_attention_segrel(q, key_cache, value_cache, block_tables,
                                   seg, rel):
     """Ragged attention with precomputed (seg, rel) per flat token.
 
     q [Tq, H, D]; caches [num_blocks, H_kv, bs, D]; block_tables [R, nblk];
-    seg [Tq] in [0, R] (R == padding sentinel); rel [Tq].  Clamps table
-    entries (blha -1 padding) and seg into range and casts to int32 before
-    the packed entry.  Returns [Tq, H, D]."""
-    R = block_tables.shape[0]
-    block_tables = torch.clamp(block_tables.to(torch.int32), 0,
-                               key_cache.shape[0] - 1).contiguous()
-    seg = torch.clamp(seg.to(torch.int32), 0, R - 1).contiguous()
-    return ragged_paged_attention_segrel_packed(
-        q.contiguous(), key_cache, value_cache, block_tables, seg,
-        rel.to(torch.int32).contiguous())
+    seg [Tq] in [0, R] (R == padding sentinel), in any order; rel [Tq].
+    Clamps table entries (blha -1 padding) and seg into range, casts to
+    int32 and orders the tokens by seg before the packed entry.  Returns
+    [Tq, H, D]."""
+    return _segrel(ragged_paged_attention_segrel_packed, q, key_cache,
+                   value_cache, block_tables, seg, rel)
 
 
 def ragged_paged_attention(q, key_cache, value_cache, block_tables,
@@ -301,8 +404,8 @@ def ragged_paged_attention(q, key_cache, value_cache, block_tables,
     inserts -- a row's queries sit at its LAST kv_lens positions).
     Returns [Tq, H, D]; padding rows are finite garbage."""
     seg, rel = ragged_segments(cu_seqlens, kv_lens, q.shape[0])
-    return ragged_paged_attention_segrel(
-        q, key_cache, value_cache, block_tables, seg, rel)
+    return _segrel(ragged_paged_attention_segrel_packed, q, key_cache,
+                   value_cache, block_tables, seg, rel, ordered=True)
 
 
 def ragged_paged_reference_quant_segrel(q, key_cache, value_cache,
@@ -340,15 +443,11 @@ def ragged_paged_attention_quant_segrel(q, key_cache, value_cache,
     q [Tq, H, D] float; caches [num_blocks, H_kv, bs, D] int8;
     key_scales/value_scales [num_blocks, H_kv] (float = int8 * scale);
     block_tables [R, nblk]; seg/rel as in ``ragged_paged_attention_segrel``
-    (clamped and cast the same way).  Returns [Tq, H, D] in q.dtype."""
-    R = block_tables.shape[0]
-    block_tables = torch.clamp(block_tables.to(torch.int32), 0,
-                               key_cache.shape[0] - 1).contiguous()
-    seg = torch.clamp(seg.to(torch.int32), 0, R - 1).contiguous()
-    return ragged_paged_attention_quant_segrel_packed(
-        q.contiguous(), key_cache, value_cache,
-        key_scales.float().contiguous(), value_scales.float().contiguous(),
-        block_tables, seg, rel.to(torch.int32).contiguous())
+    (clamped, cast and ordered the same way).  Returns [Tq, H, D] in
+    q.dtype."""
+    return _segrel(ragged_paged_attention_quant_segrel_packed, q,
+                   key_cache, value_cache, block_tables, seg, rel,
+                   (key_scales, value_scales))
 
 
 # ---------------------------------------------------------------------------

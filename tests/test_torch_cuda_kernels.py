@@ -678,6 +678,172 @@ def test_decode_kernel_refuses_what_it_does_not_take(dev):
 
 
 # ---------------------------------------------------------------------------
+# the paged walk's edges (csrc/ragged_paged_attention.cu cuts a launch into
+# query tiles and key splits of about 512 keys): rows of one key, of a split
+# less one, a split, a split and one, and 2,000 keys; a chunk that resumes
+# mid-page and is not a multiple of a tile; a 70-token prefill (one more
+# than a tile); tiles next to decode rows; pad tokens; G 1/4/8, bs 16/64,
+# D 64/128, f32 and bf16, each entry one launch; repeats bit for bit; the
+# split counters reset between launches of different shapes.
+# ---------------------------------------------------------------------------
+
+WALK_ROWS = [(37, 100), (1, 1), (1, 511), (1, 512), (1, 513), (1, 2000),
+             (70, 70), (1, 33)]
+WALK_TQ = 120                                 # 113 live tokens, 7 pad
+WALK_LENS = [1, 511, 512, 513, 2000, 64, 17]
+WALK_HEADS = {"G1": (8, 8), "G4": (16, 4), "G8": (16, 2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("bs", [16, 64])
+@pytest.mark.parametrize("group", list(WALK_HEADS))
+def test_paged_walk_edges_match_plain_versions(dev, group, bs, D, dtype):
+    H, Hkv = WALK_HEADS[group]
+    nblk = -(-2000 // bs)
+    ops = _case(dev, dtype, H, Hkv, D, bs, WALK_ROWS, WALK_TQ, nblk, seed=6)
+    before = pa.launch_count
+    out = pa.ragged_paged_attention_segrel_packed(*ops)
+    torch.cuda.synchronize()
+    assert pa.launch_count == before + 1
+    assert torch.isfinite(out).all()             # pad rows too
+    _assert_within(out, pa.ragged_paged_reference_segrel(*ops), dtype)
+    qops = _quant_case(dev, dtype, H, Hkv, D, bs, WALK_ROWS, WALK_TQ, nblk,
+                       seed=7)
+    before = pa.quant_launch_count
+    out = pa.ragged_paged_attention_quant_segrel_packed(*qops)
+    torch.cuda.synchronize()
+    assert pa.quant_launch_count == before + 1
+    assert torch.isfinite(out).all()
+    _assert_within(out, pa.ragged_paged_reference_quant_segrel(
+        qops[0].float(), *qops[1:]), dtype)
+    dops = _decode_case(dev, dtype, len(WALK_LENS), H, Hkv, D, bs,
+                        WALK_LENS, seed=8)
+    before = pa.decode_launch_count
+    out = pa.paged_decode_attention(*dops)
+    torch.cuda.synchronize()
+    assert pa.decode_launch_count == before + 1
+    _assert_within(out, pa.paged_decode_plain(*dops), dtype)
+
+
+def _walk_entries(dev, dtype=torch.bfloat16, H=32, Hkv=8, D=128, bs=16,
+                  seed=9):
+    """The three entries at a split-heavy shape, as thunks."""
+    nblk = -(-2000 // bs)
+    ops = _case(dev, dtype, H, Hkv, D, bs, WALK_ROWS, WALK_TQ, nblk, seed)
+    qops = _quant_case(dev, dtype, H, Hkv, D, bs, WALK_ROWS, WALK_TQ, nblk,
+                       seed)
+    dops = _decode_case(dev, dtype, len(WALK_LENS), H, Hkv, D, bs,
+                        WALK_LENS, seed)
+    return {"float": lambda: pa.ragged_paged_attention_segrel_packed(*ops),
+            "int8": lambda: pa.ragged_paged_attention_quant_segrel_packed(
+                *qops),
+            "decode": lambda: pa.paged_decode_attention(*dops)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_walk_repeats_bit_for_bit(dev, dtype):
+    """Ten launches of each entry give the same bits: the splits merge in
+    split order whichever finishes last."""
+    for name, run in _walk_entries(dev, dtype).items():
+        first = run()
+        for _ in range(10):
+            assert torch.equal(run(), first), name
+
+
+def test_paged_walk_counts_one_launch_a_call(dev):
+    counts = {"float": "launch_count", "int8": "quant_launch_count",
+              "decode": "decode_launch_count"}
+    for name, run in _walk_entries(dev).items():
+        before = {c: getattr(pa, c) for c in counts.values()}
+        run()
+        torch.cuda.synchronize()
+        for entry, c in counts.items():
+            assert getattr(pa, c) == before[c] + (entry == name), (name, c)
+
+
+def test_paged_walk_counters_reset_between_shapes(dev):
+    """Two shapes back to back and back again: each launch leaves the
+    split counters at zero, so the repeat gives the first call's bits."""
+    a = _walk_entries(dev, H=32, Hkv=8, D=128, bs=16, seed=10)
+    b = _walk_entries(dev, H=8, Hkv=8, D=64, bs=64, seed=11)
+    first = {k: run() for k, run in a.items()}
+    for run in b.values():
+        run()
+    for k, run in a.items():
+        assert torch.equal(run(), first[k]), k
+    torch.cuda.synchronize()
+    assert not any(c.any() for c, _ in pa._workspace.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("group", ["G1", "G8"])
+def test_public_segrel_entries_take_shuffled_tokens(dev, group, dtype):
+    """The unpacked entries order the tokens by seg before the walk (which
+    wants seg non-decreasing) and hand the outputs back in the caller's
+    order, so a shuffled launch holds the plain version, which takes any
+    order.  Shuffled, seg would give the walk far more runs than its tile
+    bound (at G 1 a bf16 tile is 64 tokens)."""
+    H, Hkv = WALK_HEADS[group]
+    D, bs = 128, 16
+    nblk = -(-2000 // bs)
+    perm = torch.from_numpy(
+        np.random.default_rng(12).permutation(WALK_TQ)).to(dev)
+    q, kc, vc, bt, seg, rel = _case(dev, dtype, H, Hkv, D, bs, WALK_ROWS,
+                                    WALK_TQ, nblk, seed=12)
+    ops = (q[perm], kc, vc, bt, seg[perm], rel[perm])
+    before = pa.launch_count
+    out = pa.ragged_paged_attention_segrel(*ops)
+    torch.cuda.synchronize()
+    assert pa.launch_count == before + 1
+    assert torch.isfinite(out).all()
+    _assert_within(out, pa.ragged_paged_reference_segrel(*ops), dtype)
+    q, k8, v8, ks, vs, bt, seg, rel = _quant_case(
+        dev, dtype, H, Hkv, D, bs, WALK_ROWS, WALK_TQ, nblk, seed=13)
+    qops = (q[perm], k8, v8, ks, vs, bt, seg[perm], rel[perm])
+    before = pa.quant_launch_count
+    out = pa.ragged_paged_attention_quant_segrel(*qops)
+    torch.cuda.synchronize()
+    assert pa.quant_launch_count == before + 1
+    assert torch.isfinite(out).all()
+    _assert_within(out, pa.ragged_paged_reference_quant_segrel(
+        qops[0].float(), *qops[1:]), dtype)
+
+
+@pytest.mark.parametrize("order", ["shuffled", "one_swap"])
+def test_packed_walk_writes_nan_where_seg_falls(dev, order):
+    """The packed entries take seg non-decreasing (the walk's tile bound
+    holds only then).  A launch whose seg falls -- shuffled, past the
+    bound, or two decode tokens swapped, within it -- writes NaN over its
+    whole output rather than drop tiles, leaves the counters at zero, and
+    the next ordered launch holds the plain version."""
+    H, Hkv, D, bs, dtype = 8, 8, 128, 16, torch.bfloat16
+    nblk = -(-2000 // bs)
+    if order == "shuffled":
+        perm = np.random.default_rng(14).permutation(WALK_TQ)
+    else:                                # tokens 40 and 41: decode rows
+        perm = np.arange(WALK_TQ)
+        perm[[40, 41]] = [41, 40]
+    perm = torch.from_numpy(perm).to(dev)
+    ops = _case(dev, dtype, H, Hkv, D, bs, WALK_ROWS, WALK_TQ, nblk, seed=14)
+    qops = _quant_case(dev, dtype, H, Hkv, D, bs, WALK_ROWS, WALK_TQ, nblk,
+                       seed=15)
+    for entry, args in ((pa.ragged_paged_attention_segrel_packed, ops),
+                        (pa.ragged_paged_attention_quant_segrel_packed,
+                         qops)):
+        q, *mid, seg, rel = args
+        out = entry(q[perm], *mid, seg[perm], rel[perm])
+        torch.cuda.synchronize()
+        assert torch.isnan(out).all(), entry.__name__
+    assert not any(c.any() for c, _ in pa._workspace.values())
+    _assert_within(pa.ragged_paged_attention_segrel_packed(*ops),
+                   pa.ragged_paged_reference_segrel(*ops), dtype)
+
+
+# ---------------------------------------------------------------------------
 # varlen flash attention: the forward, dK/dV and dQ kernels against their
 # plain versions (out at TOL over [Tq, H * D] rows, lse to LSE_ABS where
 # finite and -inf where the plain version has it, gradients at GRAD_TOL),

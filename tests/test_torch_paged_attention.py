@@ -340,3 +340,241 @@ def test_group_not_dividing_heads_is_refused_everywhere():
     assert not jpa.ragged_supports(4, 6, 4, 128, 16)
     with pytest.raises(ValueError, match="rule"):
         tpa._launch_kernel(*_operands(H=6, Hkv=4))
+
+
+# ---------------------------------------------------------------------------
+# the layouts the walk's work split cares about (csrc/ragged_paged_attention.cu
+# cuts a launch into query tiles of TT tokens and key splits): chunks that
+# start mid-page and are not a multiple of a tile, rows longer than a split,
+# one-key rows, decode rows beside a chunk, pad tokens; G 1/4/8, bs 16/64.
+# The plain version against the JAX reference (f32, TOL) and against the
+# Pallas kernel run by the interpreter; then the host plan (_walk_plan) and
+# the kernel's work list (_walk_items, below) cover every (token, kv head,
+# key) exactly once.
+# ---------------------------------------------------------------------------
+
+WALK_LAYOUTS = {
+    # a 37-token chunk resuming at position 27 (mid-page, off every tile
+    # edge), two decode rows, a one-key row, pad tokens
+    "chunk_mid_page": ([(37, 64), (1, 90), (1, 1), (1, 33)], 48),
+    # one row of 600 keys (longer than a split of 512) and short rows
+    "long_row": ([(1, 600), (1, 17), (2, 40)], 8),
+    # a whole prefill chunk of 70 tokens (one more than a 64-token tile)
+    "prefill_70": ([(70, 70)], 72),
+    # decode only, one of them a single key
+    "decode": ([(1, 1), (1, 130), (1, 513), (1, 64)], 4),
+}
+WALK_SHAPES = [(4, 4, 64, 16), (8, 2, 64, 16), (8, 1, 64, 64),
+               (16, 2, 128, 16)]                      # H, Hkv, D, bs
+
+
+def _walk_case(seed, layout, shape):
+    rows, Tq = WALK_LAYOUTS[layout]
+    H, Hkv, D, bs = shape
+    nblk = -(-max(kv for _, kv in rows) // bs)
+    q, kc, vc, bt, cu, kvl = _case(seed, H, Hkv, D, bs, rows, Tq, nblk)
+    return q, kc, vc, bt, cu, kvl, Tq
+
+
+@pytest.mark.parametrize("shape", WALK_SHAPES,
+                         ids=lambda s: "H%dKV%dD%dbs%d" % s)
+@pytest.mark.parametrize("layout", list(WALK_LAYOUTS))
+def test_plain_version_matches_jax_reference_at_walk_layouts(layout, shape):
+    q, kc, vc, bt, cu, kvl, Tq = _walk_case(5, layout, shape)
+    seg, rel = jpa.ragged_segments(jnp.asarray(cu), jnp.asarray(kvl), Tq)
+    ref = jpa.ragged_paged_reference_segrel(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(bt),
+        seg, rel)
+    tq, tkc, tvc, tbt, tcu, tkvl = _torch(q, kc, vc, bt, cu, kvl)
+    tseg, trel = tpa.ragged_segments(tcu, tkvl, Tq)
+    out = tpa.ragged_paged_attention_segrel_packed(tq, tkc, tvc, tbt, tseg,
+                                                   trel)
+    assert torch.isfinite(out).all()           # pad rows too
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("shape", [(4, 4, 64, 16), (8, 1, 64, 64)],
+                         ids=["G1bs16", "G8bs64"])
+@pytest.mark.parametrize("layout", ["chunk_mid_page", "decode"])
+def test_plain_version_matches_pallas_kernel_at_walk_layouts(
+        _interpret, layout, shape):
+    q, kc, vc, bt, cu, kvl, Tq = _walk_case(6, layout, shape)
+    seg, rel = jpa.ragged_segments(jnp.asarray(cu), jnp.asarray(kvl), Tq)
+    kern = jpa.ragged_paged_attention_segrel_packed(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(bt),
+        seg, rel)
+    tq, tkc, tvc, tbt, tcu, tkvl = _torch(q, kc, vc, bt, cu, kvl)
+    out = tpa.ragged_paged_attention(tq, tkc, tvc, tbt, tcu, tkvl)
+    live = np.arange(Tq) < cu[-1]
+    np.testing.assert_allclose(out.numpy()[live], np.asarray(kern)[live],
+                               **TOL)
+
+
+@pytest.mark.parametrize("shape", [(8, 2, 64, 16), (8, 1, 128, 64)],
+                         ids=["G4bs16", "G8bs64"])
+@pytest.mark.parametrize("layout", ["chunk_mid_page", "long_row"])
+def test_quant_plain_version_matches_pallas_kernel_at_walk_layouts(
+        _interpret, layout, shape):
+    """int8 pages: the plain version against the interpreted int8-page
+    Pallas kernel (scales amax / 127 per page and head)."""
+    q, kc, vc, bt, cu, kvl, Tq = _walk_case(7, layout, shape)
+    ks = np.abs(kc).max((2, 3)) / 127.0
+    vs = np.abs(vc).max((2, 3)) / 127.0
+    k8 = np.clip(np.round(kc / ks[:, :, None, None]), -127, 127).astype(
+        np.int8)
+    v8 = np.clip(np.round(vc / vs[:, :, None, None]), -127, 127).astype(
+        np.int8)
+    ks, vs = ks.astype(np.float32), vs.astype(np.float32)
+    seg, rel = jpa.ragged_segments(jnp.asarray(cu), jnp.asarray(kvl), Tq)
+    kern = jpa.ragged_paged_attention_quant_segrel_packed(
+        *(jnp.asarray(x) for x in (q, k8, v8, ks, vs, bt)), seg, rel)
+    tq, tk8, tv8, tks, tvs, tbt, tcu, tkvl = _torch(q, k8, v8, ks, vs, bt,
+                                                    cu, kvl)
+    tseg, trel = tpa.ragged_segments(tcu, tkvl, Tq)
+    out = tpa.ragged_paged_attention_quant_segrel_packed(
+        tq, tk8, tv8, tks, tvs, tbt, tseg, trel)
+    live = np.arange(Tq) < cu[-1]
+    np.testing.assert_allclose(out.numpy()[live], np.asarray(kern)[live],
+                               **TOL)
+
+
+def _walk_items(seg, rel, H, Hkv, bs, nblk, plan, decode=False):
+    """The kernel's work list for one launch, as the walk's tile and split
+    scan finds it on the card (csrc/ragged_paged_attention.cu):
+    ``[(tokens, kv head, (k0, k1))]`` where ``tokens`` is the tile's token
+    range and keys k0 .. k1 - 1 are the item's.  seg / rel are host int
+    sequences (decode: rel holds the lengths, seg is ignored)."""
+    tt, split, _, _ = plan
+    G = H // Hkv
+    cap = nblk * bs
+    Tq = len(rel)
+
+    def limit(t):
+        n = int(rel[t]) if decode else int(rel[t]) + 1
+        return min(max(n, 1), cap)
+
+    if decode:
+        starts = list(range(Tq))
+    else:
+        starts, rs = [], 0
+        for t in range(Tq):
+            if t == 0 or seg[t] != seg[t - 1]:
+                rs = t
+            if (t - rs) % tt == 0:
+                starts.append(t)
+    items = []
+    for i, t0 in enumerate(starts):
+        t1 = starts[i + 1] if i + 1 < len(starts) else Tq
+        nkeys = max(limit(t) for t in range(t0, t1))
+        ns = -(-nkeys // split) if (t1 - t0) * G <= 8 else 1
+        for z in range(ns):
+            k0 = z * split
+            k1 = min(k0 + split, nkeys) if ns > 1 else nkeys
+            items += [(range(t0, t1), h, (k0, k1)) for h in range(Hkv)]
+    return items
+
+
+def _coverage(items, limits, Hkv):
+    """How often each (token, kv head, key) is an item's, for the keys
+    below each token's limit (any key at or past it must be unclaimed by
+    that token's items except as masked work inside its tile)."""
+    counts = {}
+    for tokens, h, (k0, k1) in items:
+        assert 0 <= k0 < k1
+        for t in tokens:
+            for key in range(k0, min(k1, limits[t])):
+                counts[t, h, key] = counts.get((t, h, key), 0) + 1
+    want = {(t, h, key) for t in range(len(limits)) for h in range(Hkv)
+            for key in range(limits[t])}
+    return counts, want
+
+
+KINDS = {"f32": (torch.float32, False), "bf16": (torch.bfloat16, False),
+         "int8": (torch.bfloat16, True)}
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+@pytest.mark.parametrize("shape", WALK_SHAPES,
+                         ids=lambda s: "H%dKV%dD%dbs%d" % s)
+@pytest.mark.parametrize("layout", list(WALK_LAYOUTS) + ["engine_mixed"])
+def test_walk_plan_covers_every_token_head_and_key_once(layout, shape,
+                                                        kind):
+    """The kernel's work list at the host plan: each (token, kv head, key
+    <= rel) in exactly one item, tiles of one row and at most TT tokens,
+    at most ntiles_max tiles, splits only on tiles of at most 8 rows, and
+    the split scratch under its budget."""
+    H, Hkv, D, bs = shape
+    dtype, quant = KINDS[kind]
+    if layout == "engine_mixed":            # chip_smoke.py's mixed launch
+        rows = [(512, 700)] + [(1, kv) for kv in
+                               (2000, 731, 1290, 5, 16, 17, 1999)]
+        Tq = 576
+    else:
+        rows, Tq = WALK_LAYOUTS[layout]
+    nblk = -(-2048 // bs)
+    B = len(rows)
+    cu = np.zeros(B + 1, np.int32)
+    cu[1:] = np.cumsum([n for n, _ in rows])
+    kvl = np.asarray([kv for _, kv in rows], np.int32)
+    seg, rel = (x.numpy() for x in tpa.ragged_segments(
+        torch.from_numpy(cu), torch.from_numpy(kvl), Tq))
+    plan = tpa._walk_plan(Tq, H, Hkv, D, bs, B + 1, nblk, dtype, quant)
+    tt, split, nsplit, ntiles = plan
+    kt = 128 if quant else (32 if dtype == torch.float32 else 64)
+    assert split % kt == 0 and split * nsplit >= nblk * bs
+    assert ntiles * Hkv * nsplit * 8 * (D + 2) * 4 <= max(
+        tpa._SCRATCH_BYTES, ntiles * Hkv * 8 * (D + 2) * 4)
+    items = _walk_items(seg, rel, H, Hkv, bs, nblk, plan)
+    tiles = {(it[0].start, it[0].stop) for it in items}
+    assert len(tiles) <= ntiles
+    G = H // Hkv
+    for t0, t1 in tiles:
+        assert 1 <= t1 - t0 <= tt and len(set(seg[t0:t1])) == 1
+    for tokens, _, (k0, k1) in items:
+        if len(tokens) * G > 8:
+            assert k0 == 0                   # unsplit: the tensor cores
+    limits = [min(int(r) + 1, nblk * bs) for r in rel]
+    counts, want = _coverage(items, limits, Hkv)
+    assert set(counts) == want and set(counts.values()) == {1}
+
+
+@pytest.mark.parametrize("lens", [[1, 130, 513, 64], [2048, 1, 511, 512,
+                                                      513, 1024]])
+@pytest.mark.parametrize("bs", [16, 64])
+def test_decode_walk_plan_covers_every_row_head_and_key_once(lens, bs):
+    H, Hkv, D = 32, 8, 128
+    nblk = -(-2048 // bs)
+    plan = tpa._walk_plan(len(lens), H, Hkv, D, bs, len(lens), nblk,
+                          torch.bfloat16, decode=True)
+    assert plan[0] == 1 and plan[3] == len(lens)
+    items = _walk_items(None, lens, H, Hkv, bs, nblk, plan, decode=True)
+    counts, want = _coverage(items, lens, Hkv)
+    assert set(counts) == want and set(counts.values()) == {1}
+    # a row longer than a split runs on several items
+    assert sum(1 for it in items if it[0].start == lens.index(max(lens))
+               and it[1] == 0) == -(-max(lens) // plan[1])
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_public_segrel_takes_tokens_in_any_order(quant):
+    """The walk wants seg non-decreasing; the public (unpacked) entries
+    order the tokens by seg and hand the outputs back in the caller's
+    order, so a shuffled launch gives each token its own row."""
+    ops = _operands()
+    perm = torch.from_numpy(np.random.RandomState(8).permutation(
+        ops[0].shape[0]))
+    q, kc, vc, bt, seg, rel = ops
+    if quant:
+        ks = kc.abs().amax((2, 3)) / 127.0
+        vs = vc.abs().amax((2, 3)) / 127.0
+        kc = torch.round(kc / ks[:, :, None, None]).to(torch.int8)
+        vc = torch.round(vc / vs[:, :, None, None]).to(torch.int8)
+        want = tpa.ragged_paged_reference_quant_segrel(q, kc, vc, ks, vs, bt,
+                                                       seg, rel)
+        got = tpa.ragged_paged_attention_quant_segrel(
+            q[perm], kc, vc, ks, vs, bt, seg[perm], rel[perm])
+    else:
+        want = tpa.ragged_paged_reference_segrel(q, kc, vc, bt, seg, rel)
+        got = tpa.ragged_paged_attention_segrel(q[perm], kc, vc, bt,
+                                                seg[perm], rel[perm])
+    np.testing.assert_allclose(got.numpy(), want[perm].numpy(), **TOL)

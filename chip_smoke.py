@@ -2898,8 +2898,15 @@ def phase_paged_repair(state):
 # fails.
 # ---------------------------------------------------------------------------
 
-NORM_ROWS = (8, 2048)
+NORM_ROWS = (8, 616, 2048, 2984)
 NORM_HIDDEN = (4096, 1024)
+# rows wider than the walk's shared-memory slot in float32 (the
+# one-block-a-row kernel; bf16 x there takes the walk, the vectors read
+# from device memory)
+NORM_WIDE = ((8, 65536),)
+# the prefill steps' shapes, also timed with x cold in L2 (a warm repeat of
+# a 16.8 MB x sits in the 50 MB L2)
+NORM_COLD = ((2048, 4096), (2984, 4096))
 NORM_TOL = {"float32": {"row_rel": 1e-5},
             "bfloat16": {"abs_or_ulp": 1.0, "l2_rel": 1e-3}}
 NORM_EPS = {"rms": 1e-6, "ln": 1e-5}
@@ -2946,18 +2953,20 @@ def norm_plain(kind, c):
         else fn.ln_ref(c["x"], c["w"], c["b"], NORM_EPS[kind])
 
 
-def norm_library(kind, c):
+def norm_library(kind, c, x_of=None):
     """Yardstick only (the port never calls it): torch.nn.functional's
-    rms_norm / layer_norm with the vectors cast to x's dtype beforehand;
-    None where this PyTorch has no rms_norm."""
+    rms_norm / layer_norm with the vectors cast to x's dtype beforehand,
+    on c's x or, each call, on ``x_of()``; None where this PyTorch has no
+    rms_norm."""
     import torch.nn.functional as F
     x = c["x"]
     w, b = c["w"].to(x.dtype), c["b"].to(x.dtype)
+    get = x_of or (lambda: x)
     if kind == "rms":
         if not hasattr(F, "rms_norm"):
             return None
-        return lambda: F.rms_norm(x, (x.shape[-1],), w, NORM_EPS[kind])
-    return lambda: F.layer_norm(x, (x.shape[-1],), w, b, NORM_EPS[kind])
+        return lambda: F.rms_norm(get(), (x.shape[-1],), w, NORM_EPS[kind])
+    return lambda: F.layer_norm(get(), (x.shape[-1],), w, b, NORM_EPS[kind])
 
 
 def norm_bound(kind, c) -> tuple:
@@ -2984,50 +2993,73 @@ NORM_CONTROLS = {
 GATE_CONTROLS = ("weight_rolled", "scaled_0.5pct")
 
 
+def norm_cold_ms(kind, c) -> dict:
+    """The kernel's and the library's time with x cold in L2: each call
+    takes the next of enough copies of x to pass twice the L2."""
+    x = c["x"]
+    nxt = rotating(x.clone, x.numel() * x.element_size())
+    cold = {"ms_l2_cold": time_ms(
+        lambda: norm_kernel(kind, dict(c, x=nxt())))}
+    lib = norm_library(kind, c, nxt)
+    if lib is not None:
+        cold["library_ms_l2_cold"] = time_ms(lib)
+    return cold
+
+
 def phase_norms(state):
-    """Every (rows, hidden, x dtype, weight dtype) of the grid through both
-    entries: held to the plain version, ten repeats bit for bit, the
-    controls failing, and the kernel, plain, library and bound times.
-    Then the public functionals at the grid's bf16 shapes with f32
-    weights, the launches counted (LayerNorm's main path: the LLaMA
-    decoder below runs RMSNorm only)."""
+    """Every (rows, hidden, x dtype, weight dtype) of the grid, and the
+    wide rows, through both entries: held to the plain version, ten
+    repeats bit for bit, the controls failing, the launch plan, and the
+    kernel, plain, library and bound times; the prefill shapes also with
+    x cold in L2; the launch floor (an empty kernel's time).  Then the
+    public functionals at the grid's bf16 shapes with f32 weights, the
+    launches counted (LayerNorm's main path: the LLaMA decoder below runs
+    RMSNorm only)."""
     import torch
     from paddle_tpu_torch.incubate.nn import functional as F
     from paddle_tpu_torch.ops import fused_norms as fn
     gen = torch.Generator(device=DEV).manual_seed(SEED + 31)
     cases, ok = {}, True
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    for R in NORM_ROWS:
-        for Hd in NORM_HIDDEN:
-            for xn, xdt in dts.items():
-                for wn, wdt in dts.items():
-                    c = norm_case(R, Hd, xdt, wdt, gen)
-                    for kind in ("rms", "ln"):
-                        out = norm_kernel(kind, c)
-                        ref = norm_plain(kind, c)
-                        err = norm_errors(out, ref)
-                        held = bool(torch.isfinite(out).all()) and \
-                            out.dtype == xdt and norm_within(err, xn)
-                        same = all(torch.equal(norm_kernel(kind, c), out)
-                                   for _ in range(10))
-                        ctl = {}
-                        for cname, control in NORM_CONTROLS.items():
-                            e = norm_errors(control(kind, c), ref)
-                            ctl[cname] = dict(e, fails=not norm_within(e, xn))
-                        ok &= held and same and all(
-                            v["fails"] for v in ctl.values())
-                        lib = norm_library(kind, c)
-                        b_ms, b_by, nbytes = norm_bound(kind, c)
-                        cases[f"{kind}_R{R}_H{Hd}_x{xn}_w{wn}"] = {
-                            "held": held, "repeats_bit_identical": same,
-                            "errors": err, "controls": ctl,
-                            "ms": time_ms(lambda: norm_kernel(kind, c)),
-                            "plain_ms": time_ms(lambda: norm_plain(kind, c)),
-                            "library_ms": None if lib is None
-                            else time_ms(lib),
-                            "bound_ms": b_ms, "bound_by": b_by,
-                            "bytes": nbytes}
-                    del c
+    shapes = [(R, Hd) for R in NORM_ROWS for Hd in NORM_HIDDEN] + \
+        list(NORM_WIDE)
+    for R, Hd in shapes:
+        for xn, xdt in dts.items():
+            for wn, wdt in dts.items():
+                c = norm_case(R, Hd, xdt, wdt, gen)
+                for kind in ("rms", "ln"):
+                    out = norm_kernel(kind, c)
+                    ref = norm_plain(kind, c)
+                    err = norm_errors(out, ref)
+                    held = bool(torch.isfinite(out).all()) and \
+                        out.dtype == xdt and norm_within(err, xn)
+                    same = all(torch.equal(norm_kernel(kind, c), out)
+                               for _ in range(10))
+                    ctl = {}
+                    for cname, control in NORM_CONTROLS.items():
+                        e = norm_errors(control(kind, c), ref)
+                        ctl[cname] = dict(e, fails=not norm_within(e, xn))
+                    ok &= held and same and all(
+                        v["fails"] for v in ctl.values())
+                    lib = norm_library(kind, c)
+                    b_ms, b_by, nbytes = norm_bound(kind, c)
+                    plan = fn._norm_plan(R, Hd, xdt, wdt, kind, wdt,
+                                         fn._sm_count(c["x"].device.index))
+                    rec = cases[f"{kind}_R{R}_H{Hd}_x{xn}_w{wn}"] = {
+                        "held": held, "repeats_bit_identical": same,
+                        "errors": err, "controls": ctl,
+                        "plan": plan._asdict(),
+                        "ms": time_ms(lambda: norm_kernel(kind, c)),
+                        "plain_ms": time_ms(lambda: norm_plain(kind, c)),
+                        "library_ms": None if lib is None
+                        else time_ms(lib),
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "bytes": nbytes}
+                    if (R, Hd) in NORM_COLD:
+                        rec.update(norm_cold_ms(kind, c))
+                del c
+    torch.cuda.empty_cache()
+    floor_ms = time_ms(lambda: torch.cuda._sleep(1))
     # the functionals, launches counted
     fn.rms_launch_count = fn.ln_launch_count = 0
     calls = 0
@@ -3041,9 +3073,11 @@ def phase_norms(state):
     torch.cuda.synchronize()
     launches = {"rms": fn.rms_launch_count, "ln": fn.ln_launch_count}
     ok &= launches == {"rms": calls, "ln": calls}
-    state["norms"] = {"cases": cases, "functional_launches": launches}
+    state["norms"] = {"cases": cases, "functional_launches": launches,
+                      "launch_floor_ms": floor_ms}
     emit({"phase": "norms", "ok": ok, "tolerance": NORM_TOL,
           "controls": list(NORM_CONTROLS), "cases": cases,
+          "launch_floor_ms": floor_ms,
           "functional_launches": launches, "functional_calls": calls,
           "bound_peaks": {"bytes_per_s": PEAK_BYTES}})
     return ok
@@ -3325,7 +3359,7 @@ def profile_fused(W, cfg, caches, n_decode, wall_ms) -> dict:
                        getattr(e, "self_cuda_time_total", 0.0))
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     norm_ms = sum(dev_us(e) for e in kernels
-                  if "fused_norm_kernel" in e.key) / 1e3
+                  if "fused_norm" in e.key) / 1e3     # walk and row kernels
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
     return {"device_busy_ms": busy_ms, "wall_ms": wall_ms,
             "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms
@@ -3518,10 +3552,11 @@ def flash_records(state) -> list:
 
 
 def norm_records(state) -> list:
-    """The kernels line's two fused-norm entries (one kernel, two C
+    """The kernels line's two fused-norm entries (one source, two C
     entries), timed at the decode step's shape (8 rows of 4,096 in bf16,
-    bf16 weights), launches from the main path: RMSNorm's from
-    fused_decoder_bf16 on the kernels alone, LayerNorm's from the
+    bf16 weights) beside the launch floor, and at the 2,048-row step
+    (warm and with x cold in L2); launches from the main path: RMSNorm's
+    from fused_decoder_bf16 on the kernels alone, LayerNorm's from the
     functional run of the norms phase (the LLaMA decoder has none)."""
     cases = state["norms"]["cases"]
     fl = state["norms"]["functional_launches"]
@@ -3531,6 +3566,7 @@ def norm_records(state) -> list:
             ("ln", "fused_layer_norm", 49, "_ln_kernel")):
         t = cases[f"{kind}_R{NORM_ROWS[0]}_H{NORM_HIDDEN[0]}_xbfloat16_"
                   "wbfloat16"]
+        t2 = cases[f"{kind}_R2048_H{NORM_HIDDEN[0]}_xbfloat16_wbfloat16"]
         launches = (state["fused_decoder_bf16"]["launches"]["rms_norm"]
                     if kind == "rms" else fl["ln"])
         by_phase = {"norms_functional": fl[kind]}
@@ -3555,8 +3591,13 @@ def norm_records(state) -> list:
                 " with the vectors cast to x's dtype",
             "timed_shape": f"R={NORM_ROWS[0]} H={NORM_HIDDEN[0]}, bfloat16 "
                            "x and weights",
+            "launch_floor_ms": state["norms"]["launch_floor_ms"],
+            "R2048": {f: t2.get(f) for f in (
+                "ms", "ms_l2_cold", "library_ms", "library_ms_l2_cold",
+                "bound_ms", "plan")},
             "by_case": {k[len(kind) + 1:]: {f: c[f] for f in (
-                "ms", "plain_ms", "bound_ms", "library_ms")}
+                "ms", "ms_l2_cold", "plain_ms", "bound_ms", "library_ms",
+                "library_ms_l2_cold") if f in c}
                 for k, c in cases.items() if k.startswith(kind + "_")}})
     return recs
 

@@ -2,7 +2,9 @@
 // cores through wgmma from TMA-filled shared memory: the dequant matmul's
 // prefill kernel (quant_matmul.cu) and the flash attention kernels
 // (flash_attention.cu, flash_attention_varlen.cu, through
-// attention_common.cuh).  The wgmma products and their fences, mbarrier
+// attention_common.cuh), and the paged walk (ragged_paged_attention.cu) and
+// the fused norms' row walk (fused_norms.cu) for their mbarriers, TMA and
+// bulk copies.  The wgmma products and their fences, mbarrier
 // waits and arrivals, TMA tile and bulk copies, the shared-memory matrix
 // descriptors of the 128-byte swizzle, warp-specialisation helpers, and the
 // host-side tensor-map encoder (cuTensorMapEncodeTiled, looked up in

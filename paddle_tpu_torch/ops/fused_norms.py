@@ -17,10 +17,17 @@ its contract: ``supports``' shapes, f32/bf16 operands, contiguous,
 backward is autograd of the plain version, as the JAX package's
 ``_rms_bwd`` / ``_ln_bwd`` take the VJP of ``_rms_ref`` / ``_ln_ref``.
 ``rms_launch_count`` and ``ln_launch_count`` count kernel launches.
+
+``_norm_plan`` (cached by shape and types) sizes the launch on the host:
+the row walk's team width, teams a block, ring stages, grid and shared
+bytes, or, for rows wider than a shared-memory slot, the one-block-a-row
+kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -93,9 +100,127 @@ def _check_operands(x, vectors, kind):
          "operands must be 16-byte aligned")
 
 
+# the card's limits the plan sizes against (sm_90): a block's dynamic
+# shared memory, an SM's (each resident block also takes 1 KB), its threads
+# and registers
+SMEM_BLOCK = 232_448
+SMEM_SM = 233_472
+_SM_THREADS = 2048
+_SM_REGS = 65_536
+# the walk kernel (csrc/fused_norms.cu): threads a block, registers a
+# thread (``__launch_bounds__(256, 4)``), shared bytes before the ring,
+# teams * stages at most, stages at most
+WALK_THREADS = 256
+_WALK_REGS = 64
+WALK_HEAD = 1024
+_MAX_SLOTS = 64
+MAX_STAGES = 4
+# warps an SM the team width aims at: at few rows each row is split over
+# up to 8 warps until about this many run on every SM
+_WARPS_SM = 16
+# row bytes an SM keeps in flight beyond which more slots buy nothing and
+# more teams (warps working) come first
+_INFLIGHT_SM = 65_536
+_ROW_THREADS = 512
+
+_PATHS = {"row": 0, "walk_global": 1, "walk": 2}
+
+
+class NormPlan(NamedTuple):
+    """One launch.  ``path``: ``"walk"`` (the row walk, the weight and
+    bias staged in shared memory once a block), ``"walk_global"`` (the
+    walk, the vectors read from device memory where slots and vectors do
+    not fit one block together) or ``"row"`` (one block a row, for rows
+    wider than a slot).  The walk's blocks hold ``threads // (32 *
+    team_warps)`` teams of ``team_warps`` warps, each a ring of ``stages``
+    row slots; ``grid`` blocks, ``smem`` dynamic shared bytes a block."""
+    path: str
+    threads: int
+    team_warps: int
+    stages: int
+    grid: int
+    smem: int
+
+    @property
+    def teams(self) -> int:
+        return self.threads // (32 * self.team_warps) if self.team_warps \
+            else 1
+
+    @property
+    def rows_a_block(self) -> int:
+        """Rows a block holds at once (the JAX tuner's ``block_r``)."""
+        return self.teams * self.stages if self.team_warps else 1
+
+
+def _size(dtype) -> int:
+    return 4 if dtype == torch.float32 else 2
+
+
+@functools.lru_cache(maxsize=1024)
+def _norm_plan(R, H, x_dtype, w_dtype, kind, b_dtype=None, sms=132):
+    """The launch for ``R`` rows of ``H`` (``kind`` ``"rms"`` or ``"ln"``)
+    on a card of ``sms`` SMs.  A row that fits a shared-memory slot takes
+    the walk, the weight and bias staged where they fit beside one slot.
+    The team width doubles from one warp while every lane keeps two
+    vectors or more and the rows an SM holds at once would keep fewer than
+    ``_WARPS_SM`` warps busy.  Then, over teams a block and stages, the
+    plan that holds the most rows in shared memory at once (up to
+    ``_INFLIGHT_SM`` bytes an SM); then one whose teams never wait for a
+    row's copy after the first (one row a team, or a second stage in
+    flight while a team works); then the most teams, the fewest blocks
+    (each copies the vectors) and the fewest stages."""
+    R = max(R, 1)                  # no rows: the C entry launches nothing
+    xs = _size(x_dtype)
+    slot = H * xs
+    n_vec = H * xs // 16
+    if WALK_HEAD + slot > SMEM_BLOCK:
+        return NormPlan("row", min(_ROW_THREADS, -(-n_vec // 32) * 32), 0,
+                        0, R, 0)
+    vec = H * _size(w_dtype)
+    if kind == "ln":
+        vec += H * _size(w_dtype if b_dtype is None else b_dtype)
+    staged = WALK_HEAD + slot + vec <= SMEM_BLOCK
+    fixed = WALK_HEAD + (vec if staged else 0)
+    # rows an SM works on at once: its share of R, as far as its shared
+    # memory holds them
+    rows_sm = min(-(-R // sms), max(1, (SMEM_SM - 1024 - fixed) // slot))
+    wpr = 1
+    while wpr < 8 and n_vec >= 64 * 2 * wpr and \
+            2 * wpr * rows_sm <= _WARPS_SM:
+        wpr *= 2
+    enough = min(R, sms * max(1, _INFLIGHT_SM // slot))
+    best = None
+    for teams in range(WALK_THREADS // (32 * wpr), 0, -1):
+        threads = teams * wpr * 32
+        for stages in range(1, MAX_STAGES + 1):
+            smem = fixed + teams * stages * slot
+            if smem > SMEM_BLOCK or teams * stages > _MAX_SLOTS:
+                break
+            per_sm = min(SMEM_SM // (smem + 1024), _SM_THREADS // threads,
+                         _SM_REGS // (threads * _WALK_REGS))
+            grid = min(-(-R // teams), sms * per_sm)
+            rows = -(-R // (grid * teams))     # the most rows a team walks
+            if stages > rows:
+                break                      # a stage that no row fills
+            key = (min(enough, grid * teams * stages),
+                   stages > 1 or rows == 1, min(R, grid * teams), -grid,
+                   -stages)
+            if best is None or key > best[0]:
+                best = (key, NormPlan("walk" if staged else "walk_global",
+                                      threads, wpr, stages, grid, smem))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(entry, x, vectors, eps):
-    """Launch one entry on PyTorch's current stream; raises on CPU tensors
-    and on a refused launch (the C entry returns ``cudaGetLastError()``)."""
+    """Launch one entry on PyTorch's current stream with its plan; raises
+    on CPU tensors and on a refused launch (the C entry returns
+    ``cudaGetLastError()``)."""
     if x.device.type != "cuda":
         raise RuntimeError(
             "the fused norm kernel runs on CUDA tensors only; got "
@@ -104,15 +229,21 @@ def _launch(entry, x, vectors, eps):
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * (2 + len(vectors)) + \
-            [ctypes.c_int] * (3 + len(vectors)) + [ctypes.c_float,
-                                                   ctypes.c_void_p]
+            [ctypes.c_int] * (3 + len(vectors)) + [ctypes.c_float] + \
+            [ctypes.c_int] * 6 + [ctypes.c_void_p]
     H = x.shape[-1]
+    R = x.numel() // H
+    plan = _norm_plan(R, H, x.dtype, vectors[0].dtype,
+                      "ln" if len(vectors) == 2 else "rms",
+                      vectors[-1].dtype, _sm_count(x.device.index))
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), *[v.data_ptr() for v in vectors],
-                 y.data_ptr(), x.numel() // H, H, _DTYPES[x.dtype],
-                 *[_DTYPES[v.dtype] for v in vectors], float(eps), stream)
+                 y.data_ptr(), R, H, _DTYPES[x.dtype],
+                 *[_DTYPES[v.dtype] for v in vectors], float(eps),
+                 _PATHS[plan.path], plan.threads, plan.team_warps,
+                 plan.stages, plan.grid, plan.smem, stream)
     if err != 0:
         raise RuntimeError(f"fused norm kernel {entry} launch failed: "
                            f"CUDA error {err}")

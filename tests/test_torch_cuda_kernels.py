@@ -1328,7 +1328,12 @@ def _norm_case(dev, R, H, xdt, wdt, seed=0):
     return x, w, b
 
 
-NORM_SHAPES = [(8, 4096), (2048, 1024), (16, 128), (8, 32768), (24, 11008)]
+# the last five: the fused decoder's prefill rows (2,984 and 616) and a
+# 2,048-row step at LLaMA-7B's width, a wide decode row, and a row wider
+# than the walk's shared-memory slot in float32 (the one-block-a-row kernel)
+NORM_SHAPES = [(8, 4096), (2048, 1024), (16, 128), (8, 32768), (24, 11008),
+               (2048, 4096), (2984, 4096), (616, 4096), (8, 8192),
+               (8, 65536)]
 
 
 @pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16],
@@ -1349,6 +1354,39 @@ def test_norm_kernel_matches_plain_version(dev, R, H, xdt, wdt):
     _assert_norm_within(y2, fn.ln_ref(x, w, b, 1e-5))
     assert torch.equal(fn._launch_rms(x, w, 1e-6), y)
     assert torch.equal(fn._launch_ln(x, w, b, 1e-5), y2)
+
+
+@pytest.mark.parametrize("kind", ["rms", "ln"])
+def test_norm_walk_repeats_bit_for_bit_at_prefill_rows(dev, kind):
+    """Ten launches at the fused decoder's prefill step (2,984 rows of
+    4,096, bf16) give identical bits: the sums reduce in a fixed order."""
+    x, w, b = _norm_case(dev, 2984, 4096, torch.bfloat16, torch.bfloat16, 3)
+    if kind == "rms":
+        def run():
+            return fn._launch_rms(x, w, 1e-6)
+    else:
+        def run():
+            return fn._launch_ln(x, w, b, 1e-5)
+    first = run()
+    assert all(torch.equal(run(), first) for _ in range(10))
+
+
+@pytest.mark.parametrize("H", [4096, 57856, 57984])
+def test_norm_paths_at_the_slot_threshold(dev, H):
+    """f32 rows up to 57,856 take the walk (the last with the vectors read
+    from device memory), 57,984 the one-block-a-row kernel; each path
+    launches once a call and matches the plain version."""
+    x, w, b = _norm_case(dev, 16, H, torch.float32, torch.float32, 4)
+    plan = fn._norm_plan(16, H, torch.float32, torch.float32, "ln",
+                         torch.float32, fn._sm_count(x.device.index))
+    assert plan.path == {4096: "walk", 57856: "walk_global",
+                         57984: "row"}[H]
+    counts = (fn.rms_launch_count, fn.ln_launch_count)
+    _assert_norm_within(fn.layer_norm(x, w, b, 1e-5),
+                        fn.ln_ref(x, w, b, 1e-5))
+    _assert_norm_within(fn.rms_norm(x, w, 1e-6), fn.rms_ref(x, w, 1e-6))
+    assert (fn.rms_launch_count, fn.ln_launch_count) == (counts[0] + 1,
+                                                         counts[1] + 1)
 
 
 def test_norm_kernel_controls_fail_the_gate(dev):

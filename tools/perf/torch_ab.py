@@ -1,15 +1,21 @@
 """Kernels on the card: this checkout's against another checkout's, in turns.
 
-    python tools/perf/torch_ab.py FAMILY --other DIR [--out FILE]
+    python tools/perf/torch_ab.py FAMILY --other DIR [--set NAME=VALUE ...]
+        [--out FILE]
 
 FAMILY is one of ``FAMILIES`` (below): ``paged``, ``varlen_bwd``,
-``flash_fwd`` or ``flash_bwd``.  DIR is another tree of this repository
-(for example the parent commit, unpacked with ``git archive``).  Each turn
-runs in a child process whose ``paddle_tpu_torch`` is one tree's (its
+``flash_fwd``, ``flash_bwd`` or ``norms``.  DIR is another tree of this
+repository (for example the parent commit, unpacked with ``git
+archive``).  Each turn runs in a child process whose ``paddle_tpu_torch`` is one tree's (its
 wrappers, metadata and kernels, built from its own ``csrc/`` into its own
 ``build/``), in the order other, this, this, other; the timing code and the
 inputs are this checkout's ``chip_smoke.py``, made from the same seeds in
-every turn.  For each case and launch a turn reports ``ms``
+every turn.  ``--set NAME=VALUE`` (a Python literal; repeatable) sets an
+attribute of the family's module in this checkout's turns only, and
+clears the module's ``functools`` caches: with ``--other .`` it times one
+setting of a host plan's knob against the checkout's own (``norms
+--other . --set _WARPS_SM=32``).  For each case and launch a turn reports
+``ms``
 (``chip_smoke.time_ms``: the median CUDA-event time of 30 calls, the
 wrapper's device ops included) and, where the family names the kernels,
 ``kernel_ms``, the kernels' own device time from torch.profiler
@@ -45,6 +51,12 @@ The families, bf16 unless named:
   cases.
 - ``flash_bwd``: dK/dV, dQ and the whole backward (delta, dK/dV, dQ) at the
   same two fixed-length shapes.
+- ``norms``: the fused RMSNorm and LayerNorm entries (``_launch_rms``,
+  ``_launch_ln``) at R 8, 616, 2,048 and 2,984 rows of 4,096 (LLaMA-7B's
+  decode and prefill steps), bf16 x with bf16 and with f32 weights, and
+  f32 x with f32 weights at 2,048; at chip_smoke's ``NORM_COLD`` shapes
+  also with x cold in L2 (``rms_l2_cold``, ``ln_l2_cold``: each call takes
+  the next of enough copies of x to pass twice the L2).
 
 Prints one JSON object with the card's name and power limit.
 """
@@ -160,6 +172,31 @@ def flash_bwd_cases(cs):
         torch.cuda.empty_cache()
 
 
+NORM_AB = [(R, "bfloat16", w) for R in (8, 616, 2048, 2984)
+           for w in ("bfloat16", "float32")] + [(2048, "float32", "float32")]
+
+
+def norms_cases(cs):
+    import torch
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 31)
+    for R, xn, wn in NORM_AB:
+        c = cs.norm_case(R, 4096, dts[xn], dts[wn], gen)
+        launches = {}
+        for kind in ("rms", "ln"):
+            launches[kind] = lambda k=kind: cs.norm_kernel(k, c)
+            if (R, 4096) in cs.NORM_COLD:
+                nxt = cs.rotating(c["x"].clone,
+                                  c["x"].numel() * c["x"].element_size())
+                launches[f"{kind}_l2_cold"] = \
+                    lambda k=kind, n=nxt: cs.norm_kernel(k, dict(c, x=n()))
+        yield f"R{R}_x{xn}_w{wn}", launches
+        del c, launches
+        torch.cuda.empty_cache()
+
+
+NORM_KERNELS = ("fused_norm_walk_kernel", "fused_norm_kernel")
+
 # per family: its cases, the module whose file must lie in the turn's tree,
 # and each launch's kernel names in either tree (the redesigned kernel and
 # the one it replaced; None: no kernel-only time)
@@ -178,6 +215,9 @@ FAMILIES = {
         "dkdv": ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dkdv_kernel"),
         "dq": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_kernel"),
         "bwd_total": None}),
+    "norms": (norms_cases, "fused_norms", {
+        launch: NORM_KERNELS for launch in (
+            "rms", "ln", "rms_l2_cold", "ln_l2_cold")}),
 }
 
 
@@ -302,13 +342,21 @@ def host_parts(cs, pa) -> dict:
             "encode_ctypes_us": good, "refused_ctypes_us": refused}
 
 
-def child(family: str, tree: Path) -> dict:
+def child(family: str, tree: Path, settings=()) -> dict:
     sys.path.insert(0, str(tree))
+    import ast
     import importlib
     cases, module, names = FAMILIES[family]
     mod = importlib.import_module(f"paddle_tpu_torch.ops.{module}")
     build = importlib.import_module("paddle_tpu_torch.ops._build")
     assert Path(mod.__file__).resolve().is_relative_to(tree)
+    for item in settings:
+        name, _, value = item.partition("=")
+        assert hasattr(mod, name), f"{module} has no {name}"
+        setattr(mod, name, ast.literal_eval(value))
+    for v in vars(mod).values():
+        if callable(getattr(v, "cache_clear", None)):
+            v.cache_clear()
     cs = smoke()
     res = {}
     for case, fns in cases(cs):
@@ -332,10 +380,13 @@ def main() -> int:
     ap.add_argument("family", choices=list(FAMILIES))
     ap.add_argument("--other", type=Path)
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="NAME=VALUE")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     if args.child:
-        print(json.dumps(child(args.family, args.child.resolve())))
+        print(json.dumps(child(args.family, args.child.resolve(),
+                               args.set)))
         return 0
     if args.other is None:
         ap.error("--other is required")
@@ -345,10 +396,11 @@ def main() -> int:
         return 2
     trees = {"this": ROOT, "other": args.other.resolve()}
     res = {"device": smoke().nvidia_smi(), "family": args.family,
-           "turns": []}
+           "set_in_this": args.set, "turns": []}
     for tree in ("other", "this", "this", "other"):
+        sets = [f"--set={v}" for v in args.set] if tree == "this" else []
         run = subprocess.run([sys.executable, __file__, args.family,
-                              "--child", str(trees[tree])],
+                              "--child", str(trees[tree]), *sets],
                              capture_output=True, text=True, cwd=trees[tree])
         if run.returncode != 0:
             print(run.stderr[-4000:], file=sys.stderr)

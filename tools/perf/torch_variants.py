@@ -85,7 +85,78 @@ def producer_warp(src: str) -> str:
 
 
 # rewrites too long for the command line, by name
-REWRITES = {"producer_warp": producer_warp}
+def bulk_store(src: str) -> str:
+    """fused_norms.cu's row walk with the output staged in the row's slot
+    (each thread overwrites the vectors it read) and stored by one bulk
+    copy shared -> global a row, issued by the team's leader, who waits
+    for the copy to have read the slot before refilling it (and for every
+    copy before the kernel ends), in place of 16-byte stores from
+    registers."""
+    src = swap(src, """                                      yr + (size_t)i * kVec);
+    }
+
+    // the slot is free: refill it with the team's row k + stages
+    tm.sync();
+    if (leader && k + stages < n_rows) {
+      fence_async_smem();
+""", """                                      const_cast<XT*>(xs) + (size_t)i * kVec);
+    }
+    fence_async_smem();
+    tm.sync();
+    if (leader) {
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\\n"
+          ::"l"(yr), "r"(smem_u32(xs)), "r"(row_bytes) : "memory");
+      asm volatile("cp.async.bulk.commit_group;\\n" ::: "memory");
+    }
+    if (leader && k + stages < n_rows) {
+      asm volatile("cp.async.bulk.wait_group.read 0;\\n" ::: "memory");
+      fence_async_smem();
+""")
+    return swap(src, """                x + (row + (size_t)stages * G) * H, row_bytes, full + s);
+    }
+  }
+}
+""", """                x + (row + (size_t)stages * G) * H, row_bytes, full + s);
+    }
+  }
+  if (leader) asm volatile("cp.async.bulk.wait_group 0;\\n" ::: "memory");
+}
+""")
+
+
+def early_issue(src: str) -> str:
+    """fused_norms.cu's row walk with each team's leader initialising its
+    own slots' barriers and issuing its first rows' copies before the
+    block barrier (thread 0 the vectors' after its rows), in place of
+    thread 0 initialising every barrier, a block barrier, then the
+    copies."""
+    start = src.index("  if (tid == 0) {\n    mbar_init(vbar, 1);")
+    end = src.index("  for (int k = 0; k < n_rows; ++k) {\n    const int s")
+    return src[:start] + """  if (leader) {
+    for (int k = 0; k < stages; ++k) mbar_init(full + k, 1);
+    if (tid == 0) mbar_init(vbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+    for (int k = 0; k < min(stages, n_rows); ++k) {
+      mbar_expect(full + k, row_bytes);
+      bulk_copy(ring + (size_t)k * row_bytes,
+                x + (size_t)(g + (size_t)k * G) * H, row_bytes, full + k);
+    }
+    if (kStaged && tid == 0) {
+      const uint32_t wb = (uint32_t)H * sizeof(WT);
+      const uint32_t bb = kLN ? (uint32_t)H * sizeof(BT) : 0u;
+      mbar_expect(vbar, wb + bb);
+      bulk_copy((void*)ws, w, wb, vbar);
+      if (kLN) bulk_copy((void*)bs, b, bb, vbar);
+    }
+  }
+  __syncthreads();
+
+""" + src[end:]
+
+
+REWRITES = {"producer_warp": producer_warp, "bulk_store": bulk_store,
+            "early_issue": early_issue}
 
 
 def edited(src: str, edits: str) -> str:

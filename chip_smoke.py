@@ -13,7 +13,12 @@ LLaMA-7B width (random weights from a seed): ``engine_f32`` (2 layers in
 float32, tokens checked against the dense ``generate()`` forward),
 ``engine_bf16`` (32 layers in bfloat16), ``engine_w8kv8`` (32 layers, int8
 weight pools and int8 KV pages) and ``engine_w4`` (32 layers, int4 weight
-pools, bfloat16 pages), and trains through ``build_train_step`` at the
+pools, bfloat16 pages), all with the engine's default async step pipeline;
+``engine_window_bf16`` (32 layers: overlap off, on, and the K=4 decode
+window, greedy tokens identical, a gate run holding every attention launch
+of the window to its plain version, the profile rows at K 4 and with
+overlap off) and ``engine_window_w8kv8`` (the int8 window against K 1),
+and trains through ``build_train_step`` at the
 350M GQA LLaMA bench configuration: ``train_f32`` (2 layers in float32,
 three steps on the kernels against three on the plain versions) and
 ``train_bf16`` (24 layers in bfloat16: a gate run holding every kernel
@@ -701,15 +706,17 @@ def reset_launch_counts() -> None:
 
 
 def serve(model, requests, attention=None, sampler=None, patch=None,
-          **engine_opts):
+          setup=None, **engine_opts):
     """Serve the requests through a fresh engine (``engine_opts`` such as
-    kv_dtype and weight_dtype go to it), counting every kernel's launches
-    over exactly that run.  ``attention`` swaps another function in for
-    the engine's float attention entry during the run, ``patch`` ({(module,
-    name): function}) others for any module function the engine calls,
-    and ``sampler`` another for its sampler (the gates' reference and
-    control runs).  Returns (engine, outputs, seconds, launches by kernel,
-    peak device memory of the run, weights included)."""
+    kv_dtype, weight_dtype, overlap and decode_window go to it), counting
+    every kernel's launches over exactly that run.  ``attention`` swaps
+    another function in for the engine's float attention entry during the
+    run, ``patch`` ({(module, name): function}) others for any module
+    function the engine calls, and ``sampler`` another for its sampler
+    (the gates' reference and control runs); ``setup(engine)`` runs before
+    the requests are served (the window phases' counters).  Returns
+    (engine, outputs, seconds, launches by kernel, peak device memory of
+    the run, weights included)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.inference import LLMEngine, serving
@@ -734,6 +741,8 @@ def serve(model, requests, attention=None, sampler=None, patch=None,
             sampler.live = int((np.diff(cu) > 0).sum())
             return step(Tq, toks, cu, *rest)
         eng._ragged_step = counted_step
+    if setup is not None:
+        setup(eng)
     saved = {key: getattr(*key) for key in patch}
     try:
         for (mod, name), fn in patch.items():
@@ -883,13 +892,15 @@ def expected_launches(eng, steps) -> dict:
             if eng.weight_dtype != "float32" else 0}
 
 
-def engine_record(name, run, requests, checks: dict, **extra):
+def engine_record(name, run, requests, checks: dict, rounds=None, **extra):
     """One engine phase's JSON line; it passes when every request finished
     with its count, none was quarantined, every kernel was launched as
-    ``expected_launches`` says, and every entry of ``checks`` holds."""
+    ``expected_launches`` says, and every entry of ``checks`` holds.
+    ``rounds``: forward passes the run launched, where a decode window
+    made more than one a step (else the engine's steps)."""
     eng, outs, seconds, launches, peak = run
     s = eng.summary()
-    steps = s["engine_steps"]
+    steps = s["engine_steps"] if rounds is None else rounds
     layers = eng.config.num_hidden_layers
     want = expected_launches(eng, steps)
     att = "attention_q8" if eng.kv_dtype == "int8" else "attention"
@@ -908,6 +919,7 @@ def engine_record(name, run, requests, checks: dict, **extra):
            "dtype": str(eng._act_dtype).split(".")[-1],
            "kv_dtype": eng.kv_dtype, "weight_dtype": eng.weight_dtype,
            "quarantined": s["quarantined"], "steps": steps,
+           "engine_steps": s["engine_steps"],
            "kernel_launches": launches[att], "launches": launches,
            "expected_launches": want, "launches_per_step": layers,
            "generated_tokens": gen_tokens, "wall_s": seconds,
@@ -1116,7 +1128,11 @@ def profile_decode(model, name="profile", **engine_opts):
     """Where a step's time goes: 8 requests (128-token prompts, 32 new
     tokens) served once unprofiled (wall time) and once under
     torch.profiler (device time by kernel; the profiler slows the host, so
-    the idle share divides the kernels' sum by the unprofiled wall)."""
+    the idle share divides the kernels' sum by the unprofiled wall).
+    ``engine_opts`` (overlap, decode_window, the quantized options) go to
+    the engine; the record carries the host round trips a decode round
+    and the decode time a round beside the per-step figures (a window's
+    ITL sample is its whole launch, as in the JAX engine's stats)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(SEED + 3)
@@ -1125,6 +1141,7 @@ def profile_decode(model, name="profile", **engine_opts):
     serve(model, requests[:2], **engine_opts)       # warm the allocator
     eng, _, seconds, _, _ = serve(model, requests, **engine_opts)
     s = eng.summary()
+    eng_decode_s = eng.stats.decode_time
     del eng
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1153,6 +1170,13 @@ def profile_decode(model, name="profile", **engine_opts):
            / s["engine_steps"],
            "dispatch_ms_p50": s["dispatch_ms_p50"],
            "block_ms_p50": s["block_ms_p50"], "itl_p50_ms": s["itl_p50_ms"],
+           "overlap": s["overlap"], "decode_window": s["decode_window"],
+           "host_round_trips": s["host_round_trips"],
+           "decode_rounds": s["decode_rounds"],
+           "round_trips_per_decode_round": s["host_round_trips"]
+           / max(s["decode_rounds"], 1),
+           "decode_ms_per_round": 1e3 * eng_decode_s
+           / max(s["decode_rounds"], 1),
            "attention_device_ms": att_ms,
            "attention_share_of_busy": att_ms / busy_ms if busy_ms
            else "not measured",
@@ -1351,6 +1375,275 @@ def phase_engine_w8kv8(state):
 
 def phase_engine_w4(state):
     return quantized_engine_phase("engine_w4", state, weight_dtype="int4")
+
+
+# ---------------------------------------------------------------------------
+# window phases: the async step pipeline and the K-step decode window
+# ---------------------------------------------------------------------------
+
+WINDOW_K = 4
+# new tokens of the window phases' requests, in turn: rows freeze in the
+# middle of a window as their budgets run out
+WINDOW_BUDGETS = (5, 9, 13, 18, 32)
+# host round trips a decode round over the steady decode at K 4 (the JAX
+# engine measured 0.277 on the CPU; the tail of each stream's windows is
+# shorter than K)
+WINDOW_TRIPS_MAX = 0.30
+# rows of a decode-sized launch (``serve``'s max_num_seqs): every window
+# iteration, and a per-step pure-decode launch
+DECODE_ROWS = 8
+
+
+def window_requests(V):
+    """bf16_requests' prompts with staggered budgets (WINDOW_BUDGETS)."""
+    return [(p, WINDOW_BUDGETS[i % len(WINDOW_BUDGETS)], o)
+            for i, (p, _, o) in enumerate(bf16_requests(V))]
+
+
+def window_counters(log):
+    """A ``serve`` setup that counts, in ``log``, the forward passes the
+    engine launches (a ragged step is one, a window its iterations), the
+    steady decode's round trips and rounds (tickets of decode rows only,
+    dispatched with nobody waiting), and the synchronizing CUDA calls made
+    inside the dispatch (torch's sync debug mode, "warn": the host must
+    never wait for the card there)."""
+    import warnings
+    import torch
+    log.update(passes=0, decode_passes=0, steady_trips=0, steady_rounds=0,
+               windows=0, dispatch_syncs=0, sync_messages=[])
+
+    def setup(eng):
+        step, launch, dispatch = (eng._ragged_step, eng._launch_window,
+                                  eng._dispatch)
+
+        def ragged_step(Tq, *args):
+            log["passes"] += 1
+            log["decode_passes"] += Tq == DECODE_ROWS
+            return step(Tq, *args)
+
+        def launch_window(iters, *args):
+            log["passes"] += iters
+            log["decode_passes"] += iters
+            log["windows"] += 1
+            return launch(iters, *args)
+
+        def checked_dispatch():
+            before = eng._inflight
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    dispatch()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs = [str(w.message) for w in caught
+                     if "called a synchronizing" in str(w.message)]
+            log["dispatch_syncs"] += len(syncs)
+            log["sync_messages"] = (log["sync_messages"] + syncs)[:4]
+            t = eng._inflight
+            if t is not None and t is not before and not t.chunks \
+                    and not eng._waiting:
+                log["steady_trips"] += 1
+                log["steady_rounds"] += t.window or 1
+
+        eng._ragged_step = ragged_step
+        eng._launch_window = launch_window
+        eng._dispatch = checked_dispatch
+    return setup
+
+
+def window_run(model, requests, **engine_opts):
+    """One counted run (``window_counters``): (run, counters)."""
+    log = {}
+    run = serve(model, requests, setup=window_counters(log), **engine_opts)
+    return run, log
+
+
+def free_engines() -> None:
+    """Give the card back the pages of engines no longer referenced (the
+    counters' wrappers make reference cycles, which only the collector
+    breaks)."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_summary(run, log) -> dict:
+    s = run[0].summary()
+    return {f: s[f] for f in (
+        "engine_steps", "host_round_trips", "decode_rounds", "itl_p50_ms",
+        "dispatch_ms_p50", "block_ms_p50", "decode_window_shrinks",
+        "decode_window_fallbacks", "quarantined")} | {
+        "wall_s": run[2], "launches": run[3],
+        "launches_as_expected": run[3] == expected_launches(
+            run[0], log["passes"])}
+
+
+def tokens_of(run, rids):
+    return {r: run[1][r].generated for r in rids}
+
+
+def phase_engine_window_bf16(state):
+    """32 layers in bf16, 8 slots, the pipeline and the window.  The
+    requests (bf16_requests' prompts with staggered budgets) are served
+    with overlap off at K 1, with overlap on at K 1 and at K 4, on the
+    kernels alone; greedy tokens must be identical across the three, no
+    row quarantined, no dispatch synchronizing with the card, the launch
+    counts those of the passes run, and the steady decode at K 4 at most
+    WINDOW_TRIPS_MAX round trips a decode round.  A gate run at K 4 takes
+    the plain attention and launches the kernel beside it at every
+    decode-sized call -- every window iteration, and per-step decode --
+    where every kernel output must be finite and within the per-launch
+    tolerance (the prefill launches run the kernel alone: engine_bf16's
+    gate holds those); the controls, run the same way on the first four
+    requests, must fail it.  Then the profile rows at K 4 and with overlap
+    off on this machine."""
+    import torch
+    model = llama_7b_bf16()
+    requests = window_requests(model.config.vocab_size)
+    greedy = [r for r, (_, _, o) in enumerate(requests)
+              if o.get("temperature", 0.0) == 0.0]
+    summaries, logs, toks = {}, {}, {}
+    for key, opts in (("off_k1", {"overlap": False}), ("on_k1", {}),
+                      ("on_k4", {"decode_window": WINDOW_K})):
+        run, logs[key] = window_run(model, requests, **opts)
+        summaries[key] = run_summary(run, logs[key])
+        toks[key] = tokens_of(run, range(len(requests)))
+        scan = run[0].compile_counts.get("scan")
+        if key != "on_k4":
+            del run
+            free_engines()
+    same = {k: sum(toks[k][r] == toks["off_k1"][r] for r in greedy)
+            for k in toks}
+    sampled_same = {k: all(toks[k][r] == toks["off_k1"][r]
+                           for r in range(len(requests)) if r not in greedy)
+                    for k in toks}
+
+    def held_decode(attention, log, finite, run_on_plain=True):
+        """``held_to_plain`` at the decode-sized launches (the window's
+        iterations, per-step decode), every output checked finite; the
+        kernel alone at prefill-sized ones (engine_bf16's gate holds
+        those)."""
+        def fn(q, kc, vc, bt, seg, rel):
+            if q.shape[0] != DECODE_ROWS:
+                return kernel_attention(q, kc, vc, bt, seg, rel)
+            ref = plain_attention(q, kc, vc, bt, seg, rel)
+            out = attention(q, kc, vc, bt, seg, rel)
+            finite.append(bool(torch.isfinite(out).all()))
+            log.append(errors(out, ref))
+            return ref if run_on_plain else out
+        return fn
+
+    gate_errs, finite, gate_log = [], [], {}
+    gate = serve(model, requests,
+                 held_decode(kernel_attention, gate_errs, finite),
+                 setup=window_counters(gate_log), decode_window=WINDOW_K)
+    gate_err = worst(gate_errs)
+    gate_calls_ok = len(gate_errs) == \
+        model.config.num_hidden_layers * gate_log["decode_passes"]
+    gate_quarantined = gate[0].summary()["quarantined"]
+    del gate
+    free_engines()
+    controls = {}
+    for name, attention in CONTROLS.items():
+        errs = []
+        serve(model, requests[:4], held_decode(attention, errs, [], False),
+              decode_window=WINDOW_K)
+        controls[name] = {"per_launch": worst(errs),
+                          "fails_gate": not within(worst(errs), "bfloat16",
+                                                   ENGINE_MEASURES)}
+    steady = logs["on_k4"]["steady_trips"] / max(
+        logs["on_k4"]["steady_rounds"], 1)
+    rec = engine_record(
+        "engine_window_bf16", run, requests,
+        {"greedy_tokens_identical_off_k1_on_k1_on_k4": all(
+            same[k] == len(greedy) for k in same),
+         "none_quarantined_any_run": all(
+             r["quarantined"] == 0 for r in summaries.values())
+         and gate_quarantined == 0,
+         "windows_ran": logs["on_k4"]["windows"] > 0 and scan == 1,
+         "launches_as_expected_every_run": all(
+             r["launches_as_expected"] for r in summaries.values()),
+         "dispatch_never_synchronizes": all(
+             logs[k]["dispatch_syncs"] == 0 for k in logs),
+         "steady_round_trips_per_round_le_0.30": steady <= WINDOW_TRIPS_MAX,
+         "gate_held_every_call": gate_calls_ok,
+         "gate_outputs_finite": all(finite),
+         "per_launch_kernel_vs_plain": within(gate_err, "bfloat16",
+                                              ENGINE_MEASURES),
+         "controls_fail": all(c["fails_gate"] for c in controls.values())},
+        rounds=logs["on_k4"]["passes"],
+        window=WINDOW_K, budgets=list(WINDOW_BUDGETS),
+        greedy_requests_equal_to_off_k1={k: f"{v}/{len(greedy)}"
+                                         for k, v in same.items()},
+        sampled_request_equal_to_off_k1=sampled_same,
+        steady_round_trips_per_decode_round=steady,
+        counters={k: {f: v for f, v in lg.items() if f != "sync_messages"}
+                  for k, lg in logs.items()},
+        sync_messages=[m for lg in logs.values()
+                       for m in lg["sync_messages"]][:4],
+        runs=summaries, per_launch_errors=gate_err, per_launch_tolerance={
+            k: TOLERANCE["bfloat16"][k] for k in ENGINE_MEASURES},
+        gate_calls=len(gate_errs),
+        gate_decode_passes=gate_log["decode_passes"],
+        gate_windows=gate_log["windows"],
+        controls=controls)
+    state["engine_window_bf16"] = rec
+    del run
+    free_engines()
+    state["profile_k4"] = profile_decode(model, "profile_k4",
+                                         decode_window=WINDOW_K)
+    state["profile_sync"] = profile_decode(model, "profile_sync",
+                                           overlap=False)
+    del model
+    free_engines()
+    return rec["ok"]
+
+
+def phase_engine_window_w8kv8(state):
+    """32 layers in bf16 with int8 weight pools and int8 pages: the window
+    requests at K 4 and at K 1 (overlap on), on the kernels alone; greedy
+    tokens identical, no row quarantined, no dispatch synchronizing, the
+    launch counts those of the passes run (attention L a pass, dequant
+    matmul 7 L + 1), and the steady decode's round trips a round."""
+    import torch
+    model = llama_7b_bf16()
+    requests = window_requests(model.config.vocab_size)
+    greedy = [r for r, (_, _, o) in enumerate(requests)
+              if o.get("temperature", 0.0) == 0.0]
+    opts = {"weight_dtype": "int8", "kv_dtype": "int8"}
+    k1, log1 = window_run(model, requests, **opts)
+    k1_tokens = tokens_of(k1, greedy)
+    k1_summary = run_summary(k1, log1)
+    del k1
+    free_engines()
+    run, log = window_run(model, requests, decode_window=WINDOW_K, **opts)
+    same = sum(run[1][r].generated == k1_tokens[r] for r in greedy)
+    steady = log["steady_trips"] / max(log["steady_rounds"], 1)
+    rec = engine_record(
+        "engine_window_w8kv8", run, requests,
+        {"greedy_tokens_identical_k4_k1": same == len(greedy),
+         "k1_run_launches_and_quarantine":
+             k1_summary["launches_as_expected"]
+             and k1_summary["quarantined"] == 0,
+         "windows_ran": log["windows"] > 0,
+         "dispatch_never_synchronizes": log["dispatch_syncs"] == 0
+         and log1["dispatch_syncs"] == 0,
+         "steady_round_trips_per_round_le_0.30": steady <= WINDOW_TRIPS_MAX},
+        rounds=log["passes"], window=WINDOW_K,
+        greedy_requests_equal_to_k1=f"{same}/{len(greedy)}",
+        steady_round_trips_per_decode_round=steady,
+        runs={"k1": k1_summary, "k4": run_summary(run, log)},
+        counters={"k1": {f: v for f, v in log1.items()
+                         if f != "sync_messages"},
+                  "k4": {f: v for f, v in log.items()
+                         if f != "sync_messages"}},
+        sync_messages=(log1["sync_messages"] + log["sync_messages"])[:4])
+    state["engine_window_w8kv8"] = rec
+    del run, model
+    free_engines()
+    return rec["ok"]
 
 
 # ---------------------------------------------------------------------------
@@ -3626,10 +3919,13 @@ def kernel_records(state) -> list:
         "replaces": "paddle_tpu/ops/pallas/paged_attention.py:225",
         "tpu_kernel": "paged_attention.py::_ragged_kernel",
         "launches": state["engine_bf16"]["kernel_launches"]
-        + state["engine_w4"]["launches"]["attention"],
+        + state["engine_w4"]["launches"]["attention"]
+        + state["engine_window_bf16"]["kernel_launches"],
         "launches_by_phase": {
             "engine_bf16": state["engine_bf16"]["kernel_launches"],
             "engine_w4": state["engine_w4"]["launches"]["attention"],
+            "engine_window_bf16":
+                state["engine_window_bf16"]["kernel_launches"],
             "engine_f32": state["engine_f32"]["kernel_launches"]},
         "max_abs_err": max(e["abs"] for e in errs.values()),
         "errors_by_case": errs,
@@ -3644,7 +3940,12 @@ def kernel_records(state) -> list:
         "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/ops/pallas/paged_attention.py:283",
         "tpu_kernel": "paged_attention.py::_ragged_quant_kernel",
-        "launches": state["engine_w8kv8"]["launches"]["attention_q8"],
+        "launches": state["engine_w8kv8"]["launches"]["attention_q8"]
+        + state["engine_window_w8kv8"]["launches"]["attention_q8"],
+        "launches_by_phase": {
+            "engine_w8kv8": state["engine_w8kv8"]["launches"]["attention_q8"],
+            "engine_window_w8kv8":
+                state["engine_window_w8kv8"]["launches"]["attention_q8"]},
         "max_abs_err": max(e["abs"] for e in errs_q8.values()),
         "errors_by_case": errs_q8,
         "ms": t_q8["ms"], "plain_ms": t_q8["plain_ms"],
@@ -3662,10 +3963,13 @@ def kernel_records(state) -> list:
         "replaces": "paddle_tpu/ops/pallas/quant_matmul.py:227",
         "tpu_kernel": "quant_matmul.py::_qmm_kernel",
         "launches": state["engine_w8kv8"]["launches"]["qmm"]
-        + state["engine_w4"]["launches"]["qmm"],
+        + state["engine_w4"]["launches"]["qmm"]
+        + state["engine_window_w8kv8"]["launches"]["qmm"],
         "launches_by_phase": {
             "engine_w8kv8": state["engine_w8kv8"]["launches"]["qmm"],
-            "engine_w4": state["engine_w4"]["launches"]["qmm"]},
+            "engine_w4": state["engine_w4"]["launches"]["qmm"],
+            "engine_window_w8kv8":
+                state["engine_window_w8kv8"]["launches"]["qmm"]},
         "max_abs_err": max(c["abs"] for c in qmm.values()),
         "ms": qmm[qmm_timed]["ms"], "plain_ms": qmm[qmm_timed]["plain_ms"],
         "bound_ms": qmm[qmm_timed]["bound_ms"],
@@ -3733,6 +4037,8 @@ def main() -> int:
                      ("engine_bf16", phase_engine_bf16),
                      ("engine_w8kv8", phase_engine_w8kv8),
                      ("engine_w4", phase_engine_w4),
+                     ("engine_window_bf16", phase_engine_window_bf16),
+                     ("engine_window_w8kv8", phase_engine_window_w8kv8),
                      ("train_f32", phase_train_f32),
                      ("train_bf16", phase_train_bf16),
                      ("blha_f32", phase_blha_f32),

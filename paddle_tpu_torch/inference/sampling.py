@@ -22,6 +22,14 @@ from its key (``prng.py``), which the engine makes as the JAX package's
 does: ``fold_in(PRNGKey(seed), token index)``.  So a request's stream
 depends on (seed, index) alone -- reproducible across scheduling orders
 and preemptions -- and equals the JAX engine's token for token.
+
+Two entries share one sampler body.  ``sample_tokens`` takes the host
+``samp`` of a per-step launch: it decides on the host which rows sample
+and whether any row has a penalty, and uploads only what the launch
+needs.  The device-resident decode window takes those decisions once at
+dispatch, uploads ``samp`` once (``samp_to_device``) and calls
+``sample_tokens_device`` every iteration with keys from ``advance_keys``
+and a ``seen`` mask it updates on the card.  Both give the same bits.
 """
 from __future__ import annotations
 
@@ -33,7 +41,8 @@ from . import prng
 __all__ = [
     "LogitProcessor", "RepetitionPenaltyProcessor", "TemperatureProcessor",
     "TopKProcessor", "TopPProcessor", "DEFAULT_CHAIN", "make_samp",
-    "sample_tokens",
+    "sampling_plan", "samp_to_device", "advance_keys", "sample_tokens",
+    "sample_tokens_device",
 ]
 
 _NEG_INF = float("-inf")
@@ -119,6 +128,68 @@ def make_samp(B: int, V: int) -> dict:
     }
 
 
+def _to_device(a, device) -> torch.Tensor:
+    """A host array on ``device``: on a CUDA device through pinned memory
+    and a non-blocking copy (a copy from pageable memory would make the
+    host wait for the stream to reach it); on the CPU, the array itself."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def sampling_plan(samp):
+    """The host's two decisions for a launch: the rows that sample (int64
+    indices, temps > 0) and whether any row has a repetition penalty
+    (else the penalty stage, an identity at 1.0, is left out)."""
+    rows = np.nonzero(np.asarray(samp["temps"]) > 0.0)[0]
+    return rows, bool((np.asarray(samp["penalty"]) != 1.0).any())
+
+
+def samp_to_device(samp, device, needs_penalty: bool) -> dict:
+    """The stage parameters of ``samp`` on ``device`` (``seen`` only when a
+    penalty applies).  Keys are not among them: the caller passes the
+    sampled rows' keys to ``sample_tokens_device``."""
+    names = ("temps", "top_k", "top_p", "penalty") \
+        + (("seen",) if needs_penalty else ())
+    return {k: _to_device(samp[k], device) for k in names}
+
+
+def advance_keys(base_keys, offsets):
+    """Sampler keys carried through the device-resident decode window:
+    ``fold_in(base, offset)`` row by row, base_keys ``[B, 2]`` (each row's
+    ``PRNGKey(seed)``) and offsets ``[B]`` (its generated-token count) on
+    the card.  The per-step path makes the same key on the host
+    (``prng.request_key(seed, index)``), so any K-window slicing of a
+    stream draws from the same keys."""
+    return prng.fold_in(base_keys, offsets)
+
+
+def sample_tokens_device(logits, st, rows=None, keys=None,
+                         needs_penalty: bool = False, chain=DEFAULT_CHAIN):
+    """The sampler over ``logits [B, V]`` with its parameters ``st``
+    already on logits' device (``samp_to_device``): greedy rows argmax
+    after the greedy-visible stages (the penalty, run when
+    ``needs_penalty``), and ``rows`` (an int64 index tensor, or None when
+    no row samples) draw by the Gumbel-max rule from ``keys [len(rows),
+    2]`` after the whole chain.  No host read: a window calls it every
+    iteration.  Returns [B] int32."""
+    lg = logits.float()
+    if needs_penalty:
+        for proc in chain:
+            if proc.greedy_visible:
+                lg = proc(lg, st)
+    greedy_tok = torch.argmax(lg, -1).to(torch.int32)
+    if rows is None:
+        return greedy_tok
+    for proc in chain:
+        if not proc.greedy_visible:
+            lg = proc(lg, st)
+    out = greedy_tok.clone()
+    out[rows] = prng.categorical(keys, lg[rows]).to(torch.int32)
+    return out
+
+
 def sample_tokens(logits, samp, chain=DEFAULT_CHAIN):
     """Per-row sampling over [B, V] logits with the host ``samp`` dict.
 
@@ -130,26 +201,12 @@ def sample_tokens(logits, samp, chain=DEFAULT_CHAIN):
     penalty, the sampled stages when some row samples.  Returns [B]
     int32 on logits' device."""
     dev = logits.device
-    lg = logits.float()
-    temps = np.asarray(samp["temps"])
-    sampled_rows = np.nonzero(temps > 0.0)[0]
-    needs_penalty = bool((np.asarray(samp["penalty"]) != 1.0).any())
-    keys = ("temps", "top_k", "top_p", "penalty") \
-        + (("seen",) if needs_penalty else ())
-    st = {k: torch.from_numpy(np.ascontiguousarray(samp[k])).to(dev)
-          for k in keys} if needs_penalty or len(sampled_rows) else {}
-    for proc in chain:
-        if proc.greedy_visible and needs_penalty:
-            lg = proc(lg, st)
-    greedy_tok = torch.argmax(lg, -1).to(torch.int32)
-    if not len(sampled_rows):
-        return greedy_tok
-    for proc in chain:
-        if not proc.greedy_visible:
-            lg = proc(lg, st)
-    out = greedy_tok.clone()
-    rows = torch.from_numpy(sampled_rows).to(dev)
-    keys = torch.from_numpy(
-        np.asarray(samp["keys"])[sampled_rows].astype(np.int64)).to(dev)
-    out[rows] = prng.categorical(keys, lg[rows]).to(torch.int32)
-    return out
+    sampled_rows, needs_penalty = sampling_plan(samp)
+    st = samp_to_device(samp, dev, needs_penalty) \
+        if needs_penalty or len(sampled_rows) else {}
+    rows = keys = None
+    if len(sampled_rows):
+        rows = _to_device(sampled_rows, dev)
+        keys = _to_device(np.asarray(samp["keys"])[sampled_rows]
+                         .astype(np.int64), dev)
+    return sample_tokens_device(logits, st, rows, keys, needs_penalty, chain)

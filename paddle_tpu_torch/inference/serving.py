@@ -1,5 +1,5 @@
 """Continuous-batching LLaMA serving engine in PyTorch (counterpart of
-paddle_tpu/inference/serving.py, its synchronous core).
+paddle_tpu/inference/serving.py).
 
 - ``BlockManager`` (inference/kv_cache.py) owns a fixed pool of KV pages
   with per-sequence block tables.  With prefix caching on (the default)
@@ -36,11 +36,28 @@ The decode math is term for term the JAX engine's (itself the math of
 ``generate()``), so greedy output is token-identical to the JAX engine and
 to the port's dense ``generate()``, with the prefix cache on or off.
 
-This slice runs the step synchronously (``overlap=False``): ``step()``
-packs, launches, reads the sampled tokens back once, and commits.  The
-engine options of later slices raise ``NotImplementedError`` naming their
-ROADMAP item.  The engine is single-threaded: add_request/step/abort are
-called from one thread.
+- A dispatch/completion pipeline (``overlap=True``, the default):
+  ``step()`` pre-stages the next pure-decode pack and completes the
+  launch the previous call left on the card, then dispatches this call's
+  launch without waiting for it.  A launch's sampled tokens stay on the
+  card; their read-back is a non-blocking copy into pinned host memory
+  followed by a CUDA event, which the completion waits on.  Every kernel
+  runs on the current stream; the packed host buffers reach the card
+  through pinned memory by non-blocking copies.  Outputs surface one
+  ``step()`` later; greedy output is byte-identical on or off.
+
+- A device-resident decode window (``decode_window=K``): steady
+  pure-decode packs run up to K decode steps in one launch -- K eager
+  iterations of the per-step body at Tq = max_num_seqs whose state
+  (tokens, KV lengths, sampler keys, penalty masks, the active mask)
+  stays on the card -- and the host reads the [K, B] token grid back
+  once.  Rows that hit eos or their budget freeze; their K/V writes go to
+  the null page.  Page slack is reserved before launch (K shrinks to what
+  the pool covers; below 2 the step runs per-step, counted).
+
+The engine options of later slices raise ``NotImplementedError`` naming
+their ROADMAP item.  The engine is single-threaded: add_request/step/abort
+are called from one thread.
 """
 from __future__ import annotations
 
@@ -59,7 +76,8 @@ from ..profiler.serving import ServingStats
 from . import prng
 from .kv_cache import NULL_BLOCK, BlockManager, BlockPoolExhausted
 from .policy import pack_prefill_chunks
-from .sampling import make_samp, sample_tokens
+from .sampling import (advance_keys, make_samp, samp_to_device,
+                       sample_tokens, sample_tokens_device, sampling_plan)
 
 __all__ = ["LLMEngine", "Request", "RequestOutput"]
 
@@ -103,20 +121,34 @@ class RequestOutput:
 
 @dataclass
 class _StepTicket:
-    """One launched ragged step awaiting its commit: the packed-row layout
-    and the device result ([2, Lq] int32: sampled tokens, finite flags)."""
+    """One dispatched launch awaiting its completion: the packed-row
+    layout and the launch's result, read back without blocking.
+
+    ``result`` is the host copy of the device result -- [2, Lq] int32
+    (sampled tokens, finite flags) for a per-step launch, [2, K', B] for
+    a window -- and ``ready`` the CUDA event recorded after the copy (None
+    on the CPU, where the copy is done when the launch returns).  The
+    pipeline is depth-1: the next dispatch needs this ticket's tokens (a
+    decode row's input is the previous step's output)."""
     chunks: list
     batch: list
     result: torch.Tensor
+    ready: object                     # torch.cuda.Event | None
     chunk_slots: list
     batch_slots: list
     dispatch_s: float                 # host seconds packing + launching
+    inflight: bool = False            # crossed a step() boundary in flight
+    window: int = 0                   # K' of a decode-window launch (0 =
+                                      # per-step)
 
 
 class _DecodeBufs:
-    """Persistent host-side pack buffers for the pure-decode fast path.
-    ``bt_ver`` maps rid -> the block-table version staged into ``bt``;
-    ``layout`` is the rid order last packed."""
+    """One set of persistent host-side pack buffers for the pure-decode
+    fast path.  With overlap on the engine holds two and alternates
+    launches between them, so the prestage of the next pack never
+    rewrites the buffers of the launch in flight.  ``bt_ver`` maps rid ->
+    the block-table version staged into THIS buffer's ``bt``; ``layout``
+    is the rid order last packed."""
 
     __slots__ = ("toks", "cu", "kvl", "bt", "samp", "layout", "bt_ver")
 
@@ -162,10 +194,26 @@ class LLMEngine:
         (int8 pages + f32 per-page-per-head scales).
     weight_dtype: "float32" (the model's weights as they are), "int8" or
         "int4" (quantized pools streamed through the dequant matmul).
+    overlap: run the step loop as a dispatch/completion pipeline (the
+        default).  ``step()`` pre-stages the next pack and completes the
+        launch the previous call left in flight, then dispatches this
+        call's launch without waiting for it, so the card works across
+        the step boundary while the host admits, schedules and packs.
+        Outputs surface one ``step()`` later and ``run()`` takes one extra
+        draining call; greedy output is byte-identical on or off.  False
+        completes each launch in the call that dispatched it.
+    decode_window: K > 1 runs steady pure-decode packs (every runner
+        decode-ready, nobody waiting) as one K-step window whose state
+        stays on the card: one host round trip per K tokens instead of
+        one per token.  K tokens of page slack are reserved per row before
+        launch; when the pool covers fewer, K shrinks, and below 2 the
+        step runs per-step (``decode_window_fallbacks``), never
+        preempting for a window.  Greedy output is byte-identical to
+        decode_window=1; ``compile_counts`` gains a "scan" key when a
+        window first runs.
 
     Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-    item): drafter/spec_k, tp > 1, decode_window > 1, overlap=True,
-    kv_tier, fault_plan, pressure, tracer.
+    item): drafter/spec_k, tp > 1, kv_tier, fault_plan, pressure, tracer.
     """
 
     def __init__(self, model, *, device=None, max_num_seqs: int = 8,
@@ -177,7 +225,7 @@ class LLMEngine:
                  drafter=None, spec_k: int = 0,
                  fault_plan=None, pressure=None,
                  kv_dtype: str = "float32", tp: int = 1,
-                 tracer=None, overlap: bool = False,
+                 tracer=None, overlap: bool = True,
                  decode_window: int = 1,
                  weight_dtype: str = "float32",
                  kv_tier=None):
@@ -196,9 +244,6 @@ class LLMEngine:
         for bad, option, item, what in (
                 (drafter is not None or int(spec_k) != 0, "drafter/spec_k",
                  6, "speculative decoding"),
-                (bool(overlap), "overlap=True", 8, "the async step pipeline"),
-                (int(decode_window) > 1, "decode_window>1", 8,
-                 "the device-resident decode window"),
                 (kv_tier is not None, "kv_tier", 9, "the host KV spill tier"),
                 (fault_plan is not None, "fault_plan", 9, "fault injection"),
                 (pressure is not None, "pressure", 9,
@@ -281,20 +326,38 @@ class LLMEngine:
         self._arrival = 0
 
         # stable batch slots (pure-decode steps pack rows in slot order)
-        # plus persistent host buffers for the decode fast path
+        # plus persistent host buffers for the decode fast path: two
+        # sets, alternated under overlap (overlap off uses set 0 only)
         B = self.max_num_seqs
         self._slot_used = [False] * B
         self._Lq = B                      # logit rows: one per packed row
-        self._dbuf = _DecodeBufs(B, self.nblk, cfg.vocab_size)
+        self.overlap = bool(overlap)
+        self._dbufs = (_DecodeBufs(B, self.nblk, cfg.vocab_size),
+                       _DecodeBufs(B, self.nblk, cfg.vocab_size))
+        self._d_cur = 0                   # buffer set of the latest launch
         self._d_lidx = np.minimum(np.arange(self._Lq), B - 1) \
             .astype(np.int32)
+        # dispatch/completion pipeline state (a depth-1 queue)
         self._inflight: _StepTicket | None = None
+        self._prestaged = None            # (buffer set, layout) when valid
+        self._pending_finished: list = []  # finishes from an abort() flush
+        self._spec_pages: dict = {}       # rid -> pages the prestage took
+        # two pinned staging buffers for the packed int32 upload (CUDA
+        # only), alternated launch by launch
+        self._stages = [None, None]
+        self._stage_i = 0
+        # "programs": the Tq buckets a launch has warmed (walk plans,
+        # tensor maps, workspaces, allocator blocks), and the window
+        self._buckets: set = set()
+        self.compile_counts = {"ragged": 0}
+        self.decode_window = int(decode_window)
         # padding accounting: real packed tokens vs bucket width, plus
         # what a per-phase (prefill bucket + decode bucket) step would pad
         self.pad_stats = {"real": 0, "padded": 0, "legacy_padded": 0}
         self._evictions_seen = 0
         self.peak_resident_seqs = 0
         self.stats = ServingStats()
+        self.stats.set_decode_window(self.decode_window)
         self.stats.set_weight_residency(
             self.weight_dtype, self.weight_bytes_resident(),
             self.weight_bytes_resident())
@@ -342,7 +405,12 @@ class LLMEngine:
         return rid
 
     def has_unfinished(self) -> bool:
-        return bool(self._waiting or self._running)
+        # an in-flight launch still owes its completion when every queue
+        # is empty (run() drains the pipeline through it), and so do the
+        # outputs an abort() flush buffered for the next step()
+        return bool(self._waiting or self._running
+                    or self._inflight is not None
+                    or self._pending_finished)
 
     def abort(self, request_id: int, finish_reason: str = "aborted"):
         """Retire a request before it finishes, at any point of its
@@ -351,7 +419,16 @@ class LLMEngine:
         abort path that only decrefs pages shared with live neighbours
         and never registers the aborted tail.  Returns the partial
         RequestOutput, or None when request_id is unknown or already
-        finished (counted in ``stats.abort_noops``)."""
+        finished (counted in ``stats.abort_noops``).
+
+        A launch in flight is completed first, with the victim's rows
+        dropped unapplied: the abort reports exactly the tokens the
+        caller could observe, as a synchronous abort does.  Batchmates
+        commit as usual; those that finish there surface from the next
+        ``step()``."""
+        if self._inflight is not None:
+            self._complete(self._pending_finished, drop_rid=request_id)
+        self._spec_pages.pop(request_id, None)
         req = None
         for r in self._running:
             if r.rid == request_id:
@@ -384,6 +461,49 @@ class LLMEngine:
             self.step()
         return dict(self._finished)
 
+    @property
+    def num_decode_programs(self) -> int:
+        """Warmed launch buckets of decode size (Tq == max_num_seqs)."""
+        return sum(1 for Tq in self._buckets if Tq <= self.max_num_seqs)
+
+    @property
+    def num_prefill_programs(self) -> int:
+        """Warmed launch buckets of prefill size (Tq > max_num_seqs)."""
+        return sum(1 for Tq in self._buckets if Tq > self.max_num_seqs)
+
+    def _warm_bucket(self, Tq: int) -> None:
+        if Tq not in self._buckets:
+            self._buckets.add(Tq)
+            self.compile_counts["ragged"] += 1
+
+    def precompile_buckets(self) -> tuple:
+        """Run one all-padding launch at every reachable flat-token bucket
+        -- the decode-sized bucket and every prefill_token_bucket multiple
+        up to the largest packable launch (a full max_prefill_tokens
+        budget plus every slot's decode token) -- so the walk plans,
+        tensor maps, workspaces and allocator blocks of every bucket exist
+        before the first request.  A padding launch writes only the null
+        page and samples nothing anyone reads.  Idempotent; returns the
+        ladder, after which ``compile_counts["ragged"]`` stays at its
+        size."""
+        tb = self.prefill_token_bucket
+        ceiling = self.max_prefill_tokens + self._Lq
+        ladder = sorted({self.max_num_seqs}
+                        | set(range(tb, (-(-ceiling // tb) + 1) * tb, tb)))
+        B = self.max_num_seqs
+        cu = np.zeros((B + 1,), np.int32)
+        kvl = np.zeros((B,), np.int32)
+        bt = np.full((B + 1, self.nblk), NULL_BLOCK, np.int32)
+        lidx = np.zeros((self._Lq,), np.int32)
+        samp = make_samp(self._Lq, self.config.vocab_size)
+        for Tq in ladder:
+            if Tq in self._buckets:
+                continue
+            self._warm_bucket(Tq)
+            self._ragged_step(Tq, np.zeros((Tq,), np.int32), cu, kvl, bt,
+                              lidx, samp, _NO_PAGES).cpu()
+        return tuple(ladder)
+
     def summary(self) -> dict:
         """One dict of serving metrics + block-pool state for this run."""
         out = self.stats.summary()
@@ -396,6 +516,8 @@ class LLMEngine:
         out["weight_bytes_resident"] = self.weight_bytes_resident()
         out["peak_resident_seqs"] = self.peak_resident_seqs
         out["pad_stats"] = dict(self.pad_stats)
+        out["overlap"] = self.overlap
+        out["decode_window"] = self.decode_window
         return out
 
     def kv_page_bytes(self) -> int:
@@ -503,11 +625,24 @@ class LLMEngine:
                 and req.cached == len(req.prompt) + len(req.generated) - 1)
 
     def step(self) -> list:
-        """One engine iteration: admit -> schedule -> launch -> read back
-        -> apply -> retire.  Returns the requests that finished."""
-        finished: list = []
-        self._dispatch()
+        """One engine iteration.  With ``overlap`` on (the default) this is
+        one turn of the dispatch/completion pipeline: pre-stage the next
+        pure-decode pack while the previous call's launch is still on the
+        card, wait for and commit that launch, then dispatch this call's
+        launch without waiting for it -- so the requests returned are the
+        completions of the PREVIOUS call's dispatch.  With ``overlap`` off
+        the dispatch completes in the same call: admit -> schedule ->
+        launch -> read back -> apply -> retire.  Returns the requests that
+        finished."""
+        # outputs that finished inside an abort()'s pipeline flush surface
+        # here, so the step()-return channel never drops one
+        finished = self._pending_finished
+        self._pending_finished = []
         if self._inflight is not None:
+            self._prestage()
+            self._complete(finished)
+        self._dispatch()
+        if not self.overlap and self._inflight is not None:
             self._complete(finished)
         ev = self.blocks.eviction_count
         if ev != self._evictions_seen:
@@ -516,9 +651,10 @@ class LLMEngine:
         return finished
 
     def _dispatch(self) -> None:
-        """Admission + scheduling + packing + the ragged launch.  The
-        launch's result stays on the device in ``self._inflight`` until
-        ``_complete`` reads it back."""
+        """Admission + scheduling + packing + the launch (a K-step window
+        when the pack is eligible, else one ragged step).  The launch's
+        result stays on the card, its read-back queued behind it, in
+        ``self._inflight`` until ``_complete`` waits for it."""
         admitted = self._admit()
         if admitted:
             self.stats.record_admission(len(admitted))
@@ -541,42 +677,141 @@ class LLMEngine:
 
         if chunks or batch:
             t0 = time.perf_counter()
-            with record_function("llm_engine.ragged_step"):
-                result, chunk_slots, batch_slots = self._run_ragged(chunks,
-                                                                    batch)
-            self._inflight = _StepTicket(
-                chunks=chunks, batch=batch, result=result,
-                chunk_slots=chunk_slots, batch_slots=batch_slots,
-                dispatch_s=time.perf_counter() - t0)
+            if not (self.decode_window > 1 and not chunks
+                    and self._window_eligible(batch)
+                    and self._dispatch_window(batch, t0)):
+                with record_function("llm_engine.ragged_step"):
+                    result, chunk_slots, batch_slots = self._run_ragged(
+                        chunks, batch)
+                    host, ready = self._read_back(result)
+                self._inflight = _StepTicket(
+                    chunks=chunks, batch=batch, result=host, ready=ready,
+                    chunk_slots=chunk_slots, batch_slots=batch_slots,
+                    dispatch_s=time.perf_counter() - t0,
+                    inflight=self.overlap)
+        # the prestage's page credit expires: every page it reserved is
+        # now owned by a row this dispatch packed (its ensure() found the
+        # page in place) or went back with a retired row
+        self._spec_pages.clear()
 
-    def _complete(self, finished: list) -> None:
-        """Read the launch's sampled tokens and finiteness flags back (one
-        device-to-host copy), then apply and retire."""
+    def _read_back(self, result):
+        """Queue the device result's copy to host memory behind the
+        launch: on a CUDA device a non-blocking copy into pinned memory
+        and an event after it (the completion waits on the event, not on
+        the stream); on the CPU the result itself."""
+        if result.device.type != "cuda":
+            return result, None
+        host = torch.empty(result.shape, dtype=result.dtype,
+                           pin_memory=True)
+        host.copy_(result, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return host, ready
+
+    def _complete(self, finished: list, drop_rid=None) -> None:
+        """Wait for the in-flight ticket's read-back, then apply and
+        retire.  ``drop_rid`` (abort while in flight) discards that
+        request's rows unapplied: no token commit, no retirement."""
         ticket = self._inflight
         self._inflight = None
         t0 = time.perf_counter()
-        res = ticket.result.cpu().numpy()
+        if ticket.ready is not None:
+            ticket.ready.synchronize()
+        res = ticket.result.numpy()
         block_s = time.perf_counter() - t0
-        sampled, ok = res[0], res[1].astype(bool)
+        # ONE host round trip a completion, whether the launch carried one
+        # step or a whole K-token window
         self.stats.record_round_trip()
+        sampled, ok = res[0], res[1].astype(bool)
+        chunks, batch = ticket.chunks, ticket.batch
+        chunk_slots, batch_slots = ticket.chunk_slots, ticket.batch_slots
+        if drop_rid is not None:
+            kc = [i for i, (r, _) in enumerate(chunks) if r.rid != drop_rid]
+            chunks = [chunks[i] for i in kc]
+            chunk_slots = [chunk_slots[i] for i in kc]
+            kb = [i for i, r in enumerate(batch) if r.rid != drop_rid]
+            batch = [batch[i] for i in kb]
+            batch_slots = [batch_slots[i] for i in kb]
+        # the engine's active time on this launch (packing + the residual
+        # wait); the device time hidden under the prestage and the gap
+        # between calls is what the overlap buys
         dur = ticket.dispatch_s + block_s
         self.stats.record_step(dur, dispatch_s=ticket.dispatch_s,
                                block_s=block_s)
-        self._apply_ragged(ticket.chunks, ticket.batch, sampled, ok,
-                           ticket.chunk_slots, ticket.batch_slots, dur,
-                           finished)
+        if ticket.window:
+            self._apply_window(batch, batch_slots, sampled, ok, dur,
+                               finished, ticket.window)
+        else:
+            self._apply_ragged(chunks, batch, sampled, ok, chunk_slots,
+                               batch_slots, dur, finished)
+
+    def _prestage(self) -> None:
+        """Stage the NEXT dispatch's pure-decode pack while the in-flight
+        ticket runs on the card.
+
+        A surviving decode row's next position is known before the
+        ticket's sampled token is: it packs kv_len + 1 next step.  So the
+        page reservation (``ensure``), the block-table rows, the kv-length
+        column and the sampling keys are staged into the idle decode
+        buffer set; the dispatch patches in only the token column and the
+        penalty masks.  The prestage never preempts -- a short pool
+        abandons it, and its row-local writes are redone by the normal
+        path.  A row the completion retires or quarantines returns its
+        reserved page with the rest of its table, and the layout check at
+        dispatch discards a stale pack."""
+        if not self.overlap:
+            return
+        ticket = self._inflight
+        if ticket.window or ticket.chunks or not ticket.batch:
+            return              # only after per-step pure-decode launches
+        if self._waiting:
+            return              # the next step admits: a mixed pack
+        if any(r.cached < len(r.tokens) for r in self._running):
+            return              # a mid-prefill row: a mixed pack
+        batch = ticket.batch    # slot-sorted at dispatch
+        self._prestaged = None
+        # reserve each row's next write: pre-apply cached + 2 is the
+        # post-apply cached + 1 the dispatch's ensure() asks for
+        for req in batch:
+            before = self.blocks.num_free
+            try:
+                grown = self.blocks.ensure(req.rid, req.cached + 2)
+            except BlockPoolExhausted:
+                grown = False
+            if not grown:
+                return
+            took = before - self.blocks.num_free
+            if took > 0:
+                self._spec_pages[req.rid] = \
+                    self._spec_pages.get(req.rid, 0) + took
+        bi = 1 - self._d_cur            # the set NOT in flight
+        buf = self._dbufs[bi]
+        layout = tuple(r.rid for r in batch)
+        if layout != buf.layout:
+            self._restage(buf, batch, layout)
+        for s, req in enumerate(batch):
+            buf.kvl[s] = req.cached + 2      # post-apply cached + 1
+            if req.temperature > 0.0:
+                # len(generated) will have grown by one at dispatch
+                buf.samp["keys"][s] = self._req_key(req, ahead=1)
+        self._stage_tables(buf, batch)
+        self._prestaged = (bi, layout)
 
     def _invalidate_bt(self, rid: int) -> None:
-        """Drop the decode buffer's staged block-table row for rid (its
-        table can go stale without a version bump on re-admission and is
-        freed outright on preemption)."""
-        self._dbuf.bt_ver.pop(rid, None)
+        """Drop both decode buffer sets' staged block-table rows for rid
+        (its table can go stale without a version bump on re-admission
+        and is freed outright on preemption)."""
+        for buf in self._dbufs:
+            buf.bt_ver.pop(rid, None)
 
     def _break_decode_layout(self) -> None:
-        """A mixed launch rewrites tables and row order: the decode fast
-        path fully restages at its next launch."""
-        self._dbuf.layout = ()
-        self._dbuf.bt_ver.clear()
+        """A mixed launch or a window rewrites tables and row order: both
+        decode buffer sets fully restage at their next pure-decode launch,
+        and a prestaged pack is discarded."""
+        for buf in self._dbufs:
+            buf.layout = ()
+            buf.bt_ver.clear()
+        self._prestaged = None
 
     def _apply_ragged(self, chunks, batch, sampled, ok, chunk_slots,
                       batch_slots, dur, finished):
@@ -629,12 +864,137 @@ class LLMEngine:
             self.stats.record_decode(dur * len(batch) / total,
                                      len(batch), occ)
 
+    # ------------------------------------------------------------------
+    # device-resident decode window (decode_window > 1)
+    # ------------------------------------------------------------------
+
+    def _window_eligible(self, batch: list) -> bool:
+        """True when this step's pack may run as a K-step window: a steady
+        pure-decode state -- every runner decode-ready and nobody waiting
+        for a slot (a window would delay their admission by up to K
+        steps).  The caller has established that no chunk rows are
+        packed; the per-step path remains the fallback."""
+        return bool(batch) and not self._waiting \
+            and len(batch) == len(self._running)
+
+    def _reserve_window_pages(self, batch: list, k: int):
+        """Reserve each row's k tokens of page slack before the window
+        launches (clamped to the row's remaining budget: a row frozen
+        after m < k tokens writes m positions).  All or nothing at this
+        k: None, with the pool as found, when it cannot cover the window.
+        No copy-on-write here: the per-step reservation of this dispatch
+        privatized the page of the first write, and every page the window
+        crosses into past it is freshly allocated."""
+        return self.blocks.reserve_window(
+            [(req.rid, req.cached + min(k, req.max_new_tokens
+                                        - len(req.generated)))
+             for req in batch])
+
+    def _dispatch_window(self, batch: list, t0: float) -> bool:
+        """Reserve, pack and launch one window over ``batch`` (slot-sorted,
+        first-write pages ensured).  When K tokens of slack do not fit the
+        reservation retries at K-1, K-2, ... and runs the largest K' that
+        fits (counted as a shrink); the per-row budgets freeze every row
+        after K' tokens.  Returns False, counted as a fallback, when not
+        even 2 tokens fit: the caller runs the per-step path."""
+        K = self.decode_window
+        kp = next((k for k in range(K, 1, -1)
+                   if self._reserve_window_pages(batch, k) is not None), 0)
+        if kp == 0:
+            self.stats.record_window_fallback()
+            return False
+        if kp < K:
+            self.stats.record_window_shrink()
+        B = self.max_num_seqs
+        n = len(batch)
+        toks = np.zeros((B,), np.int32)
+        kvl = np.zeros((B,), np.int32)
+        gen = np.zeros((B,), np.int32)
+        budgets = np.zeros((B,), np.int32)
+        eos_ids = np.full((B,), -1, np.int32)     # -1: no eos (ids >= 0)
+        base_keys = np.zeros((B, 2), np.uint32)
+        bt = np.full((B + 1, self.nblk), NULL_BLOCK, np.int32)
+        samp = make_samp(B, self.config.vocab_size)
+        for s, req in enumerate(batch):
+            toks[s] = req.generated[-1]
+            kvl[s] = req.cached + 1
+            gen[s] = len(req.generated)
+            budgets[s] = min(req.max_new_tokens, len(req.generated) + kp)
+            if req.eos_token_id is not None:
+                eos_ids[s] = int(req.eos_token_id)
+            self._fill_samp(samp, s, req, key=False)
+            if req.temperature > 0.0:
+                # the body re-derives fold_in(PRNGKey(seed), generated)
+                # every iteration: the key _req_key makes on the host
+                base_keys[s] = (0, req.seed & prng._MASK)
+            bt[s] = self.blocks.padded_table(req.rid, self.nblk)
+        # the window grows tables past what the per-step buffers staged
+        self._break_decode_layout()
+        # every row is frozen by its budget after this many iterations
+        # (an eos may freeze it sooner; its later columns are not read)
+        iters = int((budgets[:n] - gen[:n]).max())
+        with record_function("llm_engine.window_step"):
+            result = self._launch_window(iters, n, toks, kvl, gen, budgets,
+                                         eos_ids, base_keys, bt, samp)
+            host, ready = self._read_back(result)
+        self._inflight = _StepTicket(
+            chunks=[], batch=list(batch), result=host, ready=ready,
+            chunk_slots=[], batch_slots=list(range(n)),
+            dispatch_s=time.perf_counter() - t0, inflight=self.overlap,
+            window=iters)
+        return True
+
+    def _apply_window(self, batch, batch_slots, sampled, ok, dur, finished,
+                      window):
+        """Drain one completed window: the [K', B] token and finiteness
+        grids commit as up to K' per-token steps per row, in
+        iteration-major order -- the per-step path's sequence (cache
+        commit of the previous token, append, penalty mask, retire check),
+        so the prefix cache and retirement are those of K=1.  A row
+        leaves the walk when it retires (eos/length, the predicates that
+        froze it on the card) or quarantines on a non-finite iteration;
+        its later columns are frozen filler and never committed.  The
+        drain stops at the launched K'."""
+        K = min(int(sampled.shape[0]), int(window))
+        occ = len(self._running) / self.max_num_seqs
+        alive = {req.rid for req in batch}
+        committed = iters = 0
+        for i in range(K):
+            if not alive:
+                break
+            iters += 1
+            for req, s in zip(batch, batch_slots):
+                if req.rid not in alive:
+                    continue
+                if not ok[i, s]:
+                    alive.discard(req.rid)
+                    self._quarantine(req, finished)
+                    continue
+                if self.enable_prefix_caching:
+                    self.blocks.commit_decode_token(req.rid,
+                                                    req.generated[-1])
+                req.cached += 1
+                tok = int(sampled[i, s])
+                req.generated.append(tok)
+                if req.seen is not None:
+                    req.seen[tok] = True
+                committed += 1
+                self._maybe_retire(req, finished)
+                if req not in self._running:
+                    alive.discard(req.rid)
+        self.pad_stats["real"] += committed
+        self.pad_stats["padded"] += iters * self.max_num_seqs
+        self.pad_stats["legacy_padded"] += iters * self.max_num_seqs
+        if committed:
+            self.stats.record_decode(dur, committed, occ, rounds=iters)
+
     def _quarantine(self, req, finished: list) -> None:
         """Retire one sequence whose step logits came back non-finite.
         Its pages leave through ``release`` (decref-only, the unshared
         tail never registers in the prefix cache, so corrupt K/V never
         becomes a future hit); finish_reason is "numerical_error"."""
         self.blocks.release(req.rid)
+        self._spec_pages.pop(req.rid, None)
         self._running.remove(req)
         self._release_slot(req)
         out = RequestOutput(rid=req.rid, prompt=list(req.prompt),
@@ -767,6 +1127,7 @@ class LLMEngine:
         token-identically, and with prefix caching the recompute hits the
         pages this preemption just parked."""
         self.blocks.free(req.rid)
+        self._spec_pages.pop(req.rid, None)
         self._running.remove(req)
         self._release_slot(req)
         req.tokens = list(req.prompt) + list(req.generated)
@@ -784,6 +1145,7 @@ class LLMEngine:
         else:
             return
         self.blocks.free(req.rid)
+        self._spec_pages.pop(req.rid, None)
         self._running.remove(req)
         self._release_slot(req)
         out = RequestOutput(rid=req.rid, prompt=list(req.prompt),
@@ -819,47 +1181,57 @@ class LLMEngine:
         tb = self.prefill_token_bucket
         return -(-n_tokens // tb) * tb
 
-    @torch.no_grad()
-    def _ragged_step(self, Tq, toks, cu, kvl, bt, lidx, samp, fresh):
-        """The one serving step: Tq flat query tokens from up to
-        max_num_seqs ragged rows.  Each layer writes the packed tokens'
-        K/V into the page pool at their absolute positions, then ragged
-        paged attention lets every token attend to its own row's pages
-        causally.  Returns [2, Lq] int32 on the device: the sampled token
-        and the all-finite flag of each logit row.
+    def _upload(self, parts: list) -> list:
+        """One host-to-device copy for several int32 host arrays; returns
+        their device views (1-D, in order).  On a CUDA device the arrays
+        are concatenated into a pinned staging buffer (two, alternated
+        launch by launch) and copied without blocking: a copy from
+        pageable memory would make the host wait for the stream to drain,
+        undoing the overlap.  On the CPU the views alias one new array."""
+        sizes = [p.size for p in parts]
+        n = sum(sizes)
+        flat = [p.reshape(-1) for p in parts]
+        if self.device.type == "cuda":
+            i = self._stage_i
+            self._stage_i ^= 1
+            stage = self._stages[i]
+            if stage is None or stage.numel() < n:
+                stage = torch.empty(max(n, 1024), dtype=torch.int32,
+                                    pin_memory=True)
+                self._stages[i] = stage
+            np.concatenate(flat, out=stage.numpy()[:n])
+            packed = stage[:n].to(self.device, non_blocking=True)
+        else:
+            packed = torch.from_numpy(np.concatenate(flat))
+        return list(torch.split(packed, sizes))
 
-        toks [Tq] (tail padding maps to the sentinel row B); cu [B+1] row
-        offsets; kvl [B] valid KV per row AFTER this launch's writes; bt
-        [B+1, nblk] (row B: the null row pads resolve to); lidx [Lq] flat
-        index of each logit row; samp the host ``make_samp`` dict; fresh
-        the pages whose scale rows reset this launch (int8 pages only,
-        else empty)."""
+    def _reset_fresh(self, fresh_d) -> None:
+        """Zero the scale rows of the pages handed out since the last
+        launch (int8 pages): their old scales are dead (step 1 of the
+        quantize-at-commit, every layer).  ``index_fill_``: an indexed
+        assignment of a Python scalar synchronizes the host with the
+        card."""
+        if fresh_d.numel():
+            fresh_d = fresh_d.long()
+            self._ks.index_fill_(1, fresh_d, 0.0)
+            self._vs.index_fill_(1, fresh_d, 0.0)
+
+    @torch.no_grad()
+    def _logits(self, toks, blk, slot, bt, seg, rel, lidx=None):
+        """The decoder over Tq packed tokens, on the card: each layer
+        writes the tokens' K/V into page ``blk`` at ``slot`` (quantized at
+        commit for int8 pages), then ragged paged attention lets every
+        token attend to table row ``seg[t]`` causally up to position
+        ``rel[t]``.  Returns the f32 logits [Lq, V] of the rows ``lidx``
+        (every token when None).  The per-step launch and every window
+        iteration run this body, so their bits agree."""
+        Tq = toks.shape[0]
         nh, kvh, d = self._nh, self._kvh, self._hd
-        bs = self.block_size
-        B = self.max_num_seqs
         eps = self.config.rms_norm_eps
         theta = self.config.rope_theta
         mm = self._mm
-        # one host-to-device copy for every packed int32 buffer
-        packed = torch.from_numpy(np.concatenate(
-            [toks, cu, kvl, bt.reshape(-1), lidx, fresh])).to(self.device)
-        o = np.cumsum([0, Tq, B + 1, B, bt.size, len(lidx)])
-        toks_d, cu_d, kvl_d = (packed[o[0]:o[1]], packed[o[1]:o[2]],
-                               packed[o[2]:o[3]])
-        bt_d = packed[o[3]:o[4]].view(B + 1, self.nblk)
-        lidx_d = packed[o[4]:o[5]]
-        if len(fresh):
-            # pages handed out since the last launch: their old scales are
-            # dead (step 1 of the quantize-at-commit below, every layer)
-            fresh_d = packed[o[5]:].long()
-            self._ks[:, fresh_d] = 0.0
-            self._vs[:, fresh_d] = 0.0
-
-        seg, rel = _pa.ragged_segments(cu_d, kvl_d, Tq)
-        blk = bt_d[seg.long(), (rel // bs).long()]              # [Tq]
-        slot = (rel % bs).long()
         layers = self.params["layers"]
-        x = self._embed(toks_d.long())                          # [Tq, H]
+        x = self._embed(toks.long())                            # [Tq, H]
         for i in range(self.config.num_hidden_layers):
             p = {k: v[i] for k, v in layers.items()}
             h = _rms_weight(x, p["ln1"], eps)
@@ -867,7 +1239,7 @@ class LLMEngine:
             k = _rope_positions(mm(h, p, "wk").view(Tq, kvh, d), rel, theta)
             v = mm(h, p, "wv").view(Tq, kvh, d)
             if self.kv_dtype == "int8":
-                att = self._commit_q8_and_attend(i, q, k, v, blk, slot, bt_d,
+                att = self._commit_q8_and_attend(i, q, k, v, blk, slot, bt,
                                                  seg, rel).to(x.dtype)
             else:
                 kcl, vcl = self._kc[i], self._vc[i]
@@ -877,20 +1249,107 @@ class LLMEngine:
                 kcl[blk, :, slot, :] = k.to(kcl.dtype)
                 vcl[blk, :, slot, :] = v.to(vcl.dtype)
                 att = _pa.ragged_paged_attention_segrel_packed(
-                    q, kcl, vcl, bt_d, seg, rel)
+                    q, kcl, vcl, bt, seg, rel)
             x = x + mm(att.reshape(Tq, nh * d), p, "wo")
             h2 = _rms_weight(x, p["ln2"], eps)
             a = torch.nn.functional.silu(mm(h2, p, "gate").float()) \
                 .to(h2.dtype) * mm(h2, p, "up")
             x = x + mm(a, p, "down")
         h = _rms_weight(x, self.params["norm_f"], eps)
-        logits = self._head_logits(h[lidx_d.long()])            # [Lq, V]
+        return self._head_logits(h if lidx is None else h[lidx.long()])
+
+    @torch.no_grad()
+    def _ragged_step(self, Tq, toks, cu, kvl, bt, lidx, samp, fresh):
+        """The one serving step: Tq flat query tokens from up to
+        max_num_seqs ragged rows through ``_logits``, then the sampler.
+        Returns [2, Lq] int32 on the device: the sampled token and the
+        all-finite flag of each logit row.
+
+        toks [Tq] (tail padding maps to the sentinel row B); cu [B+1] row
+        offsets; kvl [B] valid KV per row AFTER this launch's writes; bt
+        [B+1, nblk] (row B: the null row pads resolve to); lidx [Lq] flat
+        index of each logit row; samp the host ``make_samp`` dict; fresh
+        the pages whose scale rows reset this launch (int8 pages only,
+        else empty)."""
+        bs = self.block_size
+        B = self.max_num_seqs
+        toks_d, cu_d, kvl_d, bt_d, lidx_d, fresh_d = self._upload(
+            [toks, cu, kvl, bt, lidx, fresh])
+        bt_d = bt_d.view(B + 1, self.nblk)
+        self._reset_fresh(fresh_d)
+        seg, rel = _pa.ragged_segments(cu_d, kvl_d, Tq)
+        blk = bt_d[seg.long(), (rel // bs).long()]              # [Tq]
+        slot = (rel % bs).long()
+        logits = self._logits(toks_d, blk, slot, bt_d, seg, rel, lidx_d)
         sampled = sample_tokens(logits, samp)
         # per-row finiteness flag: a poisoned row is quarantined host-side
         # without touching its batchmates (padded rows may be non-finite;
         # the host only consults live slots)
         fin = torch.isfinite(logits).all(-1)
         return torch.stack([sampled, fin.to(torch.int32)])
+
+    @torch.no_grad()
+    def _launch_window(self, iters, n, toks, kvl, gen, budgets, eos_ids,
+                       base_keys, bt, samp):
+        """The device-resident decode window: ``iters`` iterations of the
+        per-step body at Tq = max_num_seqs (``_logits``), each followed by
+        the bookkeeping the host does between per-step launches -- advance
+        the KV lengths, re-derive the sampler keys (``advance_keys``),
+        mark the sampled token in the penalty mask, freeze rows whose
+        token is their eos or whose budget is full -- all on the card,
+        with no host read in between.  Rows 0..n-1 are live; the others,
+        and rows as they freeze, keep seg = their row (non-decreasing, as
+        the walk requires), read position 0 of their own table row and
+        write their K/V to the null page's slot 0.  Int8 pages reset the
+        fresh pages' scales once, before iteration 0 (every page of the
+        window was handed out at dispatch; a reset inside the loop would
+        wipe scales grown by earlier iterations).  Returns [2, iters, B]
+        int32 on the device: each iteration's tokens (a frozen row repeats
+        its last committed token) and finite flags (true where frozen)."""
+        B = self.max_num_seqs
+        bs = self.block_size
+        dev = self.device
+        if "scan" not in self.compile_counts:
+            self.compile_counts["scan"] = 1
+        fresh = self._consume_fresh() if self.kv_dtype == "int8" \
+            else _NO_PAGES
+        rows_np, needs_penalty = sampling_plan(samp)
+        (tok, kvl_d, gen_d, budgets_d, eos_d, bt_d, rows_d, keys_d,
+         fresh_d) = self._upload(
+            [toks, kvl, gen, budgets, eos_ids, bt, rows_np.astype(np.int32),
+             base_keys[rows_np].view(np.int32), fresh])
+        bt_d = bt_d.view(B + 1, self.nblk)
+        st = samp_to_device(samp, dev, needs_penalty)
+        rows = base = None
+        if len(rows_np):
+            rows = rows_d.long()
+            base = keys_d.view(-1, 2).long() & prng._MASK
+        self._reset_fresh(fresh_d)
+        active = torch.arange(B, device=dev) < n
+        row_ids = torch.arange(B, device=dev)
+        null = torch.full_like(tok, NULL_BLOCK)
+        out = torch.empty((2, iters, B), dtype=torch.int32, device=dev)
+        for i in range(iters):
+            seg, rel = _pa.decode_window_segments(active, kvl_d)
+            blk = torch.where(active, bt_d[seg.long(), (rel // bs).long()],
+                              null)
+            slot = (rel % bs).long()        # rel is 0 where frozen
+            logits = self._logits(tok, blk, slot, bt_d, seg, rel)
+            keys = advance_keys(base, gen_d[rows]) if rows is not None \
+                else None
+            sampled = sample_tokens_device(logits, st, rows, keys,
+                                           needs_penalty)
+            fin = torch.isfinite(logits).all(-1)
+            sampled = torch.where(active, sampled, tok)
+            out[0, i] = sampled
+            out[1, i] = (fin | ~active).to(torch.int32)
+            if needs_penalty:
+                idx = (row_ids, sampled.long())
+                st["seen"][idx] = st["seen"][idx] | active
+            adv = active.to(torch.int32)
+            active = active & (sampled != eos_d) & (gen_d + 1 < budgets_d)
+            tok, kvl_d, gen_d = sampled, kvl_d + adv, gen_d + adv
+        return out
 
     def _commit_q8_and_attend(self, i, q, k, v, blk, slot, bt, seg, rel):
         """Layer i of the int8-page step: quantize this launch's K/V into
@@ -934,22 +1393,24 @@ class LLMEngine:
 
     def _launch_ragged(self, Tq, toks, cu, kvl, bt, lidx, samp,
                        real_tokens):
-        """The one place a step launches (mixed and pure-decode packs
-        alike), so int8 mode drains the fresh pages at every launch."""
+        """The one place a per-step pack launches (mixed and pure-decode
+        alike), so int8 mode drains the fresh pages at every launch (the
+        window drains them at its own)."""
         self.pad_stats["real"] += int(real_tokens)
         self.pad_stats["padded"] += int(Tq)
+        self._warm_bucket(Tq)
         fresh = self._consume_fresh() if self.kv_dtype == "int8" \
             else _NO_PAGES
         return self._ragged_step(Tq, toks, cu, kvl, bt, lidx, samp, fresh)
 
-    def _fill_samp(self, samp, s, req):
+    def _fill_samp(self, samp, s, req, key: bool = True):
         samp["temps"][s] = req.temperature
         samp["top_k"][s] = req.top_k
         samp["top_p"][s] = req.top_p
         samp["penalty"][s] = req.repetition_penalty
         if req.seen is not None:
             np.copyto(samp["seen"][s], req.seen)
-        if req.temperature > 0.0:
+        if key and req.temperature > 0.0:
             samp["keys"][s] = self._req_key(req)
 
     def _run_ragged(self, chunks: list, batch: list):
@@ -1007,54 +1468,76 @@ class LLMEngine:
                                      total)
         return result, chunk_slots, batch_slots
 
-    def _run_ragged_decode(self, batch: list, Tq: int):
-        """Pure-decode launch over the persistent host buffers.  Rows
-        repack incrementally ONLY while the layout signature -- the rid
-        order of the packed rows -- is unchanged since the last
-        pure-decode step; retirement, admission, preemption or a mixed
-        launch in between forces a full repack.  Within a stable layout,
-        block-table rows refresh whenever the sequence's table version
-        bumped (page growth/CoW)."""
+    def _restage(self, buf, batch, layout) -> None:
+        """Full repack of one decode buffer set for a new row order."""
         n = len(batch)
-        buf = self._dbuf
         samp = buf.samp
-        layout = tuple(r.rid for r in batch)
-        if layout != buf.layout:
-            buf.layout = layout
-            buf.bt[:] = NULL_BLOCK
-            buf.kvl[:] = 0
-            buf.cu[:n + 1] = np.arange(n + 1)
-            buf.cu[n + 1:] = n
-            samp["temps"][:] = 0.0
-            samp["top_k"][:] = 0
-            samp["top_p"][:] = 1.0
-            samp["penalty"][:] = 1.0
-            samp["seen"][:] = False
-            for s, req in enumerate(batch):
-                samp["temps"][s] = req.temperature
-                samp["top_k"][s] = req.top_k
-                samp["top_p"][s] = req.top_p
-                samp["penalty"][s] = req.repetition_penalty
-            buf.bt_ver.clear()               # force table repacks below
+        buf.layout = layout
+        buf.bt[:] = NULL_BLOCK
+        buf.kvl[:] = 0
+        buf.cu[:n + 1] = np.arange(n + 1)
+        buf.cu[n + 1:] = n
+        samp["temps"][:] = 0.0
+        samp["top_k"][:] = 0
+        samp["top_p"][:] = 1.0
+        samp["penalty"][:] = 1.0
+        samp["seen"][:] = False
         for s, req in enumerate(batch):
-            buf.toks[s] = req.generated[-1]
-            buf.kvl[s] = req.cached + 1
-            if req.seen is not None:
-                np.copyto(samp["seen"][s], req.seen)
-            if req.temperature > 0.0:
-                samp["keys"][s] = self._req_key(req)
+            samp["temps"][s] = req.temperature
+            samp["top_k"][s] = req.top_k
+            samp["top_p"][s] = req.top_p
+            samp["penalty"][s] = req.repetition_penalty
+        buf.bt_ver.clear()               # force table repacks
+
+    def _stage_tables(self, buf, batch) -> None:
+        """Refresh the block-table rows whose table version moved (page
+        growth, CoW) since this buffer set staged them."""
         for s, req in enumerate(batch):
             ver = self.blocks.table_version(req.rid)
             if buf.bt_ver.get(req.rid) != ver:
                 buf.bt[s] = self.blocks.padded_table(req.rid, self.nblk)
                 buf.bt_ver[req.rid] = ver
+
+    def _run_ragged_decode(self, batch: list, Tq: int):
+        """Pure-decode launch over a persistent decode buffer set.  Rows
+        repack incrementally ONLY while the layout signature -- the rid
+        order of the packed rows -- is unchanged since the last
+        pure-decode launch through THIS set; retirement, admission,
+        preemption, a mixed launch or a window in between forces a full
+        repack.  Within a stable layout, block-table rows refresh whenever
+        the sequence's table version bumped (page growth/CoW).  With
+        overlap on, launches alternate between the two sets, and a valid
+        ``_prestage`` of this set and layout leaves only the token column
+        and the penalty masks to patch."""
+        n = len(batch)
+        bi = (1 - self._d_cur) if self.overlap else 0
+        buf = self._dbufs[bi]
+        samp = buf.samp
+        layout = tuple(r.rid for r in batch)
+        pre = self._prestaged == (bi, layout)
+        self._prestaged = None                # single use
+        if layout != buf.layout:
+            pre = False
+            self._restage(buf, batch, layout)
+        for s, req in enumerate(batch):
+            buf.toks[s] = req.generated[-1]
+            if req.seen is not None:
+                np.copyto(samp["seen"][s], req.seen)
+            if not pre:
+                buf.kvl[s] = req.cached + 1
+                if req.temperature > 0.0:
+                    samp["keys"][s] = self._req_key(req)
+        self._stage_tables(buf, batch)
         self.pad_stats["legacy_padded"] += self.max_num_seqs
         result = self._launch_ragged(Tq, buf.toks, buf.cu, buf.kvl, buf.bt,
                                      self._d_lidx, samp, n)
+        self._d_cur = bi
         return result, [], list(range(n))
 
-    def _req_key(self, req):
+    def _req_key(self, req, ahead: int = 0):
         # the key for token i of request r depends only on (seed, i):
         # sampling is reproducible across scheduling orders and
-        # preemptions, and equals the JAX engine's fold_in(PRNGKey(seed), i)
-        return prng.request_key(req.seed, len(req.generated))
+        # preemptions, and equals the JAX engine's fold_in(PRNGKey(seed),
+        # i).  ahead=1 makes the NEXT position's key (the prestage:
+        # len(generated) will have grown by one at dispatch)
+        return prng.request_key(req.seed, len(req.generated) + ahead)

@@ -51,7 +51,8 @@ import torch
 
 from . import _build
 
-__all__ = ["ragged_segments", "ragged_paged_reference_segrel",
+__all__ = ["ragged_segments", "decode_window_segments",
+           "ragged_paged_reference_segrel",
            "ragged_paged_attention_segrel",
            "ragged_paged_attention_segrel_packed", "ragged_paged_attention",
            "ragged_paged_reference_quant_segrel",
@@ -91,6 +92,25 @@ def ragged_segments(cu_seqlens, kv_lens, n_tokens):
     rel = torch.where(seg < R, kvl[segc] - qlen[segc] + tpos - cu[segc],
                       torch.zeros_like(tpos))
     return seg, rel.to(torch.int32)
+
+
+def decode_window_segments(active, kv_lens):
+    """Per-iteration (seg, rel) of the device-resident decode window: one
+    flat token per batch row, token s in row s.
+
+    active [B] bool (row still decoding); kv_lens [B] int32 (valid KV
+    positions AFTER this iteration's insert).  seg is the row index for
+    EVERY row, so it never falls (the walk requires a non-decreasing seg
+    and writes NaN over the whole output where it falls); a row frozen
+    mid-window (eos or budget reached) and an empty slot read position 0
+    of their own table row -- in bounds, their outputs discarded.  The
+    caller sends only their K/V writes to the null page.  Returns (seg,
+    rel) int32 [B] for the packed segrel entries."""
+    B = active.shape[0]
+    seg = torch.arange(B, dtype=torch.int32, device=active.device)
+    rel = torch.where(active, kv_lens.to(torch.int32) - 1,
+                      torch.zeros_like(seg))
+    return seg, rel
 
 
 def ragged_paged_reference_segrel(q, key_cache, value_cache, block_tables,

@@ -322,6 +322,63 @@ def test_quantized_engine_goes_through_the_kernels(dev, opts):
     assert all(len(o.generated) == 12 for o in outs.values())
 
 
+@pytest.mark.parametrize("opts", [{}, {"kv_dtype": "int8",
+                                       "weight_dtype": "int8"}],
+                         ids=["float", "w8kv8"])
+def test_engine_window_equals_k1_on_the_card(dev, opts):
+    """The K=4 decode window on the card: the same tokens as K=1 (rows
+    freezing mid-window on their budgets), attention launched once a
+    layer a forward pass (a window counts its iterations), and no
+    synchronizing CUDA call inside a dispatch."""
+    import warnings
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256,
+                      intermediate_size=512, num_hidden_layers=3,
+                      num_attention_heads=2, num_key_value_heads=2,
+                      max_position_embeddings=256)
+    model = LlamaForCausalLM(cfg, device=dev, generator=1)
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, 512, n).tolist(), mx)
+            for n, mx in ((5, 7), (90, 12), (33, 3), (17, 10))]
+
+    def serve(k):
+        eng = LLMEngine(model, max_num_seqs=4, block_size=16,
+                        max_model_len=256, max_prefill_tokens=128,
+                        prefill_token_bucket=32, decode_window=k, **opts)
+        passes = []
+        step, launch, dispatch = (eng._ragged_step, eng._launch_window,
+                                  eng._dispatch)
+        eng._ragged_step = lambda *a: passes.append(1) or step(*a)
+        eng._launch_window = lambda n, *a: passes.append(n) or launch(n, *a)
+
+        def checked():
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    dispatch()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            assert not [w for w in caught
+                        if "called a synchronizing" in str(w.message)]
+        eng._dispatch = checked
+        for p, mx in reqs:
+            eng.add_request(p, max_new_tokens=mx)
+        pa.launch_count = pa.quant_launch_count = 0
+        outs = eng.run()
+        att = pa.quant_launch_count if opts else pa.launch_count
+        assert att == cfg.num_hidden_layers * sum(passes)
+        assert eng.stats.quarantined == 0
+        return [outs[r].generated for r in range(len(reqs))], eng
+
+    k1, _ = serve(1)
+    k4, eng = serve(4)
+    assert k4 == k1
+    assert eng.compile_counts.get("scan") == 1
+    assert eng.stats.host_round_trips < eng.stats.decode_rounds
+
+
 # ---------------------------------------------------------------------------
 # flash attention: the forward, dK/dV and dQ kernels against their plain
 # versions, and the train step going through them.  The forward's output is

@@ -74,11 +74,12 @@ def _kw(**kw):
 
 def _serve_both(pair, requests, **kw):
     """Run the same requests through the JAX engine and the port; return
-    both engines and both outputs.  The JAX engine runs synchronously
-    (overlap=False, the port's step): its default pipeline reserves the
-    next step's pages early, so its pool counters would differ."""
+    both engines and both outputs.  Both run synchronously
+    (overlap=False): the default pipeline reserves the next step's pages
+    early, so its pool counters would differ from the synchronous run's.
+    tests/test_torch_async_step.py holds the pipelines of both packages."""
     je = JaxEngine(pair.jm, overlap=False, **_kw(**kw))
-    te = LLMEngine(pair.tm, device="cpu", **_kw(**kw))
+    te = LLMEngine(pair.tm, device="cpu", overlap=False, **_kw(**kw))
     for p, mx in requests:
         assert je.add_request(p, max_new_tokens=mx) == \
             te.add_request(p, max_new_tokens=mx)
@@ -216,8 +217,7 @@ def test_sampling_reproducible_across_scheduling(pairs):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"drafter": "ngram"}, 6), ({"spec_k": 2}, 6), ({"overlap": True}, 8),
-    ({"decode_window": 4}, 8), ({"kv_tier": object()}, 9),
+    ({"drafter": "ngram"}, 6), ({"spec_k": 2}, 6), ({"kv_tier": object()}, 9),
     ({"fault_plan": object()}, 9), ({"pressure": object()}, 9),
     ({"tracer": object()}, 9), ({"tp": 2}, 10)])
 def test_unported_options_raise_naming_their_roadmap_item(pairs, kw, item):

@@ -241,10 +241,10 @@ def _kw(**kw):
 
 
 def _serve_both(pair, requests, **kw):
-    """The same requests through the JAX engine (synchronous, the port's
-    step) and the port, with the same options."""
+    """The same requests through the JAX engine and the port, both
+    synchronous (overlap=False), with the same options."""
     je = JaxEngine(pair.jm, overlap=False, **_kw(**kw))
-    te = LLMEngine(pair.tm, device="cpu", **_kw(**kw))
+    te = LLMEngine(pair.tm, device="cpu", overlap=False, **_kw(**kw))
     for p, mx in requests:
         assert je.add_request(p, max_new_tokens=mx) == \
             te.add_request(p, max_new_tokens=mx)
@@ -338,7 +338,8 @@ def test_preemption_and_shared_prefixes_stay_identical(pairs, opts):
 def test_engines_without_a_run_agree_on_bytes(pairs):
     for opts in OPTIONS.values():
         je = JaxEngine(pairs["gqa"].jm, overlap=False, **_kw(**opts))
-        te = LLMEngine(pairs["gqa"].tm, device="cpu", **_kw(**opts))
+        te = LLMEngine(pairs["gqa"].tm, device="cpu", overlap=False,
+                       **_kw(**opts))
         assert te.kv_page_bytes() == je.kv_page_bytes(), opts
         assert te.weight_bytes_resident() == je.weight_bytes_resident()
         assert te.summary()["kv_dtype"] == opts.get("kv_dtype", "float32")

@@ -141,7 +141,7 @@ def test_engine_sampled_streams_equal_jax(pair):
     kw = dict(max_num_seqs=4, block_size=8, max_model_len=64,
               max_prefill_tokens=128, prefill_token_bucket=32)
     je = JaxEngine(jm, overlap=False, **kw)
-    te = LLMEngine(tm, device="cpu", **kw)
+    te = LLMEngine(tm, device="cpu", overlap=False, **kw)
     for p, mx, o in reqs:
         assert je.add_request(p, max_new_tokens=mx, **o) == \
             te.add_request(p, max_new_tokens=mx, **o)

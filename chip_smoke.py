@@ -7,7 +7,8 @@ Run from the repository root, with one CUDA card visible:
 It builds the port's CUDA kernels from the sources in the checkout, holds
 each kernel against its plain PyTorch version at the shapes its main path
 gives it (phases ``kernel``, ``kernel_q8``, ``qmm`` at the LLaMA-7B
-serving path's; ``flash`` at the trainer's attention and LLaMA-7B's, with
+serving path's, also at speculative verify launches;
+``flash`` at the trainer's attention and LLaMA-7B's, with
 controls that must fail), serves requests through ``LLMEngine`` at
 LLaMA-7B width (random weights from a seed): ``engine_f32`` (2 layers in
 float32, tokens checked against the dense ``generate()`` forward),
@@ -18,6 +19,14 @@ pools, bfloat16 pages), all with the engine's default async step pipeline;
 window, greedy tokens identical, a gate run holding every attention launch
 of the window to its plain version, the profile rows at K 4 and with
 overlap off) and ``engine_window_w8kv8`` (the int8 window against K 1),
+``engine_spec_f32`` (2 layers in float32: greedy tokens identical with
+speculation off, the n-gram drafter, a self-draft model and the dense
+``generate()``; a quantized n-gram run and its gate run, holding every
+int8-page attention and dequant matmul launch to its plain version;
+``speculative_generate``) and
+``engine_spec_bf16`` (32 layers, the n-gram drafter at spec_k 4 and 8: a
+gate run holding every attention launch that carries verify rows to its
+plain version, controls, no dispatch synchronizing, a profile),
 and trains through ``build_train_step`` at the
 350M GQA LLaMA bench configuration: ``train_f32`` (2 layers in float32,
 three steps on the kernels against three on the plain versions) and
@@ -146,12 +155,24 @@ def decode_lens(rng):
     return [100, 2000] + [int(x) for x in rng.integers(100, 2001, 6)]
 
 
+# speculative verify launches: (bucket Tq, drafts k of each of the 8 rows),
+# a row being [last token, d1..dk] (k + 1 query tokens).  Tq 40 is the
+# speculation tier at max_spec_k 4 (k from {1, 4}); 128 the prefill bucket
+# a launch at the default max_spec_k 8 takes (k from {1, 4, 8}): runs of
+# 2, 5 and 9 tokens, which the walk serves with CUDA-core tiles and, for
+# bf16, 9 live rows of a 64-row wgmma tile
+VERIFY_KS = {"verify_tq40": (40, (4, 1, 4, 4, 1, 4, 1, 4)),
+             "verify_tq128": (128, (8, 1, 4, 8, 8, 1, 4, 8))}
+
+
 def attention_case(kind, Hkv, dtype, rng, gen, Hq=H, Dh=D):
     """An engine-shaped launch on the card: 8 rows, a [9, NBLK] table whose
     last row is the null row.  ``decode``: one token per row at kv lengths
     100..2000.  ``mixed``: a 512-token prefill chunk resuming at position
     188 (kv length 700) plus 7 decode rows, padded to the 576-token bucket
-    the engine would launch.  Hq query heads of Dh (LLaMA-7B's by
+    the engine would launch.  ``verify_tq40`` / ``verify_tq128``: each row
+    a verify run of k + 1 tokens (``VERIFY_KS``) ending at the decode kv
+    lengths, padded to the bucket.  Hq query heads of Dh (LLaMA-7B's by
     default)."""
     import numpy as np
     import torch
@@ -160,6 +181,9 @@ def attention_case(kind, Hkv, dtype, rng, gen, Hq=H, Dh=D):
     if kind == "decode":
         rows = [(1, kv) for kv in lens]
         Tq = 8
+    elif kind in VERIFY_KS:
+        Tq, ks = VERIFY_KS[kind]
+        rows = [(k + 1, kv) for k, kv in zip(ks, lens)]
     else:
         rows = [(512, 700)] + [(1, kv) for kv in lens[1:]]
         Tq = 576
@@ -294,6 +318,59 @@ PAGED_WAS_MS = {"kernel_decode": 0.2516, "kernel_q8_decode": 0.3166,
 PAGED_KERNEL_NAMES = ("paged_walk_kernel", "paged_attention_any_kernel")
 
 
+def library_verify(c):
+    """Yardstick of a verify launch, one PyTorch call (the port never makes
+    it): scaled_dot_product_attention of every row's k + 1 queries, padded
+    to the longest row, over the row's pages gathered dense beforehand,
+    each query masked to the keys at positions <= its own.  Returns the
+    function and its outputs for the live tokens, in token order."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    B = len(c["rows"])
+    Smax = NBLK * BS
+    Dh = c["q"].shape[-1]
+    Hkv = c["kc"].shape[1]
+    n = [q for q, _ in c["rows"]]
+    first = np.concatenate([[0], np.cumsum(n)[:-1]])
+    lmax = max(n)
+    # each row's query slots; pad slots repeat the row's last token
+    idx = torch.as_tensor(first[:, None] + np.minimum(
+        np.arange(lmax)[None, :], np.asarray(n)[:, None] - 1),
+        device=c["q"].device)
+    live = torch.as_tensor(np.arange(lmax)[None, :] < np.asarray(n)[:, None],
+                           device=c["q"].device)
+    pages = c["bt"][:B].long()
+    k = c["kc"][pages].permute(0, 2, 1, 3, 4).reshape(B, Hkv, Smax, Dh)
+    v = c["vc"][pages].permute(0, 2, 1, 3, 4).reshape(B, Hkv, Smax, Dh)
+    q = c["q"][idx].permute(0, 2, 1, 3)                  # [B, Hq, lmax, Dh]
+    mask = (torch.arange(Smax, device=k.device)[None, None, :]
+            <= c["rel"][idx].long()[:, :, None])[:, None]
+    fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask, enable_gqa=Hkv != q.shape[1])
+    return fn, fn().permute(0, 2, 1, 3)[live]
+
+
+def verify_timing(c, run, run_plain, lib, b, ref):
+    """Times of a verify launch: kernel, plain version, the library call
+    (``library_verify``) and the bound ``b``; the library's error on the
+    live tokens against ``ref``."""
+    lib_fn, lib_out = lib
+    live = sum(n for n, _ in c["rows"])
+    return {"Tq": c["Tq"], "live_tokens": live,
+            "run_lengths": [n for n, _ in c["rows"]],
+            "ms": time_ms(run), "plain_ms": time_ms(run_plain, reps=5,
+                                                    warm=1),
+            "library_ms": time_ms(lib_fn),
+            "library": "one scaled_dot_product_attention call over the "
+                       "rows' queries padded to the longest run, K/V "
+                       "gathered dense, keypos <= rel",
+            "library_max_abs_err": float(
+                (lib_out.float() - ref[:live].float()).abs().max()),
+            "bound_ms": b[0], "bound_by": b[1], "bytes": b[2],
+            "flops": b[3]}
+
+
 def mixed_timing(c, run, run_plain, lib, b, ref):
     """Times of a ``mixed`` launch: kernel, plain version, the two library
     calls, and the bound ``b`` (``bound``'s or ``bound_q8``'s tuple); the
@@ -318,11 +395,12 @@ def phase_kernel(state):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEV).manual_seed(SEED)
-    errs, timing, mixed, ok = {}, {}, {}, True
-    for kind, Hkv in (("decode", H), ("mixed", H), ("mixed_gqa", H // 4)):
+    errs, timing, mixed, verify, controls, ok = {}, {}, {}, {}, {}, True
+    for kind, Hkv in (("decode", H), ("mixed", H), ("mixed_gqa", H // 4),
+                      ("verify_tq40", H), ("verify_tq128", H)):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
-            c = attention_case("decode" if kind == "decode" else "mixed",
+            c = attention_case("mixed" if kind == "mixed_gqa" else kind,
                                Hkv, dtype, np.random.default_rng(SEED), gen)
             out = kernel(c)
             ref = plain(c)
@@ -330,7 +408,19 @@ def phase_kernel(state):
             finite = bool(torch.isfinite(out).all())
             errs[f"{kind}_{name}"] = err
             ok &= finite and within(err, name)
-            if kind == "decode":
+            if kind in VERIFY_KS:
+                args = (c["q"], c["kc"], c["vc"], c["bt"], c["seg"],
+                        c["rel"])
+                for cname, control in CONTROLS.items():
+                    c_err = errors(control(*args), ref)
+                    fails = not within(c_err, name)
+                    controls[f"{cname}_{kind}_{name}"] = dict(c_err,
+                                                              fails=fails)
+                    ok &= fails
+                verify[f"{kind}_{name}"] = verify_timing(
+                    c, lambda: kernel(c), lambda: plain(c),
+                    library_verify(c), bound(c, name), ref)
+            elif kind == "decode":
                 lib_fn, lib_out = library(c)
                 b_ms, b_by, nbytes, flops, keys = bound(c, name)
                 timing[name] = {
@@ -349,14 +439,18 @@ def phase_kernel(state):
                     library_mixed(c), bound(c, name), ref)
             del c, out, ref
             torch.cuda.empty_cache()
-    state["kernel"] = {"errors": errs, "timing": timing, "mixed": mixed}
+    state["kernel"] = {"errors": errs, "timing": timing, "mixed": mixed,
+                       "verify": verify}
     emit({"phase": "kernel", "ok": ok, "tolerance": TOLERANCE,
           "shapes": {"H": H, "D": D, "bs": BS, "nblk": NBLK,
                      "decode": "Tq=8, kv lens 100..2000",
                      "mixed": "Tq=576: 512-token chunk at kv 700 + 7 "
                               "decode rows + 57 pad tokens",
-                     "mixed_gqa": "mixed with H_kv=8"},
-          "errors": errs, "decode_timing": timing, "mixed_timing": mixed,
+                     "mixed_gqa": "mixed with H_kv=8",
+                     "verify": {k: {"Tq": tq, "drafts": list(ks)}
+                                for k, (tq, ks) in VERIFY_KS.items()}},
+          "errors": errs, "controls": controls, "decode_timing": timing,
+          "mixed_timing": mixed, "verify_timing": verify,
           "bound_peaks": {"bytes_per_s": PEAK_BYTES,
                           "flops_per_s": PEAK_FLOPS}})
     return ok
@@ -464,11 +558,12 @@ def phase_kernel_q8(state):
     import numpy as np
     import torch
     gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
-    errs, timing, mixed, controls, ok = {}, {}, {}, {}, True
-    for kind, Hkv in (("decode", H), ("mixed", H), ("mixed_gqa", H // 4)):
+    errs, timing, mixed, verify, controls, ok = {}, {}, {}, {}, {}, True
+    for kind, Hkv in (("decode", H), ("mixed", H), ("mixed_gqa", H // 4),
+                      ("verify_tq40", H), ("verify_tq128", H)):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
-            c = q8_case("decode" if kind == "decode" else "mixed", Hkv,
+            c = q8_case("mixed" if kind == "mixed_gqa" else kind, Hkv,
                         dtype, np.random.default_rng(SEED), gen)
             out = kernel_q8(c)
             ref = plain_q8(c)                   # f32, whatever q's type
@@ -495,18 +590,23 @@ def phase_kernel_q8(state):
                 if name == "bfloat16":
                     timing[name]["was_ms"] = PAGED_WAS_MS["kernel_q8_decode"]
                 del lib_fn, lib_out
+            elif kind in VERIFY_KS:
+                verify[f"{kind}_{name}"] = verify_timing(
+                    c, lambda: kernel_q8(c), lambda: plain_q8(c),
+                    library_verify(dequantized(c, dtype)), bound_q8(c), ref)
             else:
                 mixed[f"{kind}_{name}"] = mixed_timing(
                     c, lambda: kernel_q8(c), lambda: plain_q8(c),
                     library_mixed(dequantized(c, dtype)), bound_q8(c), ref)
             del c, out, ref
             torch.cuda.empty_cache()
-    state["kernel_q8"] = {"errors": errs, "timing": timing, "mixed": mixed}
+    state["kernel_q8"] = {"errors": errs, "timing": timing, "mixed": mixed,
+                          "verify": verify}
     emit({"phase": "kernel_q8", "ok": ok, "tolerance": TOLERANCE,
           "reference": "plain version in f32 (q upcast), pages int8 with "
                        "per-page-per-head scales amax/127 from N(0, 1)",
           "errors": errs, "controls": controls, "decode_timing": timing,
-          "mixed_timing": mixed,
+          "mixed_timing": mixed, "verify_timing": verify,
           "bound_peaks": {"bytes_per_s": PEAK_BYTES,
                           "flops_per_s": PEAK_FLOPS["float32"]}})
     return ok
@@ -557,6 +657,12 @@ QMM_WAS_MS = {
 # f32 x: the logit head at the engine's decode M, and a projection at a
 # prefill's (the f32 engine, engine_quant_f32)
 QMM_F32_CASES = (("head", 8), ("qkvo", 512))
+# M of a verify launch with 8 slots, by x type: the speculation tier's Tq
+# and Lq 40 at max_spec_k 4, Lq 72 at the default 8 (the logit head), and
+# the bf16 buckets 64 and 128 (the projections).  40 and 72 end on a
+# partial row tile (f32 x: BM 64; bf16 x: the 64-token wgmma tile), where
+# each case's control, the kernel on x with its last row zeroed, must fail
+QMM_VERIFY_M = {"float32": (40, 72), "bfloat16": (40, 64, 72, 128)}
 # the M 8 cases are timed with the weights cold in L2 (50 MB), as the
 # engine, which streams 6.7 GB of weights a step, finds them: each call
 # takes the next of enough copies to pass twice the L2
@@ -627,7 +733,9 @@ def phase_qmm(state):
     from paddle_tpu_torch.ops import quant_matmul as qm
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    vgen = torch.Generator(device=DEV).manual_seed(SEED + 15)
     cases, ok, control = {}, True, None
+    verify_controls_fail = True
     for shape, (K, N) in QMM_SHAPES.items():
         w = torch.randn((K, N), generator=gen, device=DEV) * 0.02
         for wdt in ("int8", "int4"):
@@ -652,6 +760,22 @@ def phase_qmm(state):
                                                    name)
                     ok &= passed
                 del x
+            for xname, Ms in QMM_VERIFY_M.items():
+                for M in Ms:
+                    x = torch.randn((M, K), generator=vgen,
+                                    device=DEV).to(getattr(torch, xname))
+                    name = f"{shape}_{wdt}_M{M}" + (
+                        "_xf32" if xname == "float32" else "")
+                    passed, cases[name] = qmm_case(qm, x, q, s, wdt, w_lib,
+                                                   name)
+                    ctl = qmm_errors(
+                        qm._launch_kernel(last_row_zeroed(x), q, s, wdt),
+                        qm.reference_matmul(x, q, s, wdt))
+                    cases[name]["control_last_row_zeroed"] = dict(
+                        ctl, fails=not qmm_within(ctl))
+                    verify_controls_fail &= not qmm_within(ctl)
+                    ok &= passed
+                    del x
             del q, s, w_lib
         del w
     torch.cuda.empty_cache()
@@ -664,12 +788,14 @@ def phase_qmm(state):
         first = qm._launch_kernel(x, q, s, wdt)
         repeats[wdt] = all(torch.equal(qm._launch_kernel(x, q, s, wdt),
                                        first) for _ in range(10))
-    ok &= all(repeats.values())
+    ok &= all(repeats.values()) and verify_controls_fail
     del w, q, s, x, first
     torch.cuda.empty_cache()
     state["qmm"] = cases
     emit({"phase": "qmm", "ok": ok, "tolerance": QMM_TOLERANCE,
           "control_int4_nibbles_swapped": control,
+          "verify_M": QMM_VERIFY_M,
+          "verify_controls_last_row_zeroed_fail": verify_controls_fail,
           "repeats_bit_for_bit_qkvo_M8": repeats,
           "was": "was_ms: the CUDA-core kernel this one replaced, bf16 x, "
                  "L2 warm (compare ms_l2_warm at M 8)",
@@ -1124,27 +1250,32 @@ def phase_engine_bf16(state):
 QMM_KERNEL_NAMES = ("qmm_kernel", "qmm_wgmma_kernel", "sum_splits_kernel")
 
 
-def profile_decode(model, name="profile", **engine_opts):
+def profile_decode(model, name="profile", requests=None, **engine_opts):
     """Where a step's time goes: 8 requests (128-token prompts, 32 new
-    tokens) served once unprofiled (wall time) and once under
-    torch.profiler (device time by kernel; the profiler slows the host, so
-    the idle share divides the kernels' sum by the unprofiled wall).
-    ``engine_opts`` (overlap, decode_window, the quantized options) go to
-    the engine; the record carries the host round trips a decode round
-    and the decode time a round beside the per-step figures (a window's
-    ITL sample is its whole launch, as in the JAX engine's stats)."""
+    tokens; or ``requests``) served once unprofiled (wall time) and once
+    under torch.profiler (device time by kernel; the profiler slows the
+    host, so the idle share divides the kernels' sum by the unprofiled
+    wall).  ``engine_opts`` (overlap, decode_window, the quantized
+    options, a drafter) go to the engine; the record carries the host
+    round trips a decode round and the decode time a round beside the
+    per-step figures (a window's ITL sample is its whole launch, as in the
+    JAX engine's stats)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
-    rng = np.random.default_rng(SEED + 3)
-    requests = [(rng.integers(0, model.config.vocab_size, 128).tolist(), 32,
-                 {}) for _ in range(8)]
+    if requests is None:
+        rng = np.random.default_rng(SEED + 3)
+        requests = [(rng.integers(0, model.config.vocab_size, 128).tolist(),
+                     32, {}) for _ in range(8)]
     serve(model, requests[:2], **engine_opts)       # warm the allocator
     eng, _, seconds, _, _ = serve(model, requests, **engine_opts)
     s = eng.summary()
     eng_decode_s = eng.stats.decode_time
+    eng_tokens_per_trip = eng.stats.tokens_per_launch()
     del eng
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the card's kernels only: the host's op events (about five a launch)
+    # are not read, and collecting them costs more than the run
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         serve(model, requests, **engine_opts)
     kernels = [e for e in prof.key_averages()
                if str(getattr(e, "device_type", "")).endswith("CUDA")
@@ -1160,9 +1291,10 @@ def profile_decode(model, name="profile", **engine_opts):
     att = [e for e in kernels if any(k in e.key for k in PAGED_KERNEL_NAMES)]
     att_ms = sum(dev_us(e) for e in att) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    rec = {"phase": name, **engine_opts, "requests": 8,
-           "prompt_tokens": 128,
-           "new_tokens": 32, "steps": s["engine_steps"],
+    rec = {"phase": name, **engine_opts, "requests": len(requests),
+           "prompt_tokens": sum(len(p) for p, _, _ in requests),
+           "new_tokens": sum(mx for _, mx, _ in requests),
+           "steps": s["engine_steps"],
            "wall_ms": seconds * 1e3, "device_busy_ms": busy_ms,
            "device_idle_share": (1 - busy_ms / (seconds * 1e3))
            if busy_ms else "not measured",
@@ -1181,6 +1313,9 @@ def profile_decode(model, name="profile", **engine_opts):
            "attention_share_of_busy": att_ms / busy_ms if busy_ms
            else "not measured",
            "attention_launches": sum(e.count for e in att),
+           "verify_steps": s.get("verify_steps", 0),
+           "tokens_per_round_trip": eng_tokens_per_trip,
+           "profile_s": time.perf_counter() - t0,
            "top_kernels": [{"name": e.key[:90], "ms": dev_us(e) / 1e3,
                             "calls": e.count} for e in top]}
     if engine_opts.get("weight_dtype"):
@@ -1275,33 +1410,61 @@ def sampling_cost(model) -> dict:
     return rec
 
 
-def held_q8(log):
+def held_q8(log, control_log=None):
     """The int8-KV engine's attention for a gate run: the kernel and the
     plain version (in f32) on the same inputs at every call, errors
-    logged; the engine goes on with the plain version's output."""
+    logged; the engine goes on with the plain version's output.  With
+    ``control_log``, the kernel on every scale 1% too large
+    (``scaled_scales``) is measured against the same plain output too."""
     def fn(q, kc, vc, ks, vs, bt, seg, rel):
         c = dict(q=q, kc=kc, vc=vc, ks=ks, vs=vs, bt=bt, seg=seg, rel=rel,
                  Tq=q.shape[0])
         ref = plain_q8(c)
         log.append(errors(kernel_q8(c), ref))
+        if control_log is not None:
+            control_log.append(errors(scaled_scales(c), ref))
         return ref.to(q.dtype)
     return fn
 
 
-def held_qmm(log):
+def last_row_zeroed(x):
+    """A control for a partial M tile: ``x`` with its last row zeroed (a
+    kernel that dropped the tile's last row)."""
+    x = x.clone()
+    x[-1] = 0
+    return x
+
+
+def qmm_measures(out, ref):
+    """QMM_TOLERANCE's two measures as one device tensor (no sync)."""
+    import torch
+    d = out - ref
+    return torch.stack([d.norm() / ref.norm().clamp_min(1e-30),
+                        d.abs().max() / ref.abs().max().clamp_min(1e-30)])
+
+
+def qmm_worst(log) -> dict:
+    import torch
+    return dict(zip(QMM_TOLERANCE, (float(v) for v in
+                                    torch.stack(log).amax(0).cpu())))
+
+
+def held_qmm(log, control_log=None):
     """The engine's dequant matmul for a gate run: the kernel and the
     plain version on the same inputs at every call, QMM_TOLERANCE's
     measures logged on the device; the engine goes on with the plain
-    version's output."""
-    import torch
+    version's output.  With ``control_log``, the kernel on x with its
+    last row zeroed (``last_row_zeroed``) is measured against the same
+    plain output too."""
     from paddle_tpu_torch.ops import quant_matmul as qm
 
     def fn(x, q, s, weight_dtype):
         ref = qm.reference_matmul(x, q, s, weight_dtype)
-        d = qm._launch_kernel(x, q, s, weight_dtype) - ref
-        log.append(torch.stack([d.norm() / ref.norm().clamp_min(1e-30),
-                                d.abs().max()
-                                / ref.abs().max().clamp_min(1e-30)]))
+        log.append(qmm_measures(qm._launch_kernel(x, q, s, weight_dtype),
+                                ref))
+        if control_log is not None:
+            control_log.append(qmm_measures(qm._launch_kernel(
+                last_row_zeroed(x), q, s, weight_dtype), ref))
         return ref
     return fn
 
@@ -1334,8 +1497,7 @@ def quantized_engine_phase(name, state, **engine_opts):
     gate_tokens = {r: o.generated for r, o in gate[1].items()}
     gate_wall = gate[2]
     att_err = worst(att_log)
-    qmm_err = dict(zip(("l2_rel", "max_rel"), (
-        float(v) for v in torch.stack(qmm_log).amax(0).cpu())))
+    qmm_err = qmm_worst(qmm_log)
     del gate, att_log, qmm_log
     torch.cuda.empty_cache()
 
@@ -1642,6 +1804,410 @@ def phase_engine_window_w8kv8(state):
         sync_messages=(log1["sync_messages"] + log["sync_messages"])[:4])
     state["engine_window_w8kv8"] = rec
     del run, model
+    free_engines()
+    return rec["ok"]
+
+
+# ---------------------------------------------------------------------------
+# spec phases: speculative decoding, verify rows in the ragged step
+# ---------------------------------------------------------------------------
+
+# max_spec_k of engine_spec_f32's n-gram runs: B (4 + 1) = 40 logit rows,
+# the speculation tier below the 64-token prefill bucket
+SPEC_TIER_K = 4
+# gamma of speculative_generate
+SPEC_GAMMA = 4
+
+
+def motif_requests(V, lens, budgets, seed, spec_ks=None):
+    """Requests whose prompts repeat a random motif of 2-5 tokens (as
+    tests/test_kv_quant.py's speculative case builds them), so the n-gram
+    drafter has something to look up; ``spec_ks`` gives each request's
+    spec_k in turn (else the engine's default)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, n in enumerate(lens):
+        motif = rng.integers(0, V, int(rng.integers(2, 6))).tolist()
+        prompt = (motif * (n // len(motif) + 1))[:n]
+        opts = {} if spec_ks is None else {"spec_k": spec_ks[i % len(spec_ks)]}
+        out.append((prompt, budgets[i % len(budgets)], opts))
+    return out
+
+
+def spec_summary(run, passes=None) -> dict:
+    """A speculating run's readings: the spec counters, acceptance, tokens
+    emitted a host round trip, ITL and tokens/s, the pool after the run."""
+    eng, outs, seconds, launches, _ = run
+    st, s = eng.stats, eng.summary()
+    gen = sum(len(o.generated) for o in outs.values())
+    rec = {f: getattr(st, f) for f in (
+        "verify_steps", "draft_proposed", "draft_accepted",
+        "rollback_tokens", "rollback_pages", "spec_disables",
+        "host_round_trips")}
+    rec.update(accept_rate=st.accept_rate(),
+               tokens_per_round_trip=st.tokens_per_launch(),
+               engine_steps=s["engine_steps"], itl_p50_ms=s["itl_p50_ms"],
+               tokens_per_s=gen / seconds, wall_s=seconds,
+               quarantined=s["quarantined"], preemptions=s["preemptions"],
+               pool_empty=eng.blocks.num_used == 0, launches=launches,
+               pad_stats=dict(eng.pad_stats), buckets=sorted(eng._buckets))
+    try:
+        eng.blocks.check_invariants()
+        rec["invariants_hold"] = True
+    except AssertionError:
+        rec["invariants_hold"] = False
+    if passes is not None:
+        rec["launches_as_expected"] = launches == expected_launches(eng,
+                                                                    passes)
+    return rec
+
+
+def finished_at_length(run, requests) -> bool:
+    outs = run[1]
+    return all(len(outs[r].generated) == requests[r][1]
+               and outs[r].finish_reason == "length"
+               for r in range(len(requests)))
+
+
+def phase_engine_spec_f32(state):
+    """2 of LLaMA-7B's 32 layers in f32 (TF32 off), 8 motif requests.
+    Greedy tokens must be identical across four runs: speculation off, the
+    n-gram drafter at max_spec_k 4 (40 logit rows: the speculation tier),
+    a DraftModelDrafter over the model itself, and the dense generate().
+    Each run's launches are those of its passes (the draft model's
+    single-row launches added to its run's).  A quantized run (int8
+    weights and int8 pages, n-gram) puts the int8-page attention and the
+    dequant matmul on the verify path: every request must finish at its
+    length with the pool back to empty.  A gate run of it takes the plain
+    versions of both and launches each kernel beside every call, each
+    within its tolerance (f32 attention, QMM_TOLERANCE), with a control at
+    every call that must fail.  ``speculative_generate`` (gamma 4) must
+    equal generate() greedy with a self-draft and with a 1-layer draft."""
+    import torch
+    from paddle_tpu_torch.inference import DraftModelDrafter
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                               speculative_generate)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig.llama_7b()
+    cfg.num_hidden_layers = 2
+    model = LlamaForCausalLM(cfg, device=DEV, dtype=torch.float32,
+                             generator=SEED)
+    L = cfg.num_hidden_layers
+    requests = motif_requests(cfg.vocab_size, [12, 300, 40, 97, 23, 160,
+                                               64, 9], (32, 24, 40),
+                              SEED + 5)
+    rids = range(len(requests))
+    spec = {"drafter": "ngram", "spec_k": SPEC_TIER_K,
+            "max_spec_k": SPEC_TIER_K}
+    off = serve(model, requests)
+    ngram, log = window_run(model, requests, **spec)
+    drafter = DraftModelDrafter(model, block_size=BS,
+                                max_model_len=MAX_MODEL_LEN, capacity=8)
+    draft_passes = []
+    step = drafter.engine._ragged_step
+    drafter.engine._ragged_step = \
+        lambda *a: draft_passes.append(1) or step(*a)
+    self_draft = serve(model, requests, drafter=drafter,
+                       spec_k=SPEC_TIER_K, max_spec_k=SPEC_TIER_K)
+    dense = {r: model.generate([p], max_new_tokens=mx, temperature=0.0)
+             [0, len(p):].tolist() for r, (p, mx, _) in enumerate(requests)}
+    toks = {name: tokens_of(run, rids) for name, run in (
+        ("off", off), ("ngram", ngram), ("self_draft", self_draft))}
+    toks["generate"] = dense
+    same = {k: sum(toks[k][r] == dense[r] for r in rids) for k in toks}
+    self_steps = self_draft[0].summary()["engine_steps"]
+    self_want = {"attention": L * (self_steps + len(draft_passes)),
+                 "attention_q8": 0, "qmm": 0}
+    free_engines()
+    quant_opts = dict(spec, weight_dtype="int8", kv_dtype="int8")
+    quant = serve(model, requests, **quant_opts)
+    q_steps = quant[0].summary()["engine_steps"]
+    quant_tokens = tokens_of(quant, rids)
+    quant_summary = spec_summary(quant, q_steps)
+    quant_at_length = finished_at_length(quant, requests)
+    del quant
+    free_engines()
+    # the quantized run's gate: the plain versions on the path, each kernel
+    # launched beside every call and held to it, and a control on the same
+    # inputs at every call that must fail (int8 page scales after a
+    # rollback differ from speculation off's, so no token comparison holds
+    # these launches)
+    att_log, att_ctl, qmm_log, qmm_ctl = [], [], [], []
+    qgate = serve(model, requests, patch={
+        (qm, "matmul"): held_qmm(qmm_log, qmm_ctl),
+        (pa, "ragged_paged_attention_quant_segrel_packed"):
+            held_q8(att_log, att_ctl)}, **quant_opts)
+    qgate_want = expected_launches(qgate[0],
+                                   qgate[0].summary()["engine_steps"])
+    qgate_rec = {
+        "calls": {"attention_q8": len(att_log), "qmm": len(qmm_log)},
+        "expected_calls": {"attention_q8": qgate_want["attention_q8"],
+                           "qmm": qgate_want["qmm"]},
+        "verify_steps": qgate[0].stats.verify_steps,
+        "buckets": sorted(qgate[0]._buckets),
+        "attention_errors": worst(att_log),
+        "attention_tolerance": {k: TOLERANCE["float32"][k]
+                                for k in ENGINE_MEASURES},
+        "attention_control_scales_1pct": worst(att_ctl),
+        "qmm_errors": qmm_worst(qmm_log), "qmm_tolerance": QMM_TOLERANCE,
+        "qmm_control_last_row_zeroed": qmm_worst(qmm_ctl),
+        "greedy_requests_equal_to_kernel_run": sum(
+            qgate[1][r].generated == quant_tokens[r] for r in rids)}
+    qgate_ok = {
+        "held_every_call": qgate_rec["calls"] == qgate_rec["expected_calls"]
+        and qgate_rec["verify_steps"] > 0,
+        "attention_vs_plain": within(qgate_rec["attention_errors"],
+                                     "float32", ENGINE_MEASURES),
+        "qmm_vs_plain": qmm_within(qgate_rec["qmm_errors"]),
+        "attention_control_fails": not within(
+            qgate_rec["attention_control_scales_1pct"], "float32",
+            ENGINE_MEASURES),
+        "qmm_control_fails": not qmm_within(
+            qgate_rec["qmm_control_last_row_zeroed"])}
+    qgate_rec["checks"] = qgate_ok
+    del qgate, att_log, att_ctl, qmm_log, qmm_ctl
+    free_engines()
+
+    first = requests[0][0]
+    ids = torch.tensor([first], device=DEV)
+    want = model.generate(ids, max_new_tokens=32, temperature=0.0)
+    dcfg = LlamaConfig.llama_7b()
+    dcfg.num_hidden_layers = 1
+    small = LlamaForCausalLM(dcfg, device=DEV, dtype=torch.float32,
+                             generator=SEED + 9)
+    sg = {name: bool(torch.equal(speculative_generate(
+        model, draft, ids, max_new_tokens=32, gamma=SPEC_GAMMA,
+        temperature=0.0), want))
+        for name, draft in (("self_draft", model), ("one_layer", small))}
+    runs = {"off": spec_summary(off, off[0].summary()["engine_steps"]),
+            "ngram": spec_summary(ngram, log["passes"]),
+            "self_draft": dict(spec_summary(self_draft),
+                               draft_model_passes=len(draft_passes),
+                               launches_as_expected=self_draft[3]
+                               == self_want),
+            "w8kv8_ngram": quant_summary}
+    rec = engine_record(
+        "engine_spec_f32", ngram, requests,
+        {"greedy_tokens_identical_off_ngram_self_draft_generate": all(
+            v == len(requests) for v in same.values()),
+         "speculation_ran": all(runs[k]["verify_steps"] > 0 for k in (
+             "ngram", "self_draft", "w8kv8_ngram")),
+         "speculation_tier_bucket": DECODE_ROWS * (SPEC_TIER_K + 1)
+         in runs["ngram"]["buckets"],
+         "launches_as_expected_every_run": all(
+             r["launches_as_expected"] for r in runs.values()),
+         "pools_empty_and_invariants": all(
+             r["pool_empty"] and r["invariants_hold"]
+             for r in runs.values()),
+         "none_quarantined_any_run": all(
+             r["quarantined"] == 0 for r in runs.values()),
+         "w8kv8_finished_at_length": quant_at_length,
+         "w8kv8_kernels_launched": quant_summary["launches"]["attention_q8"]
+         > 0 and quant_summary["launches"]["qmm"] > 0,
+         "w8kv8_gate_every_kernel_call_held_controls_fail": all(
+             qgate_ok.values()),
+         "speculative_generate_equals_generate": all(sg.values())},
+        rounds=log["passes"], max_spec_k=SPEC_TIER_K,
+        tokens_equal_to_generate={k: f"{v}/{len(requests)}"
+                                  for k, v in same.items()},
+        speculative_generate=sg, gamma=SPEC_GAMMA, runs=runs,
+        quant_launches=quant_summary["launches"], w8kv8_gate=qgate_rec)
+    state["engine_spec_f32"] = rec
+    del off, ngram, self_draft, drafter, model, small
+    free_engines()
+    return rec["ok"]
+
+
+def spec_launch_flag(flag):
+    """A ``serve`` setup that marks, in ``flag["spec"]``, whether the launch
+    being packed carries verify rows, and counts such launches with their
+    buckets and longest verify run (``flag["shapes"]``: bucket -> run
+    lengths)."""
+    flag.update(spec=False, launches=0, shapes={})
+
+    def setup(eng):
+        run = eng._run_ragged
+
+        def flagged(chunks, spec, batch):
+            flag["spec"] = bool(spec)
+            if spec:
+                flag["launches"] += 1
+                Tq = eng._ragged_bucket(
+                    sum(n for _, n in chunks) + len(batch)
+                    + sum(len(d) + 1 for _, d, _ in spec))
+                flag["shapes"].setdefault(Tq, set()).update(
+                    len(d) + 1 for _, d, _ in spec)
+            return run(chunks, spec, batch)
+        eng._run_ragged = flagged
+    return setup
+
+
+def setups(*fns):
+    """Several ``serve`` setups run in turn."""
+    def setup(eng):
+        for fn in fns:
+            fn(eng)
+    return setup
+
+
+def held_spec(attention, log, finite, flag, run_on_plain=True):
+    """``held_to_plain`` at the launches that carry verify rows, every
+    output checked finite; the kernel alone at the others."""
+    import torch
+
+    def fn(q, kc, vc, bt, seg, rel):
+        if not flag["spec"]:
+            return kernel_attention(q, kc, vc, bt, seg, rel)
+        ref = plain_attention(q, kc, vc, bt, seg, rel)
+        out = attention(q, kc, vc, bt, seg, rel)
+        finite.append(bool(torch.isfinite(out).all()))
+        log.append(errors(out, ref))
+        return ref if run_on_plain else out
+    return fn
+
+
+# a greedy divergence whose dense logit gap is below this is bf16 noise:
+# through 32 bf16 layers the engine's streams part from the dense
+# forward's at gaps up to 0.23 (engine_bf16's teacher-forced gap)
+NEAR_TIE = 0.3
+
+
+def first_divergence(model, requests, a, b) -> dict:
+    """Greedy streams ``a`` and ``b`` (by rid) against each other: the
+    requests equal, and for every request where they part, the dense
+    forward's logit gap between the two tokens at the first position
+    where they do (through 32 bf16 layers, a near-tie decides which one a
+    run picks): the first divergence, the largest gap, and how many of
+    the gaps are below NEAR_TIE."""
+    import torch
+    equal, parts = 0, []
+    for r, (p, _, _) in enumerate(requests):
+        x, y = a[r], b[r]
+        if x == y:
+            equal += 1
+            continue
+        i = next(j for j in range(min(len(x), len(y))) if x[j] != y[j])
+        lg = model.forward_logits(torch.tensor(
+            [p + x[:i]], device=model.device))[0, -1].float()
+        parts.append({"rid": r, "position": i, "tokens": [x[i], y[i]],
+                      "logit_gap": float((lg[x[i]] - lg[y[i]]).abs()),
+                      "max_logit": float(lg.max())})
+    return {"equal": f"{equal}/{len(requests)}",
+            "first_divergence": parts[0] if parts else None,
+            "largest_gap": max(parts, key=lambda d: d["logit_gap"])
+            if parts else None,
+            "near_ties": f"{sum(d['logit_gap'] < NEAR_TIE for d in parts)}"
+                         f"/{len(parts)}", "near_tie_below": NEAR_TIE,
+            "divergences": parts}
+
+
+def phase_engine_spec_bf16(state):
+    """LLaMA-7B, 32 layers in bf16, the n-gram drafter at the default
+    max_spec_k 8 with requests asking spec_k 4 and 8 (verify runs of up to
+    5 and 9 tokens), 16 motif requests on 8 slots; the buckets and run
+    lengths the verify launches took are recorded (random weights continue
+    few motifs, so which shapes occur is the model's doing; the kernel
+    phases' ``verify_*`` cases hold every shape).  Speculation off and
+    on, on the kernels alone: the spec-on run must accept and roll back
+    drafts, leave the pool empty
+    with its invariants holding, quarantine nothing, launch attention L
+    times a pass, and never synchronize with the card inside a dispatch.
+    A gate run takes the plain attention at every launch that carries
+    verify rows and launches the kernel beside it, each output finite and
+    within the per-launch tolerance; the controls, run the same way on the
+    first four requests, must fail it.  Reported, not gated: greedy tokens
+    against speculation off with the dense logit gap at every divergence
+    (the largest, and how many are near-ties), the acceptance rate, tokens a round trip, ITL and tokens/s on and off, and
+    a profile of the spec-on run on the first 8 requests (launches a
+    step)."""
+    import torch
+    model = llama_7b_bf16()
+    V = model.config.vocab_size
+    L = model.config.num_hidden_layers
+    # 8 long-running requests, then 8 short prompts that queue for their
+    # slots: their prefill chunks pack beside running verify rows (the
+    # 128-token bucket) as budgets run out in turn
+    requests = motif_requests(V, [17, 300, 64, 130, 33, 520, 90, 211, 24,
+                                  40, 31, 56, 20, 48, 36, 60],
+                              (48, 24, 64, 32, 40), SEED + 6, (4, 8))
+    rids = range(len(requests))
+    off, off_log = window_run(model, requests)
+    off_tokens = tokens_of(off, rids)
+    off_rec = spec_summary(off, off_log["passes"])
+    del off
+    free_engines()
+    log, on_flag = {}, {}
+    run = serve(model, requests, setup=setups(window_counters(log),
+                                              spec_launch_flag(on_flag)),
+                drafter="ngram")
+    runs = {"off": off_rec, "on": spec_summary(run, log["passes"])}
+    divergence = first_divergence(model, requests, off_tokens,
+                                  tokens_of(run, rids))
+    free_engines()
+
+    gate_errs, finite, flag = [], [], {}
+    gate = serve(model, requests, held_spec(kernel_attention, gate_errs,
+                                            finite, flag),
+                 setup=spec_launch_flag(flag), drafter="ngram")
+    gate_err = worst(gate_errs) if gate_errs else {}
+    gate_calls_ok = bool(gate_errs) and len(gate_errs) == L * flag[
+        "launches"]
+    gate_summary = spec_summary(gate)
+    del gate
+    free_engines()
+    controls = {}
+    for name, attention in CONTROLS.items():
+        errs, c_flag = [], {}
+        serve(model, requests[:4], held_spec(attention, errs, [], c_flag,
+                                             False),
+              setup=spec_launch_flag(c_flag), drafter="ngram")
+        controls[name] = {"per_launch": worst(errs) if errs else None,
+                          "spec_launches": c_flag["launches"],
+                          "fails_gate": bool(errs) and not within(
+                              worst(errs), "bfloat16", ENGINE_MEASURES)}
+        free_engines()
+    on = runs["on"]
+    rec = engine_record(
+        "engine_spec_bf16", run, requests,
+        {"drafts_accepted": on["draft_accepted"] > 0,
+         "drafts_rolled_back": on["rollback_tokens"] > 0,
+         "pool_empty_and_invariants": on["pool_empty"]
+         and on["invariants_hold"],
+         "none_quarantined_any_run": all(
+             r["quarantined"] == 0 for r in (off_rec, on, gate_summary)),
+         "launches_as_expected_every_run": off_rec["launches_as_expected"]
+         and on["launches_as_expected"],
+         "dispatch_never_synchronizes": log["dispatch_syncs"] == 0,
+         "gate_held_every_spec_call": gate_calls_ok,
+         "gate_outputs_finite": bool(finite) and all(finite),
+         "per_launch_kernel_vs_plain": bool(gate_err) and within(
+             gate_err, "bfloat16", ENGINE_MEASURES),
+         "controls_fail": all(c["fails_gate"] for c in controls.values())},
+        rounds=log["passes"], max_spec_k=8, spec_ks=[4, 8],
+        spec_launches=on_flag["launches"],
+        spec_launch_runs_by_bucket={
+            str(k): sorted(v) for k, v in sorted(on_flag["shapes"].items())},
+        gate_spec_launch_runs_by_bucket={
+            str(k): sorted(v) for k, v in sorted(flag["shapes"].items())},
+        greedy_vs_spec_off=divergence, runs=runs,
+        dispatch_syncs=log["dispatch_syncs"],
+        sync_messages=log["sync_messages"], per_launch_errors=gate_err,
+        per_launch_tolerance={k: TOLERANCE["bfloat16"][k]
+                              for k in ENGINE_MEASURES},
+        gate_calls=len(gate_errs), gate_spec_launches=flag["launches"],
+        gate_run=gate_summary, controls=controls)
+    state["engine_spec_bf16"] = rec
+    del run
+    free_engines()
+    # the first 8 requests at 32 new tokens: the other profiles' size
+    state["profile_spec"] = profile_decode(
+        model, "profile_spec", requests=[(p, 32, o) for p, _, o in
+                                         requests[:8]], drafter="ngram")
+    del model
     free_engines()
     return rec["ok"]
 
@@ -3920,13 +4486,16 @@ def kernel_records(state) -> list:
         "tpu_kernel": "paged_attention.py::_ragged_kernel",
         "launches": state["engine_bf16"]["kernel_launches"]
         + state["engine_w4"]["launches"]["attention"]
-        + state["engine_window_bf16"]["kernel_launches"],
+        + state["engine_window_bf16"]["kernel_launches"]
+        + state["engine_spec_bf16"]["kernel_launches"],
         "launches_by_phase": {
             "engine_bf16": state["engine_bf16"]["kernel_launches"],
             "engine_w4": state["engine_w4"]["launches"]["attention"],
             "engine_window_bf16":
                 state["engine_window_bf16"]["kernel_launches"],
-            "engine_f32": state["engine_f32"]["kernel_launches"]},
+            "engine_spec_bf16": state["engine_spec_bf16"]["kernel_launches"],
+            "engine_f32": state["engine_f32"]["kernel_launches"],
+            "engine_spec_f32": state["engine_spec_f32"]["kernel_launches"]},
         "max_abs_err": max(e["abs"] for e in errs.values()),
         "errors_by_case": errs,
         "ms": timing["ms"], "kernel_ms": timing["ms"],
@@ -3934,6 +4503,7 @@ def kernel_records(state) -> list:
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
         "timed_shape": "decode Tq=8 H=32 H_kv=32 D=128 bs=16, bfloat16",
         "mixed": state["kernel"]["mixed"],
+        "verify": state["kernel"]["verify"],
         "float32": state["kernel"]["timing"]["float32"],
         "repaired_shapes": repaired(state, "ragged")}, {
         "name": "ragged_paged_attention_q8", "route": "cuda",
@@ -3941,11 +4511,14 @@ def kernel_records(state) -> list:
         "replaces": "paddle_tpu/ops/pallas/paged_attention.py:283",
         "tpu_kernel": "paged_attention.py::_ragged_quant_kernel",
         "launches": state["engine_w8kv8"]["launches"]["attention_q8"]
-        + state["engine_window_w8kv8"]["launches"]["attention_q8"],
+        + state["engine_window_w8kv8"]["launches"]["attention_q8"]
+        + state["engine_spec_f32"]["quant_launches"]["attention_q8"],
         "launches_by_phase": {
             "engine_w8kv8": state["engine_w8kv8"]["launches"]["attention_q8"],
             "engine_window_w8kv8":
-                state["engine_window_w8kv8"]["launches"]["attention_q8"]},
+                state["engine_window_w8kv8"]["launches"]["attention_q8"],
+            "engine_spec_f32":
+                state["engine_spec_f32"]["quant_launches"]["attention_q8"]},
         "max_abs_err": max(e["abs"] for e in errs_q8.values()),
         "errors_by_case": errs_q8,
         "ms": t_q8["ms"], "plain_ms": t_q8["plain_ms"],
@@ -3956,6 +4529,7 @@ def kernel_records(state) -> list:
         "timed_shape": "decode Tq=8 H=32 H_kv=32 D=128 bs=16, int8 pages, "
                        "bfloat16 q",
         "mixed": state["kernel_q8"]["mixed"],
+        "verify": state["kernel_q8"]["verify"],
         "float32_q": state["kernel_q8"]["timing"]["float32"],
         "repaired_shapes": repaired(state, "ragged_q8")}, {
         "name": "quant_matmul", "route": "cuda",
@@ -3964,12 +4538,15 @@ def kernel_records(state) -> list:
         "tpu_kernel": "quant_matmul.py::_qmm_kernel",
         "launches": state["engine_w8kv8"]["launches"]["qmm"]
         + state["engine_w4"]["launches"]["qmm"]
-        + state["engine_window_w8kv8"]["launches"]["qmm"],
+        + state["engine_window_w8kv8"]["launches"]["qmm"]
+        + state["engine_spec_f32"]["quant_launches"]["qmm"],
         "launches_by_phase": {
             "engine_w8kv8": state["engine_w8kv8"]["launches"]["qmm"],
             "engine_w4": state["engine_w4"]["launches"]["qmm"],
             "engine_window_w8kv8":
-                state["engine_window_w8kv8"]["launches"]["qmm"]},
+                state["engine_window_w8kv8"]["launches"]["qmm"],
+            "engine_spec_f32":
+                state["engine_spec_f32"]["quant_launches"]["qmm"]},
         "max_abs_err": max(c["abs"] for c in qmm.values()),
         "ms": qmm[qmm_timed]["ms"], "plain_ms": qmm[qmm_timed]["plain_ms"],
         "bound_ms": qmm[qmm_timed]["bound_ms"],
@@ -4039,6 +4616,8 @@ def main() -> int:
                      ("engine_w4", phase_engine_w4),
                      ("engine_window_bf16", phase_engine_window_bf16),
                      ("engine_window_w8kv8", phase_engine_window_w8kv8),
+                     ("engine_spec_f32", phase_engine_spec_f32),
+                     ("engine_spec_bf16", phase_engine_spec_bf16),
                      ("train_f32", phase_train_f32),
                      ("train_bf16", phase_train_bf16),
                      ("blha_f32", phase_blha_f32),

@@ -16,7 +16,8 @@ shift, so the arithmetic is exact on every backend torch has.
   counter layout, in which a ``[B, V]`` draw counts its flat index.
 * ``uniform(key, n)``: the mantissa of ``bits >> 9`` ORed with the bits of
   1.0, minus 1.0, mapped to ``[tiny, 1)`` as ``jax.random.uniform(minval=
-  tiny, maxval=1)`` does.
+  tiny, maxval=1)`` does (``minval=0.0``: ``jax.random.uniform``'s
+  default range ``[0, 1)``).
 * ``gumbel(key, n)``: ``-log(-log(uniform))``, and ``categorical(key,
   logits)`` the argmax of ``gumbel + logits`` over the last axis.
 
@@ -104,12 +105,14 @@ def random_bits(key, n: int) -> torch.Tensor:
     return y1 ^ y2
 
 
-def uniform(key, n: int) -> torch.Tensor:
-    """``jax.random.uniform(key, (n,), minval=tiny, maxval=1)`` in f32."""
+def uniform(key, n: int, minval: float = _TINY) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), minval=minval, maxval=1)`` in f32,
+    for ``minval`` tiny (the Gumbel draw's) or 0.0."""
     bits = (random_bits(key, n) >> 9) | 0x3F800000
     f = bits.to(torch.int32).view(torch.float32) - 1.0
-    # maxval - minval is 1.0 in f32, so this is f + tiny, clamped to tiny
-    return torch.clamp_min(f + _TINY, _TINY)
+    # maxval - minval is 1.0 in f32 for both, so this is f + minval,
+    # clamped to minval
+    return torch.clamp_min(f + minval, minval)
 
 
 def gumbel(key, n: int) -> torch.Tensor:

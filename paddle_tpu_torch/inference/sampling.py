@@ -42,15 +42,23 @@ __all__ = [
     "LogitProcessor", "RepetitionPenaltyProcessor", "TemperatureProcessor",
     "TopKProcessor", "TopPProcessor", "DEFAULT_CHAIN", "make_samp",
     "sampling_plan", "samp_to_device", "advance_keys", "sample_tokens",
-    "sample_tokens_device",
+    "sample_tokens_device", "target_dist",
 ]
 
 _NEG_INF = float("-inf")
 
 
+def _softmax(lg):
+    """Softmax over the last axis of a host array (``target_dist``'s)."""
+    m = np.max(lg, axis=-1, keepdims=True)
+    e = np.exp(lg - m)
+    return e / np.sum(e, axis=-1, keepdims=True)
+
+
 class LogitProcessor:
     """One stage of the chain: ``(lg [B,V] f32, samp) -> lg``, with samp
-    holding tensors on lg's device.
+    holding tensors on lg's device; ``host(lg, samp)`` is the same stage
+    over numpy arrays (``target_dist``).
 
     ``greedy_visible`` stages apply before the greedy/sampled split --
     greedy rows argmax their output; the rest only shape the sampled
@@ -60,6 +68,9 @@ class LogitProcessor:
     greedy_visible = False
 
     def __call__(self, lg, samp):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def host(self, lg, samp):  # pragma: no cover - interface
         raise NotImplementedError
 
 
@@ -74,10 +85,18 @@ class RepetitionPenaltyProcessor(LogitProcessor):
         pl = torch.where(lg > 0, lg / pen, lg * pen)
         return torch.where(samp["seen"] & (pen != 1.0), pl, lg)
 
+    def host(self, lg, samp):
+        pen = samp["penalty"][:, None]
+        pl = np.where(lg > 0, lg / pen, lg * pen)
+        return np.where(samp["seen"] & (pen != 1.0), pl, lg)
+
 
 class TemperatureProcessor(LogitProcessor):
     def __call__(self, lg, samp):
         return lg / torch.clamp(samp["temps"], min=1e-6)[:, None]
+
+    def host(self, lg, samp):
+        return lg / np.maximum(samp["temps"], 1e-6)[:, None]
 
 
 class TopKProcessor(LogitProcessor):
@@ -91,6 +110,14 @@ class TopKProcessor(LogitProcessor):
         idx = torch.clamp(k - 1, 0, V - 1)
         kth = torch.gather(srt, -1, idx[:, None])
         return torch.where((k > 0)[:, None] & (lg < kth), _NEG_INF, lg)
+
+    def host(self, lg, samp):
+        k = samp["top_k"]
+        V = lg.shape[-1]
+        srt = -np.sort(-lg, axis=-1)                       # descending
+        idx = np.clip(k - 1, 0, V - 1).astype(np.int32)
+        kth = np.take_along_axis(srt, idx[:, None], axis=-1)
+        return np.where((k > 0)[:, None] & (lg < kth), _NEG_INF, lg)
 
 
 class TopPProcessor(LogitProcessor):
@@ -109,6 +136,17 @@ class TopPProcessor(LogitProcessor):
         keep_sorted = cum - sp <= p[:, None]               # top always kept
         keep = torch.empty_like(keep_sorted).scatter_(-1, order, keep_sorted)
         return torch.where(keep, lg, _NEG_INF)
+
+    def host(self, lg, samp):
+        p = samp["top_p"]
+        order = np.argsort(-lg, axis=-1, kind="stable")
+        srt = np.take_along_axis(lg, order, axis=-1)
+        sp = _softmax(srt)
+        cum = np.cumsum(sp, axis=-1)
+        keep_sorted = cum - sp <= p[:, None]               # top always kept
+        inv = np.argsort(order, axis=-1, kind="stable")
+        keep = np.take_along_axis(keep_sorted, inv, axis=-1)
+        return np.where(keep, lg, _NEG_INF)
 
 
 DEFAULT_CHAIN = (RepetitionPenaltyProcessor(), TemperatureProcessor(),
@@ -210,3 +248,34 @@ def sample_tokens(logits, samp, chain=DEFAULT_CHAIN):
         keys = _to_device(np.asarray(samp["keys"])[sampled_rows]
                          .astype(np.int64), dev)
     return sample_tokens_device(logits, st, rows, keys, needs_penalty, chain)
+
+
+def target_dist(logits_row, *, temperature=0.0, top_k=0, top_p=1.0,
+                penalty=1.0, seen=None, chain=DEFAULT_CHAIN):
+    """Host-side target distribution for ONE position: the probabilities
+    the sampler would draw from (one-hot argmax for greedy rows), through
+    each stage's numpy ``host`` path in the chain's order.  Speculative
+    decoding's rejection sampling is exact only because this is the very
+    chain the device runs.  Returns [V] float32."""
+    lg = np.asarray(logits_row, np.float32)[None]
+    V = lg.shape[-1]
+    samp = {
+        "temps": np.asarray([temperature], np.float32),
+        "top_k": np.asarray([top_k], np.int32),
+        "top_p": np.asarray([top_p], np.float32),
+        "penalty": np.asarray([penalty], np.float32),
+        "seen": (np.zeros((1, V), bool) if seen is None
+                 else np.asarray(seen, bool).reshape(1, V)),
+    }
+    with np.errstate(invalid="ignore", over="ignore"):
+        for proc in chain:
+            if proc.greedy_visible:
+                lg = proc.host(lg, samp)
+        if temperature <= 0.0:
+            out = np.zeros((V,), np.float32)
+            out[int(np.argmax(lg[0]))] = 1.0
+            return out
+        for proc in chain:
+            if not proc.greedy_visible:
+                lg = proc.host(lg, samp)
+        return _softmax(lg)[0]

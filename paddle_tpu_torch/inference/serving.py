@@ -55,9 +55,20 @@ to the port's dense ``generate()``, with the prefix cache on or off.
   the null page.  Page slack is reserved before launch (K shrinks to what
   the pool covers; below 2 the step runs per-step, counted).
 
-The engine options of later slices raise ``NotImplementedError`` naming
-their ROADMAP item.  The engine is single-threaded: add_request/step/abort
-are called from one thread.
+- Speculative decoding (inference/spec_decode.py): a host-side
+  ``Drafter`` proposes up to k tokens per decode-ready sequence, the step
+  packs each speculative sequence's [last_token, d_1..d_k] window as one
+  ragged row (the step returns the f32 logits of every packed position
+  beside the sampled tokens, read back into pinned memory behind the same
+  event), and host-side rejection sampling accepts a prefix: greedy output
+  is byte-identical to plain decode, sampled output follows the target
+  distribution.  Rejected drafts roll back through
+  ``BlockManager.truncate``.  Per-request ``spec_k`` opts in, and a low
+  acceptance rate turns speculation off for that request.
+
+The engine options of later slices (the host tiers, tensor parallelism)
+raise ``NotImplementedError`` naming their ROADMAP item.  The engine is
+single-threaded: add_request/step/abort are called from one thread.
 """
 from __future__ import annotations
 
@@ -78,6 +89,7 @@ from .kv_cache import NULL_BLOCK, BlockManager, BlockPoolExhausted
 from .policy import pack_prefill_chunks
 from .sampling import (advance_keys, make_samp, samp_to_device,
                        sample_tokens, sample_tokens_device, sampling_plan)
+from .spec_decode import NGramDrafter, verify_and_accept
 
 __all__ = ["LLMEngine", "Request", "RequestOutput"]
 
@@ -97,6 +109,7 @@ class Request:
     top_k: int = 0                    # 0 -> off
     top_p: float = 1.0                # 1.0 -> off
     repetition_penalty: float = 1.0   # 1.0 -> off
+    spec_k: int = 0                   # max draft tokens per verify round
     # scheduler state
     tokens: list = field(default_factory=list)   # tokens to (re)prefill
     generated: list = field(default_factory=list)
@@ -105,6 +118,9 @@ class Request:
     slot: int = -1                    # stable decode-batch slot
     t_arrival: float = 0.0            # wall clock at add_request (TTFT)
     seen: object = None               # [V] bool penalty mask (lazy)
+    spec_proposed: int = 0            # drafts sent to verify (lifetime)
+    spec_accepted: int = 0            # drafts accepted (lifetime)
+    spec_disabled: bool = False       # acceptance fell below the floor
 
 
 @dataclass
@@ -126,14 +142,19 @@ class _StepTicket:
 
     ``result`` is the host copy of the device result -- [2, Lq] int32
     (sampled tokens, finite flags) for a per-step launch, [2, K', B] for
-    a window -- and ``ready`` the CUDA event recorded after the copy (None
-    on the CPU, where the copy is done when the launch returns).  The
-    pipeline is depth-1: the next dispatch needs this ticket's tokens (a
-    decode row's input is the previous step's output)."""
+    a window -- ``logits`` the host copy of the [Lq, V] f32 logits of a
+    launch that carries verify rows (else None), and ``ready`` the CUDA
+    event recorded after the copies (None on the CPU, where the copy is
+    done when the launch returns).  The pipeline is depth-1: the next
+    dispatch needs this ticket's tokens (a decode row's input is the
+    previous step's output)."""
     chunks: list
+    spec: list                        # (req, drafts, q_dists) verify rows
     batch: list
     result: torch.Tensor
+    logits: object                    # host [Lq, V] f32 | None
     ready: object                     # torch.cuda.Event | None
+    spec_slices: list                 # (first logit row, rows) per spec row
     chunk_slots: list
     batch_slots: list
     dispatch_s: float                 # host seconds packing + launching
@@ -152,12 +173,12 @@ class _DecodeBufs:
 
     __slots__ = ("toks", "cu", "kvl", "bt", "samp", "layout", "bt_ver")
 
-    def __init__(self, B, nblk, vocab_size):
+    def __init__(self, B, nblk, Lq, vocab_size):
         self.toks = np.zeros((B,), np.int32)
         self.cu = np.zeros((B + 1,), np.int32)
         self.kvl = np.zeros((B,), np.int32)
         self.bt = np.full((B + 1, nblk), NULL_BLOCK, np.int32)
-        self.samp = make_samp(B, vocab_size)
+        self.samp = make_samp(Lq, vocab_size)
         self.layout: tuple = ()
         self.bt_ver: dict = {}
 
@@ -210,10 +231,22 @@ class LLMEngine:
         step runs per-step (``decode_window_fallbacks``), never
         preempting for a window.  Greedy output is byte-identical to
         decode_window=1; ``compile_counts`` gains a "scan" key when a
-        window first runs.
+        window first runs.  Mixed packs (prefill chunks, verify rows) and
+        rows that may speculate take the per-step path.
+    drafter: a spec_decode.Drafter (or the string "ngram" for the
+        prompt-lookup drafter) proposing draft tokens; None disables
+        speculative decoding engine-wide.
+    spec_k: default per-request draft length (requests may override via
+        add_request(spec_k=); 0 means plain decode).
+    max_spec_k: hard per-round draft ceiling; fixes the step's logit-row
+        width max_num_seqs * (max_spec_k + 1).
+    spec_accept_floor / spec_window: once a request has sent spec_window
+        drafts to verify, speculation turns off for it if its lifetime
+        acceptance rate sits below the floor.
 
     Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-    item): drafter/spec_k, tp > 1, kv_tier, fault_plan, pressure, tracer.
+    item): tp > 1 (item 10); kv_tier, fault_plan, pressure, tracer (item
+    9).
     """
 
     def __init__(self, model, *, device=None, max_num_seqs: int = 8,
@@ -222,7 +255,8 @@ class LLMEngine:
                  max_prefill_tokens: int = 512,
                  prefill_token_bucket: int = 64,
                  enable_prefix_caching: bool = True,
-                 drafter=None, spec_k: int = 0,
+                 drafter=None, spec_k: int = 0, max_spec_k: int = 8,
+                 spec_accept_floor: float = 0.35, spec_window: int = 32,
                  fault_plan=None, pressure=None,
                  kv_dtype: str = "float32", tp: int = 1,
                  tracer=None, overlap: bool = True,
@@ -242,8 +276,6 @@ class LLMEngine:
             raise ValueError(
                 f"decode_window must be >= 1, got {decode_window}")
         for bad, option, item, what in (
-                (drafter is not None or int(spec_k) != 0, "drafter/spec_k",
-                 6, "speculative decoding"),
                 (kv_tier is not None, "kv_tier", 9, "the host KV spill tier"),
                 (fault_plan is not None, "fault_plan", 9, "fault injection"),
                 (pressure is not None, "pressure", 9,
@@ -330,10 +362,27 @@ class LLMEngine:
         # sets, alternated under overlap (overlap off uses set 0 only)
         B = self.max_num_seqs
         self._slot_used = [False] * B
-        self._Lq = B                      # logit rows: one per packed row
+
+        # speculative decoding: a host-side drafter proposes up to
+        # max_spec_k tokens per decode-ready sequence; each speculative
+        # sequence rides the step's single ragged launch as one
+        # [last_token, drafts...] row
+        if drafter == "ngram":
+            drafter = NGramDrafter()
+        self.drafter = drafter
+        self.spec_k = int(spec_k)
+        self.max_spec_k = int(max_spec_k)
+        self.spec_accept_floor = float(spec_accept_floor)
+        self.spec_window = int(spec_window)
+        # logit rows of the step: spec rows need k+1 scored positions
+        # each; without a drafter one row is one logit.  The step returns
+        # the f32 logits (for host-side acceptance) only with a drafter.
+        self._with_logits = drafter is not None
+        self._Lq = B * (self.max_spec_k + 1) if self._with_logits else B
+        self._logits_host = None          # pinned [Lq, V] f32 read-back
         self.overlap = bool(overlap)
-        self._dbufs = (_DecodeBufs(B, self.nblk, cfg.vocab_size),
-                       _DecodeBufs(B, self.nblk, cfg.vocab_size))
+        self._dbufs = (_DecodeBufs(B, self.nblk, self._Lq, cfg.vocab_size),
+                       _DecodeBufs(B, self.nblk, self._Lq, cfg.vocab_size))
         self._d_cur = 0                   # buffer set of the latest launch
         self._d_lidx = np.minimum(np.arange(self._Lq), B - 1) \
             .astype(np.int32)
@@ -369,8 +418,11 @@ class LLMEngine:
     def add_request(self, prompt, max_new_tokens: int = 32,
                     temperature: float = 0.0, eos_token_id=None,
                     seed: int = 0, top_k: int = 0, top_p: float = 1.0,
-                    repetition_penalty: float = 1.0) -> int:
-        """Queue one generation request; returns its rid."""
+                    repetition_penalty: float = 1.0,
+                    spec_k: int | None = None) -> int:
+        """Queue one generation request; returns its rid.  ``spec_k``
+        (default: the engine's) is clamped to max_spec_k, and to 0
+        without a drafter."""
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
@@ -389,6 +441,10 @@ class LLMEngine:
         if float(repetition_penalty) <= 0.0:
             raise ValueError(
                 f"repetition_penalty must be > 0, got {repetition_penalty}")
+        if spec_k is None:
+            spec_k = self.spec_k
+        spec_k = min(int(spec_k), self.max_spec_k) \
+            if self.drafter is not None else 0
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid=rid, prompt=prompt, tokens=list(prompt),
@@ -397,7 +453,7 @@ class LLMEngine:
                       eos_token_id=eos_token_id, seed=int(seed),
                       top_k=int(top_k), top_p=float(top_p),
                       repetition_penalty=float(repetition_penalty),
-                      t_arrival=time.perf_counter())
+                      spec_k=spec_k, t_arrival=time.perf_counter())
         if req.repetition_penalty != 1.0:
             req.seen = np.zeros((self.config.vocab_size,), bool)
             req.seen[prompt] = True
@@ -447,6 +503,8 @@ class LLMEngine:
             return None
         if self.blocks.has(req.rid):
             self.blocks.release(req.rid)
+        if self.drafter is not None:
+            self.drafter.release(req.rid)
         out = RequestOutput(rid=req.rid, prompt=list(req.prompt),
                             generated=list(req.generated),
                             finish_reason=finish_reason)
@@ -478,9 +536,10 @@ class LLMEngine:
 
     def precompile_buckets(self) -> tuple:
         """Run one all-padding launch at every reachable flat-token bucket
-        -- the decode-sized bucket and every prefill_token_bucket multiple
-        up to the largest packable launch (a full max_prefill_tokens
-        budget plus every slot's decode token) -- so the walk plans,
+        -- the decode-sized bucket, the speculation tier when a drafter is
+        attached, and every prefill_token_bucket multiple up to the
+        largest packable launch (a full max_prefill_tokens budget plus
+        every row's tokens) -- so the walk plans,
         tensor maps, workspaces and allocator blocks of every bucket exist
         before the first request.  A padding launch writes only the null
         page and samples nothing anyone reads.  Idempotent; returns the
@@ -488,8 +547,11 @@ class LLMEngine:
         size."""
         tb = self.prefill_token_bucket
         ceiling = self.max_prefill_tokens + self._Lq
-        ladder = sorted({self.max_num_seqs}
-                        | set(range(tb, (-(-ceiling // tb) + 1) * tb, tb)))
+        ladder = {self.max_num_seqs}
+        if self._with_logits and self.max_num_seqs < self._Lq < tb:
+            ladder.add(self._Lq)
+        ladder.update(range(tb, (-(-ceiling // tb) + 1) * tb, tb))
+        ladder = sorted(ladder)
         B = self.max_num_seqs
         cu = np.zeros((B + 1,), np.int32)
         kvl = np.zeros((B,), np.int32)
@@ -501,7 +563,7 @@ class LLMEngine:
                 continue
             self._warm_bucket(Tq)
             self._ragged_step(Tq, np.zeros((Tq,), np.int32), cu, kvl, bt,
-                              lidx, samp, _NO_PAGES).cpu()
+                              lidx, samp, _NO_PAGES)[0].cpu()
         return tuple(ladder)
 
     def summary(self) -> dict:
@@ -668,25 +730,38 @@ class LLMEngine:
         # decode-ready set (chunk owners are still mid-prefill, so the
         # row classes are disjoint by construction)
         batch = [r for r in self._running if self._decode_ready(r)]
+        # speculative sequences pack a [last_token, drafts...] window;
+        # everything else packs a single decode token in the same launch
+        spec, batch = self._split_spec(batch)
+        spec, demoted = self._reserve_verify_pages(spec)
+        batch.extend(demoted)
+        # verify reservation/CoW may have preempted plain-decode members
+        batch = [r for r in batch
+                 if r in self._running and self._decode_ready(r)]
         batch = self._reserve_decode_pages(batch)
-        # a reservation can preempt a chunk owner or an already-reserved
-        # row: re-filter against the surviving running set
+        # every reservation above can preempt a chunk owner or an
+        # already-reserved row: re-filter each class against the
+        # surviving running set
         chunks = [(r, n) for r, n in chunks if r in self._running]
+        spec = [(r, d, q) for r, d, q in spec if r in self._running]
         batch = [r for r in batch if r in self._running]
         batch.sort(key=lambda r: r.slot)
 
-        if chunks or batch:
+        if chunks or spec or batch:
             t0 = time.perf_counter()
-            if not (self.decode_window > 1 and not chunks
+            if not (self.decode_window > 1 and not chunks and not spec
                     and self._window_eligible(batch)
                     and self._dispatch_window(batch, t0)):
                 with record_function("llm_engine.ragged_step"):
-                    result, chunk_slots, batch_slots = self._run_ragged(
-                        chunks, batch)
-                    host, ready = self._read_back(result)
+                    (result, logits), spec_slices, chunk_slots, \
+                        batch_slots = self._run_ragged(chunks, spec, batch)
+                    host, host_logits, ready = self._read_back(
+                        result, logits if spec else None)
                 self._inflight = _StepTicket(
-                    chunks=chunks, batch=batch, result=host, ready=ready,
-                    chunk_slots=chunk_slots, batch_slots=batch_slots,
+                    chunks=chunks, spec=spec, batch=batch, result=host,
+                    logits=host_logits, ready=ready,
+                    spec_slices=spec_slices, chunk_slots=chunk_slots,
+                    batch_slots=batch_slots,
                     dispatch_s=time.perf_counter() - t0,
                     inflight=self.overlap)
         # the prestage's page credit expires: every page it reserved is
@@ -694,19 +769,28 @@ class LLMEngine:
         # page in place) or went back with a retired row
         self._spec_pages.clear()
 
-    def _read_back(self, result):
-        """Queue the device result's copy to host memory behind the
-        launch: on a CUDA device a non-blocking copy into pinned memory
-        and an event after it (the completion waits on the event, not on
-        the stream); on the CPU the result itself."""
+    def _read_back(self, result, logits=None):
+        """Queue the device result's copy (and the verify logits', for a
+        launch that carries spec rows) to host memory behind the launch:
+        on a CUDA device non-blocking copies into pinned memory and an
+        event after them (the completion waits on the event, not on the
+        stream); on the CPU the tensors themselves.  The logits land in
+        one pinned [Lq, V] buffer, reused launch after launch: a
+        completion consumes them before the next dispatch queues its
+        copy.  Returns (result, logits or None, event or None)."""
         if result.device.type != "cuda":
-            return result, None
+            return result, logits, None
         host = torch.empty(result.shape, dtype=result.dtype,
                            pin_memory=True)
         host.copy_(result, non_blocking=True)
+        if logits is not None:
+            if self._logits_host is None:
+                self._logits_host = torch.empty(
+                    logits.shape, dtype=logits.dtype, pin_memory=True)
+            logits = self._logits_host.copy_(logits, non_blocking=True)
         ready = torch.cuda.Event()
         ready.record()
-        return host, ready
+        return host, logits, ready
 
     def _complete(self, finished: list, drop_rid=None) -> None:
         """Wait for the in-flight ticket's read-back, then apply and
@@ -723,15 +807,24 @@ class LLMEngine:
         # step or a whole K-token window
         self.stats.record_round_trip()
         sampled, ok = res[0], res[1].astype(bool)
-        chunks, batch = ticket.chunks, ticket.batch
+        logits = ticket.logits.numpy() if ticket.spec else None
+        chunks, spec, batch = ticket.chunks, ticket.spec, ticket.batch
         chunk_slots, batch_slots = ticket.chunk_slots, ticket.batch_slots
+        spec_slices = ticket.spec_slices
         if drop_rid is not None:
             kc = [i for i, (r, _) in enumerate(chunks) if r.rid != drop_rid]
             chunks = [chunks[i] for i in kc]
             chunk_slots = [chunk_slots[i] for i in kc]
+            ks = [i for i, (r, _, _) in enumerate(spec)
+                  if r.rid != drop_rid]
+            spec = [spec[i] for i in ks]
+            spec_slices = [spec_slices[i] for i in ks]
             kb = [i for i, r in enumerate(batch) if r.rid != drop_rid]
             batch = [batch[i] for i in kb]
             batch_slots = [batch_slots[i] for i in kb]
+        spec_ok = [bool(ok[o:o + n].all()) for o, n in spec_slices]
+        spec_logits = [logits[o:o + n] for o, n in spec_slices] \
+            if spec else None
         # the engine's active time on this launch (packing + the residual
         # wait); the device time hidden under the prestage and the gap
         # between calls is what the overlap buys
@@ -742,8 +835,9 @@ class LLMEngine:
             self._apply_window(batch, batch_slots, sampled, ok, dur,
                                finished, ticket.window)
         else:
-            self._apply_ragged(chunks, batch, sampled, ok, chunk_slots,
-                               batch_slots, dur, finished)
+            self._apply_ragged(chunks, spec, batch, sampled, ok, spec_ok,
+                               spec_logits, chunk_slots, batch_slots, dur,
+                               finished)
 
     def _prestage(self) -> None:
         """Stage the NEXT dispatch's pure-decode pack while the in-flight
@@ -762,12 +856,15 @@ class LLMEngine:
         if not self.overlap:
             return
         ticket = self._inflight
-        if ticket.window or ticket.chunks or not ticket.batch:
+        if ticket.window or ticket.chunks or ticket.spec \
+                or not ticket.batch:
             return              # only after per-step pure-decode launches
         if self._waiting:
             return              # the next step admits: a mixed pack
         if any(r.cached < len(r.tokens) for r in self._running):
             return              # a mid-prefill row: a mixed pack
+        if self._may_speculate(ticket.batch):
+            return              # the next step may pack verify rows
         batch = ticket.batch    # slot-sorted at dispatch
         self._prestaged = None
         # reserve each row's next write: pre-apply cached + 2 is the
@@ -813,16 +910,17 @@ class LLMEngine:
             buf.bt_ver.clear()
         self._prestaged = None
 
-    def _apply_ragged(self, chunks, batch, sampled, ok, chunk_slots,
-                      batch_slots, dur, finished):
+    def _apply_ragged(self, chunks, spec, batch, sampled, ok, spec_ok,
+                      spec_logits, chunk_slots, batch_slots, dur, finished):
         """Advance every packed row from the launch's outputs: chunk rows
         commit their prefix (emitting a first token when the prompt
-        completes), decode rows emit one token.  A row whose logits came
-        back non-finite is QUARANTINED before any of its state commits.
-        The launch duration splits across the stats channels pro-rata by
-        packed tokens."""
+        completes), spec rows run host-side draft acceptance, decode rows
+        emit one token.  A row whose logits came back non-finite is
+        QUARANTINED before any of its state commits.  The launch duration
+        splits across the stats channels pro-rata by packed tokens."""
         chunk_tokens = sum(n for _, n in chunks)
-        total = max(chunk_tokens + len(batch), 1)
+        spec_tokens = sum(len(d) + 1 for _, d, _ in spec)
+        total = max(chunk_tokens + spec_tokens + len(batch), 1)
         occ = len(self._running) / self.max_num_seqs
 
         done = 0
@@ -847,6 +945,18 @@ class LLMEngine:
             self.stats.record_prefill(dur * chunk_tokens / total,
                                       chunk_tokens, done)
 
+        if spec:
+            n_emitted = 0
+            for i, ((req, drafts, qd), lg) in enumerate(
+                    zip(spec, spec_logits)):
+                if not spec_ok[i]:
+                    self._quarantine(req, finished)
+                    continue
+                n_emitted += self._apply_spec_result(req, drafts, qd, lg,
+                                                     finished)
+            self.stats.record_verify(dur * spec_tokens / total,
+                                     n_emitted, occ)
+
         for req, s in zip(batch, batch_slots):
             if not ok[s]:
                 self._quarantine(req, finished)
@@ -870,12 +980,20 @@ class LLMEngine:
 
     def _window_eligible(self, batch: list) -> bool:
         """True when this step's pack may run as a K-step window: a steady
-        pure-decode state -- every runner decode-ready and nobody waiting
+        pure-decode state -- every runner decode-ready, nobody waiting
         for a slot (a window would delay their admission by up to K
-        steps).  The caller has established that no chunk rows are
-        packed; the per-step path remains the fallback."""
+        steps), and no row about to carry a verify window.  The caller
+        has established that no chunk or spec rows are packed; the
+        per-step path remains the fallback."""
         return bool(batch) and not self._waiting \
-            and len(batch) == len(self._running)
+            and len(batch) == len(self._running) \
+            and not self._may_speculate(batch)
+
+    def _may_speculate(self, rows) -> bool:
+        """True when one of ``rows`` may pack a verify window next step
+        (speculation on for it, and a drafter to propose)."""
+        return self.drafter is not None and any(
+            not r.spec_disabled and r.spec_k > 0 for r in rows)
 
     def _reserve_window_pages(self, batch: list, k: int):
         """Reserve each row's k tokens of page slack before the window
@@ -936,10 +1054,11 @@ class LLMEngine:
         with record_function("llm_engine.window_step"):
             result = self._launch_window(iters, n, toks, kvl, gen, budgets,
                                          eos_ids, base_keys, bt, samp)
-            host, ready = self._read_back(result)
+            host, _, ready = self._read_back(result)
         self._inflight = _StepTicket(
-            chunks=[], batch=list(batch), result=host, ready=ready,
-            chunk_slots=[], batch_slots=list(range(n)),
+            chunks=[], spec=[], batch=list(batch), result=host, logits=None,
+            ready=ready, spec_slices=[], chunk_slots=[],
+            batch_slots=list(range(n)),
             dispatch_s=time.perf_counter() - t0, inflight=self.overlap,
             window=iters)
         return True
@@ -997,6 +1116,8 @@ class LLMEngine:
         self._spec_pages.pop(req.rid, None)
         self._running.remove(req)
         self._release_slot(req)
+        if self.drafter is not None:
+            self.drafter.release(req.rid)
         out = RequestOutput(rid=req.rid, prompt=list(req.prompt),
                             generated=list(req.generated),
                             finish_reason="numerical_error")
@@ -1134,6 +1255,8 @@ class LLMEngine:
         req.cached = 0
         self._invalidate_bt(req.rid)
         self._waiting.appendleft(req)
+        if self.drafter is not None:
+            self.drafter.release(req.rid)
         self.stats.record_preemption()
 
     def _maybe_retire(self, req, finished: list) -> None:
@@ -1148,12 +1271,146 @@ class LLMEngine:
         self._spec_pages.pop(req.rid, None)
         self._running.remove(req)
         self._release_slot(req)
+        if self.drafter is not None:
+            self.drafter.release(req.rid)
         out = RequestOutput(rid=req.rid, prompt=list(req.prompt),
                             generated=list(req.generated),
                             finish_reason=reason)
         self._finished[req.rid] = out
         finished.append(out)
         self.stats.record_retirement()
+
+    # ------------------------------------------------------------------
+    # speculative decoding: propose -> verify -> accept/rollback
+    # ------------------------------------------------------------------
+
+    def _split_spec(self, batch: list):
+        """Ask the drafter for up to spec_k tokens per eligible sequence.
+        Sequences with no proposal (or speculation off/disabled/cut to
+        zero by length limits) fall through to plain decode."""
+        if self.drafter is None:
+            return [], batch
+        spec, plain = [], []
+        for req in batch:
+            k = 0 if req.spec_disabled else min(req.spec_k, self.max_spec_k)
+            # the verify step writes K/V at cached..cached+k, so the
+            # sequence may hold at most max_model_len tokens afterwards;
+            # drafting past max_new_tokens (plus the bonus token) is waste
+            k = min(k,
+                    self.max_model_len - len(req.prompt) - len(req.generated),
+                    req.max_new_tokens - len(req.generated) - 1)
+            if k <= 0:
+                plain.append(req)
+                continue
+            context = list(req.prompt) + list(req.generated)
+            drafts, qd = self.drafter.propose(req.rid, context, k)
+            if not drafts:
+                plain.append(req)
+                continue
+            spec.append((req, [int(t) for t in drafts[:k]], qd))
+        return spec, plain
+
+    def _page_starts(self, a: int, b: int) -> list:
+        """First written position in each page the write window [a, b]
+        (inclusive) touches -- the positions _resolve_cow must
+        privatize."""
+        bs = self.block_size
+        out = [a]
+        p = (a // bs + 1) * bs
+        while p <= b:
+            out.append(p)
+            p += bs
+        return out
+
+    def _reserve_verify_pages(self, spec: list):
+        """Grow each speculative sequence's table for its k+1 writes and
+        privatize every shared page in the window.  The pool is never
+        preempted FOR speculation: when ensure() comes up short the draft
+        shrinks (k -> k-1 -> ... -> plain decode) instead.  CoW of the
+        first write position is required for plain decode too, so that
+        path keeps the usual victim-preemption behaviour.  Returns (spec
+        rows kept, rows demoted to plain decode)."""
+        ok, demoted = [], []
+        for req, drafts, qd in spec:
+            if req not in self._running:
+                continue
+            k = len(drafts)
+            while k > 0 and not self.blocks.ensure(req.rid,
+                                                   req.cached + k + 1):
+                k -= 1
+            if k == 0:
+                demoted.append(req)
+                continue
+            drafts = drafts[:k]
+            if self.enable_prefix_caching:
+                alive = True
+                for pos in self._page_starts(req.cached, req.cached + k):
+                    if not self._resolve_cow(req, pos):
+                        alive = False           # req itself was preempted
+                        break
+                ok = [it for it in ok if it[0] in self._running]
+                if not alive:
+                    continue
+            ok.append((req, drafts, qd))
+        return ok, demoted
+
+    def _apply_spec_result(self, req, drafts, qd, lg, finished) -> int:
+        """Turn one sequence's verify logits into emitted tokens: run
+        rejection-sampling acceptance, commit the accepted prefix's K/V,
+        truncate the rejected tail out of the page table (scrubbing its
+        content hashes), and advance the request exactly as that many
+        plain decode steps would have.  Returns tokens emitted."""
+        k = len(drafts)
+        rng = None
+        if req.temperature > 0.0:
+            # keyed by (seed, position): reproducible across scheduling
+            # orders and preemptions, like _req_key on the device path
+            rng = np.random.Generator(np.random.Philox(
+                key=[req.seed & 0xFFFFFFFF, len(req.generated)]))
+        n_acc, emitted = verify_and_accept(
+            lg, drafts, q_dists=qd, temperature=req.temperature,
+            top_k=req.top_k, top_p=req.top_p,
+            penalty=req.repetition_penalty, seen=req.seen, rng=rng)
+        # cut to the generation budget, and at the first eos token
+        room = req.max_new_tokens - len(req.generated)
+        emitted = emitted[:room]
+        if req.eos_token_id is not None:
+            eos = int(req.eos_token_id)
+            if eos in emitted:
+                emitted = emitted[:emitted.index(eos) + 1]
+        m = len(emitted)                              # >= 1: room >= 1
+        # K/V validity: positions cached..cached+n_acc hold
+        # [generated[-1], accepted drafts]; m <= n_acc + 1 tokens advance
+        # the clock, and when the m-th is the bonus/resample its K/V is
+        # written by the NEXT step (decode invariant), not this one.
+        if self.enable_prefix_caching:
+            for tok in [req.generated[-1]] + emitted[:m - 1]:
+                self.blocks.commit_decode_token(req.rid, tok)
+        req.cached += m
+        # roll the speculative tail (rejected drafts + over-reserved
+        # pages) back out of the table; prefix-cache hashes covering
+        # rolled-back K/V are scrubbed inside truncate
+        rolled = self.blocks.truncate(req.rid, req.cached)
+        req.generated.extend(emitted)
+        if req.seen is not None:
+            req.seen[emitted] = True
+        j = m - 1 if m == n_acc + 1 else m            # emitted draft count
+        if k:                                         # zero-draft rows are
+            req.spec_proposed += k                    # plain decode riding
+            req.spec_accepted += min(j, n_acc)        # the verify launch
+            self.stats.record_spec(proposed=k, accepted=min(j, n_acc),
+                                   emitted=m, rollback=k - j,
+                                   pages_rolled=rolled)
+            if (not req.spec_disabled
+                    and req.spec_proposed >= self.spec_window
+                    and req.spec_accepted
+                    < self.spec_accept_floor * req.spec_proposed):
+                req.spec_disabled = True
+                self.stats.record_spec_disable()
+            self.drafter.commit(
+                req.rid, len(req.prompt) + len(req.generated) - (m - j))
+        self._maybe_retire(req, finished)
+        return m
 
     # ------------------------------------------------------------------
     # device side: copy-on-write and the ragged step
@@ -1173,11 +1430,16 @@ class LLMEngine:
 
     def _ragged_bucket(self, n_tokens: int) -> int:
         """Flat-token bucket for a launch: decode-sized launches pad to
-        max_num_seqs, anything larger rounds up to a multiple of
-        prefill_token_bucket (the JAX engine's ladder, kept so padding
+        max_num_seqs; with a drafter, speculation-sized launches stop at
+        the logit-row width max_num_seqs * (max_spec_k + 1) when that sits
+        below the prefill bucket; anything larger rounds up to a multiple
+        of prefill_token_bucket (the JAX engine's ladder, kept so padding
         accounting -- and a later CUDA-graph capture per bucket -- match)."""
         if n_tokens <= self.max_num_seqs:
             return self.max_num_seqs
+        if self._with_logits and \
+                n_tokens <= self._Lq < self.prefill_token_bucket:
+            return self._Lq
         tb = self.prefill_token_bucket
         return -(-n_tokens // tb) * tb
 
@@ -1262,15 +1524,16 @@ class LLMEngine:
     def _ragged_step(self, Tq, toks, cu, kvl, bt, lidx, samp, fresh):
         """The one serving step: Tq flat query tokens from up to
         max_num_seqs ragged rows through ``_logits``, then the sampler.
-        Returns [2, Lq] int32 on the device: the sampled token and the
-        all-finite flag of each logit row.
+        The result is [2, Lq] int32 on the device: the sampled token and
+        the all-finite flag of each logit row.
 
         toks [Tq] (tail padding maps to the sentinel row B); cu [B+1] row
         offsets; kvl [B] valid KV per row AFTER this launch's writes; bt
         [B+1, nblk] (row B: the null row pads resolve to); lidx [Lq] flat
         index of each logit row; samp the host ``make_samp`` dict; fresh
         the pages whose scale rows reset this launch (int8 pages only,
-        else empty)."""
+        else empty).  Returns (result, the [Lq, V] f32 logits on the
+        device with a drafter, else None)."""
         bs = self.block_size
         B = self.max_num_seqs
         toks_d, cu_d, kvl_d, bt_d, lidx_d, fresh_d = self._upload(
@@ -1286,7 +1549,8 @@ class LLMEngine:
         # without touching its batchmates (padded rows may be non-finite;
         # the host only consults live slots)
         fin = torch.isfinite(logits).all(-1)
-        return torch.stack([sampled, fin.to(torch.int32)])
+        return (torch.stack([sampled, fin.to(torch.int32)]),
+                logits if self._with_logits else None)
 
     @torch.no_grad()
     def _launch_window(self, iters, n, toks, kvl, gen, budgets, eos_ids,
@@ -1395,7 +1659,8 @@ class LLMEngine:
                        real_tokens):
         """The one place a per-step pack launches (mixed and pure-decode
         alike), so int8 mode drains the fresh pages at every launch (the
-        window drains them at its own)."""
+        window drains them at its own).  Returns ``_ragged_step``'s
+        (result, logits)."""
         self.pad_stats["real"] += int(real_tokens)
         self.pad_stats["padded"] += int(Tq)
         self._warm_bucket(Tq)
@@ -1413,22 +1678,28 @@ class LLMEngine:
         if key and req.temperature > 0.0:
             samp["keys"][s] = self._req_key(req)
 
-    def _run_ragged(self, chunks: list, batch: list):
+    def _run_ragged(self, chunks: list, spec: list, batch: list):
         """Pack this step's whole mix as ONE ragged launch.
 
-        Row order: prefill chunks (scheduler order), then plain decode
-        tokens (slot order).  Returns (device result, chunk logit slots,
-        decode logit slots)."""
-        total = sum(n for _, n in chunks) + len(batch)
+        Row order: prefill chunks (scheduler order), speculative
+        [last_token, drafts...] windows, plain decode tokens (slot
+        order).  Every position of a spec row is a logit row; its sampler
+        slots keep their defaults (acceptance runs on the host).  Returns
+        (``_launch_ragged``'s (result, logits), spec row slices (first
+        logit row, rows), chunk logit slots, decode logit slots)."""
+        total = sum(n for _, n in chunks) \
+            + sum(len(d) + 1 for _, d, _ in spec) + len(batch)
         Tq = self._ragged_bucket(total)
 
         # decode fast path: steady pure-decode steps reuse the
         # persistent host buffers instead of repacking from scratch
-        if not chunks:
+        if not chunks and not spec:
             return self._run_ragged_decode(batch, Tq)
 
         rows = [(req, req.tokens[req.cached:req.cached + n], "c")
                 for req, n in chunks]
+        rows += [(req, [req.generated[-1]] + list(d), "s")
+                 for req, d, _ in spec]
         rows += [(req, [req.generated[-1]], "d") for req in batch]
 
         B = self.max_num_seqs
@@ -1438,35 +1709,46 @@ class LLMEngine:
         bt = np.full((B + 1, self.nblk), NULL_BLOCK, np.int32)
         lidx = np.zeros((self._Lq,), np.int32)
         samp = make_samp(self._Lq, self.config.vocab_size)
-        chunk_slots, batch_slots = [], []
+        spec_slices, chunk_slots, batch_slots = [], [], []
 
         off = 0      # flat-token cursor
+        ls = 0       # logit-row cursor
         for i, (req, window, kind) in enumerate(rows):
             n = len(window)
             toks[off:off + n] = window
             cu[i + 1] = off + n
             kvl[i] = req.cached + n
-            lidx[i] = off + n - 1
-            self._fill_samp(samp, i, req)
-            (chunk_slots if kind == "c" else batch_slots).append(i)
+            if kind == "s":
+                lidx[ls:ls + n] = np.arange(off, off + n)
+                spec_slices.append((ls, n))
+                ls += n
+            else:
+                lidx[ls] = off + n - 1
+                self._fill_samp(samp, ls, req)
+                (chunk_slots if kind == "c" else batch_slots).append(ls)
+                ls += 1
             off += n
         cu[len(rows) + 1:] = off
         for i, (req, _w, _k) in enumerate(rows):
             bt[i] = self.blocks.padded_table(req.rid, self.nblk)
 
         # padding a per-phase step would have cost: a token-bucketed chunk
-        # launch plus the decode bucket
+        # launch, plus the full-width verify launch when anything
+        # speculates (folding decode rows), else the decode bucket
         tb = self.prefill_token_bucket
         ct = sum(n for _, n in chunks)
-        legacy = max(tb, -(-ct // tb) * tb)
-        if batch:
+        legacy = max(tb, -(-ct // tb) * tb) if ct else 0
+        if spec:
+            legacy += B * (self.max_spec_k + 1)
+        elif batch:
             legacy += B
         self.pad_stats["legacy_padded"] += legacy
+        # the launch packed every row's table fresh, and a post-verify
+        # truncate changes tables again: full restages next time
         self._break_decode_layout()
 
-        result = self._launch_ragged(Tq, toks, cu, kvl, bt, lidx, samp,
-                                     total)
-        return result, chunk_slots, batch_slots
+        out = self._launch_ragged(Tq, toks, cu, kvl, bt, lidx, samp, total)
+        return out, spec_slices, chunk_slots, batch_slots
 
     def _restage(self, buf, batch, layout) -> None:
         """Full repack of one decode buffer set for a new row order."""
@@ -1529,10 +1811,10 @@ class LLMEngine:
                     samp["keys"][s] = self._req_key(req)
         self._stage_tables(buf, batch)
         self.pad_stats["legacy_padded"] += self.max_num_seqs
-        result = self._launch_ragged(Tq, buf.toks, buf.cu, buf.kvl, buf.bt,
-                                     self._d_lidx, samp, n)
+        out = self._launch_ragged(Tq, buf.toks, buf.cu, buf.kvl, buf.bt,
+                                  self._d_lidx, samp, n)
         self._d_cur = bi
-        return result, [], list(range(n))
+        return out, [], [], list(range(n))
 
     def _req_key(self, req, ahead: int = 0):
         # the key for token i of request r depends only on (seed, i):

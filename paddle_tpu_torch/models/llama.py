@@ -14,6 +14,10 @@ axis with projections stored ``[in, out]``, then ``embed``, ``norm_f`` and
 ``head``.  ``LlamaForCausalLM`` builds them from an explicit generator
 (no checkpoint ships with the repository); ``from_jax_decode_params``
 carries the JAX model's weights over for the parity tests.
+
+``speculative_generate`` is batch-1 speculative decoding over two dense
+decode forwards (a draft model proposes, the target verifies a window in
+one forward), drawing from the JAX version's threefry key stream.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import torch
 from torch import nn
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "from_jax_decode_params",
-           "resolve_device"]
+           "resolve_device", "speculative_generate"]
 
 LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "gate", "up", "down")
 
@@ -318,6 +322,154 @@ class LlamaForCausalLM(nn.Module):
                                                         eos_token_id),
                                   out[-1])
         return torch.cat([ids, torch.stack(out, dim=1)], dim=1)
+
+
+def speculative_generate(target, draft, input_ids, max_new_tokens=32,
+                         gamma=4, temperature=1.0, seed=0,
+                         eos_token_id=None):
+    """Speculative decoding (Leviathan et al.): the draft model proposes
+    ``gamma`` tokens per round; the target verifies them in ONE forward and
+    accepts a prefix, resampling the first rejection from the residual
+    distribution max(p - q, 0) -- the target's own distribution, so with
+    temperature=0 the output EQUALS target-only greedy decoding.
+
+    The JAX version's ``lax.while_loop`` over rounds as a Python loop (each
+    round a gamma-step draft loop plus one (gamma+1)-token target forward
+    over static-size dense KV caches), with its key stream: ``PRNGKey(seed)``
+    split before every draw, so sampled output equals its tokens at the
+    same seed.  Batch 1.  Returns [1, S0 + max_new_tokens] int64 on the
+    target's device."""
+    ids = torch.as_tensor(input_ids, device=target.device).long()
+    if ids.shape[0] != 1:
+        raise ValueError("speculative_generate is batch-1 (latency decode)")
+    tcfg, dcfg = target.config, draft.config
+    if tcfg.vocab_size != dcfg.vocab_size:
+        raise ValueError("draft and target must share a vocabulary")
+    run = _build_speculative(tcfg, dcfg, ids.shape[1], int(max_new_tokens),
+                             int(gamma), float(temperature), eos_token_id)
+    from ..inference import prng
+    with torch.no_grad():
+        return run(target.decode_params(), draft.decode_params(), ids,
+                   prng.prng_key(seed, target.device))
+
+
+def _build_speculative(tcfg, dcfg, S0, max_new, gamma, temperature, eos_id):
+    from ..inference import prng
+
+    T = S0 + max_new + gamma + 1          # static cache/buffer bound
+    t_fwd = _make_decode_fwd(tcfg, all_logits=True)
+    d_fwd = _make_decode_fwd(dcfg, all_logits=True)
+    # prefill variants project only the LAST position's logits
+    t_fwd_last = _make_decode_fwd(tcfg, all_logits=False)
+    d_fwd_last = _make_decode_fwd(dcfg, all_logits=False)
+    V = tcfg.vocab_size
+    greedy = temperature == 0.0
+
+    def dist(logits):
+        # [*, V] logits -> sampling distribution at this temperature
+        if greedy:
+            return torch.nn.functional.one_hot(
+                torch.argmax(logits, -1), V).float()
+        return torch.softmax(logits / max(temperature, 1e-6), -1)
+
+    def caches(cfg, dt, dev):
+        d = cfg.hidden_size // cfg.num_attention_heads
+        shape = (cfg.num_hidden_layers, 1, T, cfg.num_key_value_heads, d)
+        return (torch.zeros(shape, dtype=dt, device=dev),
+                torch.zeros(shape, dtype=dt, device=dev))
+
+    def draw(key, probs):
+        # categorical over log-probabilities, one key for the whole row
+        return prng.categorical(key, torch.log(probs + 1e-30))
+
+    def run(tp, dp, ids, key):
+        dev = ids.device
+        ar = torch.arange(T, device=dev)
+
+        def mask_for(pos, s):
+            # window of s tokens at absolute positions pos..pos+s-1
+            q = pos + torch.arange(s, device=dev)
+            return ar[None, :] <= q[:, None]
+
+        t_ck, t_cv = caches(tcfg, tp["embed"].dtype, dev)
+        d_ck, d_cv = caches(dcfg, dp["embed"].dtype, dev)
+
+        # prefill BOTH models on the prompt; cur = first target-sampled
+        # token, emitted but in neither cache yet
+        pos0 = torch.arange(S0, device=dev)
+        m0 = mask_for(0, S0)
+        t_log, _, _ = t_fwd_last(tp, ids, t_ck, t_cv, pos0, m0)
+        d_fwd_last(dp, ids, d_ck, d_cv, pos0, m0)
+        key, sub = prng.split(key)
+        cur = draw(sub, dist(t_log))[0]
+
+        buf = torch.zeros((max_new + gamma + 1,), dtype=torch.long,
+                          device=dev)
+        buf[0] = cur
+        n, done = 1, False
+        arange_g1 = torch.arange(gamma + 1, device=dev)
+        while n < max_new and not done:
+            pos = S0 + n - 1                 # cur's absolute position
+
+            # -- draft proposes gamma tokens, recording q-dists
+            tok, props, qds = cur, [], []
+            for i in range(gamma):
+                lg, _, _ = d_fwd(dp, tok.view(1, 1), d_ck, d_cv,
+                                 torch.tensor([pos + i], device=dev),
+                                 mask_for(pos + i, 1))
+                qd = dist(lg[0, -1])
+                key, sub = prng.split(key)
+                tok = draw(sub, qd)
+                props.append(tok)
+                qds.append(qd)
+            props = torch.stack(props)                       # [gamma]
+            qds = torch.stack(qds)                           # [gamma, V]
+
+            # -- ONE target forward over [cur, props] (bonus slot last)
+            window = torch.cat([cur.view(1), props])         # [gamma+1]
+            t_log, _, _ = t_fwd(tp, window[None], t_ck, t_cv,
+                                pos + arange_g1, mask_for(pos, gamma + 1))
+            pds = dist(t_log[0])                             # [gamma+1, V]
+
+            # -- acceptance: props[i] vs the p-dist at window position i
+            key, sub = prng.split(key)
+            us = prng.uniform(sub, gamma, minval=0.0)
+            p_i = torch.gather(pds[:gamma], 1, props[:, None])[:, 0]
+            q_i = torch.gather(qds, 1, props[:, None])[:, 0]
+            ratio = torch.where(q_i > 0, p_i / torch.clamp_min(q_i, 1e-30),
+                                0.0)
+            acc = us < torch.clamp_max(ratio, 1.0)
+            a = gamma if bool(acc.all()) else \
+                int(torch.argmin(torch.cumprod(acc.int(), 0)))
+
+            # -- corrective / bonus token
+            resid = pds[a] - (qds[min(a, gamma - 1)] if a < gamma else 0.0)
+            resid = torch.clamp_min(resid, 0.0)
+            resid_sum = resid.sum()
+            corr = torch.where(resid_sum > 0, resid / resid_sum, pds[a])
+            key, sub = prng.split(key)
+            nxt = draw(sub, corr)
+
+            # -- emit: a accepted proposals then nxt
+            emit = torch.cat([props[:a], nxt.view(1)])
+            buf[n:n + a + 1] = emit
+            if eos_id is not None:
+                done = bool((emit == eos_id).any())
+            n += a + 1
+            cur = nxt
+        gen = buf[:max_new].clone()
+        if eos_id is not None:
+            # generate()'s freeze contract: every position after (and
+            # including padding beyond) the first eos reads eos
+            hit = gen == eos_id
+            if bool(hit.any()):
+                first = int(torch.argmax(hit.int()))
+                idx = torch.arange(max_new, device=dev)
+                gen = torch.where((idx > first) | (idx >= n),
+                                  torch.full_like(gen, eos_id), gen)
+        return torch.cat([ids, gen[None]], dim=1)
+
+    return run
 
 
 def from_jax_decode_params(cfg: LlamaConfig, params_np: dict, *,

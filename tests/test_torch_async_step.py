@@ -1,13 +1,14 @@
 """PyTorch port, the async step pipeline (``overlap=True``, the default) on
 the CPU, held against the JAX engine with the same options on the same
-weights (tests/test_async_step.py's cases, minus tp2, spec and the tracer:
-ROADMAP Queue 1 items 10, 6 and 9).
+weights (tests/test_async_step.py's cases, minus tp2 and the tracer:
+ROADMAP Queue 1 items 10 and 9).
 
 - The 16-request ragged audit stream: greedy tokens, finish reasons, pool
-  counters and padding identical to the JAX engine with overlap on and off
-  (f32, prefix cache off, int8 pages), and the port's overlap on equal to
-  its overlap off, compile counts included, with no prestage page credit
-  left over.
+  and speculation counters and padding identical to the JAX engine with
+  overlap on and off (f32, prefix cache off, int8 pages, and speculation
+  with the n-gram drafter over float and int8 pages), and the port's
+  overlap on equal to its overlap off, compile counts included, with no
+  prestage page credit left over.
 - Pipeline shape: outputs surface one ``step()`` later, ``run()`` drains
   the in-flight ticket, ``has_unfinished()`` covers it.
 - abort() while a ticket is in flight drops the victim's rows unapplied
@@ -34,10 +35,15 @@ VOCAB = 97
 CFG = JaxConfig.tiny(vocab=VOCAB, hidden=32, layers=2, heads=4, ffn=64,
                      seq=64)
 VARIANTS = {"f32": {}, "cache-off": {"enable_prefix_caching": False},
-            "int8": {"kv_dtype": "int8"}}
+            "int8": {"kv_dtype": "int8"},
+            "spec": {"drafter": "ngram", "spec_k": 3},
+            "int8-spec": {"kv_dtype": "int8", "drafter": "ngram",
+                          "spec_k": 3}}
 COUNTERS = ("preemptions", "admitted", "retired", "cache_hit_tokens",
             "cow_copies", "prefill_tokens", "decode_tokens", "engine_steps",
-            "host_round_trips")
+            "host_round_trips", "verify_steps", "verify_tokens",
+            "draft_proposed", "draft_accepted", "rollback_tokens",
+            "rollback_pages")
 
 
 class Pair:
@@ -134,6 +140,8 @@ def test_audit_stream_equals_jax_with_the_same_options(audit, variant,
     assert te.blocks.num_used == 0
     te.blocks.check_invariants()
     assert te._spec_pages == {} and te._inflight is None
+    if "spec" in variant:
+        assert te.stats.verify_steps > 0
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))

@@ -12,7 +12,9 @@ item 10).
   stream token for token; ``advance_keys`` is bit-equal to
   ``prng.request_key`` and to ``jax.random.fold_in``.
 - Scheduling seams: eos mid-window, the pool squeeze that shrinks K', the
-  fallback to the per-step path, abort mid-window, round-trip accounting.
+  fallback to the per-step path, abort mid-window, round-trip accounting,
+  and a row that may speculate keeping the window off (the JAX engine's
+  gate), while requests with speculation off still run windows.
 - The trap of the walk: every window iteration calls attention with a
   non-decreasing seg, also with a row frozen in the middle of the batch,
   and frozen rows write their K/V only to the null page.  A window whose
@@ -160,6 +162,34 @@ def test_k1_engine_runs_no_window(pair, sync_ref):
     eng = _port(pair)                       # overlap on, K=1
     _drive(eng, _audit_stream(4))
     assert "scan" not in eng.compile_counts
+
+
+@pytest.mark.parametrize("spec_k", [4, 0], ids=["speculating", "spec-off"])
+def test_speculating_rows_keep_the_window_off(pair, sync_ref, spec_k):
+    """With a drafter, a row that may speculate next step keeps the window
+    off (verify rows ride the per-step launch), as in the JAX engine;
+    requests that ask spec_k=0 run windows again.  Greedy tokens equal the
+    synchronous K=1 stream either way."""
+    _, sync_out = sync_ref("f32")
+    opts = dict(decode_window=4, drafter="ngram", spec_k=spec_k)
+    eng, je = _port(pair, **opts), _jax(pair, **opts)
+    windows = []
+    launch = eng._launch_window
+    eng._launch_window = lambda iters, *a: windows.append(iters) \
+        or launch(iters, *a)
+    out = _drive(eng, _audit_stream())
+    assert _tokens(out) == _tokens(sync_out)
+    assert _tokens(_drive(je, _audit_stream())) == _tokens(out)
+    for key in ("host_round_trips", "decode_rounds", "verify_steps",
+                "draft_proposed", "engine_steps"):
+        assert getattr(eng.stats, key) == getattr(je.stats, key), key
+    if spec_k:
+        assert windows == [] and "scan" not in eng.compile_counts
+        assert eng.stats.verify_steps > 0
+    else:
+        assert windows and eng.compile_counts["scan"] == 1
+        assert eng.stats.verify_steps == 0
+    assert eng.blocks.num_used == 0 and eng._spec_pages == {}
 
 
 def test_window_with_overlap_off_equals_overlap_on(pair, sync_ref):

@@ -27,6 +27,17 @@ int8-page attention and dequant matmul launch to its plain version;
 ``engine_spec_bf16`` (32 layers, the n-gram drafter at spec_k 4 and 8: a
 gate run holding every attention launch that carries verify rows to its
 plain version, controls, no dispatch synchronizing, a profile),
+``engine_tiers_f32`` (2 layers in float32: the host KV spill tier on and
+off over float and int8 pages, restored pages equal to the bytes the tier
+held, the tracer's Chrome JSON, an in-flight crash recovered under
+``EngineRunner`` with no leaked pools, two sampled replicas equal to one
+engine, no dispatch synchronizing), ``frontend_bf16`` (32 layers in
+bfloat16 served over HTTP by ``serve_background`` with two replicas, the
+tracer, the flight recorder and host tiers: 16 requests, SSE and unary,
+greedy and sampled, a gate holding every attention launch to its plain
+version, TTFT/ITL and the idle share as readings) and ``frontend_cli``
+(``python -m paddle_tpu_torch.inference.frontend --model llama-sm`` as a
+subprocess: one streamed request, then SIGINT drains it to exit 0),
 and trains through ``build_train_step`` at the
 350M GQA LLaMA bench configuration: ``train_f32`` (2 layers in float32,
 three steps on the kernels against three on the plain versions) and
@@ -1383,7 +1394,7 @@ def sampling_cost(model) -> dict:
         return torch.from_numpy(samp["keys"].astype(np.int64)).to(DEV)
     k = dev_keys()
     checks = {"graph_equals_eager": torch.equal(
-        prng._gumbel_graphed(k, V).clone(), prng.gumbel(k, V)),
+        prng._gumbel_graphed(k, V)[0].clone(), prng.gumbel(k, V)),
         "bits_equal_cpu": torch.equal(prng.random_bits(k, V).cpu(),
                                       prng.random_bits(k.cpu(), V))}
     calls = {"sample_tokens": lambda: sampling.sample_tokens(logits, samp),
@@ -2209,6 +2220,672 @@ def phase_engine_spec_bf16(state):
                                          requests[:8]], drafter="ngram")
     del model
     free_engines()
+    return rec["ok"]
+
+
+# the host tiers' phases: the spill tier's returning-user stream (4 users'
+# 64-token prompts, 8 new tokens each, one request a step) on a pool of
+# 17 usable pages, the size of test_kv_tier.py's starved pool at page 16
+TIER_USERS, TIER_PROMPT, TIER_NEW, TIER_REQUESTS = 4, 64, 8, 32
+TIER_OPTS = dict(max_num_seqs=4, max_model_len=256, num_blocks=18,
+                 max_prefill_tokens=128, prefill_token_bucket=64)
+# the recovery check's slack on the card's allocated bytes: a share of one
+# engine's page pools
+LEAK_SHARE = 0.05
+# bound on every wait for a request, a server or a subprocess
+WAIT_S = 300.0
+
+
+def tier_stream(V):
+    """[(submit step, prompt, new tokens)]: returning users, in turn."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 5)
+    users = [rng.integers(0, V, TIER_PROMPT).tolist()
+             for _ in range(TIER_USERS)]
+    return [(i, users[int(u)], TIER_NEW)
+            for i, u in enumerate(rng.integers(0, TIER_USERS,
+                                               TIER_REQUESTS))]
+
+
+def drive_stream(eng, stream):
+    """Step ``eng`` through ``stream`` from this thread, submitting each
+    request at its step; returns {rid: generated} and the wall seconds."""
+    import torch
+    outs, step_no, pending = {}, 0, list(stream)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while pending or eng.has_unfinished():
+        while pending and pending[0][0] <= step_no:
+            _, prompt, new = pending.pop(0)
+            eng.add_request(prompt, max_new_tokens=new)
+        for out in eng.step():
+            outs[out.rid] = out.generated
+        step_no += 1
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def syncs_counted(log, key):
+    """Count into ``log[key]`` the synchronizing CUDA calls made inside the
+    block (torch's sync debug mode, "warn")."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    log[key] = log.get(key, 0) + len(syncs)
+    log["sync_messages"] = (log.get("sync_messages", []) + syncs)[:4]
+
+
+def tier_counters(log):
+    """Wrap an engine for the tier runs: syncs counted inside every
+    ``_dispatch`` and ``_prestage`` and, apart, inside the drain; after
+    every drain, each page restored in it read back from the pools and
+    held to the bytes the tier gave up for it, scales included."""
+    import torch
+    log.update(dispatch_syncs=0, prestage_syncs=0, drain_syncs=0,
+               restored_checked=0, restored_mismatched=0, drains=0)
+
+    def setup(eng):
+        dispatch, prestage, drain = (eng._dispatch, eng._prestage,
+                                     eng._drain_kv_tier)
+        taken = []
+        if eng.kv_tier is not None:
+            take = eng.kv_tier.take
+
+            def counted_take(h):
+                entry = take(h)
+                if entry is not None:
+                    taken.append(entry)
+                return entry
+            eng.kv_tier.take = counted_take
+
+        def checked_dispatch():
+            with syncs_counted(log, "dispatch_syncs"):
+                dispatch()
+
+        def checked_prestage():
+            with syncs_counted(log, "prestage_syncs"):
+                prestage()
+
+        def checked_drain():
+            taken.clear()
+            with syncs_counted(log, "drain_syncs"):
+                drain()
+            log["drains"] += 1
+            pools = {"kc": eng._kc, "vc": eng._vc}
+            if eng.kv_dtype == "int8":
+                pools.update(ks=eng._ks, vs=eng._vs)
+            for entry in taken:
+                blk = eng.blocks._hash_to_block[entry["hashes"][0]]
+                log["restored_checked"] += 1
+                log["restored_mismatched"] += not all(
+                    torch.equal(p[:, blk].cpu(), entry["arrays"][k])
+                    for k, p in pools.items())
+
+        eng._dispatch = checked_dispatch
+        eng._prestage = checked_prestage
+        eng._drain_kv_tier = checked_drain
+    return setup
+
+
+def tier_run(model, stream, kv_dtype, tier_bytes, tracer=None,
+             trace_path=None):
+    """One run of the tier stream on a fresh engine stepped from this
+    thread, under a degradation controller, with a host tier of
+    ``tier_bytes`` (0: none); a traced run dumps its trace to
+    ``trace_path``: (record, tokens by rid)."""
+    from paddle_tpu_torch.inference import (DegradationController,
+                                            HostSpillPool, LLMEngine)
+    log = {}
+    eng = LLMEngine(model, device=DEV, block_size=BS, kv_dtype=kv_dtype,
+                    pressure=DegradationController(), tracer=tracer,
+                    kv_tier=HostSpillPool(tier_bytes) if tier_bytes
+                    else None, **TIER_OPTS)
+    tier_counters(log)(eng)
+    ladder = eng.precompile_buckets()
+    compiles = dict(eng.compile_counts)
+    reset_launch_counts()
+    outs, seconds = drive_stream(eng, stream)
+    launches = launch_counts()
+    s = eng.stats.snapshot()
+    eng.blocks.check_invariants()
+    rec = {"kv_dtype": kv_dtype, "tier_bytes": tier_bytes,
+           "traced": tracer is not None, "wall_s": seconds,
+           "ladder": list(ladder),
+           "compiles_unmoved": eng.compile_counts == compiles,
+           "launches": launches,
+           "launches_as_expected": launches == expected_launches(
+               eng, s["engine_steps"]),
+           "finished_with_right_count": len(outs) == len(stream) and all(
+               len(g) == TIER_NEW for g in outs.values()),
+           **{k: s[k] for k in (
+               "engine_steps", "kv_pages_spilled", "kv_pages_restored",
+               "kv_spill_dropped", "spill_tier_hit_rate",
+               "cache_miss_tokens", "cache_hit_tokens", "preemptions",
+               "parked_evictions", "quarantined")},
+           "degradation_tier_entries": eng.degradation_tier_entries,
+           "pool_used_after": eng.blocks.num_used,
+           **{k: v for k, v in log.items()}}
+    if tracer is not None:
+        rec["trace_events"] = eng.dump_trace(trace_path)
+    del eng
+    free_engines()
+    return rec, outs
+
+
+def recovery_requests(V, n, sampled_every, new):
+    """n requests, prompts 20-200 tokens; every ``sampled_every``-th at
+    T=0.8 with its own seed (all when 1)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 6)
+    return [(rng.integers(0, V, int(rng.integers(20, 201))).tolist(), new,
+             {"temperature": 0.8, "seed": 100 + i}
+             if i % sampled_every == sampled_every - 1 else {})
+            for i in range(n)]
+
+
+def direct_tokens(eng, requests):
+    """Serve ``requests`` through ``eng`` from this thread: tokens by
+    request index."""
+    import torch
+    rids = [eng.add_request(p, max_new_tokens=mx, **o)
+            for p, mx, o in requests]
+    outs = {}
+    while eng.has_unfinished():
+        for out in eng.step():
+            outs[out.rid] = out.generated
+    torch.cuda.synchronize()
+    return [outs[r] for r in rids]
+
+
+def submit_all(runner, requests):
+    """Submit through a runner or a router and collect every stream:
+    [(streamed tokens, finish output)] in request order."""
+    import queue
+    qs = []
+    for p, mx, o in requests:
+        q = queue.Queue()
+        runner.submit(p, deliver=q.put_nowait, max_new_tokens=mx, **o)
+        qs.append(q)
+    streams = []
+    for q in qs:
+        toks = []
+        while True:
+            kind, val = q.get(timeout=WAIT_S)
+            if kind == "finish":
+                streams.append((toks, val))
+                break
+            toks.append(val)
+    return streams
+
+
+def phase_engine_tiers_f32(state):
+    """2 of LLaMA-7B's 32 layers in f32 (TF32 off), the serving host tiers
+    on the card.  Tier: the returning-user stream on a 17-page pool under
+    a degradation controller, float and int8 pages, host tier off and on
+    (and on with a tracer for float pages), each engine stepped from this
+    thread: greedy tokens identical across the runs, pages spilled and
+    restored, every restored page read back from the pools equal to the
+    bytes the tier held (scales included), no bucket added, the launches
+    those of the steps, no synchronizing call inside any dispatch or
+    prestage (the drain's are counted apart); the traced run's
+    ``dump_trace`` is Chrome JSON with ``engine.device_inflight`` and the
+    tier's spill and restore instants.  Recovery: an in-flight crash
+    under ``EngineRunner`` with an engine factory, 8 requests (every
+    second sampled), gives the streams one engine gives from this thread,
+    and the card's allocated bytes (cuBLAS's per-thread workspaces
+    cleared on both sides) come back to within LEAK_SHARE of one engine's
+    pools of their value before the crash (the dead engine dropped its
+    pools).  Replicas: two replicas through
+    ``build_replicas`` behind a ``least`` router, 8 sampled requests,
+    give the tokens one engine gives from this thread (two stepping
+    threads sharing the sampler's graphed draw)."""
+    import gc
+    import json as _json
+    import os
+    import tempfile
+    import torch
+    from paddle_tpu_torch.inference import FaultPlan, LLMEngine
+    from paddle_tpu_torch.inference.frontend import (EngineRunner,
+                                                     ReplicaRouter,
+                                                     build_replicas)
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.profiler import Tracer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig.llama_7b()
+    cfg.num_hidden_layers = 2
+    model = LlamaForCausalLM(cfg, device=DEV, dtype=torch.float32,
+                             generator=SEED)
+    V = cfg.vocab_size
+    stream = tier_stream(V)
+    tiers, toks = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = os.path.join(tmp, "engine_tiers_trace.json")
+        for dt in ("float32", "int8"):
+            for name, nbytes, tracer in (("off", 0, None),
+                                         ("on", 1 << 30, None),
+                                         ("traced", 1 << 30, Tracer())):
+                if name == "traced" and dt == "int8":
+                    continue
+                key = f"{dt}_{name}"
+                tiers[key], toks[key] = tier_run(model, stream, dt, nbytes,
+                                                 tracer, trace_path)
+        with open(trace_path) as f:
+            trace = _json.load(f)
+    names = {e["name"] for e in trace["traceEvents"]}
+
+    def factory():
+        return LLMEngine(model, device=DEV, max_num_seqs=8, block_size=BS,
+                         max_model_len=MAX_MODEL_LEN,
+                         max_prefill_tokens=512, prefill_token_bucket=64,
+                         retain_outputs=False)
+
+    requests = recovery_requests(V, 8, 2, 24)
+    want = direct_tokens(factory(), requests)
+    free_engines()
+    plan = FaultPlan(seed=SEED, inflight_crash_steps=(6,))
+    eng = factory()
+    eng.set_fault_plan(plan)
+    pool_bytes = eng._kc.nbytes + eng._vc.nbytes
+    # cuBLAS keeps a workspace per host thread in the caching allocator;
+    # the runner's thread adds one, so the comparison drops them
+    clear_workspaces = getattr(torch._C, "_cuda_clearCublasWorkspaces",
+                               lambda: None)
+    torch.cuda.synchronize()
+    clear_workspaces()
+    mem_before = torch.cuda.memory_allocated()
+    runner = EngineRunner(eng, engine_factory=factory).start()
+    try:
+        streams = submit_all(runner, requests)
+    finally:
+        drained = runner.drain(timeout_s=WAIT_S)
+    fin = runner.engine
+    recovered = {"restarts": runner.restarts,
+                 "faults": dict(fin.stats.fault_injections),
+                 "plan_exhausted": plan.exhausted(),
+                 "dead_engine_closed": eng._kc is None,
+                 "drained": drained, "pool_used_after": fin.blocks.num_used}
+    del eng
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_with_workspaces = torch.cuda.memory_allocated()
+    clear_workspaces()
+    mem_after = torch.cuda.memory_allocated()
+    recovered.update(
+        pool_bytes=pool_bytes, allocated_before=mem_before,
+        allocated_after=mem_after,
+        allocated_after_with_workspaces=mem_with_workspaces,
+        streams_equal_direct=[t == w and out.generated == w
+                              for (t, out), w in zip(streams, want)])
+    del fin, runner
+    free_engines()
+
+    sampled = recovery_requests(V, 8, 1, 16)
+    want_sampled = direct_tokens(factory(), sampled)
+    free_engines()
+    router = ReplicaRouter(build_replicas(factory(), factory, 2),
+                           policy="least").start()
+    try:
+        rep_streams = submit_all(router, sampled)
+    finally:
+        rep_drained = router.drain(timeout_s=WAIT_S)
+    replicas = {"drained": rep_drained,
+                "per_replica": [e.stats.retired for e in router.engines],
+                "equal_one_engine": [t == w and out.generated == w
+                                     for (t, out), w in
+                                     zip(rep_streams, want_sampled)]}
+    del router
+    free_engines()
+
+    base = toks["float32_off"]
+    checks = {
+        "tier_greedy_identical_off_on_traced": all(
+            toks[k] == base for k in toks if k.startswith("float32")),
+        "tier_int8_identical_off_on": toks["int8_on"] == toks["int8_off"],
+        "tier_spilled_and_restored": all(
+            tiers[k]["kv_pages_spilled"] > 0
+            and tiers[k]["kv_pages_restored"] > 0
+            for k in tiers if not k.endswith("off")),
+        "tier_off_never_spills": all(
+            tiers[k]["kv_pages_spilled"] == 0
+            for k in tiers if k.endswith("off")),
+        "restored_bytes_equal_held": all(
+            t["restored_mismatched"] == 0 for t in tiers.values())
+        and all(tiers[k]["restored_checked"] == tiers[k]["kv_pages_restored"]
+                for k in tiers),
+        "tier_runs_clean": all(
+            t["finished_with_right_count"] and t["compiles_unmoved"]
+            and t["launches_as_expected"] and t["quarantined"] == 0
+            and t["pool_used_after"] == 0 for t in tiers.values()),
+        "no_sync_in_dispatch_or_prestage": all(
+            t["dispatch_syncs"] == 0 and t["prestage_syncs"] == 0
+            for t in tiers.values()),
+        "trace_json_has_inflight_spill_restore": {
+            "engine.device_inflight", "kv_tier.spill",
+            "kv_tier.restore"} <= names,
+        "recovery_restarted_once": recovered["restarts"] == 1
+        and recovered["faults"] == {"inflight_crash": 1}
+        and recovered["plan_exhausted"] and recovered["dead_engine_closed"]
+        and recovered["drained"] and recovered["pool_used_after"] == 0,
+        "recovery_streams_byte_identical": all(
+            recovered["streams_equal_direct"]),
+        "recovery_no_leaked_pools": abs(mem_after - mem_before)
+        <= LEAK_SHARE * pool_bytes,
+        "replicas_sampled_equal_one_engine": replicas["drained"]
+        and all(replicas["equal_one_engine"])
+        and min(replicas["per_replica"]) > 0}
+    rec = {"phase": "engine_tiers_f32", "ok": all(checks.values()),
+           "checks": checks, "layers": cfg.num_hidden_layers,
+           "tier_runs": tiers, "trace_names": sorted(names),
+           "recovery": recovered,
+           "replicas": replicas,
+           "attention_launches": sum(
+               t["launches"]["attention"] for t in tiers.values()),
+           "attention_q8_launches": sum(
+               t["launches"]["attention_q8"] for t in tiers.values())}
+    emit(rec)
+    state["engine_tiers_f32"] = rec
+    del model
+    free_engines()
+    return rec["ok"]
+
+
+# the frontend phase's load: 16 requests over HTTP, prompts 17-300 tokens,
+# 8-24 new tokens; even ones streamed (SSE), odd ones unary; the last two
+# of every four sampled at T=0.8
+FRONTEND_REQUESTS = 16
+
+
+def frontend_requests(V):
+    import numpy as np
+    rng = np.random.default_rng(SEED + 7)
+    return [{"prompt": rng.integers(0, V, int(rng.integers(17, 301)))
+             .tolist(), "max_tokens": int(rng.integers(8, 25)),
+             "stream": i % 2 == 0,
+             **({"temperature": 0.8, "seed": 200 + i} if i % 4 >= 2
+                else {})} for i in range(FRONTEND_REQUESTS)]
+
+
+def http_call(port, body):
+    """One completion over HTTP: (status, tokens, finish reason)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=WAIT_S)
+    try:
+        conn.request("POST", "/v1/completions",
+                     body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if not body.get("stream") or resp.status != 200:
+            doc = json.loads(resp.read())
+            if resp.status != 200:
+                return resp.status, [], None
+            ch = doc["choices"][0]
+            return 200, ch["token_ids"], ch["finish_reason"]
+        toks, finish, buf = [], None, b""
+        while True:
+            chunk = resp.read(256)
+            if not chunk:
+                break
+            buf += chunk
+            while b"\n\n" in buf:
+                frame, buf = buf.split(b"\n\n", 1)
+                data = frame.partition(b"data: ")[2].decode()
+                if data == "[DONE]":
+                    return 200, toks, finish
+                ch = json.loads(data)["choices"][0]
+                if ch["finish_reason"] is None:
+                    toks.append(ch["token"])
+                else:
+                    finish = ch["finish_reason"]
+        return 200, toks, finish
+    finally:
+        conn.close()
+
+
+def http_get(port, path):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=WAIT_S)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def http_load(port, bodies):
+    """Send every request at once, one client thread each; results in
+    order and the wall seconds."""
+    import threading
+    out = [None] * len(bodies)
+
+    def one(i):
+        out[i] = http_call(port, bodies[i])
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(WAIT_S)
+    seconds = time.perf_counter() - t0
+    assert not any(t.is_alive() for t in threads), "a client hung"
+    return out, seconds
+
+
+def metric_samples(text, name):
+    """{label string: value} of one metric's samples."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(f"paddle_tpu_{name}{{"):
+            labels, _, value = line[len(f"paddle_tpu_{name}"):] \
+                .rpartition(" ")
+            out[labels] = float(value)
+    return out
+
+
+def phase_frontend_bf16(state):
+    """LLaMA-7B, 32 layers in bf16, served over HTTP: ``serve_background``
+    on 127.0.0.1 (port 0) with two replicas (one engine factory over the
+    shared weights), the tracer, the flight recorder, windowed telemetry
+    and a host tier on each.  After two warm-up requests, the 16 requests
+    of ``frontend_requests`` (8 SSE, 8 unary, half greedy, half sampled)
+    run on the kernels alone under torch.profiler (the card's kernels
+    only): every request must finish with its length, and the float
+    attention kernel's launches must be the layers times the steps the two
+    engines took.  The readings: TTFT and ITL p50/p95 as /metrics reports
+    them (the 60 s window, warm-up included), the wall time and the
+    device's idle share.  Then the same load again with every attention
+    call held to the plain version on the same inputs (the server goes on
+    with the kernel's output): every call within the per-launch
+    tolerance, its output finite.  /metrics, /slo and /debug/trace must
+    parse."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.inference import HostSpillPool, LLMEngine
+    from paddle_tpu_torch.inference.frontend import serve_background
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.profiler import Tracer
+    free_engines()
+    model = llama_7b_bf16()
+    L = model.config.num_hidden_layers
+
+    def factory():
+        return LLMEngine(model, device=DEV, max_num_seqs=8, block_size=BS,
+                         max_model_len=MAX_MODEL_LEN,
+                         max_prefill_tokens=512, prefill_token_bucket=64,
+                         retain_outputs=False,
+                         kv_tier=HostSpillPool(1 << 30))
+
+    bodies = frontend_requests(model.config.vocab_size)
+    srv = serve_background(factory(), model_name="llama-7b",
+                           host="127.0.0.1", engine_factory=factory,
+                           replicas=2, tracer=Tracer(), flight_capacity=64,
+                           slo_config={"ttft_p95_ms": 500.0})
+    engines = srv.frontend.runner.engines
+    try:
+        warm, _ = http_load(srv.port, bodies[:2])
+        for e in engines:
+            e.stats.reset()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            served, seconds = http_load(srv.port, bodies)
+            torch.cuda.synchronize()
+        launches = launch_counts()
+        steps = [e.summary()["engine_steps"] for e in engines]
+        status_m, metrics = http_get(srv.port, "/metrics")
+        status_s, slo = http_get(srv.port, "/slo")
+        status_t, trace = http_get(srv.port, "/debug/trace")
+        metrics = metrics.decode()
+        slo_doc, trace_doc = json.loads(slo), json.loads(trace)
+
+        errs, finite = [], []
+
+        def held(q, kc, vc, bt, seg, rel):
+            ref = plain_attention(q, kc, vc, bt, seg, rel)
+            out = kernel_attention(q, kc, vc, bt, seg, rel)
+            finite.append(bool(torch.isfinite(out).all()))
+            errs.append(errors(out, ref))
+            return out
+
+        for e in engines:
+            e.stats.reset()
+        entry = pa.ragged_paged_attention_segrel_packed
+        pa.ragged_paged_attention_segrel_packed = held
+        try:
+            gated, gate_seconds = http_load(srv.port, bodies)
+        finally:
+            pa.ragged_paged_attention_segrel_packed = entry
+        gate_steps = [e.summary()["engine_steps"] for e in engines]
+    finally:
+        stopped = srv.stop()
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and not e.key.startswith("llm_engine.")]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    lat = metric_samples(metrics, "windowed_latency_seconds")
+
+    def q(channel, quantile):
+        key = f'{{channel="{channel}",quantile="{quantile}",window="60s"}}'
+        return None if lat.get(key) is None else lat[key] * 1e3
+
+    def right(results):
+        return [r[0] == 200 and r[2] == "length"
+                and len(r[1]) == b["max_tokens"]
+                for r, b in zip(results, bodies)]
+
+    gate_err = worst(errs) if errs else {}
+    checks = {
+        "warmup_served": all(r[0] == 200 for r in warm),
+        "every_request_finished_with_its_length": all(right(served)),
+        "gated_requests_finished_with_their_length": all(right(gated)),
+        "launches_equal_layers_x_steps":
+            launches["attention"] == L * sum(steps) > 0
+            and launches["attention_q8"] == launches["qmm"] == 0,
+        "both_replicas_served": min(steps) > 0,
+        "gate_held_every_call": len(errs) == L * sum(gate_steps) > 0,
+        "gate_outputs_finite": all(finite),
+        "per_launch_kernel_vs_plain": within(gate_err, "bfloat16",
+                                             ENGINE_MEASURES),
+        "metrics_slo_trace_parse": status_m == status_s == status_t == 200
+        and "paddle_tpu_requests_finished_total" in metrics
+        and "slo" in slo_doc and bool(trace_doc["traceEvents"]),
+        "server_drained": stopped}
+    rec = {"phase": "frontend_bf16", "ok": all(checks.values()),
+           "checks": checks, "layers": L, "replicas": len(engines),
+           "requests": len(bodies),
+           "streamed": sum(1 for b in bodies if b["stream"]),
+           "sampled": sum(1 for b in bodies if "temperature" in b),
+           "new_tokens": sum(b["max_tokens"] for b in bodies),
+           "wall_s": seconds, "steps_by_replica": steps,
+           "launches": launches, "kernel_launches": launches["attention"],
+           "ttft_p50_ms": q("ttft", "0.5"), "ttft_p95_ms": q("ttft", "0.95"),
+           "itl_p50_ms": q("itl", "0.5"), "itl_p95_ms": q("itl", "0.95"),
+           "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / (seconds * 1e3)
+           if busy_ms else "not measured",
+           "gate_wall_s": gate_seconds, "gate_calls": len(errs),
+           "per_launch_errors": gate_err, "per_launch_tolerance": {
+               k: TOLERANCE["bfloat16"][k] for k in ENGINE_MEASURES},
+           "slo_state": slo_doc.get("slo_state_name"),
+           "trace_events": len(trace_doc["traceEvents"]),
+           "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    state["frontend_bf16"] = rec
+    del srv, engines, model
+    free_engines()
+    return rec["ok"]
+
+
+def phase_frontend_cli(state):
+    """``python -m paddle_tpu_torch.inference.frontend --model llama-sm``
+    on a free port as a subprocess on its default device (the card): it
+    must say it listens, answer one streamed request through http.client
+    with its length, and on SIGINT drain and exit 0."""
+    import os
+    import queue
+    import signal
+    import socket
+    import threading
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.inference.frontend",
+         "--model", "llama-sm", "--port", str(port)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True)
+    reader.start()
+    out, listening, result, rc = [], False, None, None
+    t0 = time.perf_counter()
+    try:
+        while time.perf_counter() - t0 < WAIT_S and proc.poll() is None:
+            try:
+                ln = lines.get(timeout=1.0)
+            except queue.Empty:
+                continue
+            out.append(ln.rstrip())
+            if "listening on" in ln:
+                listening = True
+                break
+        if listening:
+            result = http_call(port, {"prompt": list(range(1, 9)),
+                                      "max_tokens": 8, "stream": True})
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=WAIT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(10.0)
+    while not lines.empty():
+        out.append(lines.get().rstrip())
+    checks = {"listening": listening,
+              "streamed_its_length": result is not None
+              and result[0] == 200 and len(result[1]) == 8
+              and result[2] == "length",
+              "sigint_drained_exit_0": rc == 0
+              and any("drained" in ln for ln in out)}
+    rec = {"phase": "frontend_cli", "ok": all(checks.values()),
+           "checks": checks, "tokens": result and result[1],
+           "exit_code": rc, "output": out[-8:],
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    state["frontend_cli"] = rec
     return rec["ok"]
 
 
@@ -4487,15 +5164,19 @@ def kernel_records(state) -> list:
         "launches": state["engine_bf16"]["kernel_launches"]
         + state["engine_w4"]["launches"]["attention"]
         + state["engine_window_bf16"]["kernel_launches"]
-        + state["engine_spec_bf16"]["kernel_launches"],
+        + state["engine_spec_bf16"]["kernel_launches"]
+        + state["frontend_bf16"]["kernel_launches"],
         "launches_by_phase": {
             "engine_bf16": state["engine_bf16"]["kernel_launches"],
             "engine_w4": state["engine_w4"]["launches"]["attention"],
             "engine_window_bf16":
                 state["engine_window_bf16"]["kernel_launches"],
             "engine_spec_bf16": state["engine_spec_bf16"]["kernel_launches"],
+            "frontend_bf16": state["frontend_bf16"]["kernel_launches"],
             "engine_f32": state["engine_f32"]["kernel_launches"],
-            "engine_spec_f32": state["engine_spec_f32"]["kernel_launches"]},
+            "engine_spec_f32": state["engine_spec_f32"]["kernel_launches"],
+            "engine_tiers_f32":
+                state["engine_tiers_f32"]["attention_launches"]},
         "max_abs_err": max(e["abs"] for e in errs.values()),
         "errors_by_case": errs,
         "ms": timing["ms"], "kernel_ms": timing["ms"],
@@ -4512,13 +5193,16 @@ def kernel_records(state) -> list:
         "tpu_kernel": "paged_attention.py::_ragged_quant_kernel",
         "launches": state["engine_w8kv8"]["launches"]["attention_q8"]
         + state["engine_window_w8kv8"]["launches"]["attention_q8"]
-        + state["engine_spec_f32"]["quant_launches"]["attention_q8"],
+        + state["engine_spec_f32"]["quant_launches"]["attention_q8"]
+        + state["engine_tiers_f32"]["attention_q8_launches"],
         "launches_by_phase": {
             "engine_w8kv8": state["engine_w8kv8"]["launches"]["attention_q8"],
             "engine_window_w8kv8":
                 state["engine_window_w8kv8"]["launches"]["attention_q8"],
             "engine_spec_f32":
-                state["engine_spec_f32"]["quant_launches"]["attention_q8"]},
+                state["engine_spec_f32"]["quant_launches"]["attention_q8"],
+            "engine_tiers_f32":
+                state["engine_tiers_f32"]["attention_q8_launches"]},
         "max_abs_err": max(e["abs"] for e in errs_q8.values()),
         "errors_by_case": errs_q8,
         "ms": t_q8["ms"], "plain_ms": t_q8["plain_ms"],
@@ -4617,7 +5301,10 @@ def main() -> int:
                      ("engine_window_bf16", phase_engine_window_bf16),
                      ("engine_window_w8kv8", phase_engine_window_w8kv8),
                      ("engine_spec_f32", phase_engine_spec_f32),
+                     ("engine_tiers_f32", phase_engine_tiers_f32),
                      ("engine_spec_bf16", phase_engine_spec_bf16),
+                     ("frontend_bf16", phase_frontend_bf16),
+                     ("frontend_cli", phase_frontend_cli),
                      ("train_f32", phase_train_f32),
                      ("train_bf16", phase_train_bf16),
                      ("blha_f32", phase_blha_f32),

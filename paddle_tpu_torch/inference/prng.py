@@ -27,6 +27,8 @@ since torch and XLA round ``log`` apart (each within an ulp of exact).
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -122,15 +124,21 @@ def gumbel(key, n: int) -> torch.Tensor:
 
 # gumbel(key, n) as a CUDA graph, by (key shape, n, device): the hash is
 # about 170 elementwise ops, whose launches would cost the host more than
-# the card's work
+# the card's work.  One graph, key buffer and output buffer serve every
+# thread: the lock holds the key copy, the replay and the caller's use of
+# the output together, and each replay waits on the card for the last
+# use of that output (``_GRAPHS`` entry [3]), so two stepping threads (a
+# router's replicas) never read each other's noise.
 _GRAPHS: dict = {}
+_GRAPHS_LOCK = threading.Lock()
 
 
-def _gumbel_graphed(key, n: int) -> torch.Tensor:
+def _gumbel_graphed(key, n: int) -> tuple:
     """``gumbel(key, n)`` for a key on a CUDA device, replayed from a graph
     captured at its first call: one launch for the host, the same kernels
-    on the card.  The result is the graph's output buffer, overwritten by
-    the next replay of the same signature."""
+    on the card.  Call with ``_GRAPHS_LOCK`` held.  Returns (the graph's
+    output buffer, overwritten by the next replay of the same signature,
+    and the signature), for ``categorical`` to mark the buffer used."""
     sig = (tuple(key.shape), n, key.device)
     if sig not in _GRAPHS:
         static = torch.zeros_like(key)
@@ -143,11 +151,14 @@ def _gumbel_graphed(key, n: int) -> torch.Tensor:
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 out = gumbel(static, n)
-        _GRAPHS[sig] = (graph, static, out)
-    graph, static, out = _GRAPHS[sig]
+        _GRAPHS[sig] = [graph, static, out, None]
+    graph, static, out, used = _GRAPHS[sig]
+    if used is not None:
+        # the previous caller may have used the output on another stream
+        torch.cuda.current_stream(key.device).wait_event(used)
     static.copy_(key)
     graph.replay()
-    return out
+    return out, sig
 
 
 def categorical(key, logits) -> torch.Tensor:
@@ -157,10 +168,15 @@ def categorical(key, logits) -> torch.Tensor:
     call); keys ``[B, 2]`` with ``logits [B, V]`` draw row ``b`` from key
     ``b`` (as ``vmap`` of the single-row call does)."""
     key = torch.as_tensor(key).to(logits.device, torch.int64)
-    draw = _gumbel_graphed if logits.is_cuda else gumbel
     shape = logits.shape
-    if key.dim() == 1:
-        g = draw(key, int(np.prod(shape))).view(shape)
-    else:
-        g = draw(key, shape[-1])
-    return torch.argmax(g + logits.float(), dim=-1)
+    n = int(np.prod(shape)) if key.dim() == 1 else shape[-1]
+    if not logits.is_cuda:
+        return torch.argmax(gumbel(key, n).view(shape) + logits.float(),
+                            dim=-1)
+    with _GRAPHS_LOCK:
+        g, sig = _gumbel_graphed(key, n)
+        pick = torch.argmax(g.view(shape) + logits.float(), dim=-1)
+        used = torch.cuda.Event()
+        used.record(torch.cuda.current_stream(logits.device))
+        _GRAPHS[sig][3] = used
+    return pick

@@ -66,9 +66,20 @@ to the port's dense ``generate()``, with the prefix cache on or off.
   ``BlockManager.truncate``.  Per-request ``spec_k`` opts in, and a low
   acceptance rate turns speculation off for that request.
 
-The engine options of later slices (the host tiers, tensor parallelism)
-raise ``NotImplementedError`` naming their ROADMAP item.  The engine is
-single-threaded: add_request/step/abort are called from one thread.
+- The host tiers: a ``HostSpillPool`` (inference/kv_tier.py) below the
+  page pool, which the step-boundary drain spills parked pages to and
+  restores returning prefixes from in place; a ``FaultPlan``
+  (inference/faults.py) firing deterministic faults at the step seams; a
+  ``DegradationController`` (inference/pressure.py) shedding load in
+  tiers before preemption; a ``Tracer`` (profiler/trace.py) and a
+  ``FlightRecorder`` (inference/flight.py) recording the step timeline
+  and each request's lifecycle.  With none installed each seam is one
+  attribute check.
+
+Tensor parallelism (tp > 1) raises ``NotImplementedError`` naming its
+ROADMAP item.  The engine is single-threaded: add_request/step/abort are
+called from one thread (the frontend's EngineRunner owns it), apart from
+``prefetch_hint``.
 """
 from __future__ import annotations
 
@@ -85,8 +96,11 @@ from ..ops import paged_attention as _pa
 from ..ops import quant_matmul as _qm
 from ..profiler.serving import ServingStats
 from . import prng
-from .kv_cache import NULL_BLOCK, BlockManager, BlockPoolExhausted
+from .faults import InjectedFault
+from .kv_cache import (NULL_BLOCK, BlockManager, BlockPoolExhausted,
+                       prefix_chain_hashes)
 from .policy import pack_prefill_chunks
+from .pressure import STATE_NAMES as _TIER_NAMES
 from .sampling import (advance_keys, make_samp, samp_to_device,
                        sample_tokens, sample_tokens_device, sampling_plan)
 from .spec_decode import NGramDrafter, verify_and_accept
@@ -121,6 +135,10 @@ class Request:
     spec_proposed: int = 0            # drafts sent to verify (lifetime)
     spec_accepted: int = 0            # drafts accepted (lifetime)
     spec_disabled: bool = False       # acceptance fell below the floor
+    tier_checked: int = -1            # spill-tier generation last consulted
+    # streaming hooks (both called from the engine's stepping thread)
+    on_token: object = None           # callable(rid, token) per emission
+    on_finish: object = None          # callable(RequestOutput) at the end
 
 
 @dataclass
@@ -158,6 +176,7 @@ class _StepTicket:
     chunk_slots: list
     batch_slots: list
     dispatch_s: float                 # host seconds packing + launching
+    launch_ns: int = 0                # tracer clock at launch (0 untraced)
     inflight: bool = False            # crossed a step() boundary in flight
     window: int = 0                   # K' of a decode-window launch (0 =
                                       # per-step)
@@ -243,10 +262,27 @@ class LLMEngine:
     spec_accept_floor / spec_window: once a request has sent spec_window
         drafts to verify, speculation turns off for it if its lifetime
         acceptance rate sits below the floor.
+    retain_outputs: keep every finished RequestOutput in the dict that
+        ``run()`` returns.  A long-running server (the HTTP frontend)
+        passes False: outputs are delivered through each request's
+        ``on_finish`` callback instead, so finished requests cost no
+        memory once their stream closes.
+    fault_plan: a faults.FaultPlan firing deterministic faults (step
+        crashes and stalls, in-flight crashes and stalls, NaN rows, pool
+        exhaustion) at the step seams; None: one attribute check a step.
+    pressure: a pressure.DegradationController shedding load in tiers
+        (draft shrink, admission pause, parked-page eviction) before
+        preemption becomes necessary.
+    tracer: a profiler.trace ``Tracer`` recording every step phase and
+        each request's lifetime; ``dump_trace`` writes it as Chrome
+        trace-event JSON.
+    kv_tier: a kv_tier.HostSpillPool.  Parked pages the pressure tier
+        evicts spill to host memory at the step-boundary drain instead of
+        dying, and a returning prefix is restored into free pages in
+        place before its admission (``prefetch_hint`` pre-stages one).
 
-    Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-    item): tp > 1 (item 10); kv_tier, fault_plan, pressure, tracer (item
-    9).
+    Not ported yet (raises ``NotImplementedError`` naming its ROADMAP
+    item): tp > 1 (item 10).
     """
 
     def __init__(self, model, *, device=None, max_num_seqs: int = 8,
@@ -257,6 +293,7 @@ class LLMEngine:
                  enable_prefix_caching: bool = True,
                  drafter=None, spec_k: int = 0, max_spec_k: int = 8,
                  spec_accept_floor: float = 0.35, spec_window: int = 32,
+                 retain_outputs: bool = True,
                  fault_plan=None, pressure=None,
                  kv_dtype: str = "float32", tp: int = 1,
                  tracer=None, overlap: bool = True,
@@ -275,15 +312,8 @@ class LLMEngine:
         if int(decode_window) < 1:
             raise ValueError(
                 f"decode_window must be >= 1, got {decode_window}")
-        for bad, option, item, what in (
-                (kv_tier is not None, "kv_tier", 9, "the host KV spill tier"),
-                (fault_plan is not None, "fault_plan", 9, "fault injection"),
-                (pressure is not None, "pressure", 9,
-                 "the degradation controller"),
-                (tracer is not None, "tracer", 9, "the step tracer"),
-                (int(tp) > 1, "tp>1", 10, "tensor parallelism")):
-            if bad:
-                raise _unported(option, item, what)
+        if int(tp) > 1:
+            raise _unported("tp>1", 10, "tensor parallelism")
 
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
@@ -328,6 +358,16 @@ class LLMEngine:
                 f"num_blocks={num_blocks} cannot hold even one "
                 f"max_model_len={self.max_model_len} sequence "
                 f"({self.nblk} pages needed)")
+        # the host spill tier turns EVICT_PARKED from kill into spill:
+        # pages quarantine in the pool and move host-side at the
+        # step-boundary drain, and admission gets them back as ordinary
+        # prefix-cache content
+        self.kv_tier = kv_tier
+        if kv_tier is not None:
+            self.blocks.spill_on_evict = True
+        # chain hashes restored from the tier and not yet claimed by an
+        # admission hit (prefetch-hit attribution is by hash)
+        self._staged_hashes: set = set()
 
         self._nh = cfg.num_attention_heads
         self._kvh = cfg.num_key_value_heads
@@ -356,6 +396,7 @@ class LLMEngine:
         self._finished: dict = {}
         self._next_rid = 0
         self._arrival = 0
+        self.retain_outputs = bool(retain_outputs)
 
         # stable batch slots (pure-decode steps pack rows in slot order)
         # plus persistent host buffers for the decode fast path: two
@@ -410,6 +451,73 @@ class LLMEngine:
         self.stats.set_weight_residency(
             self.weight_dtype, self.weight_bytes_resident(),
             self.weight_bytes_resident())
+        # per-request flight recorder and step-timeline tracer: None means
+        # every seam is one attribute check and nothing else
+        self.flight = None
+        self.tracer = None
+        self._trace_track = "engine"
+        self._trace_steps = 0
+        self.fault_plan = None
+        self.set_fault_plan(fault_plan)
+        self.pressure = pressure
+        self.set_tracer(tracer)
+
+    def set_fault_plan(self, plan) -> None:
+        """Install (or clear) a FaultPlan on this engine and its pool.
+        The runner re-installs the same plan on a rebuilt engine, so a
+        schedule survives recovery with its consumed faults consumed."""
+        self.fault_plan = plan
+        self.blocks._fault_hook = plan.pool_exhausted \
+            if plan is not None else None
+        if plan is not None:
+            plan.tracer = self.tracer
+            plan.trace_track = self._trace_track
+
+    def set_tracer(self, tracer) -> None:
+        """Install (or clear) a step-timeline Tracer on this engine (and
+        on its fault plan, so injected faults land in the trace).  With
+        None installed the step loop performs no trace work at all."""
+        self.tracer = tracer
+        if tracer is not None:
+            self._trace_track = tracer.register("engine")
+        if self.fault_plan is not None:
+            self.fault_plan.tracer = tracer
+            self.fault_plan.trace_track = self._trace_track
+
+    def set_flight(self, recorder) -> None:
+        """Install (or clear) a per-request FlightRecorder
+        (inference/flight.py).  With None installed the request
+        lifecycle seams perform no forensic work at all."""
+        self.flight = recorder
+
+    def _tier(self) -> int:
+        """Current degradation tier (0 when no pressure controller)."""
+        return 0 if self.pressure is None else self.pressure.state
+
+    def dump_trace(self, path) -> int:
+        """Write this engine's step timeline as Chrome trace-event JSON
+        (Perfetto-loadable); returns the number of events written.
+        Raises when tracing was never enabled."""
+        if self.tracer is None:
+            raise RuntimeError(
+                "tracing is not enabled: build the engine with tracer= "
+                "or call set_tracer() first")
+        return self.tracer.dump(path)
+
+    def close(self) -> None:
+        """Drop this engine's device state -- the page and scale pools,
+        the weights it holds, the pinned read-back and staging buffers and
+        the in-flight ticket -- so the card's memory returns once no
+        frame still uses them.  The supervised runner closes an engine
+        whose generation it retired: a wedged step going on later on
+        that engine raises instead of touching the pools."""
+        self._kc = self._vc = self._ks = self._vs = None
+        self.params = self._head_f32 = None
+        self._mm = self._embed = self._head_logits = None
+        self._inflight = None
+        self._prestaged = None
+        self._logits_host = None
+        self._stages = [None, None]
 
     # ------------------------------------------------------------------
     # request API
@@ -419,16 +527,31 @@ class LLMEngine:
                     temperature: float = 0.0, eos_token_id=None,
                     seed: int = 0, top_k: int = 0, top_p: float = 1.0,
                     repetition_penalty: float = 1.0,
-                    spec_k: int | None = None) -> int:
+                    spec_k: int | None = None, generated=None,
+                    on_token=None, on_finish=None) -> int:
         """Queue one generation request; returns its rid.  ``spec_k``
         (default: the engine's) is clamped to max_spec_k, and to 0
-        without a drafter."""
+        without a drafter.
+
+        ``generated`` re-admits a request that already emitted tokens
+        (the runner's crash-recovery replay): the request enters exactly
+        as a preempted sequence would -- prefill covers prompt+generated,
+        ``max_new_tokens`` still counts from the original prompt -- so
+        with the same seed the continuation equals the uninterrupted run
+        (sampling keys derive from (seed, len(generated))).  ``on_token``
+        (rid, token) and ``on_finish`` (RequestOutput) are called from the
+        stepping thread as tokens commit and when the request ends."""
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
         if int(max_new_tokens) < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        generated = [int(t) for t in (generated or [])]
+        if len(generated) >= int(max_new_tokens):
+            raise ValueError(
+                f"continuation already holds {len(generated)} of "
+                f"max_new_tokens={max_new_tokens} tokens")
         if len(prompt) + int(max_new_tokens) > self.max_model_len:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens "
@@ -447,17 +570,33 @@ class LLMEngine:
             if self.drafter is not None else 0
         rid = self._next_rid
         self._next_rid += 1
-        req = Request(rid=rid, prompt=prompt, tokens=list(prompt),
+        req = Request(rid=rid, prompt=prompt,
+                      tokens=list(prompt) + generated,
+                      generated=list(generated),
                       max_new_tokens=int(max_new_tokens),
                       temperature=float(temperature),
                       eos_token_id=eos_token_id, seed=int(seed),
                       top_k=int(top_k), top_p=float(top_p),
                       repetition_penalty=float(repetition_penalty),
-                      spec_k=spec_k, t_arrival=time.perf_counter())
+                      spec_k=spec_k, t_arrival=time.perf_counter(),
+                      on_token=on_token, on_finish=on_finish)
         if req.repetition_penalty != 1.0:
             req.seen = np.zeros((self.config.vocab_size,), bool)
             req.seen[prompt] = True
+            req.seen[generated] = True
         self._waiting.append(req)
+        fl = self.flight
+        if fl is not None:
+            fl.open(rid, prompt_tokens=len(prompt), t_submit=req.t_arrival)
+        tr = self.tracer
+        if tr is not None:
+            tr.async_begin("req", f"{self._trace_track}:{rid}",
+                           args={"rid": rid,
+                                 "prompt_tokens": len(prompt),
+                                 "replayed": len(generated),
+                                 "max_new_tokens": int(max_new_tokens)})
+            tr.instant("request.queued", track=self._trace_track,
+                       args={"rid": rid})
         return rid
 
     def has_unfinished(self) -> bool:
@@ -508,9 +647,30 @@ class LLMEngine:
         out = RequestOutput(rid=req.rid, prompt=list(req.prompt),
                             generated=list(req.generated),
                             finish_reason=finish_reason)
-        self._finished[req.rid] = out
+        if self.retain_outputs:
+            self._finished[req.rid] = out
         self.stats.record_abort(finish_reason)
+        if self.stats.windows is not None:
+            self.stats.record_finish_quality(False)
+            self.stats.record_request_latency(
+                time.perf_counter() - req.t_arrival)
+        fl = self.flight
+        if fl is not None:
+            fl.finished(req.rid, reason=finish_reason,
+                        generated=len(req.generated), tier=self._tier())
+        tr = self.tracer
+        if tr is not None:
+            tr.async_end("req", f"{self._trace_track}:{req.rid}",
+                         args={"finish_reason": finish_reason,
+                               "generated": len(req.generated)})
+        if req.on_finish is not None:
+            req.on_finish(out)
         return out
+
+    def _notify_tokens(self, req, toks) -> None:
+        if req.on_token is not None:
+            for t in toks:
+                req.on_token(req.rid, int(t))
 
     def run(self) -> dict:
         """Drive step() until every queued request finishes.  Outputs by
@@ -570,6 +730,8 @@ class LLMEngine:
         """One dict of serving metrics + block-pool state for this run."""
         out = self.stats.summary()
         out["block_pool"] = self.blocks.stats()
+        if self.kv_tier is not None:
+            out["kv_tier"] = self.kv_tier.stats()
         out["device"] = str(self.device)
         out["kv_dtype"] = self.kv_dtype
         out["tp"] = self.tp
@@ -597,6 +759,12 @@ class LLMEngine:
         sequences plus parked prefix pages."""
         return ((self.blocks.num_used + self.blocks.num_cached)
                 * self.kv_page_bytes())
+
+    @property
+    def degradation_tier_entries(self) -> int:
+        """Escalating degradation-controller transitions (0 when no
+        pressure controller is installed)."""
+        return 0 if self.pressure is None else self.pressure.tier_entries
 
     def weight_bytes_resident(self) -> int:
         """Device bytes of the decode weights: the quantized pools, their
@@ -695,7 +863,30 @@ class LLMEngine:
         completions of the PREVIOUS call's dispatch.  With ``overlap`` off
         the dispatch completes in the same call: admit -> schedule ->
         launch -> read back -> apply -> retire.  Returns the requests that
-        finished."""
+        finished.
+
+        With a tracer installed every phase lands in the step timeline
+        (dispatch: admit / schedule / pack / block-table stage / device
+        launch; complete: block-on-result / sample-commit / retire; plus
+        prestage and the device in-flight window); with none the phase
+        seams are single attribute checks."""
+        if self.device.type == "cuda" \
+                and torch.cuda.current_device() != self.device.index:
+            # a stepping thread other than the one that built the engine
+            # starts on the default device
+            torch.cuda.set_device(self.device)
+        tr = self.tracer
+        if tr is None:
+            return self._step()
+        self._trace_steps += 1
+        t0 = tr.now()
+        finished = self._step()
+        tr.complete("engine.step", t0, track=self._trace_track,
+                    args={"step": self._trace_steps,
+                          "finished": len(finished)})
+        return finished
+
+    def _step(self) -> list:
         # outputs that finished inside an abort()'s pipeline flush surface
         # here, so the step()-return channel never drops one
         finished = self._pending_finished
@@ -703,6 +894,10 @@ class LLMEngine:
         if self._inflight is not None:
             self._prestage()
             self._complete(finished)
+        if self.kv_tier is not None:
+            # step boundary: no launch is in flight, and restores land
+            # before this step's admission packs only the residual prefill
+            self._drain_kv_tier()
         self._dispatch()
         if not self.overlap and self._inflight is not None:
             self._complete(finished)
@@ -717,15 +912,65 @@ class LLMEngine:
         when the pack is eligible, else one ragged step).  The launch's
         result stays on the card, its read-back queued behind it, in
         ``self._inflight`` until ``_complete`` waits for it."""
+        tr = self.tracer
+        plan = self.fault_plan
+        if plan is not None:
+            # fault seams fire BEFORE any scheduler mutation, so a crash
+            # leaves queues and pool in the consistent between-steps state
+            # recovery replays from.  advance() keys the plan step on
+            # dispatch order, which equals completion order (the depth-1
+            # pipeline completes ticket N before dispatching N+1).
+            plan.advance()
+            if plan.take_pool_entry():
+                self.stats.record_fault("pool")
+            slow = plan.take_slow()
+            if slow > 0.0:
+                self.stats.record_fault("slow")
+                time.sleep(slow)
+            if plan.take_crash():
+                self.stats.record_fault("crash")
+                raise InjectedFault(
+                    f"injected step crash at plan step {plan.step}")
+
+        if self.pressure is not None:
+            # pages the prestage reserved for rows still alive are
+            # credited back: the synchronous engine would not have taken
+            # them yet at this point, so every tier decision sees the
+            # same per-step timeline
+            prev_tier = self.pressure.state
+            self.pressure.update(
+                self.blocks, spec_reserved=sum(self._spec_pages.values()))
+            self.stats.set_degradation_state(self.pressure.state)
+            if tr is not None and self.pressure.state != prev_tier:
+                tr.instant("pressure.tier", track=self._trace_track,
+                           args={"from": prev_tier,
+                                 "to": self.pressure.state,
+                                 "name": _TIER_NAMES.get(
+                                     self.pressure.state,
+                                     str(self.pressure.state))})
+            if self.pressure.evict_now:
+                n = self.blocks.evict_parked(self.pressure.evict_batch)
+                if n:
+                    self.stats.record_parked_evictions(n)
+
+        if tr is not None:
+            t_d = t = tr.now()
         admitted = self._admit()
         if admitted:
             self.stats.record_admission(len(admitted))
+        if tr is not None:
+            tr.complete("engine.admit", t, track=self._trace_track,
+                        args={"admitted": len(admitted),
+                              "running": len(self._running),
+                              "waiting": len(self._waiting)})
         self.peak_resident_seqs = max(self.peak_resident_seqs,
                                       len(self._running))
         self.stats.record_prefill_queue(
             sum(1 for r in self._running if r.cached < len(r.tokens))
             + len(self._waiting))
 
+        if tr is not None:
+            t = tr.now()
         chunks = self._schedule_prefill_chunks()
         # decode-ready set (chunk owners are still mid-prefill, so the
         # row classes are disjoint by construction)
@@ -746,6 +991,10 @@ class LLMEngine:
         spec = [(r, d, q) for r, d, q in spec if r in self._running]
         batch = [r for r in batch if r in self._running]
         batch.sort(key=lambda r: r.slot)
+        if tr is not None:
+            tr.complete("engine.schedule", t, track=self._trace_track,
+                        args={"chunks": len(chunks), "spec": len(spec),
+                              "decode": len(batch)})
 
         if chunks or spec or batch:
             t0 = time.perf_counter()
@@ -763,11 +1012,17 @@ class LLMEngine:
                     spec_slices=spec_slices, chunk_slots=chunk_slots,
                     batch_slots=batch_slots,
                     dispatch_s=time.perf_counter() - t0,
+                    launch_ns=tr.now() if tr is not None else 0,
                     inflight=self.overlap)
         # the prestage's page credit expires: every page it reserved is
         # now owned by a row this dispatch packed (its ensure() found the
         # page in place) or went back with a retired row
         self._spec_pages.clear()
+        if tr is not None:
+            tr.complete("engine.dispatch", t_d, track=self._trace_track,
+                        args={"chunks": len(chunks), "spec": len(spec),
+                              "decode": len(batch),
+                              "launched": self._inflight is not None})
 
     def _read_back(self, result, logits=None):
         """Queue the device result's copy (and the verify logits', for a
@@ -795,9 +1050,28 @@ class LLMEngine:
     def _complete(self, finished: list, drop_rid=None) -> None:
         """Wait for the in-flight ticket's read-back, then apply and
         retire.  ``drop_rid`` (abort while in flight) discards that
-        request's rows unapplied: no token commit, no retirement."""
+        request's rows unapplied: no token commit, no retirement.  The
+        fault plan's in-flight seams fire first (a crash here drops the
+        launch, and the prestaged pack with it), and its NaN seam flips
+        one live row's finiteness flag."""
         ticket = self._inflight
         self._inflight = None
+        plan = self.fault_plan
+        if plan is not None and ticket.inflight:
+            # completion-order seams: fire while the ticket is in flight
+            # (overlap on), between launch and read-back -- the window a
+            # device fault or a host stall would hit
+            slow = plan.take_inflight_slow()
+            if slow > 0.0:
+                self.stats.record_fault("inflight_slow")
+                time.sleep(slow)
+            if plan.take_inflight_crash():
+                self.stats.record_fault("inflight_crash")
+                raise InjectedFault(
+                    f"injected in-flight crash at plan step {plan.step}")
+        tr = self.tracer
+        if tr is not None:
+            t_c = t = tr.now()
         t0 = time.perf_counter()
         if ticket.ready is not None:
             ticket.ready.synchronize()
@@ -806,7 +1080,23 @@ class LLMEngine:
         # ONE host round trip a completion, whether the launch carried one
         # step or a whole K-token window
         self.stats.record_round_trip()
+        if tr is not None:
+            tr.complete("engine.block_on_result", t, track=self._trace_track)
+            if ticket.launch_ns and ticket.inflight:
+                # launch -> read back: the window host work hides inside
+                # (synchronous tickets emit none: nothing ran meanwhile)
+                tr.complete("engine.device_inflight", ticket.launch_ns,
+                            track=self._trace_track,
+                            args={"rows": len(ticket.chunks)
+                                  + len(ticket.spec) + len(ticket.batch)})
         sampled, ok = res[0], res[1].astype(bool)
+        if ticket.window:
+            # the NaN seam poisons one live row's FIRST window iteration;
+            # the drain quarantines it there and drops its later columns
+            ok[0] = self._inject_nan(ok[0], list(ticket.batch_slots))
+        else:
+            ok = self._inject_nan(ok, ticket.chunk_slots + ticket.batch_slots
+                                  + [o for o, _ in ticket.spec_slices])
         logits = ticket.logits.numpy() if ticket.spec else None
         chunks, spec, batch = ticket.chunks, ticket.spec, ticket.batch
         chunk_slots, batch_slots = ticket.chunk_slots, ticket.batch_slots
@@ -831,6 +1121,8 @@ class LLMEngine:
         dur = ticket.dispatch_s + block_s
         self.stats.record_step(dur, dispatch_s=ticket.dispatch_s,
                                block_s=block_s)
+        if tr is not None:
+            t = tr.now()
         if ticket.window:
             self._apply_window(batch, batch_slots, sampled, ok, dur,
                                finished, ticket.window)
@@ -838,6 +1130,11 @@ class LLMEngine:
             self._apply_ragged(chunks, spec, batch, sampled, ok, spec_ok,
                                spec_logits, chunk_slots, batch_slots, dur,
                                finished)
+        if tr is not None:
+            tr.complete("engine.sample_commit", t, track=self._trace_track,
+                        args={"finished": len(finished)})
+            tr.complete("engine.complete", t_c, track=self._trace_track,
+                        args={"finished": len(finished)})
 
     def _prestage(self) -> None:
         """Stage the NEXT dispatch's pure-decode pack while the in-flight
@@ -867,6 +1164,9 @@ class LLMEngine:
             return              # the next step may pack verify rows
         batch = ticket.batch    # slot-sorted at dispatch
         self._prestaged = None
+        tr = self.tracer
+        if tr is not None:
+            t_p = tr.now()
         # reserve each row's next write: pre-apply cached + 2 is the
         # post-apply cached + 1 the dispatch's ensure() asks for
         for req in batch:
@@ -876,6 +1176,10 @@ class LLMEngine:
             except BlockPoolExhausted:
                 grown = False
             if not grown:
+                if tr is not None:
+                    tr.complete("engine.prestage", t_p,
+                                track=self._trace_track,
+                                args={"abandoned": "pool"})
                 return
             took = before - self.blocks.num_free
             if took > 0:
@@ -886,13 +1190,26 @@ class LLMEngine:
         layout = tuple(r.rid for r in batch)
         if layout != buf.layout:
             self._restage(buf, batch, layout)
+        if tr is not None:
+            t = tr.now()
         for s, req in enumerate(batch):
             buf.kvl[s] = req.cached + 2      # post-apply cached + 1
             if req.temperature > 0.0:
                 # len(generated) will have grown by one at dispatch
                 buf.samp["keys"][s] = self._req_key(req, ahead=1)
+        if tr is not None:
+            tr.complete("engine.pack", t, track=self._trace_track,
+                        args={"rows": len(batch), "prestage": True})
+            t = tr.now()
         self._stage_tables(buf, batch)
+        if tr is not None:
+            tr.complete("engine.block_table_stage", t,
+                        track=self._trace_track,
+                        args={"rows": len(batch), "prestage": True})
         self._prestaged = (bi, layout)
+        if tr is not None:
+            tr.complete("engine.prestage", t_p, track=self._trace_track,
+                        args={"rows": len(batch)})
 
     def _invalidate_bt(self, rid: int) -> None:
         """Drop both decode buffer sets' staged block-table rows for rid
@@ -922,6 +1239,7 @@ class LLMEngine:
         spec_tokens = sum(len(d) + 1 for _, d, _ in spec)
         total = max(chunk_tokens + spec_tokens + len(batch), 1)
         occ = len(self._running) / self.max_num_seqs
+        tr = self.tracer
 
         done = 0
         for (req, n), s in zip(chunks, chunk_slots):
@@ -931,6 +1249,13 @@ class LLMEngine:
             req.cached += n
             if self.enable_prefix_caching:
                 self.blocks.commit_prefill(req.rid, n)
+            if tr is not None:
+                tr.instant("request.prefill_chunk", track=self._trace_track,
+                           args={"rid": req.rid, "tokens": n,
+                                 "done": req.cached >= len(req.tokens)})
+            fl = self.flight
+            if fl is not None:
+                fl.prefill_chunk(req.rid, n)
             if req.cached == len(req.tokens):
                 done += 1
                 tok = int(sampled[s])
@@ -938,8 +1263,15 @@ class LLMEngine:
                 if req.seen is not None:
                     req.seen[tok] = True
                 if len(req.generated) == 1:
-                    self.stats.record_ttft(time.perf_counter()
-                                           - req.t_arrival)
+                    ttft = time.perf_counter() - req.t_arrival
+                    self.stats.record_ttft(ttft)
+                    if fl is not None:
+                        fl.first_token(req.rid, ttft)
+                    if tr is not None:
+                        tr.instant("request.first_token",
+                                   track=self._trace_track,
+                                   args={"rid": req.rid})
+                self._notify_tokens(req, (tok,))
                 self._maybe_retire(req, finished)
         if chunks:
             self.stats.record_prefill(dur * chunk_tokens / total,
@@ -969,6 +1301,7 @@ class LLMEngine:
             req.generated.append(tok)
             if req.seen is not None:
                 req.seen[tok] = True
+            self._notify_tokens(req, (tok,))
             self._maybe_retire(req, finished)
         if batch:
             self.stats.record_decode(dur * len(batch) / total,
@@ -1018,11 +1351,18 @@ class LLMEngine:
         K = self.decode_window
         kp = next((k for k in range(K, 1, -1)
                    if self._reserve_window_pages(batch, k) is not None), 0)
+        tr = self.tracer
         if kp == 0:
             self.stats.record_window_fallback()
+            if tr is not None:
+                tr.instant("engine.window_fallback", track=self._trace_track,
+                           args={"rows": len(batch), "k": K})
             return False
         if kp < K:
             self.stats.record_window_shrink()
+            if tr is not None:
+                tr.instant("engine.window_shrink", track=self._trace_track,
+                           args={"rows": len(batch), "k": K, "kp": kp})
         B = self.max_num_seqs
         n = len(batch)
         toks = np.zeros((B,), np.int32)
@@ -1033,6 +1373,8 @@ class LLMEngine:
         base_keys = np.zeros((B, 2), np.uint32)
         bt = np.full((B + 1, self.nblk), NULL_BLOCK, np.int32)
         samp = make_samp(B, self.config.vocab_size)
+        if tr is not None:
+            t = tr.now()
         for s, req in enumerate(batch):
             toks[s] = req.generated[-1]
             kvl[s] = req.cached + 1
@@ -1045,22 +1387,37 @@ class LLMEngine:
                 # the body re-derives fold_in(PRNGKey(seed), generated)
                 # every iteration: the key _req_key makes on the host
                 base_keys[s] = (0, req.seed & prng._MASK)
+        if tr is not None:
+            tr.complete("engine.pack", t, track=self._trace_track,
+                        args={"rows": n, "window": kp})
+            t = tr.now()
+        for s, req in enumerate(batch):
             bt[s] = self.blocks.padded_table(req.rid, self.nblk)
+        if tr is not None:
+            tr.complete("engine.block_table_stage", t,
+                        track=self._trace_track,
+                        args={"rows": n, "window": kp})
         # the window grows tables past what the per-step buffers staged
         self._break_decode_layout()
         # every row is frozen by its budget after this many iterations
         # (an eos may freeze it sooner; its later columns are not read)
         iters = int((budgets[:n] - gen[:n]).max())
+        if tr is not None:
+            t = tr.now()
         with record_function("llm_engine.window_step"):
             result = self._launch_window(iters, n, toks, kvl, gen, budgets,
                                          eos_ids, base_keys, bt, samp)
             host, _, ready = self._read_back(result)
+        if tr is not None:
+            tr.complete("engine.device_launch", t, track=self._trace_track,
+                        args={"rows": n, "window": kp})
         self._inflight = _StepTicket(
             chunks=[], spec=[], batch=list(batch), result=host, logits=None,
             ready=ready, spec_slices=[], chunk_slots=[],
             batch_slots=list(range(n)),
-            dispatch_s=time.perf_counter() - t0, inflight=self.overlap,
-            window=iters)
+            dispatch_s=time.perf_counter() - t0,
+            launch_ns=tr.now() if tr is not None else 0,
+            inflight=self.overlap, window=iters)
         return True
 
     def _apply_window(self, batch, batch_slots, sampled, ok, dur, finished,
@@ -1098,6 +1455,7 @@ class LLMEngine:
                 if req.seen is not None:
                     req.seen[tok] = True
                 committed += 1
+                self._notify_tokens(req, (tok,))
                 self._maybe_retire(req, finished)
                 if req not in self._running:
                     alive.discard(req.rid)
@@ -1121,10 +1479,142 @@ class LLMEngine:
         out = RequestOutput(rid=req.rid, prompt=list(req.prompt),
                             generated=list(req.generated),
                             finish_reason="numerical_error")
-        self._finished[req.rid] = out
+        if self.retain_outputs:
+            self._finished[req.rid] = out
         finished.append(out)
         self.stats.record_quarantine()
         self.stats.record_abort("numerical_error")
+        if self.stats.windows is not None:
+            self.stats.record_finish_quality(False)
+            self.stats.record_request_latency(
+                time.perf_counter() - req.t_arrival)
+        fl = self.flight
+        if fl is not None:
+            fl.finished(req.rid, reason="numerical_error",
+                        generated=len(req.generated), tier=self._tier(),
+                        quarantined=True)
+        tr = self.tracer
+        if tr is not None:
+            tr.instant("engine.quarantine", track=self._trace_track,
+                       args={"rid": req.rid})
+            tr.async_end("req", f"{self._trace_track}:{req.rid}",
+                         args={"finish_reason": "numerical_error"})
+        if req.on_finish is not None:
+            req.on_finish(out)
+
+    # ------------------------------------------------------------------
+    # hierarchical KV tier (host-memory spill pool, inference/kv_tier.py)
+    # ------------------------------------------------------------------
+
+    def prefetch_hint(self, hashes) -> None:
+        """Pre-stage a returning user's spilled pages: queue the prefix
+        chain hashes of a prompt about to be submitted so the next
+        step-boundary drain restores them before the prefill is packed.
+        Thread-safe (the tier's hint deque is locked): the one engine
+        entry point the frontend router may call off-thread.  No-op
+        without a tier."""
+        tier = self.kv_tier
+        if tier is not None:
+            tier.hint(hashes)
+
+    @torch.no_grad()
+    def _drain_kv_tier(self) -> None:
+        """Step-boundary tier drain: the only place spill/restore bytes
+        cross between the card and host memory, and the one place the
+        step may wait for the card (no launch is in flight here; nothing
+        of it sits in ``_dispatch`` or ``_prestage``).  Spill: the pages
+        evict_parked quarantined are gathered with one indexed read per
+        pool, copied to the host once, and their blocks free.  Restore:
+        router prefetch hints, then the waiting queue's prompt chains,
+        pull tier-resident pages back into free blocks, written in place
+        into the existing pools (their addresses never change) and
+        re-registered content-addressed -- from admission's point of view
+        they are ordinary prefix-cache content.  Restored bytes are the
+        exact spilled bytes, scales included for int8 pages."""
+        tier = self.kv_tier
+        tr = self.tracer
+        pools = {"kc": self._kc, "vc": self._vc}
+        if self.kv_dtype == "int8":
+            pools.update(ks=self._ks, vs=self._vs)
+        pending = self.blocks.take_spill_pending()
+        if pending:
+            idx = torch.as_tensor([b for b, _ in pending],
+                                  device=self.device)
+            host = {k: p.index_select(1, idx).cpu()
+                    for k, p in pools.items()}
+            stored = 0
+            for i, (_blk, hashes) in enumerate(pending):
+                if tier.insert(hashes, {k: h[:, i].clone()
+                                        for k, h in host.items()}):
+                    stored += 1
+                # these hashes left the card: a past restore no longer
+                # backs a future admission hit
+                self._staged_hashes.difference_update(hashes)
+            self.stats.record_kv_spill(len(pending), stored)
+            if tr is not None:
+                tr.instant("kv_tier.spill", track=self._trace_track,
+                           args={"pages": len(pending), "stored": stored})
+
+        restored = []                     # [(block, tier entry)]
+        for h in self._tier_wanted_hashes(tier):
+            if not self.blocks.num_free:
+                break                     # opportunistic: never evict
+            if self.blocks.has_hash(h):
+                continue                  # covered earlier this drain
+            entry = tier.take(h)
+            if entry is None:
+                continue
+            blk = self.blocks.adopt_restored(entry["hashes"])
+            if blk is None:               # unreachable given the guards
+                tier.insert(entry["hashes"], entry["arrays"])
+                break
+            restored.append((blk, entry))
+            self._staged_hashes.update(entry["hashes"])
+        if restored:
+            # restored int8 blocks are not fresh (adopt_restored discarded
+            # them), so the launch's fresh-page reset keeps their scales
+            idx = torch.as_tensor([b for b, _ in restored],
+                                  device=self.device)
+            for k, p in pools.items():
+                p.index_copy_(1, idx, torch.stack(
+                    [e["arrays"][k] for _, e in restored], 1).to(p.device))
+            self.stats.record_kv_restore(len(restored))
+            if tr is not None:
+                tr.instant("kv_tier.restore", track=self._trace_track,
+                           args={"pages": len(restored)})
+        self.stats.set_spill_tier(tier.stats())
+
+    def _tier_wanted_hashes(self, tier) -> list:
+        """Chain hashes worth restoring this drain, in chain order,
+        deduped: router prefetch hints first (pre-staging a returning
+        user), then the waiting queue's front prompts (admission's tier
+        consult on a prefix-cache miss, one-shot per waiting episode).
+        Each chain walks while its prefix stays servable -- resident
+        hashes skip, tier-resident ones restore, and the walk stops at
+        the first hash neither holds (a contiguous prefix match can never
+        reach later pages)."""
+        chains = tier.drain_hints()
+        n = 0
+        for req in self._waiting:
+            if n >= self.max_num_seqs:
+                break
+            n += 1
+            if req.tier_checked == tier.gen:
+                continue          # nothing new spilled since last consult
+            req.tier_checked = tier.gen
+            chains.append(prefix_chain_hashes(req.tokens, self.block_size))
+        wanted: list = []
+        seen: set = set()
+        for chain in chains:
+            for h in chain:
+                if self.blocks.has_hash(h) or h in seen:
+                    continue
+                if tier.lookup(h):
+                    seen.add(h)
+                    wanted.append(h)
+                else:
+                    break
+        return wanted
 
     def _claim_slot(self, req) -> None:
         req.slot = self._slot_used.index(False)
@@ -1139,7 +1629,10 @@ class LLMEngine:
         """Pull waiting requests into the running set while batch slots
         and pool pages allow.  With prefix caching, admission matches the
         prompt's token chain against the cache and allocates only the
-        miss suffix."""
+        miss suffix.  A pressure controller's admission pause admits
+        nobody."""
+        if self.pressure is not None and self.pressure.admission_paused:
+            return []
         admitted = []
         while self._waiting and len(self._running) < self.max_num_seqs:
             req = self._waiting[0]
@@ -1149,6 +1642,15 @@ class LLMEngine:
                     break
                 req.cached = hit
                 self.stats.record_cache_lookup(hit, len(req.tokens) - hit)
+                if hit and self._staged_hashes:
+                    # prefetch-hit attribution: hit pages whose chain
+                    # hashes a tier restore staged (by hash, so block
+                    # reuse cannot misattribute); each pays out once
+                    used = [h for h in self.blocks.chain_hashes(req.rid)
+                            if h in self._staged_hashes]
+                    if used:
+                        self._staged_hashes.difference_update(used)
+                        self.stats.record_prefetch_hits(len(used))
             else:
                 if not self.blocks.allocate(req.rid, len(req.tokens)):
                     break
@@ -1160,7 +1662,12 @@ class LLMEngine:
             self._claim_slot(req)
             self._running.append(req)
             admitted.append(req)
-            self.stats.record_queue_wait(time.perf_counter() - req.t_arrival)
+            qw = time.perf_counter() - req.t_arrival
+            self.stats.record_queue_wait(qw)
+            fl = self.flight
+            if fl is not None:
+                fl.admitted(req.rid, queue_wait_s=qw,
+                            cache_hit_tokens=req.cached, tier=self._tier())
         return admitted
 
     def _schedule_prefill_chunks(self) -> list:
@@ -1253,11 +1760,19 @@ class LLMEngine:
         self._release_slot(req)
         req.tokens = list(req.prompt) + list(req.generated)
         req.cached = 0
+        # its freed pages may spill while it waits: re-consult the tier
+        req.tier_checked = -1
         self._invalidate_bt(req.rid)
         self._waiting.appendleft(req)
         if self.drafter is not None:
             self.drafter.release(req.rid)
         self.stats.record_preemption()
+        fl = self.flight
+        if fl is not None:
+            fl.preempted(req.rid)
+        if self.tracer is not None:
+            self.tracer.instant("request.preempted", track=self._trace_track,
+                                args={"rid": req.rid})
 
     def _maybe_retire(self, req, finished: list) -> None:
         eos = req.eos_token_id
@@ -1267,6 +1782,9 @@ class LLMEngine:
             reason = "length"
         else:
             return
+        tr = self.tracer
+        if tr is not None:
+            t = tr.now()
         self.blocks.free(req.rid)
         self._spec_pages.pop(req.rid, None)
         self._running.remove(req)
@@ -1276,9 +1794,26 @@ class LLMEngine:
         out = RequestOutput(rid=req.rid, prompt=list(req.prompt),
                             generated=list(req.generated),
                             finish_reason=reason)
-        self._finished[req.rid] = out
+        if self.retain_outputs:
+            self._finished[req.rid] = out
         finished.append(out)
         self.stats.record_retirement()
+        if self.stats.windows is not None:
+            self.stats.record_finish_quality(True)
+            self.stats.record_request_latency(
+                time.perf_counter() - req.t_arrival)
+        fl = self.flight
+        if fl is not None:
+            fl.finished(req.rid, reason=reason,
+                        generated=len(req.generated), tier=self._tier())
+        if tr is not None:
+            tr.complete("engine.retire", t, track=self._trace_track,
+                        args={"rid": req.rid, "finish_reason": reason})
+            tr.async_end("req", f"{self._trace_track}:{req.rid}",
+                         args={"finish_reason": reason,
+                               "generated": len(req.generated)})
+        if req.on_finish is not None:
+            req.on_finish(out)
 
     # ------------------------------------------------------------------
     # speculative decoding: propose -> verify -> accept/rollback
@@ -1291,8 +1826,13 @@ class LLMEngine:
         if self.drafter is None:
             return [], batch
         spec, plain = [], []
+        cap = self.max_spec_k
+        if self.pressure is not None:
+            # under pressure, shrinking drafts is the cheapest lever:
+            # verify windows are the largest transient page consumers
+            cap = self.pressure.spec_k_cap(self.max_spec_k)
         for req in batch:
-            k = 0 if req.spec_disabled else min(req.spec_k, self.max_spec_k)
+            k = 0 if req.spec_disabled else min(req.spec_k, cap)
             # the verify step writes K/V at cached..cached+k, so the
             # sequence may hold at most max_model_len tokens afterwards;
             # drafting past max_new_tokens (plus the bonus token) is waste
@@ -1394,6 +1934,7 @@ class LLMEngine:
         req.generated.extend(emitted)
         if req.seen is not None:
             req.seen[emitted] = True
+        self._notify_tokens(req, emitted)
         j = m - 1 if m == n_acc + 1 else m            # emitted draft count
         if k:                                         # zero-draft rows are
             req.spec_proposed += k                    # plain decode riding
@@ -1401,6 +1942,9 @@ class LLMEngine:
             self.stats.record_spec(proposed=k, accepted=min(j, n_acc),
                                    emitted=m, rollback=k - j,
                                    pages_rolled=rolled)
+            fl = self.flight
+            if fl is not None:
+                fl.spec_round(req.rid, min(j, n_acc), k - j)
             if (not req.spec_disabled
                     and req.spec_proposed >= self.spec_window
                     and req.spec_accepted
@@ -1711,6 +2255,9 @@ class LLMEngine:
         samp = make_samp(self._Lq, self.config.vocab_size)
         spec_slices, chunk_slots, batch_slots = [], [], []
 
+        tr = self.tracer
+        if tr is not None:
+            t = tr.now()
         off = 0      # flat-token cursor
         ls = 0       # logit-row cursor
         for i, (req, window, kind) in enumerate(rows):
@@ -1729,8 +2276,16 @@ class LLMEngine:
                 ls += 1
             off += n
         cu[len(rows) + 1:] = off
+        if tr is not None:
+            tr.complete("engine.pack", t, track=self._trace_track,
+                        args={"rows": len(rows), "tokens": total,
+                              "bucket": int(Tq)})
+            t = tr.now()
         for i, (req, _w, _k) in enumerate(rows):
             bt[i] = self.blocks.padded_table(req.rid, self.nblk)
+        if tr is not None:
+            tr.complete("engine.block_table_stage", t,
+                        track=self._trace_track, args={"rows": len(rows)})
 
         # padding a per-phase step would have cost: a token-bucketed chunk
         # launch, plus the full-width verify launch when anything
@@ -1747,7 +2302,12 @@ class LLMEngine:
         # truncate changes tables again: full restages next time
         self._break_decode_layout()
 
+        if tr is not None:
+            t = tr.now()
         out = self._launch_ragged(Tq, toks, cu, kvl, bt, lidx, samp, total)
+        if tr is not None:
+            tr.complete("engine.device_launch", t, track=self._trace_track,
+                        args={"bucket": int(Tq)})
         return out, spec_slices, chunk_slots, batch_slots
 
     def _restage(self, buf, batch, layout) -> None:
@@ -1801,6 +2361,9 @@ class LLMEngine:
         if layout != buf.layout:
             pre = False
             self._restage(buf, batch, layout)
+        tr = self.tracer
+        if tr is not None:
+            t = tr.now()
         for s, req in enumerate(batch):
             buf.toks[s] = req.generated[-1]
             if req.seen is not None:
@@ -1809,12 +2372,42 @@ class LLMEngine:
                 buf.kvl[s] = req.cached + 1
                 if req.temperature > 0.0:
                     samp["keys"][s] = self._req_key(req)
+        if tr is not None:
+            tr.complete("engine.pack", t, track=self._trace_track,
+                        args={"rows": n, "tokens": n, "bucket": int(Tq),
+                              "fast_path": True, "prestaged": pre})
+            t = tr.now()
         self._stage_tables(buf, batch)
+        if tr is not None:
+            tr.complete("engine.block_table_stage", t,
+                        track=self._trace_track, args={"rows": n})
         self.pad_stats["legacy_padded"] += self.max_num_seqs
+        if tr is not None:
+            t = tr.now()
         out = self._launch_ragged(Tq, buf.toks, buf.cu, buf.kvl, buf.bt,
                                   self._d_lidx, samp, n)
+        if tr is not None:
+            tr.complete("engine.device_launch", t, track=self._trace_track,
+                        args={"bucket": int(Tq)})
         self._d_cur = bi
         return out, [], [], list(range(n))
+
+    def _inject_nan(self, ok, live_slots: list):
+        """FaultPlan NaN seam: clear one live logit row's finiteness flag,
+        as if the card had produced a non-finite row there.  Flipping the
+        host-side flag (rather than the logits) keeps the injection exact
+        and free when no plan is set; ``_quarantine`` downstream is the
+        same either way."""
+        plan = self.fault_plan
+        if plan is None or not live_slots:
+            return ok
+        j = plan.take_nan_row(len(live_slots))
+        if j is None:
+            return ok
+        ok = ok.copy()
+        ok[live_slots[j]] = False
+        self.stats.record_fault("nan")
+        return ok
 
     def _req_key(self, req, ahead: int = 0):
         # the key for token i of request r depends only on (seed, i):

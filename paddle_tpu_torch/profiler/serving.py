@@ -277,13 +277,17 @@ class ServingStats:
 
     def enable_windows(self, slo=None, *, windows=(10.0, 60.0, 300.0),
                        tracer=None, clock=None):
-        """The windowed-telemetry layer (rolling TTFT/ITL/step windows and
-        SLO burn-rate state) needs profiler/slo.py, which is not ported
-        yet: this raises, and the record paths below keep their
-        ``_windows is None`` branch."""
-        raise NotImplementedError(
-            "windowed telemetry (profiler/slo.py) is not ported yet: "
-            "ROADMAP Queue 1 item 9")
+        """Attach the windowed-telemetry layer (rolling TTFT/ITL/step/
+        queue-wait/accept-rate windows + SLO burn-rate state -- see
+        profiler/slo.py).  Idempotent: the first call builds it from
+        ``slo`` (an SLOConfig or None for defaults); later calls return
+        the existing layer so engine and frontend can both ask for it."""
+        if self._windows is None:
+            from .slo import WindowedTelemetry
+            kw = {} if clock is None else {"clock": clock}
+            self._windows = WindowedTelemetry(slo, windows=windows,
+                                              tracer=tracer, **kw)
+        return self._windows
 
     @property
     def windows(self):

@@ -38,7 +38,13 @@ greedy and sampled, a gate holding every attention launch to its plain
 version, TTFT/ITL and the idle share as readings) and ``frontend_cli``
 (``python -m paddle_tpu_torch.inference.frontend --model llama-sm`` as a
 subprocess: one streamed request, then SIGINT drains it to exit 0),
-and trains through ``build_train_step`` at the
+``sim_fit_bf16`` (32 layers in bfloat16 serving ``serve_bench``'s mixed
+workload, 32 requests with the n-gram drafter, traced; the trace fitted
+by ``tools/perf/step_timeline.py --fit`` and the fleet simulator's
+``validate_record`` run on the fit, the record and the workload dump) and
+``hf_bridge_bf16`` (32 layers in bfloat16: a Hugging Face layout state
+dict through ``from_hf``, parameters bit-equal, the same tokens, a gate
+run and controls), and trains through ``build_train_step`` at the
 350M GQA LLaMA bench configuration: ``train_f32`` (2 layers in float32,
 three steps on the kernels against three on the plain versions) and
 ``train_bf16`` (24 layers in bfloat16: a gate run holding every kernel
@@ -2890,6 +2896,294 @@ def phase_frontend_cli(state):
 
 
 # ---------------------------------------------------------------------------
+# sim_fit_bf16: the fleet simulator's cost model fitted from the port's own
+# trace; hf_bridge_bf16: a Hugging Face layout state dict through from_hf
+# ---------------------------------------------------------------------------
+
+SIM_REQUESTS = 32            # run_mixed_bench's stream (non-smoke branch)
+SIM_MIN_JOINED_STEPS = 50    # engine.step spans joined with an engine.pack
+SIM_METRICS = ("ttft_p50_ms", "ttft_p95_ms", "itl_p50_ms", "tokens_per_s")
+
+
+def phase_sim_fit_bf16(state):
+    """LLaMA-7B, 32 layers in bf16, serving ``tools/perf/serve_bench.py``'s
+    mixed workload as ``run_mixed_bench`` does at its full size
+    (``tools/perf/torch_mixed_bench.py``, a transcription: 32 requests,
+    seed 0, every 4th prompt over the 256-token prefill budget; 16 slots,
+    pages of 16, prefix caching, the n-gram drafter at spec_k 4, the async
+    pipeline on), on the kernels alone with the tracer on over the timed
+    pass (after a warm pass).  The trace goes through the stdlib
+    ``tools/perf/step_timeline.py --fit`` unchanged; the fit, loaded with
+    ``paddle_tpu_torch.sim.CostModel.from_json``, and the run's record and
+    workload dump go through ``paddle_tpu_torch.sim.validate_record``.
+    Gates: every request served, the attention kernel launched once a
+    layer a step, at least SIM_MIN_JOINED_STEPS engine.step spans joined
+    with an engine.pack, the fit written, the validation's fingerprint
+    the dump's and its four predictions finite and positive.  The
+    prediction's error against the run is reported, not gated: whether
+    the model holds for the port on the card is the reading."""
+    import os
+    import tempfile
+    import torch
+    from paddle_tpu_torch.profiler import Tracer
+    from paddle_tpu_torch.sim import CostModel, validate_record
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tools", "perf")
+    sys.path.insert(0, tools)
+    import torch_mixed_bench
+    free_engines()
+    model = llama_7b_bf16()
+    L = model.config.num_hidden_layers
+    tracer = Tracer()
+
+    def before_timed():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+
+    t0 = time.perf_counter()
+    record, dump, eng = torch_mixed_bench.run_mixed(
+        model, SIM_REQUESTS, SEED, False, device=DEV, tracer=tracer,
+        before_timed=before_timed)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    serve_s = time.perf_counter() - t0
+    s = eng.summary()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = {k: os.path.join(tmp, f"sim_fit_{k}.json")
+                for k in ("trace", "workload", "record", "calibration")}
+        events = tracer.dump(path["trace"])
+        for k, obj in (("workload", dump), ("record", record)):
+            with open(path[k], "w") as f:
+                json.dump(obj, f, sort_keys=True)
+        fit = subprocess.run(
+            [sys.executable, os.path.join(tools, "step_timeline.py"),
+             path["trace"], "--fit", path["calibration"], "--json-only"],
+            capture_output=True, text=True, timeout=600)
+        fitted = fit.returncode == 0 and os.path.exists(path["calibration"])
+        timeline = json.loads(fit.stdout.strip().splitlines()[-1]) \
+            if fit.stdout.strip() else {}
+        cost = CostModel.from_json(path["calibration"]) if fitted else None
+    report = validate_record(record, dump, cost) if fitted else {}
+    # a reading beside it, not a gate: the same record scored with no
+    # pipeline lag (the simulator's overlap-off arm), since the port's
+    # host-bound step commits a launch's tokens before it dispatches the
+    # next, where the lag the simulator models is a whole active step
+    lag0 = validate_record(dict(record, overlap="off"), dump, cost) \
+        if fitted else {}
+    meta = cost.meta if fitted else {}
+    joined = meta.get("steps_fit", 0) + meta.get("outlier_steps_dropped", 0)
+    predicted = report.get("predicted", {})
+    checks = {
+        "every_request_served": not eng.has_unfinished()
+        and s["quarantined"] == 0 and s["engine_steps"] > 0,
+        "launches_equal_layers_x_steps":
+            launches["attention"] == L * s["engine_steps"]
+            and launches["attention_q8"] == launches["qmm"] == 0,
+        "joined_steps_at_least_50": joined >= SIM_MIN_JOINED_STEPS,
+        "fit_succeeded": fitted and meta.get("source") == "fit",
+        "validation_fingerprint_is_the_dump's":
+            report.get("workload_fingerprint")
+            == dump["workload_fingerprint"],
+        "predictions_finite_positive": all(
+            isinstance(predicted.get(k), (int, float))
+            and math.isfinite(predicted[k]) and predicted[k] > 0
+            for k in SIM_METRICS)}
+    step_p50_ms = timeline.get("step_p50_ms")
+    rec = {"phase": "sim_fit_bf16", "ok": all(checks.values()),
+           "checks": checks, "layers": L, "requests": SIM_REQUESTS,
+           "engine_kw": dump["engine_kw"], "spec_k": dump["spec_k"],
+           "workload_fingerprint": dump["workload_fingerprint"],
+           "seconds": serve_s, "engine_steps": s["engine_steps"],
+           "launches": launches, "kernel_launches": launches["attention"],
+           "trace_events": events, "joined_steps": joined,
+           "fit_stderr": fit.stderr[-2000:] if not fitted else "",
+           "fit": None if cost is None else {
+               "steps_fit": meta["steps_fit"], "r2": meta["r2"],
+               "outlier_steps_dropped": meta["outlier_steps_dropped"],
+               "empty_steps": meta["empty_steps"],
+               "step_base_s": cost.step_base_s,
+               "step_per_token_s": cost.step_per_token_s,
+               "host_per_step_s": cost.host_per_step_s,
+               "active_frac": cost.active_frac,
+               "decode_table": {str(k): v for k, v in
+                                sorted(cost.decode_table.items())}},
+           "timeline": {k: timeline.get(k) for k in (
+               "steps", "step_p50_ms", "step_p95_ms", "value",
+               "device_frac", "overlap_achieved_frac", "phases")},
+           "host": {"dispatch_ms_p50": record["dispatch_ms_p50"],
+                    "block_ms_p50": record["block_ms_p50"],
+                    "fitted_host_per_step_ms": None if cost is None
+                    else cost.host_per_step_s * 1e3,
+                    "fitted_host_share_of_step_p50":
+                        cost.host_per_step_s * 1e3 / step_p50_ms
+                        if cost is not None and step_p50_ms else None},
+           "record": record,
+           "validation": {k: report.get(k) for k in (
+               "predicted", "actual", "rel_err", "max_abs_rel_err")},
+           "validation_no_pipeline_lag": {k: lag0.get(k) for k in (
+               "predicted", "rel_err", "max_abs_rel_err")},
+           "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    state["sim_fit_bf16"] = rec
+    del eng, model
+    free_engines()
+    return rec["ok"]
+
+
+def hf_layout_state(model) -> dict:
+    """A Hugging Face layout state dict of ``model`` on its device in its
+    dtype: HF names, q/k rows taken back from the interleaved to the
+    rotate-half RoPE layout (the inverse of ``from_hf``'s permutation),
+    projections ``[out, in]``, ``lm_head.weight`` ``[V, H]``, and each
+    layer's ``rotary_emb.inv_freq``, which ``from_hf`` must skip."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.llama import _unrotate_perm
+    cfg = model.config
+    d = cfg.hidden_size // cfg.num_attention_heads
+    dev = model.device
+    inv = torch.from_numpy(np.argsort(_unrotate_perm(d))).to(dev)
+    inv_freq = 1.0 / cfg.rope_theta ** (
+        torch.arange(0, d, 2, dtype=torch.float32, device=dev) / d)
+
+    def rotate_half(w, n):                 # [in, n * d] -> [n * d, in]
+        return w.T.reshape(n, d, -1).index_select(1, inv) \
+            .reshape(n * d, -1).contiguous()
+
+    lay = model.layers
+    out = {"model.embed_tokens.weight": model.embed.clone()}
+    with torch.no_grad():
+        for i in range(cfg.num_hidden_layers):
+            p = f"model.layers.{i}."
+            out[p + "input_layernorm.weight"] = lay["ln1"][i].clone()
+            out[p + "self_attn.q_proj.weight"] = rotate_half(
+                lay["wq"][i], cfg.num_attention_heads)
+            out[p + "self_attn.k_proj.weight"] = rotate_half(
+                lay["wk"][i], cfg.num_key_value_heads)
+            for name, key in (("self_attn.v_proj", "wv"),
+                              ("self_attn.o_proj", "wo"),
+                              ("mlp.gate_proj", "gate"),
+                              ("mlp.up_proj", "up"),
+                              ("mlp.down_proj", "down")):
+                out[p + name + ".weight"] = lay[key][i].T.contiguous()
+            out[p + "post_attention_layernorm.weight"] = \
+                lay["ln2"][i].clone()
+            out[p + "self_attn.rotary_emb.inv_freq"] = inv_freq.clone()
+        out["model.norm.weight"] = model.norm_f.clone()
+        out["lm_head.weight"] = model.head.T.contiguous()
+    return out
+
+
+def phase_hf_bridge_bf16(state):
+    """LLaMA-7B, 32 layers in bf16: the port's model serves
+    ``bf16_requests`` on the kernels alone; a Hugging Face layout bf16
+    state dict derived from it on the card (``hf_layout_state``, inv_freq
+    entries included) goes through ``from_hf(state, config=cfg,
+    dtype=torch.bfloat16)``, timed, with the card's peak memory over the
+    conversion.  Gates: every decode parameter of the converted model
+    bit-equal to the original's; the converted model serves the same
+    requests to the same tokens on the kernels alone; a gate run on the
+    converted model holds every attention launch to its plain version on
+    the same inputs (the engine goes on with the plain output) within the
+    per-launch tolerance, and the controls held the same way fail it; the
+    conversion never held more than the converted model and 1 GiB of
+    temporaries on the card."""
+    import torch
+    from paddle_tpu_torch.models.llama import LAYER_KEYS, from_hf
+    free_engines()
+    model = llama_7b_bf16()
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    requests = bf16_requests(cfg.vocab_size)
+    rids = range(len(requests))
+
+    def served(run):
+        eng, outs, seconds, launches, _ = run
+        steps = eng.summary()["engine_steps"]
+        return {"tokens": tokens_of(run, rids), "seconds": seconds,
+                "steps": steps, "launches": launches,
+                "finished": all(len(outs[r].generated) == requests[r][1]
+                                and outs[r].finish_reason == "length"
+                                for r in rids),
+                "launches_ok": launches["attention"] == L * steps > 0}
+
+    original = served(serve(model, requests))
+    free_engines()
+    hf_state = hf_layout_state(model)
+    skipped = sum(k.endswith("rotary_emb.inv_freq") for k in hf_state)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    conv = from_hf(hf_state, config=cfg, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    peak_over_base = torch.cuda.max_memory_allocated() - base
+    model_bytes = sum(p.numel() * p.element_size()
+                      for p in conv.parameters())
+    a, b = model.decode_params(), conv.decode_params()
+    unequal = [k for k in LAYER_KEYS
+               if not torch.equal(a["layers"][k], b["layers"][k])] + \
+        [k for k in ("embed", "norm_f", "head") if not torch.equal(a[k], b[k])]
+    del hf_state, model, a, b
+    free_engines()
+    converted = served(serve(conv, requests))
+    free_engines()
+    errs = []
+    gate = served(serve(conv, requests,
+                        held_to_plain(kernel_attention, errs)))
+    free_engines()
+    controls = {}
+    for name, attention in CONTROLS.items():
+        c_errs = []
+        serve(conv, requests, held_to_plain(attention, c_errs))
+        free_engines()
+        c_err = worst(c_errs)
+        controls[name] = {"per_launch": c_err, "calls": len(c_errs),
+                          "fails_gate": not within(c_err, "bfloat16",
+                                                   ENGINE_MEASURES)}
+    gate_err = worst(errs) if errs else {}
+    checks = {
+        "decode_params_bit_equal": not unequal,
+        "inv_freq_entries_skipped": skipped == L,
+        "served_every_request_with_its_count":
+            original["finished"] and converted["finished"]
+            and gate["finished"],
+        "launches_equal_layers_x_steps":
+            original["launches_ok"] and converted["launches_ok"],
+        "tokens_equal_the_original": converted["tokens"]
+        == original["tokens"],
+        "gate_held_every_call": len(errs) == L * gate["steps"] > 0,
+        "per_launch_kernel_vs_plain": within(gate_err, "bfloat16",
+                                             ENGINE_MEASURES),
+        "controls_fail": all(c["fails_gate"] for c in controls.values()),
+        "no_whole_model_staging": peak_over_base <= model_bytes + (1 << 30)}
+    rec = {"phase": "hf_bridge_bf16", "ok": all(checks.values()),
+           "checks": checks, "layers": L, "requests": len(requests),
+           "hf_tensors": 9 * L + 3 + skipped, "inv_freq_entries": skipped,
+           "unequal_params": unequal, "convert_s": convert_s,
+           "convert_peak_bytes_over_start": peak_over_base,
+           "model_bytes": model_bytes,
+           "original": {k: v for k, v in original.items() if k != "tokens"},
+           "converted": {k: v for k, v in converted.items()
+                         if k != "tokens"},
+           "gate": {k: v for k, v in gate.items() if k != "tokens"},
+           "gate_tokens_equal_the_original": gate["tokens"]
+           == original["tokens"],
+           "kernel_launches": original["launches"]["attention"]
+           + converted["launches"]["attention"],
+           "gate_calls": len(errs), "per_launch_errors": gate_err,
+           "per_launch_tolerance": {k: TOLERANCE["bfloat16"][k]
+                                    for k in ENGINE_MEASURES},
+           "controls": controls, "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    state["hf_bridge_bf16"] = rec
+    del conv
+    free_engines()
+    return rec["ok"]
+
+
+# ---------------------------------------------------------------------------
 # flash phase: the three flash attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -5165,7 +5459,9 @@ def kernel_records(state) -> list:
         + state["engine_w4"]["launches"]["attention"]
         + state["engine_window_bf16"]["kernel_launches"]
         + state["engine_spec_bf16"]["kernel_launches"]
-        + state["frontend_bf16"]["kernel_launches"],
+        + state["frontend_bf16"]["kernel_launches"]
+        + state["sim_fit_bf16"]["kernel_launches"]
+        + state["hf_bridge_bf16"]["kernel_launches"],
         "launches_by_phase": {
             "engine_bf16": state["engine_bf16"]["kernel_launches"],
             "engine_w4": state["engine_w4"]["launches"]["attention"],
@@ -5173,6 +5469,8 @@ def kernel_records(state) -> list:
                 state["engine_window_bf16"]["kernel_launches"],
             "engine_spec_bf16": state["engine_spec_bf16"]["kernel_launches"],
             "frontend_bf16": state["frontend_bf16"]["kernel_launches"],
+            "sim_fit_bf16": state["sim_fit_bf16"]["kernel_launches"],
+            "hf_bridge_bf16": state["hf_bridge_bf16"]["kernel_launches"],
             "engine_f32": state["engine_f32"]["kernel_launches"],
             "engine_spec_f32": state["engine_spec_f32"]["kernel_launches"],
             "engine_tiers_f32":
@@ -5305,6 +5603,8 @@ def main() -> int:
                      ("engine_spec_bf16", phase_engine_spec_bf16),
                      ("frontend_bf16", phase_frontend_bf16),
                      ("frontend_cli", phase_frontend_cli),
+                     ("sim_fit_bf16", phase_sim_fit_bf16),
+                     ("hf_bridge_bf16", phase_hf_bridge_bf16),
                      ("train_f32", phase_train_f32),
                      ("train_bf16", phase_train_bf16),
                      ("blha_f32", phase_blha_f32),

@@ -1,7 +1,7 @@
 """Pure host-side serving policies, shared by the engine and the fleet
 simulator.
 
-The fleet simulator (``paddle_tpu/sim``) models the serving tiers as a
+The fleet simulator (``paddle_tpu_torch/sim``) models the serving tiers as a
 discrete-event system, but the DECISIONS those tiers make — which
 prefill chunks a step packs, which replica a request lands on, how many
 host round trips a decode window costs — are plain host Python with no

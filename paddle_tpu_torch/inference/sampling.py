@@ -30,6 +30,14 @@ needs.  The device-resident decode window takes those decisions once at
 dispatch, uploads ``samp`` once (``samp_to_device``) and calls
 ``sample_tokens_device`` every iteration with keys from ``advance_keys``
 and a ``seen`` mask it updates on the card.  Both give the same bits.
+
+A chain may also hold stages written to the JAX package's interface,
+``proc(lg, samp, xp)`` over numpy or ``jnp`` arrays (``is_reference_stage``
+says which).  ``target_dist`` calls them as ``proc(lg, samp, np)``, as the
+reference's host path does; ``sample_tokens`` runs a chain that holds one
+on the host through numpy (the logits copied out, the processed ones in);
+``sample_tokens_device`` refuses one, since the window calls it every
+iteration and must not read the host.
 """
 from __future__ import annotations
 
@@ -42,7 +50,7 @@ __all__ = [
     "LogitProcessor", "RepetitionPenaltyProcessor", "TemperatureProcessor",
     "TopKProcessor", "TopPProcessor", "DEFAULT_CHAIN", "make_samp",
     "sampling_plan", "samp_to_device", "advance_keys", "sample_tokens",
-    "sample_tokens_device", "target_dist",
+    "sample_tokens_device", "target_dist", "is_reference_stage",
 ]
 
 _NEG_INF = float("-inf")
@@ -63,6 +71,11 @@ class LogitProcessor:
     ``greedy_visible`` stages apply before the greedy/sampled split --
     greedy rows argmax their output; the rest only shape the sampled
     distribution.
+
+    The rule that tells a stage of this form from one written to the JAX
+    package's interface (``__call__(self, lg, samp, xp)``, no ``host``):
+    a stage is of this form exactly when its class defines ``host`` other
+    than as this base class does (``is_reference_stage`` is the negation).
     """
 
     greedy_visible = False
@@ -153,6 +166,21 @@ DEFAULT_CHAIN = (RepetitionPenaltyProcessor(), TemperatureProcessor(),
                  TopKProcessor(), TopPProcessor())
 
 
+def is_reference_stage(proc) -> bool:
+    """True when ``proc`` is written to the JAX package's interface,
+    ``proc(lg, samp, xp)``: its class defines no ``host`` of its own
+    (none at all, or ``LogitProcessor``'s)."""
+    host = getattr(type(proc), "host", None)
+    return host is None or host is LogitProcessor.host
+
+
+def _host_stage(proc, lg, samp):
+    """One stage over numpy arrays, in the form its interface takes."""
+    if is_reference_stage(proc):
+        return proc(lg, samp, np)
+    return proc.host(lg, samp)
+
+
 def make_samp(B: int, V: int) -> dict:
     """Host-side samp arrays at their 'off' defaults (greedy, no
     penalty/truncation) -- the engine mutates rows in place per slot."""
@@ -211,7 +239,17 @@ def sample_tokens_device(logits, st, rows=None, keys=None,
     ``needs_penalty``), and ``rows`` (an int64 index tensor, or None when
     no row samples) draw by the Gumbel-max rule from ``keys [len(rows),
     2]`` after the whole chain.  No host read: a window calls it every
-    iteration.  Returns [B] int32."""
+    iteration, so a chain holding a stage of the JAX package's interface
+    (``is_reference_stage``) is refused rather than run on the host.
+    Returns [B] int32."""
+    for proc in chain:
+        if is_reference_stage(proc):
+            raise NotImplementedError(
+                f"sample_tokens_device: {type(proc).__name__} is a logit "
+                "processor of the JAX package's interface (proc(lg, samp, "
+                "xp)); it runs on the host through sample_tokens or "
+                "target_dist, not in the device sampler (ROADMAP Queue 3 "
+                "item 1)")
     lg = logits.float()
     if needs_penalty:
         for proc in chain:
@@ -236,9 +274,15 @@ def sample_tokens(logits, samp, chain=DEFAULT_CHAIN):
     run the full chain into a Gumbel-max draw from their own key.
     Only what the launch needs crosses to the device: the greedy-visible
     stages (the penalty, an identity at 1.0) run when some row has a
-    penalty, the sampled stages when some row samples.  Returns [B]
-    int32 on logits' device."""
+    penalty, the sampled stages when some row samples.  A chain holding a
+    stage of the JAX package's interface (``is_reference_stage``) runs on
+    the host through numpy instead: every stage over every row, as the
+    reference does, with the logits copied out once and the greedy tokens
+    and sampled rows' logits copied in.  Returns [B] int32 on logits'
+    device."""
     dev = logits.device
+    if any(is_reference_stage(proc) for proc in chain):
+        return _sample_tokens_host(logits, samp, chain)
     sampled_rows, needs_penalty = sampling_plan(samp)
     st = samp_to_device(samp, dev, needs_penalty) \
         if needs_penalty or len(sampled_rows) else {}
@@ -250,11 +294,38 @@ def sample_tokens(logits, samp, chain=DEFAULT_CHAIN):
     return sample_tokens_device(logits, st, rows, keys, needs_penalty, chain)
 
 
+def _sample_tokens_host(logits, samp, chain):
+    """``sample_tokens`` for a chain with a stage of the JAX package's
+    interface: the stages run over numpy (each in its own form,
+    ``_host_stage``), the draw on logits' device."""
+    dev = logits.device
+    lg = logits.detach().float().cpu().numpy()
+    hs = {k: np.asarray(v) for k, v in samp.items()}
+    with np.errstate(invalid="ignore", over="ignore"):
+        for proc in chain:
+            if proc.greedy_visible:
+                lg = _host_stage(proc, lg, hs)
+        greedy_tok = np.argmax(lg, -1).astype(np.int32)
+        sampled_rows, _ = sampling_plan(samp)
+        out = _to_device(greedy_tok, dev)
+        if not len(sampled_rows):
+            return out
+        for proc in chain:
+            if not proc.greedy_visible:
+                lg = _host_stage(proc, lg, hs)
+    rows = _to_device(sampled_rows, dev)
+    keys = _to_device(hs["keys"][sampled_rows].astype(np.int64), dev)
+    lg_rows = _to_device(np.asarray(lg, np.float32)[sampled_rows], dev)
+    out[rows] = prng.categorical(keys, lg_rows).to(torch.int32)
+    return out
+
+
 def target_dist(logits_row, *, temperature=0.0, top_k=0, top_p=1.0,
                 penalty=1.0, seen=None, chain=DEFAULT_CHAIN):
     """Host-side target distribution for ONE position: the probabilities
     the sampler would draw from (one-hot argmax for greedy rows), through
-    each stage's numpy ``host`` path in the chain's order.  Speculative
+    each stage's numpy path in the chain's order: ``host(lg, samp)``, or
+    ``proc(lg, samp, np)`` for a stage of the JAX package's interface.  Speculative
     decoding's rejection sampling is exact only because this is the very
     chain the device runs.  Returns [V] float32."""
     lg = np.asarray(logits_row, np.float32)[None]
@@ -270,12 +341,12 @@ def target_dist(logits_row, *, temperature=0.0, top_k=0, top_p=1.0,
     with np.errstate(invalid="ignore", over="ignore"):
         for proc in chain:
             if proc.greedy_visible:
-                lg = proc.host(lg, samp)
+                lg = _host_stage(proc, lg, samp)
         if temperature <= 0.0:
             out = np.zeros((V,), np.float32)
             out[int(np.argmax(lg[0]))] = 1.0
             return out
         for proc in chain:
             if not proc.greedy_visible:
-                lg = proc.host(lg, samp)
+                lg = _host_stage(proc, lg, samp)
         return _softmax(lg)[0]

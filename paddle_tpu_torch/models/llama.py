@@ -13,7 +13,9 @@ Weights live in the JAX package's stacked decode-parameter layout:
 axis with projections stored ``[in, out]``, then ``embed``, ``norm_f`` and
 ``head``.  ``LlamaForCausalLM`` builds them from an explicit generator
 (no checkpoint ships with the repository); ``from_jax_decode_params``
-carries the JAX model's weights over for the parity tests.
+carries the JAX model's weights over for the parity tests, and
+``from_hf`` loads a Hugging Face LLaMA checkpoint (model or state dict)
+through the rotate-half -> interleaved RoPE permutation.
 
 ``speculative_generate`` is batch-1 speculative decoding over two dense
 decode forwards (a draft model proposes, the target verifies a window in
@@ -27,8 +29,9 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "from_jax_decode_params",
-           "resolve_device", "speculative_generate"]
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "convert_hf_state_dict",
+           "from_hf", "from_jax_decode_params", "resolve_device",
+           "speculative_generate"]
 
 LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "gate", "up", "down")
 
@@ -489,4 +492,161 @@ def from_jax_decode_params(cfg: LlamaConfig, params_np: dict, *,
         model.norm_f.copy_(t(params_np["norm_f"]))
         if model.head is not None:
             model.head.copy_(t(params_np["head"]))
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Hugging Face weight bridge: load an HF-format LLaMA checkpoint into
+# LlamaForCausalLM (the JAX package's convert_hf_state_dict / from_hf).
+# ---------------------------------------------------------------------------
+
+def _unrotate_perm(d):
+    """Output-dim permutation mapping HF's rotate-half RoPE layout (pairs
+    (i, i + d/2)) onto this model's interleaved layout (pairs (2i, 2i+1))."""
+    perm = np.empty(d, np.int64)
+    perm[0::2] = np.arange(d // 2)
+    perm[1::2] = np.arange(d // 2) + d // 2
+    return perm
+
+
+# HF projections stored [out, in]; this layout stores them [in, out]
+_HF_TRANSPOSED = ("self_attn.v_proj.weight", "self_attn.o_proj.weight",
+                  "mlp.gate_proj.weight", "mlp.up_proj.weight",
+                  "mlp.down_proj.weight", "lm_head.weight")
+
+# HF per-layer names -> the stacked decode layout's keys
+_HF_LAYER_KEYS = {
+    "input_layernorm.weight": "ln1", "self_attn.q_proj.weight": "wq",
+    "self_attn.k_proj.weight": "wk", "self_attn.v_proj.weight": "wv",
+    "self_attn.o_proj.weight": "wo",
+    "post_attention_layernorm.weight": "ln2",
+    "mlp.gate_proj.weight": "gate", "mlp.up_proj.weight": "up",
+    "mlp.down_proj.weight": "down"}
+
+
+def _hf_to_layout(key, w, config: LlamaConfig):
+    """One HF tensor ``w`` (torch, on its own device) in this model's
+    layout: q/k rows permuted head by head from rotate-half to
+    interleaved (k over ``num_key_value_heads``), projections and the
+    head transposed to ``[in, out]`` (views), anything else as it is.
+    None for ``rotary_emb.inv_freq``, which the model recomputes."""
+    if key.endswith("rotary_emb.inv_freq"):
+        return None
+    d = config.hidden_size // config.num_attention_heads
+
+    def permute_rows(n_heads):
+        # w: [n_heads * d, in] in HF layout; permute each head's rows
+        perm = torch.from_numpy(_unrotate_perm(d)).to(w.device)
+        return w.reshape(n_heads, d, -1).index_select(1, perm) \
+            .reshape(n_heads * d, -1)
+
+    if key.endswith("self_attn.q_proj.weight"):
+        return permute_rows(config.num_attention_heads).T
+    if key.endswith("self_attn.k_proj.weight"):
+        return permute_rows(config.num_key_value_heads).T
+    if key.endswith(_HF_TRANSPOSED):
+        return w.T
+    return w
+
+
+def convert_hf_state_dict(hf_state, config: LlamaConfig):
+    """HF transformers LLaMA state_dict -> the same names in this model's
+    layout.
+
+    Handles: torch [out, in] -> [in, out] Linear transpose; the
+    rotate-half -> interleaved RoPE permutation on q/k projection outputs;
+    lm_head transpose.  Values come out as numpy float32.
+    """
+    out = {}
+    for k, v in hf_state.items():
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().float()
+        else:
+            v = torch.from_numpy(np.array(v, np.float32))
+        v = _hf_to_layout(k, v, config)
+        if v is not None:
+            out[k] = v.numpy()
+    return out
+
+
+def _hf_target(model: LlamaForCausalLM, key: str):
+    """The parameter (or stacked layer slice) an HF name loads into;
+    None for a tied ``lm_head.weight``.  Raises on a name the model has
+    no place for."""
+    if key == "model.embed_tokens.weight":
+        return model.embed
+    if key == "model.norm.weight":
+        return model.norm_f
+    if key == "lm_head.weight":
+        return model.head
+    parts = key.split(".", 3)
+    if len(parts) == 4 and parts[:2] == ["model", "layers"] \
+            and parts[2].isdigit() and parts[3] in _HF_LAYER_KEYS:
+        i = int(parts[2])
+        if i < model.config.num_hidden_layers:
+            return model.layers[_HF_LAYER_KEYS[parts[3]]][i]
+    raise ValueError(f"from_hf: no parameter of LlamaForCausalLM takes "
+                     f"the HF tensor {key!r}")
+
+
+def from_hf(hf_model_or_state, config: LlamaConfig | None = None, *,
+            device=None, dtype=torch.float32) -> LlamaForCausalLM:
+    """Build LlamaForCausalLM from an HF transformers model/state_dict.
+
+    ``config`` comes from the HF model's ``.config`` when not given (a
+    bare state dict needs it).  ``device=None`` means CUDA
+    (``resolve_device``).  Each tensor is converted on its own device
+    (``_hf_to_layout``, the permutation and transposes
+    ``convert_hf_state_dict`` applies) and written into the stacked
+    parameters in ``dtype``, so a checkpoint already on the card is never
+    staged whole on the host.  A tied ``lm_head.weight`` is skipped
+    (``head`` stays None)."""
+    if hasattr(hf_model_or_state, "state_dict"):
+        hf_cfg = getattr(hf_model_or_state, "config", None)
+        hf_state = hf_model_or_state.state_dict()
+        if config is None and hf_cfg is not None:
+            config = LlamaConfig(
+                vocab_size=hf_cfg.vocab_size,
+                hidden_size=hf_cfg.hidden_size,
+                intermediate_size=hf_cfg.intermediate_size,
+                num_hidden_layers=hf_cfg.num_hidden_layers,
+                num_attention_heads=hf_cfg.num_attention_heads,
+                num_key_value_heads=hf_cfg.num_key_value_heads,
+                max_position_embeddings=hf_cfg.max_position_embeddings,
+                rms_norm_eps=hf_cfg.rms_norm_eps,
+                rope_theta=getattr(hf_cfg, "rope_theta", 10000.0),
+                tie_word_embeddings=hf_cfg.tie_word_embeddings)
+    else:
+        hf_state = hf_model_or_state
+    if config is None:
+        raise ValueError("pass config= when converting a bare state_dict")
+    model = LlamaForCausalLM(config, device=device, dtype=dtype)
+    written = set()
+    with torch.no_grad():
+        for k, v in hf_state.items():
+            if not isinstance(v, torch.Tensor):
+                v = torch.from_numpy(np.array(v, np.float32))
+            elif v.dtype == torch.float64:
+                v = v.float()          # rounded once to f32, as converted
+            v = _hf_to_layout(k, v.detach(), config)
+            if v is None:
+                continue
+            dst = _hf_target(model, k)
+            if dst is None:
+                continue
+            if tuple(v.shape) != tuple(dst.shape):
+                raise ValueError(f"from_hf: {k!r} has shape "
+                                 f"{tuple(v.shape)} in this layout, the "
+                                 f"model expects {tuple(dst.shape)}")
+            dst.copy_(v)
+            written.add(k)
+    L = config.num_hidden_layers
+    need = {"model.embed_tokens.weight", "model.norm.weight"} \
+        | {f"model.layers.{i}.{n}" for i in range(L) for n in _HF_LAYER_KEYS}
+    if model.head is not None:
+        need.add("lm_head.weight")
+    missing = sorted(need - written)
+    if missing:
+        raise ValueError(f"from_hf: the state dict lacks {len(missing)} "
+                         f"tensor(s), e.g. {missing[:3]}")
     return model

@@ -12,10 +12,10 @@ serving path's, also at speculative verify launches;
 controls that must fail), serves requests through ``LLMEngine`` at
 LLaMA-7B width (random weights from a seed): ``engine_f32`` (2 layers in
 float32, tokens checked against the dense ``generate()`` forward),
-``engine_bf16`` (32 layers in bfloat16), ``engine_w8kv8`` (32 layers, int8
-weight pools and int8 KV pages) and ``engine_w4`` (32 layers, int4 weight
+``engine_bf16`` (32 layers in bfloat16), ``engine_w8kv8`` (8 layers, int8
+weight pools and int8 KV pages) and ``engine_w4`` (8 layers, int4 weight
 pools, bfloat16 pages), all with the engine's default async step pipeline;
-``engine_window_bf16`` (32 layers: overlap off, on, and the K=4 decode
+``engine_window_bf16`` (8 layers: overlap off, on, and the K=4 decode
 window, greedy tokens identical, a gate run holding every attention launch
 of the window to its plain version, the profile rows at K 4 and with
 overlap off) and ``engine_window_w8kv8`` (the int8 window against K 1),
@@ -24,14 +24,14 @@ speculation off, the n-gram drafter, a self-draft model and the dense
 ``generate()``; a quantized n-gram run and its gate run, holding every
 int8-page attention and dequant matmul launch to its plain version;
 ``speculative_generate``) and
-``engine_spec_bf16`` (32 layers, the n-gram drafter at spec_k 4 and 8: a
+``engine_spec_bf16`` (8 layers, the n-gram drafter at spec_k 4 and 8: a
 gate run holding every attention launch that carries verify rows to its
 plain version, controls, no dispatch synchronizing, a profile),
 ``engine_tiers_f32`` (2 layers in float32: the host KV spill tier on and
 off over float and int8 pages, restored pages equal to the bytes the tier
 held, the tracer's Chrome JSON, an in-flight crash recovered under
 ``EngineRunner`` with no leaked pools, two sampled replicas equal to one
-engine, no dispatch synchronizing), ``frontend_bf16`` (32 layers in
+engine, no dispatch synchronizing), ``frontend_bf16`` (8 layers in
 bfloat16 served over HTTP by ``serve_background`` with two replicas, the
 tracer, the flight recorder and host tiers: 16 requests, SSE and unary,
 greedy and sampled, a gate holding every attention launch to its plain
@@ -42,9 +42,20 @@ subprocess: one streamed request, then SIGINT drains it to exit 0),
 workload, 32 requests with the n-gram drafter, traced; the trace fitted
 by ``tools/perf/step_timeline.py --fit`` and the fleet simulator's
 ``validate_record`` run on the fit, the record and the workload dump) and
-``hf_bridge_bf16`` (32 layers in bfloat16: a Hugging Face layout state
+``hf_bridge_bf16`` (8 layers in bfloat16: a Hugging Face layout state
 dict through ``from_hf``, parameters bit-equal, the same tokens, a gate
-run and controls), and trains through ``build_train_step`` at the
+run and controls), ``engine_tp2_f32`` (2 layers in float32 at tp=2, both
+shards on the one card: greedy tokens equal tp=1's, every attention launch
+of both shards held to its plain version, controls, per-shard bytes half
+the totals, and an int8-weight int8-page run with a copy-on-write and a
+spill and restore whose pages equal tp=1's bytes under one forced plan),
+``engine_tp2_bf16`` (32 layers in bfloat16 at tp=2: a gate run, the main
+path's walk launches at 16 heads a shard, dispatch_ms and ITL; an int4
+run at 2 layers for the sliced int4 scales) and ``tune_sweep_bf16``
+(``tune.run_sweep`` with child processes over one LLaMA-7B shape for each
+of the five tuned kernels into a temporary cache, then engine_bf16's
+requests through an int8-weight engine that reads it: a hit for every
+kernel, every launch held), and trains through ``build_train_step`` at the
 350M GQA LLaMA bench configuration: ``train_f32`` (2 layers in float32,
 three steps on the kernels against three on the plain versions) and
 ``train_bf16`` (24 layers in bfloat16: a gate run holding every kernel
@@ -65,9 +76,10 @@ a gate run, then the kernels alone) serve a fused LLaMA-7B decoder built
 from ``incubate.nn.functional`` ops over ``block_multihead_attention``.
 Each 32- and 24-layer phase shows through the kernels' launch counters
 that a run on the kernels alone went through them.  Each
-phase prints one JSON line; the line before the last two is the kernel
-record, then the card's name and power limit as nvidia-smi gives them,
-then ``{"ok": true, ...}``.
+phase prints one JSON line, and a ``run`` line the whole run's seconds
+beside the card; the line before the last two is the kernel record, then
+the card's name and power limit as nvidia-smi gives them, then ``{"ok":
+true, ...}``.
 
 It exits non-zero, and prints no result, when no CUDA device is present,
 when the port cannot be imported (the script alone, outside the
@@ -1024,14 +1036,18 @@ def teacher_forced(model, requests, outs):
 
 def expected_launches(eng, steps) -> dict:
     """Launches per kernel a run of ``steps`` steps must show: the
-    attention kernel the pages call for once per layer per step (the
-    other none), and the dequant matmul 7 times per layer plus once for
-    the logit head per step in a quantized-weight engine."""
+    attention kernel the pages call for once per layer per shard per step
+    (the other none), and in a quantized-weight engine the dequant matmul
+    for q, k and v once per shard, for wo, gate, up and down once, per
+    layer, plus the logit head once (once per shard where the vocabulary
+    splits), per step: 7 L + 1 at tp=1."""
     L = eng.config.num_hidden_layers
+    tp = eng.tp
     q8 = eng.kv_dtype == "int8"
-    return {"attention": 0 if q8 else L * steps,
-            "attention_q8": L * steps if q8 else 0,
-            "qmm": (7 * L + 1) * steps
+    heads = tp if eng._shard_head else 1
+    return {"attention": 0 if q8 else tp * L * steps,
+            "attention_q8": tp * L * steps if q8 else 0,
+            "qmm": ((3 * tp + 4) * L + heads) * steps
             if eng.weight_dtype != "float32" else 0}
 
 
@@ -1054,7 +1070,7 @@ def engine_record(name, run, requests, checks: dict, rounds=None, **extra):
     checks = {"finished_with_right_count": counts_ok,
               "none_quarantined": s["quarantined"] == 0,
               "launches_equal_layers_x_steps":
-                  launches[att] == want[att] == layers * steps,
+                  launches[att] == want[att] == layers * steps * eng.tp,
               "launches_as_expected_for_every_kernel": launches == want,
               **checks}
     rec = {"phase": name, "ok": all(checks.values()), "checks": checks,
@@ -1064,7 +1080,8 @@ def engine_record(name, run, requests, checks: dict, rounds=None, **extra):
            "quarantined": s["quarantined"], "steps": steps,
            "engine_steps": s["engine_steps"],
            "kernel_launches": launches[att], "launches": launches,
-           "expected_launches": want, "launches_per_step": layers,
+           "expected_launches": want, "launches_per_step": layers * eng.tp,
+           "tp": eng.tp,
            "generated_tokens": gen_tokens, "wall_s": seconds,
            "tokens_per_s": gen_tokens / seconds,
            "prefill_tokens": s["prefill_tokens"],
@@ -1172,13 +1189,25 @@ def phase_engine_quant_f32(state):
 ENGINE_MEASURES = ("token_rel", "l2_rel")
 
 
-def llama_7b_bf16():
-    """LLaMA-7B at its published widths, all 32 layers, bf16, random
-    weights from the seed."""
+# the depth of the phases cut to keep the whole run inside its time limit
+# (engine_w8kv8, engine_w4, the two window phases, engine_spec_bf16,
+# frontend_bf16, hf_bridge_bf16 and tune_sweep_bf16's engine): 8 of
+# LLaMA-7B's 32 layers at its published widths; engine_bf16,
+# sim_fit_bf16, engine_tp2_bf16, blha_bf16 and fused_decoder_bf16 keep
+# all 32
+CUT_LAYERS = 8
+
+
+def llama_7b_bf16(layers=None):
+    """LLaMA-7B at its published widths, all 32 layers (or ``layers``),
+    bf16, random weights from the seed."""
     import torch
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-    return LlamaForCausalLM(LlamaConfig.llama_7b(), device=DEV,
-                            dtype=torch.bfloat16, generator=SEED)
+    cfg = LlamaConfig.llama_7b()
+    if layers is not None:
+        cfg.num_hidden_layers = layers
+    return LlamaForCausalLM(cfg, device=DEV, dtype=torch.bfloat16,
+                            generator=SEED)
 
 
 def bf16_requests(V):
@@ -1487,7 +1516,7 @@ def held_qmm(log, control_log=None):
 
 
 def quantized_engine_phase(name, state, **engine_opts):
-    """32 layers in bf16 with quantized weights (and int8 pages where
+    """CUT_LAYERS in bf16 with quantized weights (and int8 pages where
     asked), the request mix of engine_bf16.  A gate run takes the plain
     versions of the dequant matmul and of the attention the pages call
     for, and launches each kernel beside every call, so each kernel is held
@@ -1497,7 +1526,7 @@ def quantized_engine_phase(name, state, **engine_opts):
     import torch
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import quant_matmul as qm
-    model = llama_7b_bf16()
+    model = llama_7b_bf16(CUT_LAYERS)
     requests = bf16_requests(model.config.vocab_size)
     att_log, qmm_log = [], []
     patch = {(qm, "matmul"): held_qmm(qmm_log)}
@@ -1664,7 +1693,7 @@ def tokens_of(run, rids):
 
 
 def phase_engine_window_bf16(state):
-    """32 layers in bf16, 8 slots, the pipeline and the window.  The
+    """CUT_LAYERS in bf16, 8 slots, the pipeline and the window.  The
     requests (bf16_requests' prompts with staggered budgets) are served
     with overlap off at K 1, with overlap on at K 1 and at K 4, on the
     kernels alone; greedy tokens must be identical across the three, no
@@ -1679,7 +1708,7 @@ def phase_engine_window_bf16(state):
     requests, must fail it.  Then the profile rows at K 4 and with overlap
     off on this machine."""
     import torch
-    model = llama_7b_bf16()
+    model = llama_7b_bf16(CUT_LAYERS)
     requests = window_requests(model.config.vocab_size)
     greedy = [r for r, (_, _, o) in enumerate(requests)
               if o.get("temperature", 0.0) == 0.0]
@@ -1781,13 +1810,13 @@ def phase_engine_window_bf16(state):
 
 
 def phase_engine_window_w8kv8(state):
-    """32 layers in bf16 with int8 weight pools and int8 pages: the window
+    """CUT_LAYERS in bf16 with int8 weight pools and int8 pages: the window
     requests at K 4 and at K 1 (overlap on), on the kernels alone; greedy
     tokens identical, no row quarantined, no dispatch synchronizing, the
     launch counts those of the passes run (attention L a pass, dequant
     matmul 7 L + 1), and the steady decode's round trips a round."""
     import torch
-    model = llama_7b_bf16()
+    model = llama_7b_bf16(CUT_LAYERS)
     requests = window_requests(model.config.vocab_size)
     greedy = [r for r, (_, _, o) in enumerate(requests)
               if o.get("temperature", 0.0) == 0.0]
@@ -2123,7 +2152,7 @@ def first_divergence(model, requests, a, b) -> dict:
 
 
 def phase_engine_spec_bf16(state):
-    """LLaMA-7B, 32 layers in bf16, the n-gram drafter at the default
+    """LLaMA-7B, CUT_LAYERS in bf16, the n-gram drafter at the default
     max_spec_k 8 with requests asking spec_k 4 and 8 (verify runs of up to
     5 and 9 tokens), 16 motif requests on 8 slots; the buckets and run
     lengths the verify launches took are recorded (random weights continue
@@ -2142,7 +2171,7 @@ def phase_engine_spec_bf16(state):
     a profile of the spec-on run on the first 8 requests (launches a
     step)."""
     import torch
-    model = llama_7b_bf16()
+    model = llama_7b_bf16(CUT_LAYERS)
     V = model.config.vocab_size
     L = model.config.num_hidden_layers
     # 8 long-running requests, then 8 short prompts that queue for their
@@ -2701,7 +2730,7 @@ def metric_samples(text, name):
 
 
 def phase_frontend_bf16(state):
-    """LLaMA-7B, 32 layers in bf16, served over HTTP: ``serve_background``
+    """LLaMA-7B, CUT_LAYERS in bf16, served over HTTP: ``serve_background``
     on 127.0.0.1 (port 0) with two replicas (one engine factory over the
     shared weights), the tracer, the flight recorder, windowed telemetry
     and a host tier on each.  After two warm-up requests, the 16 requests
@@ -2723,7 +2752,7 @@ def phase_frontend_bf16(state):
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.profiler import Tracer
     free_engines()
-    model = llama_7b_bf16()
+    model = llama_7b_bf16(CUT_LAYERS)
     L = model.config.num_hidden_layers
 
     def factory():
@@ -3075,7 +3104,7 @@ def hf_layout_state(model) -> dict:
 
 
 def phase_hf_bridge_bf16(state):
-    """LLaMA-7B, 32 layers in bf16: the port's model serves
+    """LLaMA-7B, CUT_LAYERS in bf16: the port's model serves
     ``bf16_requests`` on the kernels alone; a Hugging Face layout bf16
     state dict derived from it on the card (``hf_layout_state``, inv_freq
     entries included) goes through ``from_hf(state, config=cfg,
@@ -3091,7 +3120,7 @@ def phase_hf_bridge_bf16(state):
     import torch
     from paddle_tpu_torch.models.llama import LAYER_KEYS, from_hf
     free_engines()
-    model = llama_7b_bf16()
+    model = llama_7b_bf16(CUT_LAYERS)
     cfg = model.config
     L = cfg.num_hidden_layers
     requests = bf16_requests(cfg.vocab_size)
@@ -3179,6 +3208,461 @@ def phase_hf_bridge_bf16(state):
     emit(rec)
     state["hf_bridge_bf16"] = rec
     del conv
+    free_engines()
+    return rec["ok"]
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving (tp=2, both shards on the one card) and the tuner
+# ---------------------------------------------------------------------------
+
+TP = 2
+# the w8kv8 tier run's plan, forced on both degrees: with K slabs a split
+# fixed for every dequant matmul and one key split for every walk, each
+# output column and each head sums in one order at any N and any H_kv, so
+# tp=2 commits the very bytes tp=1 does (without it the rules pick their
+# splits from N and H_kv, and the sums' order follows)
+TP_FORCED = {"quant_matmul": {"tile": -1, "split_slabs": 4},
+             "paged_attention": {"split_keys": 1024}}
+TP_TIER_PROMPT = 3 * BS + 8            # three full pages and a partial
+
+
+@contextlib.contextmanager
+def forced_tuning(configs):
+    """Force tuned configs through the lookup (PADDLE_TPU_TUNE_FORCE)."""
+    import os
+    saved = os.environ.get("PADDLE_TPU_TUNE_FORCE")
+    os.environ["PADDLE_TPU_TUNE_FORCE"] = json.dumps(configs)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("PADDLE_TPU_TUNE_FORCE", None)
+        else:
+            os.environ["PADDLE_TPU_TUNE_FORCE"] = saved
+
+
+def shard_residency(eng) -> dict:
+    """Per-shard against total bytes: pages, resident pages, pools and
+    weights (replicated tensors count in full on a shard, sharded ones
+    their block)."""
+    pools = [sum(getattr(sh, k).nbytes for k in eng._pool_names())
+             for sh in eng._shards]
+    rep, shd = eng._weight_tensors()
+    nbytes = sum(t.nbytes for t in shd)
+    return {
+        "kv_page_bytes": eng.kv_page_bytes(),
+        "kv_page_bytes_per_shard": eng.kv_page_bytes_per_shard(),
+        "kv_bytes_resident": eng.kv_bytes_resident(),
+        "kv_bytes_resident_per_shard": eng.kv_bytes_resident_per_shard(),
+        "pool_bytes_by_shard": pools,
+        "weight_bytes_resident": eng.weight_bytes_resident(),
+        "weight_bytes_resident_per_shard":
+            eng.weight_bytes_resident_per_shard(),
+        "sharded_weight_bytes": nbytes,
+        "checks": {
+            "page_bytes_half": eng.kv_page_bytes_per_shard() * eng.tp
+            == eng.kv_page_bytes(),
+            "resident_bytes_half": eng.kv_bytes_resident_per_shard()
+            * eng.tp == eng.kv_bytes_resident() > 0,
+            "pools_split_evenly": len(set(pools)) == 1
+            and sum(pools) == eng.kv_page_bytes()
+            * eng.blocks.num_blocks,
+            "weights_per_shard": eng.weight_bytes_resident_per_shard()
+            == eng.weight_bytes_resident() - nbytes + nbytes // eng.tp}}
+
+
+def shapes_counted(log):
+    """Patches that count the engine's attention and dequant matmul calls
+    by operand shape (q heads / KV heads; N) and call through."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    att, att_q8, mm = (pa.ragged_paged_attention_segrel_packed,
+                       pa.ragged_paged_attention_quant_segrel_packed,
+                       qm.matmul)
+
+    def count(kind, key):
+        log.setdefault(kind, {})
+        log[kind][key] = log[kind].get(key, 0) + 1
+
+    def attention(q, kc, *rest):
+        count("attention", f"H{q.shape[1]}_Hkv{kc.shape[1]}")
+        return att(q, kc, *rest)
+
+    def attention_q8(q, kc, *rest):
+        count("attention_q8", f"H{q.shape[1]}_Hkv{kc.shape[1]}")
+        return att_q8(q, kc, *rest)
+
+    def matmul(x, q, s, wdt):
+        count("qmm", f"N{q.shape[1]}")
+        return mm(x, q, s, wdt)
+    return {(pa, "ragged_paged_attention_segrel_packed"): attention,
+            (pa, "ragged_paged_attention_quant_segrel_packed"): attention_q8,
+            (qm, "matmul"): matmul}
+
+
+def tier_pages(model, tp, prompt):
+    """int8 weights and pages at ``tp`` with a host spill tier: A serves
+    ``prompt``; B and C extend A's conversation and part inside its cached
+    partial tail page (a copy-on-write: the JAX package's
+    test_engine_cow_on_diverging_followups); then the parked pages spill
+    at a drain, a hint restores the prompt's chain at the next, and D
+    serves the prompt again from the restored pages.  Returns the tokens,
+    the copies, the tier's bytes of each chain page, the pools' bytes
+    there after the restore (the shards' heads concatenated), and whether
+    every pool kept its address."""
+    import torch
+    from paddle_tpu_torch.inference import HostSpillPool, LLMEngine
+    from paddle_tpu_torch.inference.kv_cache import prefix_chain_hashes
+    tier = HostSpillPool(1 << 30)
+    eng = LLMEngine(model, device=DEV, tp=tp, max_num_seqs=8, block_size=BS,
+                    max_model_len=MAX_MODEL_LEN, max_prefill_tokens=512,
+                    prefill_token_bucket=64, weight_dtype="int8",
+                    kv_dtype="int8", kv_tier=tier)
+    names = eng._pool_names()
+    ptrs = [getattr(sh, k).data_ptr() for sh in eng._shards for k in names]
+    a = eng.add_request(prompt, max_new_tokens=5)
+    gen_a = eng.run()[a].generated
+    base = prompt + gen_a[:4]
+    b = eng.add_request(base + [3], max_new_tokens=8)
+    c = eng.add_request(base + [7], max_new_tokens=8)
+    outs = eng.run()
+    chain = prefix_chain_hashes(prompt, eng.block_size)
+    evicted = eng.blocks.evict_parked(eng.blocks.num_cached)
+    eng.step()                                     # the drain spills
+    held = {h: {k: v.clone() for k, v in
+                tier._entries[tier._by_hash[h]]["arrays"].items()}
+            for h in chain if h in tier}
+    eng.prefetch_hint(chain)
+    eng.step()                                     # the drain restores
+    restored = {}
+    for h in chain:
+        blk = eng.blocks._hash_to_block.get(h)
+        if blk is not None:
+            restored[h] = {k: torch.cat([getattr(sh, k)[:, blk].cpu()
+                                         for sh in eng._shards], 1)
+                           for k in names}
+    d = eng.add_request(prompt, max_new_tokens=5)
+    again = eng.run()[d].generated
+    s = eng.summary()
+    moved = ptrs != [getattr(sh, k).data_ptr() for sh in eng._shards
+                     for k in names]
+    res = {"tokens": {"a": gen_a, "b": outs[b].generated,
+                      "c": outs[c].generated, "d": again},
+           "cow": s["block_pool"]["cow_count"], "evicted": evicted,
+           "chain_pages": len(chain), "spilled": s["kv_pages_spilled"],
+           "restored_pages": s["kv_pages_restored"],
+           "prefetch_hit_pages": s["kv_prefetch_hit_pages"],
+           "held": held, "restored": restored, "pools_moved": moved}
+    eng.close()
+    return res
+
+
+def phase_engine_tp2_f32(state):
+    """engine_f32's model (LLaMA-7B widths, 2 layers, f32) and requests at
+    tp=2, both shards on the one card: a correctness path (the walk at 16
+    heads and 16 KV heads a shard, the q/k/v products at N 2,048).  The
+    tp=1 run records its tokens and logits; the tp=2 run on the kernels
+    alone must give the same greedy tokens, and a tp=2 run forced along
+    tp=1's tokens reports the logit gap; a gate run holds every attention
+    launch of both shards to the plain version, controls failing;
+    per-shard bytes are half the totals.  Then int8 weights and pages at
+    tp 1 and 2 under one forced plan (TP_FORCED), with a copy-on-write and
+    a spill and restore: the tier holds, and the pools get back, the same
+    bytes at both degrees, in place."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig.llama_7b()
+    cfg.num_hidden_layers = 2
+    model = LlamaForCausalLM(cfg, device=DEV, dtype=torch.float32,
+                             generator=SEED)
+    rng = np.random.default_rng(SEED + 1)
+    lens = [5, 300] + [int(x) for x in rng.integers(5, 301, 6)]
+    requests = [(rng.integers(0, cfg.vocab_size, n).tolist(), 16, {})
+                for n in lens]
+    script1, script2, log = [], [], []
+    run1 = serve(model, requests, sampler=recording_sampler(script1))
+    run2 = serve(model, requests, sampler=recording_sampler(script2), tp=TP)
+    same = all(run1[1][r].generated == run2[1][r].generated
+               for r in range(len(requests)))
+    serve(model, requests, sampler=forced_sampler(script1, log), tp=TP)
+    gap = forced_gap(script1, log)
+    errs = []
+    gate = serve(model, requests,
+                 attention=held_to_plain(kernel_attention, errs), tp=TP)
+    gate_want = expected_launches(gate[0],
+                                  gate[0].summary()["engine_steps"])
+    per_launch = worst(errs)
+    controls = {}
+    for name, attention in CONTROLS.items():
+        c_errs = []
+        serve(model, requests[:4], attention=held_to_plain(
+            attention, c_errs, run_on_plain=False), tp=TP)
+        controls[name] = {"per_launch": worst(c_errs),
+                          "fails_gate": not within(worst(c_errs), "float32",
+                                                   ENGINE_MEASURES)}
+    bytes_ = shard_residency(run2[0])
+    del gate, script1, script2, log
+    free_engines()
+
+    qcfg = LlamaConfig.llama_7b()
+    qcfg.num_hidden_layers = 2
+    prompt = [int(x) for x in np.random.default_rng(SEED + 17).integers(
+        0, qcfg.vocab_size, TP_TIER_PROMPT)]
+    with forced_tuning(TP_FORCED):
+        tiers = {tp: tier_pages(model, tp, prompt) for tp in (1, TP)}
+    t1, t2 = tiers[1], tiers[TP]
+    same_held = t1["held"].keys() == t2["held"].keys() and all(
+        torch.equal(t1["held"][h][k], t2["held"][h][k])
+        for h in t1["held"] for k in t1["held"][h])
+    back = all(torch.equal(t2["restored"][h][k], v)
+               for h, page in t2["held"].items() for k, v in page.items())
+    tier_rec = {k: t2[k] for k in ("tokens", "cow", "evicted", "spilled",
+                                   "chain_pages", "restored_pages",
+                                   "prefetch_hit_pages", "pools_moved")}
+    tier_rec["pages_held"] = len(t2["held"])
+    tier_rec["forced_plan"] = TP_FORCED
+    tier_checks = {
+        "tier_tokens_equal_tp1": t1["tokens"] == t2["tokens"],
+        "tier_cow_happened": t2["cow"] > 0 and t2["cow"] == t1["cow"],
+        "tier_spilled_and_restored":
+            len(t2["held"]) == t2["chain_pages"] == TP_TIER_PROMPT // BS
+            and t2["restored_pages"] >= t2["chain_pages"]
+            and t2["prefetch_hit_pages"] > 0,
+        "tier_restored_prompt_repeats": t2["tokens"]["d"]
+        == t2["tokens"]["a"],
+        "tier_spilled_bytes_equal_tp1": same_held,
+        "tier_restored_bytes_equal_held": back,
+        "tier_pools_in_place": not t2["pools_moved"]}
+    rec = engine_record(
+        "engine_tp2_f32", run2, requests,
+        {"tokens_equal_tp1": same,
+         "gate_held_every_call": len(errs) == gate_want["attention"],
+         "per_launch_kernel_vs_plain": within(per_launch, "float32",
+                                              ENGINE_MEASURES),
+         "controls_fail": all(c["fails_gate"] for c in controls.values()),
+         **bytes_.pop("checks"), **tier_checks},
+        tp1_kernel_launches=run1[3], logit_gap_vs_tp1=gap,
+        per_launch_errors=per_launch, per_launch_tolerance={
+            k: TOLERANCE["float32"][k] for k in ENGINE_MEASURES},
+        gate_calls=len(errs), controls=controls, residency=bytes_,
+        w8kv8_tier=tier_rec, card=nvidia_smi())
+    state["engine_tp2_f32"] = rec
+    del run1, run2, tiers, model
+    free_engines()
+    return rec["ok"]
+
+
+# 2 layers for the int4 run: the scale slicing, not depth
+TP_W4_LAYERS = 2
+
+
+def phase_engine_tp2_bf16(state):
+    """LLaMA-7B (32 layers) in bf16 at tp=2 on the one card, engine_bf16's
+    requests.  A gate run takes the plain attention and launches the
+    kernel beside every call of both shards, held to the scale-free bf16
+    tolerances; the main path, on the kernels alone, counts its walk
+    launches by per-shard shape and reads dispatch_ms and ITL (reported,
+    not gated); controls on four requests must fail the gate.  Then int4
+    weights at 2 layers, tp 2 (the int4 scales sliced along their last
+    axis): a gate run holding every dequant matmul and walk launch to its
+    plain version, and a run on the kernels alone whose launches are
+    counted by shape."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    model = llama_7b_bf16()
+    heads = model.config.num_attention_heads // TP
+    kv_heads = model.config.num_key_value_heads // TP
+    requests = bf16_requests(model.config.vocab_size)
+    errs = []
+    gate = serve(model, requests,
+                 attention=held_to_plain(kernel_attention, errs), tp=TP)
+    gate_want = expected_launches(gate[0],
+                                  gate[0].summary()["engine_steps"])
+    gate_tokens = {r: o.generated for r, o in gate[1].items()}
+    del gate
+    free_engines()
+    shapes = {}
+    run = serve(model, requests, patch=shapes_counted(shapes), tp=TP)
+    per_launch = worst(errs)
+    controls = {}
+    for name, attention in CONTROLS.items():
+        c_errs = []
+        serve(model, requests[:4], attention=held_to_plain(
+            attention, c_errs, run_on_plain=False), tp=TP)
+        controls[name] = {"per_launch": worst(c_errs),
+                          "fails_gate": not within(worst(c_errs), "bfloat16",
+                                                   ENGINE_MEASURES)}
+    greedy = [r for r, (_, _, o) in enumerate(requests)
+              if o.get("temperature", 0.0) == 0.0]
+    agree = sum(run[1][r].generated == gate_tokens[r] for r in greedy)
+    bytes_ = shard_residency(run[0])
+    del model
+    free_engines()
+
+    cfg = LlamaConfig.llama_7b()
+    cfg.num_hidden_layers = TP_W4_LAYERS
+    small = LlamaForCausalLM(cfg, device=DEV, dtype=torch.bfloat16,
+                             generator=SEED)
+    att_log, qmm_log, qmm_control = [], [], []
+    w4_gate = serve(small, requests, tp=TP, weight_dtype="int4", patch={
+        (qm, "matmul"): held_qmm(qmm_log, qmm_control),
+        (pa, "ragged_paged_attention_segrel_packed"):
+            held_to_plain(kernel_attention, att_log)})
+    w4_want = expected_launches(w4_gate[0],
+                                w4_gate[0].summary()["engine_steps"])
+    qmm_err, qmm_ctl = qmm_worst(qmm_log), qmm_worst(qmm_control)
+    w4_calls = {"attention": len(att_log), "qmm": len(qmm_log)}
+    del w4_gate, att_log, qmm_log, qmm_control
+    w4_shapes = {}
+    w4 = serve(small, requests, tp=TP, weight_dtype="int4",
+               patch=shapes_counted(w4_shapes))
+    w4_tp1 = serve(small, requests, weight_dtype="int4")
+    w4_same = sum(w4[1][r].generated == w4_tp1[1][r].generated
+                  for r in greedy)
+    w4_s = w4[0]
+    w4_rec = {"layers": TP_W4_LAYERS, "launches": w4[3],
+              "expected_launches": expected_launches(
+                  w4_s, w4_s.summary()["engine_steps"]),
+              "launches_by_shape": w4_shapes, "gate_calls": w4_calls,
+              "gate_expected": {"attention": w4_want["attention"],
+                                "qmm": w4_want["qmm"]},
+              "per_launch_qmm_errors": qmm_err,
+              "control_last_row_zeroed": qmm_ctl,
+              "head_split": w4_s._shard_head,
+              "int4_scale_blocks": list(w4_s._shards[0].layers["wq_s"].shape),
+              "greedy_requests_equal_to_tp1": f"{w4_same}/{len(greedy)}",
+              "weight_bytes_resident": w4_s.weight_bytes_resident(),
+              "weight_bytes_resident_per_shard":
+                  w4_s.weight_bytes_resident_per_shard(),
+              "wall_s": w4[2]}
+    w4_checks = {
+        "w4_launches_as_expected": w4[3] == w4_rec["expected_launches"],
+        "w4_gate_held_every_call": w4_calls == w4_rec["gate_expected"],
+        "w4_per_launch_qmm_vs_plain": qmm_within(qmm_err),
+        "w4_qmm_control_fails": not qmm_within(qmm_ctl),
+        "w4_q_products_at_shard_width": w4_shapes["qmm"].get(
+            f"N{cfg.hidden_size // TP}", 0) == 3 * TP * TP_W4_LAYERS
+        * w4_s.summary()["engine_steps"]}
+    rec = engine_record(
+        "engine_tp2_bf16", run, requests,
+        {"prefix_cache_hit": run[0].summary()["cache_hit_tokens"] >= 256,
+         "gate_held_every_call": len(errs) == gate_want["attention"],
+         "per_launch_kernel_vs_plain": within(per_launch, "bfloat16",
+                                              ENGINE_MEASURES),
+         "controls_fail": all(c["fails_gate"] for c in controls.values()),
+         "walk_at_shard_heads": set(shapes["attention"]) == {
+             f"H{heads}_Hkv{kv_heads}"},
+         **bytes_.pop("checks"), **w4_checks},
+        launches_by_shape=shapes, per_launch_errors=per_launch,
+        per_launch_tolerance={k: TOLERANCE["bfloat16"][k]
+                              for k in ENGINE_MEASURES},
+        gate_calls=len(errs), controls=controls, residency=bytes_,
+        greedy_requests_equal_to_gate_run=f"{agree}/{len(greedy)}",
+        w4=w4_rec, card=nvidia_smi())
+    state["engine_tp2_bf16"] = rec
+    del run, w4, w4_tp1, small
+    free_engines()
+    return rec["ok"]
+
+
+# one sweep shape a kernel at LLaMA-7B widths: the keys the engine below
+# asks (tq = its prefill bucket, rows = its prefill budget, m = its slots)
+TUNE_SHAPES = {
+    "flash_attention": [{"seq_q": MAX_MODEL_LEN, "seq_k": MAX_MODEL_LEN,
+                         "head_dim": D, "dtype": "bfloat16"}],
+    "flash_attention_varlen": [{"seq_q": 512, "seq_k": MAX_MODEL_LEN,
+                                "head_dim": D, "dtype": "bfloat16"}],
+    "fused_norms": [{"rows": 512, "hidden": 4096, "dtype": "bfloat16"}],
+    "paged_attention": [{"tq": 64, "kv_heads": H, "head_dim": D, "page": BS,
+                         "nblk": NBLK, "dtype": "bfloat16"}],
+    "quant_matmul": [{"m": 8, "k": 4096, "n": 11008, "dtype": "int8"}],
+}
+TUNE_LAYERS = CUT_LAYERS
+# children a sweep starts at once (their imports and CUDA contexts overlap;
+# a lock gives the card to one at a time)
+TUNE_PARALLEL = 6
+
+
+def phase_tune_sweep_bf16(state):
+    """``run_sweep`` with ``SubprocessMeasurer`` over TUNE_SHAPES into a
+    temporary cache file: each candidate in a child process that launches
+    the kernel through the wrapper the engine calls (the candidate forced
+    through the normal lookup), holds its output to the plain version and
+    times it with CUDA events.  Then engine_bf16's requests through an
+    engine with int8 weights (bf16 pages, all five lookups) that reads the
+    cache: its report must show a hit for every kernel, a gate run holds
+    every walk and dequant matmul launch to its plain version, and a run on
+    the kernels alone counts its launches."""
+    import os
+    import tempfile
+    import torch
+    from paddle_tpu_torch import tune
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tuning_cache.json")
+        t0 = time.perf_counter()
+        report = tune.run_sweep(tune.SubprocessMeasurer(
+            timeout=300, iters=10, reps=10, parallel=TUNE_PARALLEL), path,
+            shapes=TUNE_SHAPES)
+        sweep_s = time.perf_counter() - t0
+        rows = {r["kernel"]: r for r in report["results"]}
+        kernels = {name: {
+            "sig": r["sig"], "default": tune.defaults_for(
+                tune.get_kernel(name), TUNE_SHAPES[name][0]),
+            "winner": r.get("config"), "default_ms": r.get("default_s", 0)
+            * 1e3, "winner_ms": r.get("score_s", 0) * 1e3,
+            "speedup": r.get("speedup"), "candidates": len(
+                tune.candidate_configs(tune.get_kernel(name),
+                                       TUNE_SHAPES[name][0])),
+            "failed": r.get("failed"), "error": r.get("error")}
+            for name, r in rows.items()}
+        tune.set_cache_path(path)
+        try:
+            model = llama_7b_bf16(TUNE_LAYERS)
+            requests = bf16_requests(model.config.vocab_size)
+            att_log, qmm_log = [], []
+            gate = serve(model, requests, weight_dtype="int8", patch={
+                (qm, "matmul"): held_qmm(qmm_log),
+                (pa, "ragged_paged_attention_segrel_packed"):
+                    held_to_plain(kernel_attention, att_log)})
+            gate_want = expected_launches(gate[0],
+                                          gate[0].summary()["engine_steps"])
+            gate_calls = {"attention": len(att_log), "qmm": len(qmm_log)}
+            att_err, qmm_err = worst(att_log), qmm_worst(qmm_log)
+            del gate, att_log, qmm_log
+            free_engines()
+            run = serve(model, requests, weight_dtype="int8")
+            report_engine = run[0].summary()["tuning_cache"]
+        finally:
+            tune.set_cache_path(None)
+    hits = {k: v["hit"] for k, v in report_engine["kernels"].items()}
+    rec = engine_record(
+        "tune_sweep_bf16", run, requests,
+        {"sweep_row_for_every_kernel": set(rows) == set(TUNE_SHAPES)
+         and all("error" not in r for r in rows.values()),
+         "no_candidate_failed": all(not r.get("failed")
+                                    for r in rows.values()),
+         "engine_hits_every_kernel": set(hits) == set(TUNE_SHAPES)
+         and all(hits.values()),
+         "gate_held_every_call": gate_calls == {
+             "attention": gate_want["attention"], "qmm": gate_want["qmm"]},
+         "per_launch_attention_vs_plain": within(att_err, "bfloat16",
+                                                 ENGINE_MEASURES),
+         "per_launch_qmm_vs_plain": qmm_within(qmm_err)},
+        sweep_seconds=sweep_s, sweep_entries=report["entries"],
+        sweep_device=report["device"], sweep=kernels,
+        engine_tuning_cache=report_engine,
+        per_launch_attention_errors=att_err, per_launch_qmm_errors=qmm_err,
+        gate_calls=gate_calls, card=nvidia_smi())
+    state["tune_sweep_bf16"] = rec
+    del run, model
     free_engines()
     return rec["ok"]
 
@@ -5461,7 +5945,10 @@ def kernel_records(state) -> list:
         + state["engine_spec_bf16"]["kernel_launches"]
         + state["frontend_bf16"]["kernel_launches"]
         + state["sim_fit_bf16"]["kernel_launches"]
-        + state["hf_bridge_bf16"]["kernel_launches"],
+        + state["hf_bridge_bf16"]["kernel_launches"]
+        + state["engine_tp2_bf16"]["kernel_launches"]
+        + state["engine_tp2_bf16"]["w4"]["launches"]["attention"]
+        + state["tune_sweep_bf16"]["kernel_launches"],
         "launches_by_phase": {
             "engine_bf16": state["engine_bf16"]["kernel_launches"],
             "engine_w4": state["engine_w4"]["launches"]["attention"],
@@ -5471,7 +5958,12 @@ def kernel_records(state) -> list:
             "frontend_bf16": state["frontend_bf16"]["kernel_launches"],
             "sim_fit_bf16": state["sim_fit_bf16"]["kernel_launches"],
             "hf_bridge_bf16": state["hf_bridge_bf16"]["kernel_launches"],
+            "engine_tp2_bf16": state["engine_tp2_bf16"]["kernel_launches"],
+            "engine_tp2_bf16_w4":
+                state["engine_tp2_bf16"]["w4"]["launches"]["attention"],
+            "tune_sweep_bf16": state["tune_sweep_bf16"]["kernel_launches"],
             "engine_f32": state["engine_f32"]["kernel_launches"],
+            "engine_tp2_f32": state["engine_tp2_f32"]["kernel_launches"],
             "engine_spec_f32": state["engine_spec_f32"]["kernel_launches"],
             "engine_tiers_f32":
                 state["engine_tiers_f32"]["attention_launches"]},
@@ -5521,8 +6013,13 @@ def kernel_records(state) -> list:
         "launches": state["engine_w8kv8"]["launches"]["qmm"]
         + state["engine_w4"]["launches"]["qmm"]
         + state["engine_window_w8kv8"]["launches"]["qmm"]
-        + state["engine_spec_f32"]["quant_launches"]["qmm"],
+        + state["engine_spec_f32"]["quant_launches"]["qmm"]
+        + state["engine_tp2_bf16"]["w4"]["launches"]["qmm"]
+        + state["tune_sweep_bf16"]["launches"]["qmm"],
         "launches_by_phase": {
+            "engine_tp2_bf16_w4":
+                state["engine_tp2_bf16"]["w4"]["launches"]["qmm"],
+            "tune_sweep_bf16": state["tune_sweep_bf16"]["launches"]["qmm"],
             "engine_w8kv8": state["engine_w8kv8"]["launches"]["qmm"],
             "engine_w4": state["engine_w4"]["launches"]["qmm"],
             "engine_window_w8kv8":
@@ -5605,6 +6102,9 @@ def main() -> int:
                      ("frontend_cli", phase_frontend_cli),
                      ("sim_fit_bf16", phase_sim_fit_bf16),
                      ("hf_bridge_bf16", phase_hf_bridge_bf16),
+                     ("engine_tp2_f32", phase_engine_tp2_f32),
+                     ("engine_tp2_bf16", phase_engine_tp2_bf16),
+                     ("tune_sweep_bf16", phase_tune_sweep_bf16),
                      ("train_f32", phase_train_f32),
                      ("train_bf16", phase_train_bf16),
                      ("blha_f32", phase_blha_f32),
@@ -5621,6 +6121,8 @@ def main() -> int:
         print(f"chip_smoke: {name} {'passed' if passed else 'FAILED'} in "
               f"{time.perf_counter() - t:.1f} s", file=sys.stderr)
         ok &= passed
+    emit({"phase": "run", "ok": ok, "seconds": time.perf_counter() - t0,
+          "card": smi})
     if not ok:
         return 1
 

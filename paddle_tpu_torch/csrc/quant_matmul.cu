@@ -737,9 +737,21 @@ struct Geom {
   int k_per_split;  // a multiple of kBK
 };
 
-Geom geometry(int M, int N, int K, int x_dtype, int int4, bool tma) {
+// tile_req: -1 for the rule above, else 0, 1 or 2 (2 only where the rule
+// could take it: bf16 x and operands TMA takes; elsewhere the rule's
+// tile).  slabs_req: 0 for the rule below, else the 128-row K slabs a
+// split sums before the ordered sum of the splits (as many splits as that
+// takes, at most kMaxSplits).  A split's partial is one f32 chain over its
+// slabs, so bounding the slabs bounds the chain at any K, where a split
+// count taken from one K would leave 86-slab chains at K 11,008.  The
+// wrapper's plan comes from the tuning cache; with no entry it passes -1
+// and 0, the rule.
+Geom geometry(int M, int N, int K, int x_dtype, int int4, bool tma,
+              int tile_req, int slabs_req) {
   Geom g;
-  g.tile = M <= 16 ? 0 : (x_dtype == 0 || !tma) ? 1 : 2;
+  const int rule = M <= 16 ? 0 : (x_dtype == 0 || !tma) ? 1 : 2;
+  g.tile = tile_req == 0 || tile_req == 1 ? tile_req
+           : tile_req == 2 && x_dtype == 1 && tma ? 2 : rule;
   g.bm = g.tile == 0 ? 16 : g.tile == 1 ? 64 : kWgBT;
   g.bn = g.tile == 2 ? 128 * kWgWG : kBN;
   const size_t smem = int4 ? wgmma_smem<true>() : wgmma_smem<false>();
@@ -748,7 +760,8 @@ Geom geometry(int M, int N, int K, int x_dtype, int int4, bool tma) {
   const long long tiles =
       (long long)((M + g.bm - 1) / g.bm) * ((N + g.bn - 1) / g.bn);
   const int slabs = (K + kBK - 1) / kBK;
-  long long want = (long long)kSMs * per_sm / tiles;
+  long long want = slabs_req > 0 ? (slabs + slabs_req - 1) / slabs_req
+                                 : (long long)kSMs * per_sm / tiles;
   if (want > kMaxSplits) want = kMaxSplits;
   if (want > slabs) want = slabs;
   if (want < 1) want = 1;
@@ -820,11 +833,12 @@ bool aligned16(const void* p) {
 // type and pool type: the split partial products, or 0 when K is not
 // split.
 extern "C" long long paddle_quant_matmul_scratch(int M, int N, int K,
-                                                 int x_dtype, int int4) {
+                                                 int x_dtype, int int4,
+                                                 int tile, int slabs) {
   // the pointers decide between tiles 1 and 2: room for either
   long long n = 0;
   for (int tma = 0; tma < 2; ++tma) {
-    const Geom g = geometry(M, N, K, x_dtype, int4, tma);
+    const Geom g = geometry(M, N, K, x_dtype, int4, tma, tile, slabs);
     if (g.splits > 1 && (long long)g.splits * M * N > n)
       n = (long long)g.splits * M * N;
   }
@@ -832,8 +846,10 @@ extern "C" long long paddle_quant_matmul_scratch(int M, int N, int K,
 }
 
 // C entry, bound with ctypes.  x_dtype: 0 = float32, 1 = bfloat16; int4: 0
-// for int8 pools, 1 for nibble-packed int4.  ``scratch`` holds at least
-// paddle_quant_matmul_scratch(M, N, K, x_dtype, int4) floats.  Returns
+// for int8 pools, 1 for nibble-packed int4; tile and slabs as geometry's
+// tile_req and slabs_req (-1 and 0: the rule).  ``scratch`` holds at least
+// paddle_quant_matmul_scratch(M, N, K, x_dtype, int4, tile, slabs) floats.
+// Returns
 // cudaGetLastError() after the launches (0 on success; a refused launch,
 // for shared memory, returns its error here); the caller checks it.  The
 // wrapper (paddle_tpu_torch/ops/quant_matmul.py) has already checked
@@ -841,13 +857,15 @@ extern "C" long long paddle_quant_matmul_scratch(int M, int N, int K,
 extern "C" int paddle_quant_matmul(const void* x, const void* q,
                                    const void* s, void* out, void* scratch,
                                    int M, int N, int K, int x_dtype,
-                                   int int4, void* stream) {
+                                   int int4, int tile, int slabs,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_dtype != 0 && x_dtype != 1) return (int)cudaErrorInvalidValue;
   const size_t xsize = x_dtype == 0 ? 4 : 2;
   const int vec_x = (size_t)K * xsize % 16 == 0 && aligned16(x);
   const int vec_w = N % 16 == 0 && aligned16(q) && aligned16(s);
-  const Geom g = geometry(M, N, K, x_dtype, int4, vec_x && vec_w);
+  const Geom g = geometry(M, N, K, x_dtype, int4, vec_x && vec_w, tile,
+                         slabs);
   float* dst = static_cast<float*>(g.splits > 1 ? scratch : out);
   const int vec_out = N % 4 == 0 && aligned16(dst);
   int err;

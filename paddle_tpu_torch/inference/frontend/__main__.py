@@ -49,6 +49,10 @@ def _build_engine(args):
 
     device = resolve_device(args.device)
     model = LlamaForCausalLM(cfg, device=device)
+    # with no --device, --tp N takes one card a shard (cuda:0 .. N-1; the
+    # engine raises when fewer are visible); a named device holds them all
+    engine_device = device if args.device is not None or args.tp == 1 \
+        else None
     drafter = "ngram" if args.spec_k > 0 else None
 
     def make_engine():
@@ -63,7 +67,7 @@ def _build_engine(args):
             from ..kv_tier import HostSpillPool
             kv_tier = HostSpillPool(args.host_kv_bytes)
         return LLMEngine(
-            model, device=device, max_num_seqs=args.max_num_seqs,
+            model, device=engine_device, max_num_seqs=args.max_num_seqs,
             block_size=args.block_size,
             max_model_len=cfg.max_position_embeddings,
             max_prefill_tokens=args.max_prefill_tokens,
@@ -120,8 +124,10 @@ def main(argv=None) -> int:
                          "replay in-flight requests when a step crashes "
                          "or runs past this wall budget (0 = off)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel shards per engine (only 1: "
-                         "tensor parallelism is not ported yet)")
+                    help="tensor-parallel shards per engine: heads and KV "
+                         "pages split over tp shards in one process "
+                         "(token-identical to --tp 1); one card a shard "
+                         "unless --device names one for all of them")
     ap.add_argument("--replicas", type=int, default=1,
                     help="data-parallel engine replicas behind one "
                          "listener, fed by the replica router")

@@ -76,9 +76,23 @@ to the port's dense ``generate()``, with the prefix cache on or off.
   and each request's lifecycle.  With none installed each seam is one
   attribute check.
 
-Tensor parallelism (tp > 1) raises ``NotImplementedError`` naming its
-ROADMAP item.  The engine is single-threaded: add_request/step/abort are
-called from one thread (the frontend's EngineRunner owns it), apart from
+- Tensor parallelism (``tp=N``): the query and KV heads split into N
+  contiguous blocks (so a GQA group never straddles shards), each shard
+  with its block's q/k/v weights and its own page pools [L, N, kvh/N,
+  bs, d] on its device; wo, the MLP, the embedding and the norms are
+  replicated on the lead device.  Each layer's shard outputs are
+  concatenated in shard order on the lead device before the replicated
+  wo, and the unembedding splits by vocabulary when N divides it, so
+  greedy output is token-identical to tp=1.  Host bookkeeping (pages,
+  scheduler, sampling) does not know about the shards.
+
+- Kernel tuning: the engine consults the tuning cache (``tune/``) once
+  at construction for its launch geometry and reports the answer in
+  ``summary()["tuning_cache"]``; the kernel wrappers read the same
+  cache, by shape, at their first launch of a shape.
+
+The engine is single-threaded: add_request/step/abort are called from one
+thread (the frontend's EngineRunner owns it), apart from
 ``prefetch_hint``.
 """
 from __future__ import annotations
@@ -202,10 +216,32 @@ class _DecodeBufs:
         self.bt_ver: dict = {}
 
 
-def _unported(option: str, item: int, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option}: {what} is not ported to the PyTorch engine yet "
-        f"(ROADMAP Queue 1 item {item})")
+class _Shard:
+    """One tensor-parallel shard of the engine (the whole engine at
+    tp=1): its device; ``layers``, the q/k/v weights of its contiguous
+    block of heads (wq/wk/wv, or their quantized pools and scales, sliced
+    along the output columns; at tp=1 the engine's own tensors); ``head``,
+    its vocabulary block of the unembedding when the vocabulary splits
+    (else None); and its page pools [L, N, kvh/tp, bs, d], with the
+    [L, N, kvh/tp] f32 scale pools of int8 pages."""
+
+    __slots__ = ("device", "layers", "head", "kc", "vc", "ks", "vs")
+
+    def __init__(self, device, layers, head=None):
+        self.device = device
+        self.layers = layers
+        self.head = head
+        self.kc = self.vc = self.ks = self.vs = None
+
+    def tensors(self):
+        """Every weight tensor the shard holds (pools excluded)."""
+        return list(self.layers.values()) + list((self.head or {}).values())
+
+
+def _to(t, device):
+    """``t`` on ``device``: itself when it is there, else a copy queued
+    without blocking the host."""
+    return t if t.device == device else t.to(device, non_blocking=True)
 
 
 class LLMEngine:
@@ -217,7 +253,8 @@ class LLMEngine:
         place (``decode_params()`` views, no copy) and must live on
         ``device``.
     device: where the engine runs; None means CUDA (raises when no GPU is
-        present).  Pass "cpu" for the plain PyTorch path.
+        present).  Pass "cpu" for the plain PyTorch path.  With tp > 1 it
+        may also be a list of tp devices, one a shard.
     max_num_seqs: decode-batch capacity.
     block_size: KV page size in tokens.
     num_blocks: page-pool size; default lets every batch slot reach
@@ -280,9 +317,17 @@ class LLMEngine:
         evicts spill to host memory at the step-boundary drain instead of
         dying, and a returning prefix is restored into free pages in
         place before its admission (``prefetch_hint`` pre-stages one).
-
-    Not ported yet (raises ``NotImplementedError`` naming its ROADMAP
-    item): tp > 1 (item 10).
+    tp: tensor-parallel degree; must divide num_attention_heads and
+        num_key_value_heads.  The shards run in this one process, each on
+        its device (``device`` above: one device holds every shard, a
+        list gives each its own, None takes cuda:0 .. cuda:tp-1 and raises
+        when fewer cards are visible).  Each shard holds its contiguous
+        block of query and KV heads -- the q/k/v weights of those heads
+        and its own page and scale pools -- and, when tp divides the
+        vocabulary, its block of the unembedding; everything else is
+        replicated on the lead device (``device``'s first), where each
+        layer's shard outputs are concatenated in shard order.  Greedy
+        output is token-identical to tp=1.
     """
 
     def __init__(self, model, *, device=None, max_num_seqs: int = 8,
@@ -307,21 +352,25 @@ class LLMEngine:
             raise ValueError(
                 "weight_dtype must be 'float32', 'int8' or 'int4', "
                 f"got {weight_dtype!r}")
-        if int(tp) < 1:
-            raise ValueError(f"tp must be >= 1, got {tp}")
         if int(decode_window) < 1:
             raise ValueError(
                 f"decode_window must be >= 1, got {decode_window}")
-        if int(tp) > 1:
-            raise _unported("tp>1", 10, "tensor parallelism")
-
-        self.device = resolve_device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        cfg = model.config
+        self.tp = int(tp)
+        if self.tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
+        if self.tp > 1 and (cfg.num_attention_heads % self.tp
+                            or cfg.num_key_value_heads % self.tp):
+            raise ValueError(
+                f"tp={self.tp} must divide num_attention_heads="
+                f"{cfg.num_attention_heads} and num_key_value_heads="
+                f"{cfg.num_key_value_heads} (contiguous head "
+                "partition keeps GQA groups on one shard)")
+        self.devices = self._shard_devices(device, self.tp)
+        self.device = self.devices[0]
         if model.device != self.device:
             raise ValueError(f"model weights live on {model.device}, the "
                              f"engine runs on {self.device}")
-        cfg = model.config
         self.config = cfg
         self.params = model.decode_params()
         self.kv_dtype = kv_dtype
@@ -337,8 +386,11 @@ class LLMEngine:
             # f32 copy instead of casting [H, V] every step (no copy for
             # f32)
             self._head_f32 = self.params["head"].float()
+        # the unembedding splits over vocabulary only when tp divides it;
+        # otherwise it is replicated on the lead device
+        self._shard_head = self.tp > 1 and cfg.vocab_size % self.tp == 0
+        self._shards = self._make_shards()
         self._mm, self._embed, self._head_logits = self._weight_ops()
-        self.tp = 1
         self.max_num_seqs = int(max_num_seqs)
         self.block_size = int(block_size)
         self.max_model_len = int(max_model_len or cfg.max_position_embeddings)
@@ -373,23 +425,25 @@ class LLMEngine:
         self._kvh = cfg.num_key_value_heads
         self._hd = cfg.hidden_size // self._nh
         L = cfg.num_hidden_layers
-        # the pools are updated in place, layer by layer, every step
-        shape = (L, num_blocks, self._kvh, self.block_size, self._hd)
-        if kv_dtype == "int8":
-            # int8 pages + a parallel per-page-per-head f32 scale pool
-            # (float = int8 * scale), written at commit time inside the
-            # step; every host-side page structure is dtype-blind
-            self._kc = torch.zeros(shape, dtype=torch.int8,
-                                   device=self.device)
-            self._ks = torch.zeros((L, num_blocks, self._kvh),
-                                   dtype=torch.float32, device=self.device)
-            self._vs = torch.zeros_like(self._ks)
-        else:
-            # "float32" means full-width model dtype (f32/bf16) pages
-            self._kc = torch.zeros(shape, dtype=self._act_dtype,
-                                   device=self.device)
-            self._ks = self._vs = None
-        self._vc = torch.zeros_like(self._kc)
+        kvh = self._kvh // self.tp
+        # each shard's pools hold its block of KV heads; they are updated
+        # in place, layer by layer, every step, and never change address
+        shape = (L, num_blocks, kvh, self.block_size, self._hd)
+        for sh in self._shards:
+            if kv_dtype == "int8":
+                # int8 pages + a parallel per-page-per-head f32 scale pool
+                # (float = int8 * scale), written at commit time inside
+                # the step; every host-side page structure is dtype-blind
+                sh.kc = torch.zeros(shape, dtype=torch.int8,
+                                    device=sh.device)
+                sh.ks = torch.zeros((L, num_blocks, kvh),
+                                    dtype=torch.float32, device=sh.device)
+                sh.vs = torch.zeros_like(sh.ks)
+            else:
+                # "float32" means full-width model dtype (f32/bf16) pages
+                sh.kc = torch.zeros(shape, dtype=self._act_dtype,
+                                    device=sh.device)
+            sh.vc = torch.zeros_like(sh.kc)
 
         self._waiting: deque = deque()
         self._running: list = []
@@ -450,7 +504,9 @@ class LLMEngine:
         self.stats.set_decode_window(self.decode_window)
         self.stats.set_weight_residency(
             self.weight_dtype, self.weight_bytes_resident(),
-            self.weight_bytes_resident())
+            self.weight_bytes_resident_per_shard())
+        # the launch geometry the tuning cache gives this engine's shapes
+        self._tuning_report = self._resolve_tuning()
         # per-request flight recorder and step-timeline tracer: None means
         # every seam is one attribute check and nothing else
         self.flight = None
@@ -511,13 +567,107 @@ class LLMEngine:
         frame still uses them.  The supervised runner closes an engine
         whose generation it retired: a wedged step going on later on
         that engine raises instead of touching the pools."""
-        self._kc = self._vc = self._ks = self._vs = None
+        self._shards = None
         self.params = self._head_f32 = None
         self._mm = self._embed = self._head_logits = None
         self._inflight = None
         self._prestaged = None
         self._logits_host = None
         self._stages = [None, None]
+
+    # ------------------------------------------------------------------
+    # tensor-parallel shards (tp > 1)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _shard_devices(device, tp: int) -> list:
+        """The device of each shard: one ``device`` for all of them, a
+        list of tp devices, or with None cuda:0 .. cuda:tp-1 (one card a
+        shard, raising when fewer are visible; shards never share a card
+        unless the caller says so).  CUDA devices get their index pinned,
+        so a stepping thread can set them."""
+        if isinstance(device, (list, tuple)):
+            if len(device) != tp:
+                raise ValueError(f"device lists {len(device)} devices for "
+                                 f"tp={tp}")
+            devs = [resolve_device(d) for d in device]
+        elif device is None and tp > 1:
+            n = torch.cuda.device_count() if torch.cuda.is_available() \
+                else 0
+            if n < tp:
+                raise RuntimeError(
+                    f"tp={tp} puts one shard a CUDA device and {n} are "
+                    "visible; pass device= (one device for every shard, "
+                    "or a list of tp devices; 'cpu' for the plain path)")
+            devs = [torch.device("cuda", i) for i in range(tp)]
+        else:
+            devs = [resolve_device(device)] * tp
+        return [torch.device("cuda", torch.cuda.current_device())
+                if d.type == "cuda" and d.index is None else d
+                for d in devs]
+
+    def _make_shards(self) -> list:
+        """Split the q/k/v weights (quantized pools and scales alike)
+        into contiguous head blocks along their output columns, one
+        contiguous copy a shard on its device, and the unembedding into
+        vocabulary blocks when it splits; the rest stays in
+        ``self.params`` on the lead device.  At tp=1 the one shard holds
+        the engine's own tensors (no copy)."""
+        layers = self.params["layers"]
+        keys = ("wq", "wk", "wv") if self.weight_dtype == "float32" else \
+            ("wq_q", "wq_s", "wk_q", "wk_s", "wv_q", "wv_s")
+        if self.tp == 1:
+            return [_Shard(self.device, {k: layers[k] for k in keys})]
+
+        def block(t, s):
+            # the last axis is the output columns of every sliced leaf:
+            # float [L, H, N], pools [L, K or K/2, N], int8 scales [L, N],
+            # int4 scales [L, G, N], the head [H, V] / [K, V] / [V] /
+            # [G, V]
+            w = t.shape[-1] // self.tp
+            return t[..., s * w:(s + 1) * w].to(self.devices[s]) \
+                .contiguous()
+
+        head_keys = ()
+        if self._shard_head:
+            if self.weight_dtype == "float32":
+                head_keys = ("head",)
+                heads = {"head": self._head_f32}
+                self._head_f32 = None
+            else:
+                head_keys = ("head_q", "head_s")
+                heads = {k: self.params[k] for k in head_keys}
+        shards = [_Shard(dev, {k: block(layers[k], s) for k in keys},
+                         {k: block(v, s) for k, v in heads.items()}
+                         if head_keys else None)
+                  for s, dev in enumerate(self.devices)]
+        self.params = {k: v for k, v in self.params.items()
+                       if k not in head_keys}
+        self.params["layers"] = {k: v for k, v in layers.items()
+                                 if k not in keys}
+        return shards
+
+    # the lead shard's pools (every page of every head at tp=1); the other
+    # shards' are in ``_shards``
+    @property
+    def _kc(self):
+        return None if self._shards is None else self._shards[0].kc
+
+    @property
+    def _vc(self):
+        return None if self._shards is None else self._shards[0].vc
+
+    @property
+    def _ks(self):
+        return None if self._shards is None else self._shards[0].ks
+
+    @property
+    def _vs(self):
+        return None if self._shards is None else self._shards[0].vs
+
+    def _pool_names(self) -> tuple:
+        return ("kc", "vc", "ks", "vs") if self.kv_dtype == "int8" \
+            else ("kc", "vc")
 
     # ------------------------------------------------------------------
     # request API
@@ -726,6 +876,52 @@ class LLMEngine:
                               lidx, samp, _NO_PAGES)[0].cpu()
         return tuple(ladder)
 
+    def _resolve_tuning(self) -> dict:
+        """Consult the kernel tuning cache once for this engine's launch
+        geometry (the JAX engine's shape keys; the paged key's kv_heads
+        are a shard's): per registered kernel, the bucket key queried, the
+        config chosen and whether a cache entry (exact or nearest bucket)
+        answered.  The kernel wrappers resolve their own launches' keys
+        the same way, so this is the provenance of the geometry they run.
+        One difference: the paged key's dtype is the pools' (the JAX
+        engine writes its kv_dtype, "float32", for bf16 pages too), the
+        type the paged wrapper keys its own lookups on."""
+        from ..tune import cache_path, device_kind, kernel_config_with_meta
+        dt = str(self._act_dtype).split(".")[-1]
+        d = self._hd
+        shapes = {
+            "flash_attention": {
+                "seq_q": self.max_model_len, "seq_k": self.max_model_len,
+                "head_dim": d, "dtype": dt},
+            "flash_attention_varlen": {
+                "seq_q": self.max_prefill_tokens,
+                "seq_k": self.max_model_len, "head_dim": d, "dtype": dt},
+            "fused_norms": {
+                "rows": self.max_prefill_tokens,
+                "hidden": self.config.hidden_size, "dtype": dt},
+            "paged_attention": {
+                "tq": self.prefill_token_bucket,
+                "kv_heads": self._kvh // self.tp, "head_dim": d,
+                "page": self.block_size, "nblk": self.nblk,
+                "dtype": str(self._kc.dtype).split(".")[-1]},
+        }
+        if self.weight_dtype != "float32":
+            # the decode-shaped MLP projection: the step's biggest weight
+            # stream
+            shapes["quant_matmul"] = {
+                "m": self.max_num_seqs, "k": self.config.hidden_size,
+                "n": self.config.intermediate_size,
+                "dtype": self.weight_dtype}
+        kernels = {}
+        for name, shape in shapes.items():
+            config, meta = kernel_config_with_meta(name, shape)
+            self.stats.record_tuning(name, bool(meta["hit"]))
+            kernels[name] = {"hit": bool(meta["hit"]),
+                             "source": meta["source"], "config": config,
+                             "key": meta["key"]}
+        return {"path": cache_path(), "device": device_kind(),
+                "kernels": kernels}
+
     def summary(self) -> dict:
         """One dict of serving metrics + block-pool state for this run."""
         out = self.stats.summary()
@@ -736,17 +932,27 @@ class LLMEngine:
         out["kv_dtype"] = self.kv_dtype
         out["tp"] = self.tp
         out["kv_bytes_resident"] = self.kv_bytes_resident()
+        out["kv_bytes_resident_per_shard"] = \
+            self.kv_bytes_resident_per_shard()
         out["weight_dtype"] = self.weight_dtype
         out["weight_bytes_resident"] = self.weight_bytes_resident()
+        out["weight_bytes_resident_per_shard"] = \
+            self.weight_bytes_resident_per_shard()
         out["peak_resident_seqs"] = self.peak_resident_seqs
         out["pad_stats"] = dict(self.pad_stats)
         out["overlap"] = self.overlap
         out["decode_window"] = self.decode_window
+        out["tuning_cache"] = {
+            "path": self._tuning_report["path"],
+            "device": self._tuning_report["device"],
+            "kernels": {k: dict(v) for k, v in
+                        self._tuning_report["kernels"].items()},
+        }
         return out
 
     def kv_page_bytes(self) -> int:
-        """Device bytes one KV page costs: K and V slabs across layers,
-        plus the page's scale-pool rows in int8 mode."""
+        """Device bytes one KV page costs over every shard: K and V slabs
+        across layers, plus the page's scale-pool rows in int8 mode."""
         L = self.config.num_hidden_layers
         per = (2 * L * self._kvh * self.block_size * self._hd
                * self._kc.element_size())
@@ -754,29 +960,57 @@ class LLMEngine:
             per += 2 * L * self._kvh * self._ks.element_size()
         return per
 
+    def kv_page_bytes_per_shard(self) -> int:
+        """Bytes one KV page costs on one shard's device: the pools split
+        along H_kv (tp divides it), so page and scale slabs split
+        exactly.  Pool sizing and pressure thresholds compare against
+        this figure under tp, not the total."""
+        return self.kv_page_bytes() // self.tp
+
     def kv_bytes_resident(self) -> int:
-        """Device bytes holding real KV content: pages backing live
-        sequences plus parked prefix pages."""
+        """Device bytes holding real KV content over every shard: pages
+        backing live sequences plus parked prefix pages."""
         return ((self.blocks.num_used + self.blocks.num_cached)
                 * self.kv_page_bytes())
+
+    def kv_bytes_resident_per_shard(self) -> int:
+        """Resident KV bytes on one shard's device (the total at tp=1)."""
+        return ((self.blocks.num_used + self.blocks.num_cached)
+                * self.kv_page_bytes_per_shard())
+
+    def _weight_tensors(self) -> tuple:
+        """(replicated, sharded): the weight tensors on the lead device
+        and those every shard holds a block of, each tensor once."""
+        p = self.params
+        rep = list(p["layers"].values()) + \
+            [v for k, v in p.items() if k != "layers"]
+        if self._head_f32 is not None and self._head_f32 is not p["head"]:
+            rep.append(self._head_f32)
+        if self.tp == 1:              # the shard holds params' own tensors
+            return rep, []
+        return rep, [t for sh in self._shards for t in sh.tensors()]
+
+    def weight_bytes_resident(self) -> int:
+        """Device bytes of the decode weights over every shard: the
+        quantized pools, their f32 scales and the norms (or the model's
+        weights, plus the f32 head copy of a bf16 model)."""
+        rep, shd = self._weight_tensors()
+        return sum(t.numel() * t.element_size() for t in rep + shd)
+
+    def weight_bytes_resident_per_shard(self) -> int:
+        """Resident weight bytes on one shard's device: the sharded
+        tensors (q/k/v and their scales, and the head when the vocabulary
+        splits) count 1/tp of their total, replicated ones in full (the
+        total at tp=1)."""
+        rep, shd = self._weight_tensors()
+        return sum(t.numel() * t.element_size() for t in rep) + \
+            sum(t.numel() * t.element_size() for t in shd) // self.tp
 
     @property
     def degradation_tier_entries(self) -> int:
         """Escalating degradation-controller transitions (0 when no
         pressure controller is installed)."""
         return 0 if self.pressure is None else self.pressure.tier_entries
-
-    def weight_bytes_resident(self) -> int:
-        """Device bytes of the decode weights: the quantized pools, their
-        f32 scales and the norms (or the model's weights, plus the f32
-        head copy of a bf16 model)."""
-        p = self.params
-        tensors = list(p["layers"].values()) + \
-            [v for k, v in p.items() if k != "layers"]
-        total = sum(t.numel() * t.element_size() for t in tensors)
-        if self._head_f32 is not None and self._head_f32 is not p["head"]:
-            total += self._head_f32.numel() * 4
-        return total
 
     # ------------------------------------------------------------------
     # quantized weight pools (weight_dtype != "float32")
@@ -816,7 +1050,8 @@ class LLMEngine:
         for weight_dtype="float32"; otherwise every projection/MLP/head
         product through ``ops.quant_matmul.matmul`` (the CUDA kernel on
         the card, its plain version on the CPU) and the embedding
-        dequantized at gather."""
+        dequantized at gather.  With the vocabulary split, head_logits
+        runs each shard's block on its device."""
         dt = self._act_dtype
         wdt = self.weight_dtype
         params = self.params
@@ -830,9 +1065,9 @@ class LLMEngine:
                                            params["embed_s"][toks],
                                            wdt).to(dt)
 
-            def head_logits(hsel):
-                return _qm.matmul(hsel.float(), params["head_q"],
-                                  params["head_s"], wdt)
+            def head_block(hsel, hp):
+                return _qm.matmul(hsel.float(), hp["head_q"], hp["head_s"],
+                                  wdt)
         else:
             def mm(h, p, name):
                 return h @ p[name]
@@ -840,8 +1075,22 @@ class LLMEngine:
             def embed(toks):
                 return params["embed"][toks]
 
+            def head_block(hsel, hp):
+                return hsel.float() @ hp["head"]
+        if not self._shard_head:
+            hp = params if wdt != "float32" else {"head": self._head_f32}
+
             def head_logits(hsel):
-                return hsel.float() @ self._head_f32
+                return head_block(hsel, hp)
+        else:
+            lead = self.device
+
+            def head_logits(hsel):
+                # each shard's vocabulary block, concatenated in shard
+                # order on the lead device
+                return torch.cat([
+                    _to(head_block(_to(hsel, sh.device), sh.head), lead)
+                    for sh in self._shards], 1)
         return mm, embed, head_logits
 
     # ------------------------------------------------------------------
@@ -1527,21 +1776,26 @@ class LLMEngine:
         pool, copied to the host once, and their blocks free.  Restore:
         router prefetch hints, then the waiting queue's prompt chains,
         pull tier-resident pages back into free blocks, written in place
-        into the existing pools (their addresses never change) and
-        re-registered content-addressed -- from admission's point of view
-        they are ordinary prefix-cache content.  Restored bytes are the
-        exact spilled bytes, scales included for int8 pages."""
+        into the existing pools (their addresses never change; under tp
+        each shard's block of heads into its own pools) and re-registered
+        content-addressed -- from admission's point of view they are
+        ordinary prefix-cache content.  Restored bytes are the exact
+        spilled bytes, scales included for int8 pages."""
         tier = self.kv_tier
         tr = self.tracer
-        pools = {"kc": self._kc, "vc": self._vc}
-        if self.kv_dtype == "int8":
-            pools.update(ks=self._ks, vs=self._vs)
+        names = self._pool_names()
         pending = self.blocks.take_spill_pending()
         if pending:
-            idx = torch.as_tensor([b for b, _ in pending],
-                                  device=self.device)
-            host = {k: p.index_select(1, idx).cpu()
-                    for k, p in pools.items()}
+            # a host entry holds the page's full head axis, the shards'
+            # blocks concatenated in shard order: the same page spills to
+            # the same bytes at any tp
+            blocks = [b for b, _ in pending]
+            host = {}
+            for k in names:
+                parts = [getattr(sh, k).index_select(1, torch.as_tensor(
+                    blocks, device=sh.device)).cpu() for sh in self._shards]
+                host[k] = parts[0] if len(parts) == 1 \
+                    else torch.cat(parts, 2)
             stored = 0
             for i, (_blk, hashes) in enumerate(pending):
                 if tier.insert(hashes, {k: h[:, i].clone()
@@ -1573,11 +1827,15 @@ class LLMEngine:
         if restored:
             # restored int8 blocks are not fresh (adopt_restored discarded
             # them), so the launch's fresh-page reset keeps their scales
-            idx = torch.as_tensor([b for b, _ in restored],
-                                  device=self.device)
-            for k, p in pools.items():
-                p.index_copy_(1, idx, torch.stack(
-                    [e["arrays"][k] for _, e in restored], 1).to(p.device))
+            blocks = [b for b, _ in restored]
+            for k in names:
+                pages = torch.stack([e["arrays"][k] for _, e in restored], 1)
+                w = pages.shape[2] // self.tp
+                for s, sh in enumerate(self._shards):
+                    pool = getattr(sh, k)
+                    pool.index_copy_(1, torch.as_tensor(
+                        blocks, device=sh.device),
+                        pages[:, :, s * w:(s + 1) * w].to(pool.device))
             self.stats.record_kv_restore(len(restored))
             if tr is not None:
                 tr.instant("kv_tier.restore", track=self._trace_track,
@@ -1962,15 +2220,14 @@ class LLMEngine:
 
     @torch.no_grad()
     def _apply_cow(self, src: int, dst: int) -> None:
-        """Copy page src -> dst across every layer's K and V pool (queued
-        on the stream ahead of any later write into dst).  In int8 mode
+        """Copy page src -> dst across every layer's K and V pool of every
+        shard (queued on the stream ahead of any later write into dst).  In int8 mode
         the page's scale rows travel with it: dst is a live replica, which
         BlockManager keeps out of the fresh set."""
-        self._kc[:, dst] = self._kc[:, src]
-        self._vc[:, dst] = self._vc[:, src]
-        if self.kv_dtype == "int8":
-            self._ks[:, dst] = self._ks[:, src]
-            self._vs[:, dst] = self._vs[:, src]
+        for sh in self._shards:
+            for name in self._pool_names():
+                pool = getattr(sh, name)
+                pool[:, dst] = pool[:, src]
 
     def _ragged_bucket(self, n_tokens: int) -> int:
         """Flat-token bucket for a launch: decode-sized launches pad to
@@ -2019,8 +2276,10 @@ class LLMEngine:
         card."""
         if fresh_d.numel():
             fresh_d = fresh_d.long()
-            self._ks.index_fill_(1, fresh_d, 0.0)
-            self._vs.index_fill_(1, fresh_d, 0.0)
+            for sh in self._shards:
+                f = _to(fresh_d, sh.device)
+                sh.ks.index_fill_(1, f, 0.0)
+                sh.vs.index_fill_(1, f, 0.0)
 
     @torch.no_grad()
     def _logits(self, toks, blk, slot, bt, seg, rel, lidx=None):
@@ -2030,33 +2289,54 @@ class LLMEngine:
         token attend to table row ``seg[t]`` causally up to position
         ``rel[t]``.  Returns the f32 logits [Lq, V] of the rows ``lidx``
         (every token when None).  The per-step launch and every window
-        iteration run this body, so their bits agree."""
+        iteration run this body, so their bits agree.
+
+        Under tp each shard, in shard order, projects its block of heads
+        from the layer's normed activations, commits its K/V into its own
+        pools and attends over them with the same kernel entries at
+        nh/tp and kvh/tp heads; the blocks are concatenated along heads
+        on the lead device before the replicated wo."""
         Tq = toks.shape[0]
-        nh, kvh, d = self._nh, self._kvh, self._hd
+        nh, kvh, d = self._nh // self.tp, self._kvh // self.tp, self._hd
         eps = self.config.rms_norm_eps
         theta = self.config.rope_theta
         mm = self._mm
         layers = self.params["layers"]
+        lead = self.device
+        # each shard's copy of the launch's page addressing (the lead's
+        # own tensors on the lead device)
+        addr = [tuple(_to(t, sh.device) for t in (blk, slot, bt, seg, rel))
+                for sh in self._shards]
         x = self._embed(toks.long())                            # [Tq, H]
         for i in range(self.config.num_hidden_layers):
             p = {k: v[i] for k, v in layers.items()}
             h = _rms_weight(x, p["ln1"], eps)
-            q = _rope_positions(mm(h, p, "wq").view(Tq, nh, d), rel, theta)
-            k = _rope_positions(mm(h, p, "wk").view(Tq, kvh, d), rel, theta)
-            v = mm(h, p, "wv").view(Tq, kvh, d)
-            if self.kv_dtype == "int8":
-                att = self._commit_q8_and_attend(i, q, k, v, blk, slot, bt,
-                                                 seg, rel).to(x.dtype)
-            else:
-                kcl, vcl = self._kc[i], self._vc[i]
-                # K/V of this layer land in the pages BEFORE attention
-                # reads them; pad tokens all write the null page's slot 0
-                # (a benign race: nothing real reads it)
-                kcl[blk, :, slot, :] = k.to(kcl.dtype)
-                vcl[blk, :, slot, :] = v.to(vcl.dtype)
-                att = _pa.ragged_paged_attention_segrel_packed(
-                    q, kcl, vcl, bt, seg, rel)
-            x = x + mm(att.reshape(Tq, nh * d), p, "wo")
+            heads = []
+            for sh, (blk_s, slot_s, bt_s, seg_s, rel_s) in zip(self._shards,
+                                                               addr):
+                hs = _to(h, sh.device)
+                ps = {k: v[i] for k, v in sh.layers.items()}
+                q = _rope_positions(mm(hs, ps, "wq").view(Tq, nh, d), rel_s,
+                                    theta)
+                k = _rope_positions(mm(hs, ps, "wk").view(Tq, kvh, d), rel_s,
+                                    theta)
+                v = mm(hs, ps, "wv").view(Tq, kvh, d)
+                if self.kv_dtype == "int8":
+                    att = self._commit_q8_and_attend(
+                        sh, i, q, k, v, blk_s, slot_s, bt_s, seg_s,
+                        rel_s).to(x.dtype)
+                else:
+                    kcl, vcl = sh.kc[i], sh.vc[i]
+                    # K/V of this layer land in the pages BEFORE attention
+                    # reads them; pad tokens all write the null page's
+                    # slot 0 (a benign race: nothing real reads it)
+                    kcl[blk_s, :, slot_s, :] = k.to(kcl.dtype)
+                    vcl[blk_s, :, slot_s, :] = v.to(vcl.dtype)
+                    att = _pa.ragged_paged_attention_segrel_packed(
+                        q, kcl, vcl, bt_s, seg_s, rel_s)
+                heads.append(_to(att, lead))
+            att = heads[0] if len(heads) == 1 else torch.cat(heads, 1)
+            x = x + mm(att.reshape(Tq, self._nh * d), p, "wo")
             h2 = _rms_weight(x, p["ln2"], eps)
             a = torch.nn.functional.silu(mm(h2, p, "gate").float()) \
                 .to(h2.dtype) * mm(h2, p, "up")
@@ -2159,9 +2439,11 @@ class LLMEngine:
             tok, kvl_d, gen_d = sampled, kvl_d + adv, gen_d + adv
         return out
 
-    def _commit_q8_and_attend(self, i, q, k, v, blk, slot, bt, seg, rel):
-        """Layer i of the int8-page step: quantize this launch's K/V into
-        their pages at commit time, then attend over the int8 pages.
+    def _commit_q8_and_attend(self, sh, i, q, k, v, blk, slot, bt, seg,
+                              rel):
+        """Layer i of the int8-page step on shard ``sh``: quantize this
+        launch's K/V into its pages at commit time, then attend over the
+        int8 pages.
 
         The JAX q8 step's order, term for term (its step 1, zeroing the
         fresh pages' scale rows, ran once for all layers before the layer
@@ -2174,8 +2456,7 @@ class LLMEngine:
         duplicate sees the same settled scale and re-encodes identical
         bytes.  Pad tokens land on the null page's slot 0 and grow its
         scale, harmlessly, as in JAX."""
-        kcl, vcl, ksl, vsl = self._kc[i], self._vc[i], self._ks[i], \
-            self._vs[i]
+        kcl, vcl, ksl, vsl = sh.kc[i], sh.vc[i], sh.ks[i], sh.vs[i]
         for cache, scales, t in ((kcl, ksl, k), (vcl, vsl, v)):
             tf = t.float()                                    # [Tq, kvh, d]
             old = scales[blk]                                 # [Tq, kvh]

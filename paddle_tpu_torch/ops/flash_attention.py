@@ -30,6 +30,7 @@ kernel launches, one per launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -219,17 +220,32 @@ def _entry(name, n_ptrs):
     return fn
 
 
+@functools.lru_cache(maxsize=1024)
+def _tuned_block_q(epoch, Sq, Sk, D, dtype):
+    """The forward's rows a block: one instantiation a (dtype, head dim)
+    -- 128 for bf16 at D 64 and 128 (wgmma), 64 elsewhere -- so the tuning
+    cache's ``block_q`` (``tune/``, a one-value space at every shape) can
+    only confirm it; the C entry picks the instantiation."""
+    from ..tune import kernel_config
+    kernel_config("flash_attention",
+                  {"seq_q": Sq, "seq_k": Sk, "head_dim": D,
+                   "dtype": str(dtype).split(".")[-1]})
+    return 128 if dtype == torch.bfloat16 and D <= 128 else 64
+
+
 def _launch(name, ptrs, q, k, causal):
     """Launch one kernel on PyTorch's current stream; raises on CPU
     tensors and on a refused launch (the C entry returns
     ``cudaGetLastError()``, or the error of raising the block's
     shared-memory limit)."""
+    from ..tune import config_epoch
     if q.device.type != "cuda":
         raise RuntimeError(
             "the flash attention kernels run on CUDA tensors only; got "
             f"{q.device} (the plain versions serve CPU tensors)")
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
+    _tuned_block_q(config_epoch(), Sq, Sk, D, q.dtype)
     fn = _entry(name, len(ptrs))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -36,6 +36,7 @@ kernel launches, one per launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -68,11 +69,24 @@ def walk_tile(head_dim: int) -> int:
     return 32 if head_dim == 256 else TILE
 
 
-def fwd_block_q(q) -> int:
+def fwd_block_q(q, k=None) -> int:
     """Rows a block of the kernels that take q (queries in the forward and
-    dQ, keys in dK/dV)."""
-    return WGMMA_BLOCK_Q if q.dtype == torch.bfloat16 and \
-        q.shape[2] <= 128 else TILE
+    dQ, keys in dK/dV): one instantiation a (dtype, head dim), so the
+    tuning cache's ``block_q`` (``tune/``, a one-value space at every
+    shape) can only confirm it."""
+    from ..tune import config_epoch
+    return _tuned_block_q(config_epoch(), q.shape[0],
+                          q.shape[0] if k is None else k.shape[0],
+                          q.shape[2], q.dtype)
+
+
+@functools.lru_cache(maxsize=1024)
+def _tuned_block_q(epoch, Tq, Tk, D, dtype):
+    from ..tune import kernel_config
+    kernel_config("flash_attention_varlen",
+                  {"seq_q": Tq, "seq_k": Tk, "head_dim": D,
+                   "dtype": str(dtype).split(".")[-1]})
+    return WGMMA_BLOCK_Q if dtype == torch.bfloat16 and D <= 128 else TILE
 
 
 # ---------------------------------------------------------------------------
@@ -193,7 +207,7 @@ def _bwd_meta(q, k, cu_q, cu_k, causal):
     a block, so their metadata is padded to whole 128-row blocks on both
     sides and each ``lo`` carries after the ranges the launch order of its
     blocks (``launch_order`` over ``pair_tiles``)."""
-    blk = fwd_block_q(q)
+    blk = fwd_block_q(q, k)
     meta = _prep(q.shape[0], k.shape[0], cu_q, cu_k, blk, blk)
     bt = walk_tile(q.shape[2])
     lo_k, hi_k = _block_bounds_k(meta[2], meta[3], cu_q, bt, TILE,
@@ -379,7 +393,7 @@ def _launch_fwd(q, k, v, cu_q, cu_k, causal, scale):
     launch order of its 128-query blocks after them)."""
     global fwd_launch_count
     _check_operands(q, k, v, cu_q, cu_k)
-    bq = fwd_block_q(q)
+    bq = fwd_block_q(q, k)
     meta = _prep(q.shape[0], k.shape[0], cu_q, cu_k, bq)
     bk = walk_tile(q.shape[2])
     lo, hi = _block_bounds_q(meta[0], meta[1], cu_k, TILE, bk,
@@ -416,7 +430,7 @@ def _launch_dkdv(q, k, v, do, lse, delta, cu_q, cu_k, causal, scale,
     _check_operands(q, k, v, cu_q, cu_k, do, lse, delta)
     if meta is None:
         meta = _bwd_meta(q, k, cu_q, cu_k, causal)
-    if fwd_block_q(q) == WGMMA_BLOCK_Q:
+    if fwd_block_q(q, k) == WGMMA_BLOCK_Q:
         lse, delta = _dkdv_stats(lse, delta, meta[0].shape[0])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("paddle_varlen_attention_bwd_dkdv",

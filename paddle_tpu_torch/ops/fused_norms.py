@@ -21,7 +21,8 @@ backward is autograd of the plain version, as the JAX package's
 ``_norm_plan`` (cached by shape and types) sizes the launch on the host:
 the row walk's team width, teams a block, ring stages, grid and shared
 bytes, or, for rows wider than a shared-memory slot, the one-block-a-row
-kernel.
+kernel.  The team width and the stages come from the tuning cache where
+it has an entry for the shape (``tune/``), else from the plan's rule.
 """
 from __future__ import annotations
 
@@ -157,9 +158,15 @@ def _size(dtype) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def _norm_plan(R, H, x_dtype, w_dtype, kind, b_dtype=None, sms=132):
+def _norm_plan(R, H, x_dtype, w_dtype, kind, b_dtype=None, sms=132,
+               team_warps=None, stages=None):
     """The launch for ``R`` rows of ``H`` (``kind`` ``"rms"`` or ``"ln"``)
-    on a card of ``sms`` SMs.  A row that fits a shared-memory slot takes
+    on a card of ``sms`` SMs.  ``team_warps`` and ``stages`` (the tuning
+    cache's answer; None: the rule below) fix the team width and the ring
+    depth, snapped to what the shape allows -- a power of two from 1 to 8
+    warps with a vector for every lane, a stage that some row fills, a
+    ring that fits shared memory -- and the plan is the rule's where they
+    fit nothing.  A row that fits a shared-memory slot takes
     the walk, the weight and bias staged where they fit beside one slot.
     The team width doubles from one warp while every lane keeps two
     vectors or more and the rows an SM holds at once would keep fewer than
@@ -184,31 +191,56 @@ def _norm_plan(R, H, x_dtype, w_dtype, kind, b_dtype=None, sms=132):
     # rows an SM works on at once: its share of R, as far as its shared
     # memory holds them
     rows_sm = min(-(-R // sms), max(1, (SMEM_SM - 1024 - fixed) // slot))
-    wpr = 1
-    while wpr < 8 and n_vec >= 64 * 2 * wpr and \
-            2 * wpr * rows_sm <= _WARPS_SM:
-        wpr *= 2
+    if team_warps:
+        wpr = 1 << (min(int(team_warps), 8).bit_length() - 1)
+        while wpr > 1 and n_vec < 32 * wpr:
+            wpr //= 2
+    else:
+        wpr = 1
+        while wpr < 8 and n_vec >= 64 * 2 * wpr and \
+                2 * wpr * rows_sm <= _WARPS_SM:
+            wpr *= 2
     enough = min(R, sms * max(1, _INFLIGHT_SM // slot))
     best = None
     for teams in range(WALK_THREADS // (32 * wpr), 0, -1):
         threads = teams * wpr * 32
-        for stages in range(1, MAX_STAGES + 1):
-            smem = fixed + teams * stages * slot
-            if smem > SMEM_BLOCK or teams * stages > _MAX_SLOTS:
+        for st in range(1, MAX_STAGES + 1):
+            smem = fixed + teams * st * slot
+            if smem > SMEM_BLOCK or teams * st > _MAX_SLOTS:
                 break
             per_sm = min(SMEM_SM // (smem + 1024), _SM_THREADS // threads,
                          _SM_REGS // (threads * _WALK_REGS))
             grid = min(-(-R // teams), sms * per_sm)
             rows = -(-R // (grid * teams))     # the most rows a team walks
-            if stages > rows:
+            if st > rows:
                 break                      # a stage that no row fills
-            key = (min(enough, grid * teams * stages),
-                   stages > 1 or rows == 1, min(R, grid * teams), -grid,
-                   -stages)
+            if stages and st != min(int(stages), MAX_STAGES):
+                continue
+            key = (min(enough, grid * teams * st),
+                   st > 1 or rows == 1, min(R, grid * teams), -grid, -st)
             if best is None or key > best[0]:
                 best = (key, NormPlan("walk" if staged else "walk_global",
-                                      threads, wpr, stages, grid, smem))
+                                      threads, wpr, st, grid, smem))
+    if best is None:                       # the asked plan fits nothing
+        return _norm_plan(R, H, x_dtype, w_dtype, kind, b_dtype, sms)
     return best[1]
+
+
+@functools.lru_cache(maxsize=1024)
+def _tuned_knobs(epoch, R, H, x_dtype):
+    """(team_warps, stages) for one launch shape: the tuning cache's
+    answer (the JAX package's shape key; ``epoch`` is
+    ``tune.config_epoch()``, so no launch reads a file), or (None, None)
+    -- the plan's rule -- without one.  The team width changes the order
+    of a row's sums (its lanes split the row differently); the stages do
+    not."""
+    from ..tune import kernel_config_with_meta
+    cfg, meta = kernel_config_with_meta(
+        "fused_norms",
+        {"rows": R, "hidden": H, "dtype": str(x_dtype).split(".")[-1]})
+    if meta["source"] == "default":
+        return None, None
+    return cfg.get("team_warps"), cfg.get("stages")
 
 
 @functools.lru_cache(maxsize=None)
@@ -231,11 +263,13 @@ def _launch(entry, x, vectors, eps):
         fn.argtypes = [ctypes.c_void_p] * (2 + len(vectors)) + \
             [ctypes.c_int] * (3 + len(vectors)) + [ctypes.c_float] + \
             [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    from ..tune import config_epoch
     H = x.shape[-1]
     R = x.numel() // H
     plan = _norm_plan(R, H, x.dtype, vectors[0].dtype,
                       "ln" if len(vectors) == 2 else "rms",
-                      vectors[-1].dtype, _sm_count(x.device.index))
+                      vectors[-1].dtype, _sm_count(x.device.index),
+                      *_tuned_knobs(config_epoch(), R, H, x.dtype))
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -200,8 +200,10 @@ def _check_operands(q, key_cache, value_cache, block_tables, vectors,
 
 
 # The walk's plan (csrc/ragged_paged_attention.cu, paged_walk_kernel): a
-# tile of at most 8 rows splits its keys in pieces of about _SPLIT_KEYS,
-# and a launch's f32 split scratch stays under _SCRATCH_BYTES
+# tile of at most 8 rows splits its keys in pieces of about split_keys --
+# the tuning cache's "paged_attention" entry for the shape, _SPLIT_KEYS
+# without one -- and a launch's f32 split scratch stays under
+# _SCRATCH_BYTES
 _SPLIT_KEYS = 512
 _SCRATCH_BYTES = 32 << 20
 
@@ -250,6 +252,29 @@ def _walk_plan(Tq, H, Hkv, D, bs, R, nblk, dtype, quant=False,
     return tt, split, -(-cap // split), ntiles
 
 
+@functools.lru_cache(maxsize=1024)
+def _tuned_split_keys(epoch, tq, kv_heads, head_dim, page, nblk, dtype,
+                      default):
+    """keys a split for one launch shape: the tuning cache's answer (the
+    JAX package's shape key; ``epoch`` is ``tune.config_epoch()``, so a
+    changed cache or lever is looked up again, and no launch reads a
+    file), ``default`` without one.  A split changes where the walk
+    merges its online-softmax partials, so the order of the sums."""
+    from ..tune import kernel_config
+    cfg = kernel_config("paged_attention",
+                        {"tq": tq, "kv_heads": kv_heads,
+                         "head_dim": head_dim, "page": page, "nblk": nblk,
+                         "dtype": dtype}, {"split_keys": default})
+    return max(1, int(cfg["split_keys"]))
+
+
+def _split_keys(Tq, Hkv, D, bs, nblk, dtype, quant):
+    from ..tune import config_epoch
+    name = "int8" if quant else str(dtype).split(".")[-1]
+    return _tuned_split_keys(config_epoch(), Tq, Hkv, D, bs, nblk, name,
+                             _SPLIT_KEYS)
+
+
 def _walk_workspace(device, stream, n_cnt, n_part):
     """The walk's (counters, scratch) on ``stream`` of ``device``: at least
     n_cnt int32 counters, zero between launches, and n_part f32."""
@@ -288,9 +313,9 @@ def _launch(entry, q, key_cache, value_cache, block_tables, vectors,
     NB, Hkv, bs, _ = key_cache.shape
     R, nblk = block_tables.shape
     out = torch.empty_like(q)
-    tt, split, nsplit, ntiles = _walk_plan(Tq, H, Hkv, D, bs, R, nblk,
-                                           q.dtype, bool(scales), decode,
-                                           _SPLIT_KEYS)
+    tt, split, nsplit, ntiles = _walk_plan(
+        Tq, H, Hkv, D, bs, R, nblk, q.dtype, bool(scales), decode,
+        _split_keys(Tq, Hkv, D, bs, nblk, q.dtype, bool(scales)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         cnt = part = 0

@@ -21,9 +21,11 @@ Layout contract (the JAX package's, shared with ``LLMEngine``'s pools):
 plain version.  ``matmul`` launches the kernel in
 ``paddle_tpu_torch/csrc/quant_matmul.cu`` on CUDA tensors (or raises) and
 computes ``reference_matmul`` on CPU tensors; ``launch_count`` counts the
-kernel's launches.  The JAX package's tuned block geometry and its
-lowering probe (``supports``) have no counterpart: the CUDA kernel takes
-every M, N and K (even K for int4) and raises on anything else.
+kernel's launches.  The launch's row tile and K slabs a split come from
+the tuning cache (``tune/``; the kernel's rule without an entry).  The JAX
+package's lowering probe (``supports``) has no counterpart: the CUDA
+kernel takes every M, N and K (even K for int4) and raises on anything
+else.
 
 The kernel feeds the tensor cores the integer codes themselves (exact in
 bf16) and applies the scales after the sums; f32 x goes in as three exact
@@ -34,6 +36,7 @@ plain PyTorch.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -251,6 +254,27 @@ def _check_operands(x, q, s, weight_dtype):
     need(len(devs) == 1, f"operands on several devices: {devs}")
 
 
+@functools.lru_cache(maxsize=1024)
+def _tuned_plan(epoch, m, k, n, weight_dtype):
+    """(tile, K slabs a split) for one launch shape: the tuning cache's
+    answer (the JAX package's shape key; ``epoch`` is
+    ``tune.config_epoch()``, so no launch reads a file), or (-1, 0) -- the
+    C side's rule -- without one.  The row tile keeps the order of the
+    sums; the slabs a split change it (each split's partial is summed in
+    split order), within a bound on a split's f32 chain at any K."""
+    from ..tune import kernel_config
+    cfg = kernel_config("quant_matmul",
+                        {"m": m, "k": k, "n": n, "dtype": weight_dtype})
+    tile = int(cfg["tile"])
+    return (tile if tile in (0, 1, 2) else -1), \
+        max(0, int(cfg["split_slabs"]))
+
+
+def _plan(M, K, N, weight_dtype):
+    from ..tune import config_epoch
+    return _tuned_plan(config_epoch(), M, K, N, weight_dtype)
+
+
 def _launch_kernel(x, q, s, weight_dtype):
     """Launch the CUDA kernel on PyTorch's current stream.  Raises on an
     operand it does not take, on CPU tensors, on a failed build and on a
@@ -258,7 +282,9 @@ def _launch_kernel(x, q, s, weight_dtype):
     small output the kernel splits K over several blocks and a second
     kernel sums the partial products in a fixed order; the scratch comes
     from here, sized by the C side (``paddle_quant_matmul_scratch``, by
-    shape, x type and pool type)."""
+    shape, x type, pool type and plan).  The row tile and the K slabs a
+    split come from the tuning cache (``_plan``); without an entry, the C
+    side's rule."""
     global launch_count
     _check_operands(x, q, s, weight_dtype)
     if x.device.type != "cuda":
@@ -269,22 +295,23 @@ def _launch_kernel(x, q, s, weight_dtype):
     fn, scratch_fn = lib.paddle_quant_matmul, lib.paddle_quant_matmul_scratch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + \
             [ctypes.c_void_p]
         scratch_fn.restype = ctypes.c_longlong
-        scratch_fn.argtypes = [ctypes.c_int] * 5
+        scratch_fn.argtypes = [ctypes.c_int] * 7
     M, K = x.shape
     N = q.shape[1]
+    tile, slabs = _plan(M, K, N, weight_dtype)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     n_scratch = scratch_fn(M, N, K, _X_DTYPES[x.dtype],
-                           int(weight_dtype == "int4"))
+                           int(weight_dtype == "int4"), tile, slabs)
     scratch = torch.empty((max(n_scratch, 1),), dtype=torch.float32,
                           device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
                  scratch.data_ptr(), M, N, K, _X_DTYPES[x.dtype],
-                 int(weight_dtype == "int4"), stream)
+                 int(weight_dtype == "int4"), tile, slabs, stream)
     if err != 0:
         raise RuntimeError(f"dequant matmul kernel launch failed: CUDA "
                            f"error {err}")

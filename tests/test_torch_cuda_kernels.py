@@ -1495,3 +1495,115 @@ def test_sampled_draw_graph_matches_eager_ops(dev, rows):
                            prng.gumbel(keys, 32000))
         assert torch.equal(prng.random_bits(keys, 32000).cpu(),
                            prng.random_bits(keys.cpu(), 32000))
+
+
+# ---------------------------------------------------------------------------
+# tuned plans: every candidate of the tuning registry launches and matches
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def forced(monkeypatch):
+    """Force one kernel's config through the tuning lookup."""
+    import json
+
+    def force(kernel, config):
+        monkeypatch.setenv("PADDLE_TPU_TUNE_FORCE",
+                           json.dumps({kernel: config}))
+    monkeypatch.delenv("PADDLE_TPU_TUNE_CACHE", raising=False)
+    return force
+
+
+@pytest.mark.parametrize("split", [256, 512, 1024, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_tuned_walk_split_matches_plain_version(dev, forced, split, dtype):
+    """Each split_keys candidate: the walk matches its plain version and
+    repeats bit for bit; the default equals an untuned launch."""
+    lens = [100, 2000, 731, 1290, 5, 16, 17, 1999]
+    ops = _case(dev, dtype, 32, 32, 128, 16, [(1, kv) for kv in lens], 8,
+                128, seed=5)
+    mixed = _case(dev, dtype, 32, 8, 128, 16,
+                  [(9, 9), (40, 700), (1, 1500), (3, 77)], 64, 128, seed=6)
+    untuned = pa.ragged_paged_attention_segrel_packed(*ops)
+    forced("paged_attention", {"split_keys": split})
+    for c in (ops, mixed):
+        out = pa.ragged_paged_attention_segrel_packed(*c)
+        _assert_within(out, pa.ragged_paged_reference_segrel(*c), dtype)
+        assert torch.equal(pa.ragged_paged_attention_segrel_packed(*c), out)
+    if split == pa._SPLIT_KEYS:
+        assert torch.equal(pa.ragged_paged_attention_segrel_packed(*ops),
+                           untuned)
+
+
+@pytest.mark.parametrize("tile,slabs", [(-1, 0), (0, 1), (0, 8), (1, 2),
+                                        (1, 32), (2, 8), (-1, 32)])
+@pytest.mark.parametrize("M,K", [(8, 4096), (72, 4096), (512, 4096),
+                                 (8, 11008)])
+@pytest.mark.parametrize("wdt", ["int8", "int4"])
+def test_tuned_qmm_plan_matches_plain_version(dev, forced, wdt, M, K, tile,
+                                              slabs):
+    g = torch.Generator(device=dev).manual_seed(M)
+    w = torch.randn((K, 2048), generator=g, device=dev) * 0.02
+    q, s = qm.quantize_weight(w, wdt)
+    xs = [torch.randn((M, K), generator=g, device=dev).to(xdt)
+          for xdt in (torch.float32, torch.bfloat16)]
+    untuned = [qm.matmul(x, q, s, wdt) for x in xs]
+    forced("quant_matmul", {"tile": tile, "split_slabs": slabs})
+    for x, base in zip(xs, untuned):
+        out = qm.matmul(x, q, s, wdt)
+        _assert_qmm_within(out, qm.reference_matmul(x, q, s, wdt))
+        assert torch.equal(qm.matmul(x, q, s, wdt), out)
+        if (tile, slabs) == (-1, 0):
+            assert torch.equal(out, base)
+
+
+@pytest.mark.parametrize("warps,stages", [(1, 1), (1, 2), (2, 1), (2, 2),
+                                          (4, 1), (4, 2), (8, 1), (8, 2)])
+@pytest.mark.parametrize("R,H", [(8, 4096), (2048, 4096), (616, 1024)])
+def test_tuned_norm_plan_matches_plain_version(dev, forced, R, H, warps,
+                                               stages):
+    x, w, b = _norm_case(dev, R, H, torch.bfloat16, torch.bfloat16)
+    untuned = fn._launch_rms(x, w, 1e-6)
+    rule = fn._norm_plan(R, H, x.dtype, w.dtype, "rms", w.dtype,
+                         fn._sm_count(x.device.index))
+    forced("fused_norms", {"team_warps": warps, "stages": stages})
+    y = fn._launch_rms(x, w, 1e-6)
+    y2 = fn._launch_ln(x, w, b, 1e-5)
+    _assert_norm_within(y, fn.rms_ref(x, w, 1e-6))
+    _assert_norm_within(y2, fn.ln_ref(x, w, b, 1e-5))
+    assert torch.equal(fn._launch_rms(x, w, 1e-6), y)
+    # the ring's depth never changes a row's sums; the team width does
+    if warps == rule.team_warps:
+        assert torch.equal(y, untuned)
+
+
+def test_tp2_engine_on_one_card_equals_tp1(dev):
+    """Two shards on one card: the walk and the pools at kvh/2 heads, the
+    q/k/v products at half width; greedy tokens equal tp=1's."""
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256,
+                      intermediate_size=512, num_hidden_layers=3,
+                      num_attention_heads=4, num_key_value_heads=2,
+                      max_position_embeddings=256)
+    model = LlamaForCausalLM(cfg, device=dev, generator=1)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (5, 40, 130, 17)]
+    outs = {}
+    for tp, kw in ((1, {}), (2, {}), (1, {"weight_dtype": "int8",
+                                          "kv_dtype": "int8"}),
+                   (2, {"weight_dtype": "int8", "kv_dtype": "int8"})):
+        eng = LLMEngine(model, device=dev, tp=tp, max_num_seqs=4,
+                        block_size=16, max_model_len=256,
+                        max_prefill_tokens=64, prefill_token_bucket=32, **kw)
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=8)
+        before = (pa.launch_count, pa.quant_launch_count)
+        got = {r: o.generated for r, o in eng.run().items()}
+        launched = (pa.launch_count - before[0]) + \
+            (pa.quant_launch_count - before[1])
+        outs[tp, bool(kw)] = (got, launched)
+    for quant in (False, True):
+        assert outs[2, quant][0] == outs[1, quant][0]
+        assert outs[2, quant][1] == 2 * outs[1, quant][1]

@@ -1,7 +1,7 @@
 """PyTorch port, the device-resident decode window (``decode_window=K``) on
 the CPU, held against the JAX engine with the same options on the same
-weights (tests/test_decode_window.py's cases, minus tp2: ROADMAP Queue 1
-item 10).
+weights (tests/test_decode_window.py's cases; the window at tp=2 is in
+tests/test_torch_tp_engine.py).
 
 - Greedy K in {2, 4} x {float, int8 pages}: tokens identical to the
   synchronous K=1 engine and to the JAX engine with the same options,

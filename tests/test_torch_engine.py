@@ -216,10 +216,12 @@ def test_sampling_reproducible_across_scheduling(pairs):
     assert len(first) == 8
 
 
-@pytest.mark.parametrize("kw,item", [({"tp": 2}, 10)])
+@pytest.mark.parametrize("kw,item", [({"tp": 3}, 10)])
 def test_unported_options_raise_naming_their_roadmap_item(pairs, kw, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 item {item}"):
+    """Tensor parallelism (item 10) is ported; a degree that does not
+    divide the heads raises as the JAX engine does
+    (tests/test_torch_tp_engine.py holds tp=2)."""
+    with pytest.raises(ValueError, match="tp=3"):
         LLMEngine(pairs["mha"].tm, device="cpu", **kw)
 
 

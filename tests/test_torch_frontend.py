@@ -460,7 +460,9 @@ def test_cli_build_engine_maps_every_flag():
     plain = _build_engine(args)()
     assert plain.kv_tier is None and plain.drafter is None
     args.tp = 2
-    with pytest.raises(NotImplementedError, match="item 10"):
+    assert _build_engine(args)().tp == 2
+    args.tp = 3
+    with pytest.raises(ValueError, match="tp=3"):
         _build_engine(args)()
 
 

@@ -57,10 +57,16 @@ of the five tuned kernels into a temporary cache, then engine_bf16's
 requests through an int8-weight engine that reads it: a hit for every
 kernel, every launch held), and trains through ``build_train_step`` at the
 350M GQA LLaMA bench configuration: ``train_f32`` (2 layers in float32,
-three steps on the kernels against three on the plain versions) and
+three steps on the kernels against three on the plain versions),
 ``train_bf16`` (24 layers in bfloat16: a gate run holding every kernel
 launch to its plain version, then 20 timed steps on the kernels alone and
-2 with remat).  ``decode`` and ``varlen`` hold the paged decode kernel and
+2 with remat) and ``train_hybrid_bf16`` (the hybrid trainer's per-rank
+step at world 1, every mesh axis an NCCL group of size 1: 24 layers, two
+microbatches against the single-card step, with a gate run; the 1F1B
+driver against the GPipe driver that a pipeline of one stage takes; remat
+"attn" against "full" with the flash forward's launches; MoE
+with 8 local experts at 8 layers; MoE in float32 at 2 layers against the
+same step on the CPU).  ``decode`` and ``varlen`` hold the paged decode kernel and
 the three varlen flash attention kernels against their plain versions at
 LLaMA-7B's attention width (with controls that must fail, and
 ``flash_attn_unpadded``'s autograd through the varlen kernels), and
@@ -4263,6 +4269,367 @@ def phase_train_bf16(state):
 
 
 # ---------------------------------------------------------------------------
+# train_hybrid_bf16: the hybrid trainer's per-rank step at world 1, every
+# axis a real NCCL group of size 1
+# ---------------------------------------------------------------------------
+
+# (a) the mesh step against the single-card step, both on the kernels:
+# the losses to rtol 2e-3, the parameters after step 1 within 2 lr (Adam
+# moves a parameter whose gradient is zero up to rounding by up to 2 lr);
+# the 1F1B driver against the GPipe driver: the loss to rtol 2e-3, each
+# leaf's gradient to ||d|| / ||gpipe|| <= 2^-8 (the same microbatch
+# gradients, summed in f32 against in bf16: one bf16 rounding apart);
+# (b) remat "attn" against "full": the losses to rtol 2e-3; (d) MoE in f32
+# on the card against the CPU: the loss to rtol 1e-4, each leaf's
+# first-step gradient to ||g - g_cpu|| / ||g_cpu|| <= 1e-4
+HYBRID_TOL = {"loss_rtol_bf16": 2e-3, "param_atol_lr": 2.0,
+              "grad_l2_rel_1f1b_bf16": 2.0 ** -8,
+              "loss_rtol_f32": 1e-4, "grad_l2_rel_f32": 1e-4}
+HYBRID_M, HYBRID_STEPS, HYBRID_TIMED = 2, 3, 8
+MOE_LAYERS, MOE_EXPERTS, MOE_STEPS = 8, 8, 10
+
+
+def hybrid_mesh(hp, device):
+    """A world-1 mesh: NCCL groups on a card, gloo on the CPU."""
+    import torch
+    from paddle_tpu_torch.parallel import transformer as pt
+    cuda = torch.device(device).type == "cuda"
+    return pt.build_mesh(hp, rank=0, world_size=1,
+                         backend="nccl" if cuda else "gloo", device=device)
+
+
+def timed_steps(step, params, opt, batch, n):
+    """n steps; each step's ms (the loss read back ends it) and losses."""
+    times, losses = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(float(step(params, opt, batch)[2]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, losses
+
+
+def collective_cost(mesh, x) -> dict:
+    """Each sequence-parallel collective of the block on x [m, S, H] over
+    the tp group: the host's time to return from one call (the mean of
+    100 calls in a row), the same behind a spin kernel of SPIN_CYCLES
+    (long only if the call waits for the card on the host) and its card
+    time (``time_ms``)."""
+    import torch
+    from paddle_tpu_torch.parallel import collectives as C
+    g = mesh.group("tp")
+    out = {}
+    for name, fn in (("all_gather", lambda: C._all_gather(x, g, 1)),
+                     ("psum_scatter", lambda: C._psum_scatter(x, g, 1)),
+                     ("psum", lambda: C._psum(x, g))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        host_us = (time.perf_counter() - t0) / 100 * 1e6
+        torch.cuda.synchronize()
+        # behind a spin kernel: a call that waits for the card on the host
+        # returns only after the spin
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0 = time.perf_counter()
+        fn()
+        behind_us = (time.perf_counter() - t0) * 1e6
+        torch.cuda.synchronize()
+        out[name] = {"host_us": host_us, "host_us_behind_spin": behind_us,
+                     "ms": time_ms(fn)}
+    return out
+
+
+def driver_grads(driver, init, tokens, cfg, hp, mesh) -> dict:
+    """One pipeline driver's loss and gradients on the world-1 mesh from
+    the full tree ``init`` (left as it is), tokens [M, m, S]: with its
+    flash launches (counted from 0) and its wall ms."""
+    import torch
+    from paddle_tpu_torch.parallel import transformer as pt
+    leaves = pt._leaves(init)
+    live = [t.detach().requires_grad_(True) for _, t in leaves]
+    ptree = pt._tree((n, t) for (n, _), t in zip(leaves, live))
+    torch.cuda.synchronize()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    loss, g = driver(ptree, live, tokens, cfg, hp, mesh)
+    torch.cuda.synchronize()
+    return {"loss": float(loss) / hp.num_microbatches,
+            "grads": {n: x for (n, _), x in zip(leaves, g)},
+            "launches": flash_counts(),
+            "ms": (time.perf_counter() - t0) * 1e3}
+
+
+def hybrid_moe_grads(cfg, hp, device, tokens, init):
+    """Loss and reduced first-step gradients of the world-1 mesh step on
+    ``device`` from the parameters ``init`` (CPU f32 tensors)."""
+    from paddle_tpu_torch.parallel import transformer as pt
+    mesh = hybrid_mesh(hp, device)
+    try:
+        params = pt.shard_params(init, hp, mesh)
+        toks = tokens.to(device).reshape(hp.num_microbatches, -1,
+                                         tokens.shape[1])
+        loss, g = pt._sharded_loss_and_grads(params, toks, cfg, hp, mesh)
+        names = [n for n, _ in pt._leaves(params)]
+        zd = dict(pt._leaves(pt.zero_dims(hp, pt._shapes(cfg))))
+        g = pt._reduce_grads(g, names, hp, mesh, zd)
+        return float(loss), {n: x.float().cpu() for n, x in zip(names, g)}
+    finally:
+        mesh.close()
+
+
+def phase_train_hybrid_bf16(state):
+    """The hybrid trainer's per-rank step at world 1 over NCCL groups of
+    size 1 (every collective of the world-N path runs), at the bench's
+    350M widths in bf16, batch 2 x 2,048 as 2 microbatches of 1.
+    (a) 24 layers, 2 microbatches: a gate run holding every flash launch
+    to its plain version (controls must fail), then the main path on the
+    kernels (counts from 0: each kernel L x M a step) against the
+    single-card step from the same parameters, and both timed.  The step
+    is built with pp_schedule "1f1b" and zero_stage 1, but a pipeline of
+    one stage takes the GPipe driver and ZeRO at dp 1 shards nothing, as
+    in the reference; so (a) also runs the 1F1B driver itself (its no-grad
+    forward, the recompute from the saved stage input, the f32 sums)
+    against the GPipe driver on the same parameters and batch: the loss
+    and each leaf's gradient, and the forward launched 2 L M times against
+    L M.  ZeRO's reduce-scatter and all-gather run at dp > 1 only
+    (tests/test_torch_hybrid_nccl.py, four cards).  (b) remat
+    "attn" against "full": equal losses, the forward launched L x M a
+    step under "attn" and L x M more under "full".  (c) MoE, 8 experts
+    top 2 at 8 of 24 layers: 10 steps on one batch, the loss falls.  (d)
+    MoE in f32 at 2 layers, 1 x 512 tokens: the card's loss and
+    first-step gradients against the same step on the CPU (gloo, the
+    plain attention)."""
+    import dataclasses
+    import statistics as st
+    import torch
+    from paddle_tpu_torch.parallel import transformer as pt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = train_config(TRAIN_LAYERS)
+    L, M = cfg.num_hidden_layers, HYBRID_M
+    hp = pt.HybridParallelConfig(
+        dtype=torch.bfloat16, remat=False, lr=1e-3, betas=(0.9, 0.95),
+        grad_clip_norm=1.0, num_microbatches=M, pp_schedule="1f1b",
+        zero_stage=1)
+    batch = train_tokens(cfg, 1, SEED + 9)[0]
+    mesh = hybrid_mesh(hp, DEV)
+    rec = {"phase": "train_hybrid_bf16", "layers": L, "microbatches": M,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "tolerance": HYBRID_TOL,
+           "groups": {a: [mesh.group(a).size(), type(mesh.group(a)).__name__]
+                      for a in pt.AXES}, "card": nvidia_smi()}
+    checks = {}
+    try:
+        step = pt.build_train_step(cfg, hp, mesh)
+        single = pt.build_train_step(cfg, dataclasses.replace(
+            hp, zero_stage=0), device=DEV)
+
+        # (a) gate: the plain attention, each kernel launch held beside it
+        log = {k: [] for k in ("fwd", "dkdv", "dq", "ctl_out_1pct",
+                               "ctl_lse_log2")}
+        params = pt.shard_params(pt.init_params(cfg, hp, seed=SEED,
+                                                device=DEV), hp, mesh)
+        opt = pt.init_opt_state(params, hp, mesh)
+        with flash_patched(*held_flash(log)):
+            gate_losses = [float(step(params, opt, batch)[2])
+                           for _ in range(2)]
+        del params, opt
+        fwd_err = worst(log["fwd"])
+        dk_err = worst([e["dk"] for e in log["dkdv"]])
+        dv_err = worst([e["dv"] for e in log["dkdv"]])
+        dq_err = worst(log["dq"])
+        ctl_out = [not within(e, "bfloat16", ENGINE_MEASURES)
+                   for e in log["ctl_out_1pct"]]
+        ctl_lse = [not grad_within(e, "bfloat16")
+                   for e in log["ctl_lse_log2"]]
+        rec["gate"] = {
+            "calls": {k: len(log[k]) for k in ("fwd", "dkdv", "dq")},
+            "losses": gate_losses, "fwd": fwd_err, "dk": dk_err,
+            "dv": dv_err, "dq": dq_err,
+            "controls_failing": {
+                "out_1pct": f"{sum(ctl_out)}/{len(ctl_out)}",
+                "dq_lse_plus_log2": f"{sum(ctl_lse)}/{len(ctl_lse)}"}}
+        checks["gate_held_every_call"] = rec["gate"]["calls"] == {
+            k: 2 * L * M for k in ("fwd", "dkdv", "dq")}
+        checks["gate_fwd_vs_plain"] = within(
+            fwd_err, "bfloat16", ENGINE_MEASURES) \
+            and fwd_err["lse_abs"] <= LSE_ABS
+        checks["gate_dkdv_vs_plain"] = grad_within(dk_err, "bfloat16") \
+            and grad_within(dv_err, "bfloat16")
+        checks["gate_dq_vs_plain"] = grad_within(dq_err, "bfloat16")
+        checks["gate_controls_fail"] = all(ctl_out) and all(ctl_lse)
+
+        # (a) the main path on the kernels against the single-card step
+        init = pt.init_params(cfg, hp, seed=SEED, device=DEV)
+        params = pt.shard_params(init, hp, mesh)
+        opt = pt.init_opt_state(params, hp, mesh)
+        p1 = pt.shard_params(init, dataclasses.replace(hp, zero_stage=0),
+                             mesh)       # world 1: a copy of the whole tree
+        o1 = pt.init_opt_state(p1)
+        torch.cuda.synchronize()
+        reset_flash_counts()
+        mesh_losses = [float(step(params, opt, batch)[2])]
+        after1 = dict(pt._leaves(pt.to_numpy(params)))
+        mesh_losses += [float(step(params, opt, batch)[2])
+                        for _ in range(HYBRID_STEPS - 1)]
+        launches = flash_counts()
+        single_losses = [float(single(p1, o1, batch)[2])]
+        single1 = dict(pt._leaves(pt.to_numpy(p1)))
+        single_losses += [float(single(p1, o1, batch)[2])
+                          for _ in range(HYBRID_STEPS - 1)]
+        param_diff = max(float(abs(after1[n] - single1[n]).max())
+                         for n in after1)
+        want = {k: L * M * HYBRID_STEPS for k in ("fwd", "dkdv", "dq")}
+        # both steps timed, in turns, on the same card
+        t_single, _ = timed_steps(single, p1, o1, batch, HYBRID_TIMED)
+        t_mesh, _ = timed_steps(step, params, opt, batch, HYBRID_TIMED)
+        t_single2, _ = timed_steps(single, p1, o1, batch, HYBRID_TIMED)
+        t_mesh2, _ = timed_steps(step, params, opt, batch, HYBRID_TIMED)
+        mesh_ms = st.median(t_mesh[1:] + t_mesh2[1:])
+        single_ms = st.median(t_single[1:] + t_single2[1:])
+        profiles = {
+            "mesh": profile_train_step(step, params, opt, batch, mesh_ms),
+            "single": profile_train_step(single, p1, o1, batch, single_ms)}
+        cost = collective_cost(mesh, torch.randn(
+            (1, TRAIN_SEQ, cfg.hidden_size), device=DEV,
+            generator=torch.Generator(device=DEV).manual_seed(SEED)).to(
+                torch.bfloat16))
+        del params, opt, p1, o1
+        torch.cuda.empty_cache()
+
+        # (a) the 1F1B driver against the GPipe driver, one step's
+        # gradients from the initial parameters
+        toks = batch.reshape(M, -1, batch.shape[1])
+        drv = {name: driver_grads(fn, init, toks, cfg, hp, mesh)
+               for name, fn in (("gpipe", pt._grads_gpipe),
+                                ("1f1b", pt._grads_1f1b))}
+        del init
+        g_rel = {n: float((drv["1f1b"]["grads"][n].float()
+                           - g.float()).norm()
+                          / g.float().norm().clamp_min(1e-30))
+                 for n, g in drv["gpipe"]["grads"].items()}
+        one_f1b_gap = abs(drv["1f1b"]["loss"] - drv["gpipe"]["loss"]) \
+            / abs(drv["gpipe"]["loss"])
+        rec["drivers"] = {
+            name: {"loss": d["loss"], "launches": d["launches"],
+                   "ms_one_call": d["ms"]} for name, d in drv.items()}
+        rec["drivers"]["loss_rel_gap"] = one_f1b_gap
+        rec["drivers"]["grad_l2_rel_by_leaf"] = g_rel
+        del drv
+        torch.cuda.empty_cache()
+        checks["1f1b_loss_matches_gpipe"] = \
+            one_f1b_gap <= HYBRID_TOL["loss_rtol_bf16"]
+        checks["1f1b_grads_match_gpipe"] = \
+            max(g_rel.values()) <= HYBRID_TOL["grad_l2_rel_1f1b_bf16"]
+        lm = L * M
+        checks["1f1b_forward_twice_gpipe_once"] = \
+            rec["drivers"]["1f1b"]["launches"] == {
+                "fwd": 2 * lm, "dkdv": lm, "dq": lm} and \
+            rec["drivers"]["gpipe"]["launches"] == {
+                "fwd": lm, "dkdv": lm, "dq": lm}
+        loss_gap = max(abs(a - b) / abs(b)
+                       for a, b in zip(mesh_losses, single_losses))
+        rec["dense"] = {
+            "mesh_losses": mesh_losses, "single_losses": single_losses,
+            "loss_rel_gap_max": loss_gap,
+            "param_max_abs_diff_step1": param_diff,
+            "launches": launches, "expected_launches": want,
+            "mesh_step_ms": t_mesh + t_mesh2,
+            "single_step_ms": t_single + t_single2,
+            "mesh_step_ms_p50": mesh_ms, "single_step_ms_p50": single_ms,
+            "profile": profiles, "collective_cost": cost,
+            "train_bf16_step_ms_p50": state.get("train_bf16", {}).get(
+                "step_ms_p50")}
+        checks["mesh_losses_match_single"] = \
+            loss_gap <= HYBRID_TOL["loss_rtol_bf16"]
+        checks["mesh_params_match_single"] = \
+            param_diff <= HYBRID_TOL["param_atol_lr"] * hp.lr
+        checks["mesh_launches_equal_layers_x_microbatches"] = \
+            launches == want
+
+        # (b) remat "attn" against "full"
+        remat = {}
+        for policy in ("attn", "full"):
+            hp_r = dataclasses.replace(hp, remat=True, remat_policy=policy)
+            step_r = pt.build_train_step(cfg, hp_r, mesh)
+            params = pt.shard_params(pt.init_params(cfg, hp, seed=SEED,
+                                                    device=DEV), hp_r, mesh)
+            opt = pt.init_opt_state(params, hp_r, mesh)
+            reset_flash_counts()
+            losses = [float(step_r(params, opt, batch)[2])
+                      for _ in range(2)]
+            counts = flash_counts()
+            times, _ = timed_steps(step_r, params, opt, batch, 6)
+            remat[policy] = {"losses": losses, "launches_2_steps": counts,
+                             "step_ms": times,
+                             "step_ms_p50": st.median(times[1:])}
+            del params, opt
+            torch.cuda.empty_cache()
+        rec["remat"] = remat
+        checks["remat_losses_equal"] = all(
+            abs(a - b) <= HYBRID_TOL["loss_rtol_bf16"] * abs(b)
+            for a, b in zip(remat["attn"]["losses"],
+                            remat["full"]["losses"]))
+        lm2 = 2 * L * M
+        checks["remat_attn_forward_once"] = \
+            remat["attn"]["launches_2_steps"] == {
+                "fwd": lm2, "dkdv": lm2, "dq": lm2}
+        checks["remat_full_forward_twice"] = \
+            remat["full"]["launches_2_steps"] == {
+                "fwd": 2 * lm2, "dkdv": lm2, "dq": lm2}
+    finally:
+        mesh.close()
+
+    # (c) MoE with local experts, bf16, one fixed batch
+    cfg_m = dataclasses.replace(train_config(MOE_LAYERS),
+                                moe_experts=MOE_EXPERTS, moe_top_k=2,
+                                moe_capacity_factor=2.0)
+    hp_m = dataclasses.replace(hp, zero_stage=0)
+    mesh = hybrid_mesh(hp_m, DEV)
+    try:
+        step = pt.build_train_step(cfg_m, hp_m, mesh)
+        params = pt.shard_params(pt.init_params(cfg_m, hp_m, seed=SEED,
+                                                device=DEV), hp_m, mesh)
+        opt = pt.init_opt_state(params, hp_m, mesh)
+        reset_flash_counts()
+        times, losses = timed_steps(step, params, opt, batch, MOE_STEPS)
+        rec["moe_bf16"] = {
+            "layers": MOE_LAYERS, "experts": MOE_EXPERTS, "top_k": 2,
+            "capacity_factor": 2.0, "params": pt.param_count(cfg_m),
+            "losses": losses, "step_ms": times,
+            "step_ms_p50": st.median(times[1:]),
+            "launches": flash_counts()}
+        checks["moe_losses_finite"] = all(map(math.isfinite, losses))
+        checks["moe_loss_falls"] = losses[-1] < losses[0]
+        del params, opt
+        torch.cuda.empty_cache()
+    finally:
+        mesh.close()
+
+    # (d) MoE in f32: the card against the CPU
+    cfg_f = dataclasses.replace(cfg_m, num_hidden_layers=2)
+    hp_f = dataclasses.replace(hp_m, dtype=torch.float32, num_microbatches=1)
+    toks = train_tokens(cfg_f, 1, SEED + 10)[0][:1, :512].cpu()
+    init = pt.init_params(cfg_f, hp_f, seed=SEED, device="cpu")
+    loss_gpu, g_gpu = hybrid_moe_grads(cfg_f, hp_f, DEV, toks, init)
+    loss_cpu, g_cpu = hybrid_moe_grads(cfg_f, hp_f, "cpu", toks, init)
+    g_rel = {n: float((g_gpu[n] - g_cpu[n]).norm()
+                      / g_cpu[n].norm().clamp_min(1e-30)) for n in g_cpu}
+    rec["moe_f32_vs_cpu"] = {"loss_card": loss_gpu, "loss_cpu": loss_cpu,
+                             "grad_l2_rel_by_leaf": g_rel}
+    checks["moe_f32_loss_matches_cpu"] = \
+        abs(loss_gpu - loss_cpu) <= HYBRID_TOL["loss_rtol_f32"] * abs(loss_cpu)
+    checks["moe_f32_grads_match_cpu"] = \
+        max(g_rel.values()) <= HYBRID_TOL["grad_l2_rel_f32"]
+
+    rec["checks"] = checks
+    rec["ok"] = all(checks.values())
+    emit(rec)
+    state["train_hybrid_bf16"] = rec
+    torch.cuda.empty_cache()
+    return rec["ok"]
+
+
+# ---------------------------------------------------------------------------
 # decode phase: the paged decode kernel (block_multihead_attention's decode)
 # against its plain version
 # ---------------------------------------------------------------------------
@@ -5821,10 +6188,11 @@ def blha_records(state) -> list:
 def flash_records(state) -> list:
     """The kernels line's flash attention entries, timed at the trainer's
     attention in bf16 (flash phase), with launches from train_bf16's run
-    on the kernels alone."""
+    on the kernels alone and train_hybrid_bf16's main path."""
     cases = state["flash"]
     t = cases["trainer_bfloat16"]["timing"]
     tb = state["train_bf16"]
+    th = state["train_hybrid_bf16"]
     recs = []
     for kern, line, fn, err_keys in (
             ("fwd", 97, "_fwd_kernel", ("out",)),
@@ -5838,9 +6206,17 @@ def flash_records(state) -> list:
                                        "flash_attention.cu",
             "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
             "tpu_kernel": f"flash_attention.py::{fn}",
-            "launches": tb["launches"][kern],
+            "launches": tb["launches"][kern] + th["dense"]["launches"][kern],
             "launches_by_phase": {
                 "train_bf16": tb["launches"][kern],
+                "train_hybrid_bf16": th["dense"]["launches"][kern],
+                "train_hybrid_bf16_remat_attn_2_steps":
+                    th["remat"]["attn"]["launches_2_steps"][kern],
+                "train_hybrid_bf16_remat_full_2_steps":
+                    th["remat"]["full"]["launches_2_steps"][kern],
+                "train_hybrid_bf16_moe": th["moe_bf16"]["launches"][kern],
+                "train_hybrid_bf16_1f1b_driver":
+                    th["drivers"]["1f1b"]["launches"][kern],
                 "train_bf16_remat": tb["remat_launches"][kern],
                 "train_f32": state["train_f32"]["launches"][kern]},
             "max_abs_err": max(c["errors"][e]["abs"] for c in cases.values()
@@ -6107,6 +6483,7 @@ def main() -> int:
                      ("tune_sweep_bf16", phase_tune_sweep_bf16),
                      ("train_f32", phase_train_f32),
                      ("train_bf16", phase_train_bf16),
+                     ("train_hybrid_bf16", phase_train_hybrid_bf16),
                      ("blha_f32", phase_blha_f32),
                      ("blha_bf16", phase_blha_bf16),
                      ("fused_decoder_f32", phase_fused_decoder_f32),

@@ -16,6 +16,7 @@ from paddle_tpu.nn.functional import attention as JA
 from paddle_tpu.ops.pallas import flash_attention as FA
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.functional import attention as TA
+from _torch_threads import torch_threads  # noqa: F401
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 

@@ -28,6 +28,7 @@ from paddle_tpu.incubate.nn import functional as JIF
 from paddle_tpu_torch.incubate.nn import functional as TIF
 from paddle_tpu_torch.ops import flash_attention_varlen as fav
 from paddle_tpu_torch.ops import paged_attention as tpa
+from _torch_threads import torch_threads  # noqa: F401
 
 F32_TOL = 2e-5
 BF16_TOL = 8e-3

@@ -44,6 +44,7 @@ from paddle_tpu_torch.inference.pressure import (ADMIT_PAUSE, NORMAL,
 from paddle_tpu_torch.models.llama import (LlamaConfig,
                                            from_jax_decode_params)
 from paddle_tpu_torch.profiler import Tracer
+from _torch_threads import torch_threads  # noqa: F401
 
 VOCAB = 97
 CFG = JaxConfig.tiny(vocab=VOCAB, hidden=32, layers=2, heads=4, ffn=64,

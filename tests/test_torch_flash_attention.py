@@ -24,6 +24,7 @@ from hypothesis import strategies as st
 
 from paddle_tpu.ops.pallas import flash_attention as FA
 from paddle_tpu_torch.ops import flash_attention as fa
+from _torch_threads import torch_threads  # noqa: F401
 
 FWD_TOL = 2e-5
 BWD_TOL = 2e-4

@@ -27,6 +27,7 @@ from paddle_tpu.ops.pallas import flash_attention_varlen as JV
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.functional import attention as TA
 from paddle_tpu_torch.ops import flash_attention_varlen as fav
+from _torch_threads import torch_threads  # noqa: F401
 
 TOL = {"float32": (2e-5, 2e-4), "bfloat16": (8e-3, 8e-3)}   # out, grads
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

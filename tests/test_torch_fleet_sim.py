@@ -19,6 +19,7 @@ import paddle_tpu.sim as jsim
 import paddle_tpu_torch.sim as tsim
 from paddle_tpu.inference import pressure as jpressure
 from paddle_tpu_torch.inference import pressure as tpressure
+from _torch_threads import torch_threads  # noqa: F401
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _REPO = os.path.dirname(_HERE)

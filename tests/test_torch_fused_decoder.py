@@ -30,6 +30,7 @@ from paddle_tpu.incubate.nn import functional as JIF
 from paddle_tpu.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.incubate.nn import functional as TIF
 from paddle_tpu_torch.ops import fused_norms as tfn
+from _torch_threads import torch_threads  # noqa: F401
 
 CFG = LlamaConfig(vocab_size=97, hidden_size=256, intermediate_size=512,
                   num_hidden_layers=2, num_attention_heads=2,

@@ -26,6 +26,7 @@ import torch
 
 import paddle_tpu.ops.pallas.fused_norms as JFN
 from paddle_tpu_torch.ops import fused_norms as fn
+from _torch_threads import torch_threads  # noqa: F401
 
 ROWS = [8, 16, 616, 2048, 2984, 8192]
 WIDTHS = [128, 1024, 4096, 5120, 8192, 11008, 32768, 65536]

@@ -27,6 +27,7 @@ import paddle_tpu.incubate.nn.functional as JF
 import paddle_tpu.ops.pallas.fused_norms as JFN
 import paddle_tpu_torch.incubate.nn.functional as TF
 from paddle_tpu_torch.ops import fused_norms as tfn
+from _torch_threads import torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

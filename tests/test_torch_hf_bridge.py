@@ -6,6 +6,7 @@ the conversions equal the JAX package's bit for bit."""
 import numpy as np
 import pytest
 import torch
+from _torch_threads import torch_threads  # noqa: F401
 
 transformers = pytest.importorskip("transformers")
 

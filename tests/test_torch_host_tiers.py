@@ -39,6 +39,7 @@ from paddle_tpu_torch.inference.kv_cache import prefix_chain_hashes
 from paddle_tpu_torch.models.llama import (LlamaConfig,
                                            from_jax_decode_params)
 from paddle_tpu_torch.profiler import Tracer, slo
+from _torch_threads import torch_threads  # noqa: F401
 
 VOCAB = 97
 CFG = JaxConfig.tiny(vocab=VOCAB, hidden=32, layers=2, heads=4, ffn=64,

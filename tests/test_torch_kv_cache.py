@@ -8,6 +8,7 @@ import pytest
 
 from paddle_tpu.inference import kv_cache as jkv
 from paddle_tpu_torch.inference import kv_cache as tkv
+from _torch_threads import torch_threads  # noqa: F401
 
 
 def _outcome(fn, *args):

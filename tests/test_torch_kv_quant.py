@@ -29,6 +29,7 @@ from paddle_tpu_torch.inference import LLMEngine
 from paddle_tpu_torch.inference.kv_cache import NULL_BLOCK
 from paddle_tpu_torch.models.llama import (LlamaConfig,
                                            from_jax_decode_params)
+from _torch_threads import torch_threads  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 VOCAB = 97

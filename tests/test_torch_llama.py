@@ -13,6 +13,7 @@ import torch
 
 from paddle_tpu.models import llama as jl
 from paddle_tpu_torch.models import llama as tl
+from _torch_threads import torch_threads  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 VOCAB = 97

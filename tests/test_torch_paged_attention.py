@@ -13,6 +13,7 @@ import torch
 
 import paddle_tpu.ops.pallas.paged_attention as jpa
 import paddle_tpu_torch.ops.paged_attention as tpa
+from _torch_threads import torch_threads  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -18,6 +18,7 @@ import torch
 
 import paddle_tpu.ops.pallas.quant_matmul as jqm
 import paddle_tpu_torch.ops.quant_matmul as tqm
+from _torch_threads import torch_threads  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 QMM_TOLERANCE = {"l2_rel": 1e-5, "max_rel": 1e-4}

@@ -24,6 +24,7 @@ from paddle_tpu.models.llama import LlamaForCausalLM as JaxModel
 from paddle_tpu_torch.inference import LLMEngine, prng
 from paddle_tpu_torch.models.llama import (LlamaConfig,
                                            from_jax_decode_params)
+from _torch_threads import torch_threads  # noqa: F401
 
 SEEDS = [0, 1, 2 ** 31 - 1, 2 ** 32 - 1]
 INDICES = np.arange(301)

@@ -12,6 +12,7 @@ import torch
 from paddle_tpu.inference import sampling as js
 from paddle_tpu_torch.inference import prng
 from paddle_tpu_torch.inference import sampling as ts
+from _torch_threads import torch_threads  # noqa: F401
 
 V = 50
 BANNED = (3, 7, 11, 19, 42)

@@ -38,6 +38,7 @@ from paddle_tpu_torch.inference.spec_decode import (Drafter,
                                                     verify_and_accept)
 from paddle_tpu_torch.models.llama import (LlamaConfig,
                                            from_jax_decode_params)
+from _torch_threads import torch_threads  # noqa: F401
 
 VOCAB = 97
 CFG = JaxConfig.tiny(vocab=VOCAB, hidden=32, layers=2, heads=4, ffn=64,

@@ -17,6 +17,7 @@ from paddle_tpu.models.llama import \
 from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                            from_jax_decode_params,
                                            speculative_generate)
+from _torch_threads import torch_threads  # noqa: F401
 
 VOCAB = 97
 CFG = JaxConfig.tiny(vocab=VOCAB, hidden=32, layers=2, heads=4, ffn=64,

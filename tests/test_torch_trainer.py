@@ -30,6 +30,7 @@ from paddle_tpu.parallel import transformer as jt
 from paddle_tpu_torch.models.llama import LlamaConfig
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.parallel import transformer as pt
+from _torch_threads import torch_threads  # noqa: F401
 
 DIMS = dict(vocab_size=256, hidden_size=256, intermediate_size=512,
             num_hidden_layers=2, num_attention_heads=4,
@@ -208,22 +209,46 @@ def test_train_step_updates_in_place():
     assert int(o2["step"]) == 1
 
 
-@pytest.mark.parametrize("hp_kw,cfg_kw,match", [
-    ({"dp": 2}, {}, "dp > 1"), ({"tp": 2}, {}, "tp > 1"),
-    ({"pp": 2}, {}, "pp > 1"), ({"cp": 2}, {}, "cp > 1"),
-    ({"ep": 2}, {}, "ep > 1"), ({"zero_stage": 1}, {}, "zero_stage"),
-    ({"vpp": 2, "pp_schedule": "vpp"}, {}, "interleaved"),
-    ({"pp_schedule": "vpp"}, {}, "interleaved"),
-    ({"remat_policy": "attn"}, {}, "remat_policy"),
-    ({}, {"moe_experts": 4}, "moe_experts"),
-], ids=["dp", "tp", "pp", "cp", "ep", "zero", "vpp", "schedule_vpp",
-        "remat_attn", "moe"])
-def test_later_options_raise_naming_their_roadmap_item(hp_kw, cfg_kw, match):
-    cfg = LlamaConfig(**{**DIMS, **cfg_kw})
-    hp = pt.HybridParallelConfig(**hp_kw)
-    with pytest.raises(NotImplementedError, match=match) as e:
-        pt.build_train_step(cfg, hp, device="cpu")
-    assert "ROADMAP Queue 1 item 12b" in str(e.value)
+VPP = {"pp": 2, "vpp": 2, "pp_schedule": "vpp"}
+REFERENCE_ERRORS = {
+    "layers_pp_vpp": (VPP, {}, "must divide by pp\\*vpp=4"),
+    "layers_vpp3": ({"vpp": 3, "pp_schedule": "vpp"}, {},
+                    "must divide by pp\\*vpp=3"),
+    "microbatches_pp_vpp": ({**VPP, "num_microbatches": 3},
+                            {"num_hidden_layers": 4}, "num_microbatches % pp"),
+    "kv_heads_tp4": ({"tp": 4}, {}, "kv heads are sharded over tp"),
+    "kv_heads_tp3": ({"tp": 3}, {}, "kv heads are sharded over tp"),
+    "ep_without_dp": ({"ep": 2}, {"moe_experts": 4}, "ep must be 1 or equal"),
+    "ep_not_dp": ({"ep": 3, "dp": 2}, {"moe_experts": 6},
+                  "ep must be 1 or equal"),
+    "ep_without_experts": ({"ep": 2, "dp": 2}, {}, "requires cfg.moe_experts"),
+    "experts_ep2": ({"ep": 2, "dp": 2}, {"moe_experts": 3},
+                    "must divide by ep=2"),
+    "experts_ep4": ({"ep": 4, "dp": 4}, {"moe_experts": 6},
+                    "must divide by ep=4"),
+}
+
+
+@pytest.mark.parametrize("name", list(REFERENCE_ERRORS))
+def test_build_train_step_raises_the_references_errors(name):
+    """The JAX trainer's configuration checks, with its wording."""
+    hp_kw, cfg_kw, match = REFERENCE_ERRORS[name]
+    with pytest.raises(ValueError, match=match) as want:
+        jt.build_train_step(JaxLlamaConfig(**{**DIMS, **cfg_kw}),
+                            jt.HybridParallelConfig(**hp_kw), None)
+    with pytest.raises(ValueError, match=match) as got:
+        pt.build_train_step(LlamaConfig(**{**DIMS, **cfg_kw}),
+                            pt.HybridParallelConfig(**hp_kw), device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("hp_kw,match", [
+    ({"dp": 2}, "needs a mesh"), ({"remat_policy": "dots"}, "remat_policy"),
+    ({"pp_schedule": "zb"}, "pp_schedule")], ids=["mesh", "remat", "sched"])
+def test_build_train_step_checks_its_own_options(hp_kw, match):
+    with pytest.raises(ValueError, match=match):
+        pt.build_train_step(LlamaConfig(**DIMS),
+                            pt.HybridParallelConfig(**hp_kw), device="cpu")
 
 
 def test_build_train_step_runs_on_cuda_unless_asked():

@@ -49,6 +49,7 @@ from paddle_tpu_torch.tune import (TuningCache, bucket_signature, cache_path,
                                    kernel_config_with_meta, reset_provenance,
                                    set_cache_path)
 from paddle_tpu_torch.tune import cache as tune_cache
+from _torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB = 97

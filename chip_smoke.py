@@ -61,12 +61,19 @@ three steps on the kernels against three on the plain versions),
 ``train_bf16`` (24 layers in bfloat16: a gate run holding every kernel
 launch to its plain version, then 20 timed steps on the kernels alone and
 2 with remat) and ``train_hybrid_bf16`` (the hybrid trainer's per-rank
-step at world 1, every mesh axis an NCCL group of size 1: 24 layers, two
+step at world 1, every mesh axis an NCCL group of size 1: 8 layers, two
 microbatches against the single-card step, with a gate run; the 1F1B
 driver against the GPipe driver that a pipeline of one stage takes; remat
 "attn" against "full" with the flash forward's launches; MoE
 with 8 local experts at 8 layers; MoE in float32 at 2 layers against the
-same step on the CPU).  ``decode`` and ``varlen`` hold the paged decode kernel and
+same step on the CPU) and ``launch_train_bf16`` (the hybrid trainer's rank
+started by ``python -m paddle_tpu_torch.distributed.launch``: NCCL from
+``init_parallel_env``, every eager collective at world 1, a 25 MB
+all_reduce's host time through ``collective.all_reduce`` and the raw
+call, ``build_mesh`` from the launcher's environment, 3 steps at
+LLaMA-7B's widths and 8 layers with every flash launch held to its plain
+version, their losses and parameters bit-equal to the in-process world-1
+mesh step's; a worker that exits 1 fails the launch).  ``decode`` and ``varlen`` hold the paged decode kernel and
 the three varlen flash attention kernels against their plain versions at
 LLaMA-7B's attention width (with controls that must fail, and
 ``flash_attn_unpadded``'s autograd through the varlen kernels), and
@@ -4059,12 +4066,14 @@ def phase_train_f32(state):
     return rec["ok"]
 
 
-def held_flash(log):
+def held_flash(log, keep_kernels=False):
     """The gate's attention: at every call the plain versions run and the
     kernels are launched beside them on the same inputs, their errors
-    logged; the step goes on with the plain versions' results.  Each call
-    also logs two controls that must fail: the forward's output 1% too
-    large, and the dQ kernel fed lse + log 2."""
+    logged; the step goes on with the plain versions' results (with
+    ``keep_kernels``, the kernels', so the step is the main path's and
+    the launch counters count it).  Each call also logs two controls that
+    must fail: the forward's output 1% too large, and the dQ kernel fed
+    lse + log 2 (a launch the counters do not keep)."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     def fwd(q, k, v, causal):
@@ -4073,7 +4082,7 @@ def held_flash(log):
         log["fwd"].append(dict(errors(rows(out), rows(ref)),
                                lse_abs=float((lse - lse_ref).abs().max())))
         log["ctl_out_1pct"].append(errors(rows(out * 1.01), rows(ref)))
-        return ref, lse_ref
+        return (out, lse) if keep_kernels else (ref, lse_ref)
 
     def bwd(q, k, v, out, lse, do, causal):
         delta = fa.attention_delta(out, do)
@@ -4085,10 +4094,40 @@ def held_flash(log):
         log["dkdv"].append({"dk": grad_errors(dk, dk_r),
                             "dv": grad_errors(dv, dv_r)})
         log["dq"].append(grad_errors(dq, dq_r))
+        n = fa.dq_launch_count
         log["ctl_lse_log2"].append(grad_errors(fa._launch_dq(
             q, k, v, do, lse + math.log(2.0), delta, causal), dq_r))
-        return dq_r, dk_r, dv_r
+        fa.dq_launch_count = n
+        return (dq, dk, dv) if keep_kernels else (dq_r, dk_r, dv_r)
     return fwd, bwd
+
+
+def flash_gate(log, calls):
+    """The gate record of a held run and its checks: every kernel held
+    ``calls`` times, each within the bf16 tolerance of its plain version,
+    every control failing."""
+    fwd_err = worst(log["fwd"])
+    dk_err = worst([e["dk"] for e in log["dkdv"]])
+    dv_err = worst([e["dv"] for e in log["dkdv"]])
+    dq_err = worst(log["dq"])
+    ctl_out = [not within(e, "bfloat16", ENGINE_MEASURES)
+               for e in log["ctl_out_1pct"]]
+    ctl_lse = [not grad_within(e, "bfloat16") for e in log["ctl_lse_log2"]]
+    gate = {"calls": {k: len(log[k]) for k in ("fwd", "dkdv", "dq")},
+            "fwd": fwd_err, "dk": dk_err, "dv": dv_err, "dq": dq_err,
+            "controls_failing": {
+                "out_1pct": f"{sum(ctl_out)}/{len(ctl_out)}",
+                "dq_lse_plus_log2": f"{sum(ctl_lse)}/{len(ctl_lse)}"}}
+    checks = {
+        "gate_held_every_call": gate["calls"] == {
+            k: calls for k in ("fwd", "dkdv", "dq")},
+        "gate_fwd_vs_plain": within(fwd_err, "bfloat16", ENGINE_MEASURES)
+        and fwd_err["lse_abs"] <= LSE_ABS,
+        "gate_dkdv_vs_plain": grad_within(dk_err, "bfloat16")
+        and grad_within(dv_err, "bfloat16"),
+        "gate_dq_vs_plain": grad_within(dq_err, "bfloat16"),
+        "gate_controls_fail": all(ctl_out) and all(ctl_lse)}
+    return gate, checks
 
 
 # cuBLAS's kernel names hold one of these (CUDA 12.8's bf16 GEMMs: nvjet)
@@ -4286,6 +4325,9 @@ HYBRID_TOL = {"loss_rtol_bf16": 2e-3, "param_atol_lr": 2.0,
               "grad_l2_rel_1f1b_bf16": 2.0 ** -8,
               "loss_rtol_f32": 1e-4, "grad_l2_rel_f32": 1e-4}
 HYBRID_M, HYBRID_STEPS, HYBRID_TIMED = 2, 3, 8
+# (a) and (b) run 8 of the bench's 24 layers, so that the whole run,
+# launch_train_bf16 included, stays inside its limit
+HYBRID_LAYERS = 8
 MOE_LAYERS, MOE_EXPERTS, MOE_STEPS = 8, 8, 10
 
 
@@ -4382,7 +4424,7 @@ def phase_train_hybrid_bf16(state):
     """The hybrid trainer's per-rank step at world 1 over NCCL groups of
     size 1 (every collective of the world-N path runs), at the bench's
     350M widths in bf16, batch 2 x 2,048 as 2 microbatches of 1.
-    (a) 24 layers, 2 microbatches: a gate run holding every flash launch
+    (a) 8 of 24 layers, 2 microbatches: a gate run holding every flash launch
     to its plain version (controls must fail), then the main path on the
     kernels (counts from 0: each kernel L x M a step) against the
     single-card step from the same parameters, and both timed.  The step
@@ -4405,7 +4447,7 @@ def phase_train_hybrid_bf16(state):
     import torch
     from paddle_tpu_torch.parallel import transformer as pt
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = train_config(TRAIN_LAYERS)
+    cfg = train_config(HYBRID_LAYERS)
     L, M = cfg.num_hidden_layers, HYBRID_M
     hp = pt.HybridParallelConfig(
         dtype=torch.bfloat16, remat=False, lr=1e-3, betas=(0.9, 0.95),
@@ -4433,30 +4475,9 @@ def phase_train_hybrid_bf16(state):
             gate_losses = [float(step(params, opt, batch)[2])
                            for _ in range(2)]
         del params, opt
-        fwd_err = worst(log["fwd"])
-        dk_err = worst([e["dk"] for e in log["dkdv"]])
-        dv_err = worst([e["dv"] for e in log["dkdv"]])
-        dq_err = worst(log["dq"])
-        ctl_out = [not within(e, "bfloat16", ENGINE_MEASURES)
-                   for e in log["ctl_out_1pct"]]
-        ctl_lse = [not grad_within(e, "bfloat16")
-                   for e in log["ctl_lse_log2"]]
-        rec["gate"] = {
-            "calls": {k: len(log[k]) for k in ("fwd", "dkdv", "dq")},
-            "losses": gate_losses, "fwd": fwd_err, "dk": dk_err,
-            "dv": dv_err, "dq": dq_err,
-            "controls_failing": {
-                "out_1pct": f"{sum(ctl_out)}/{len(ctl_out)}",
-                "dq_lse_plus_log2": f"{sum(ctl_lse)}/{len(ctl_lse)}"}}
-        checks["gate_held_every_call"] = rec["gate"]["calls"] == {
-            k: 2 * L * M for k in ("fwd", "dkdv", "dq")}
-        checks["gate_fwd_vs_plain"] = within(
-            fwd_err, "bfloat16", ENGINE_MEASURES) \
-            and fwd_err["lse_abs"] <= LSE_ABS
-        checks["gate_dkdv_vs_plain"] = grad_within(dk_err, "bfloat16") \
-            and grad_within(dv_err, "bfloat16")
-        checks["gate_dq_vs_plain"] = grad_within(dq_err, "bfloat16")
-        checks["gate_controls_fail"] = all(ctl_out) and all(ctl_lse)
+        rec["gate"], gate_checks = flash_gate(log, 2 * L * M)
+        rec["gate"]["losses"] = gate_losses
+        checks.update(gate_checks)
 
         # (a) the main path on the kernels against the single-card step
         init = pt.init_params(cfg, hp, seed=SEED, device=DEV)
@@ -4626,6 +4647,314 @@ def phase_train_hybrid_bf16(state):
     emit(rec)
     state["train_hybrid_bf16"] = rec
     torch.cuda.empty_cache()
+    return rec["ok"]
+
+
+# ---------------------------------------------------------------------------
+# launch_train_bf16: the hybrid trainer started by the port's launcher
+# ---------------------------------------------------------------------------
+
+LAUNCH_TIMEOUT_S = 300
+LAUNCH_STEPS = 3
+BUCKET_BYTES = 25 * 2 ** 20            # DataParallel's default bucket
+ALL_REDUCE_CALLS = 100
+
+
+def launch_config():
+    """LLaMA-7B's published widths at CUT_LAYERS of its 32 layers, and
+    train_hybrid_bf16's step: bf16, 2 microbatches of 1 x 2,048, 1F1B and
+    ZeRO-1 (GPipe and no sharding at world 1, as in the reference)."""
+    import dataclasses
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.parallel import transformer as pt
+    cfg = dataclasses.replace(LlamaConfig.llama_7b(),
+                              num_hidden_layers=CUT_LAYERS)
+    hp = pt.HybridParallelConfig(
+        dtype=torch.bfloat16, remat=False, lr=1e-3, betas=(0.9, 0.95),
+        grad_clip_norm=1.0, num_microbatches=HYBRID_M, pp_schedule="1f1b",
+        zero_stage=1)
+    return cfg, hp, train_tokens(cfg, 1, SEED + 11)[0]
+
+
+def launch_steps(step, params, opt, batch):
+    """LAUNCH_STEPS steps: the losses and a checksum of the parameters
+    after them (the f64 sum of every leaf's f32 values)."""
+    from paddle_tpu_torch.parallel import transformer as pt
+    losses = [float(step(params, opt, batch)[2])
+              for _ in range(LAUNCH_STEPS)]
+    return losses, float(sum(t.double().sum() for _, t in pt._leaves(params)))
+
+
+def world1_collectives() -> dict:
+    """Every collective of paddle_tpu_torch.distributed on CUDA tensors at
+    world 1: each result equal, bit for bit, to what the reference's
+    world-1 path gives (its input, or the list of it)."""
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    x = torch.randn((4, 1024), device=DEV, generator=gen)
+    y = torch.randn((4, 1024), device=DEV, generator=gen)
+
+    def same(a, b):
+        return a.is_cuda and bool(torch.equal(a, b))
+    checks = {}
+    for op in ("SUM", "AVG", "MAX", "MIN", "PROD"):
+        t = x.clone()
+        dist.all_reduce(t, getattr(dist.ReduceOp, op))
+        checks[f"all_reduce_{op}"] = same(t, x)
+    t = x.clone()
+    task = dist.all_reduce(t, sync_op=False)
+    checks["all_reduce_task"] = task.wait() is t and task.is_completed() \
+        and same(t, x)
+    outs = []
+    dist.all_gather(outs, x)
+    checks["all_gather"] = len(outs) == 1 and same(outs[0], x)
+    checks["all_gather_stacked"] = same(dist.all_gather(None, x), x)
+    objs = []
+    dist.all_gather_object(objs, {"rank": 0, "x": [1, 2]})
+    checks["all_gather_object"] = objs == [{"rank": 0, "x": [1, 2]}]
+    for name, fn in (("broadcast", lambda t: dist.broadcast(t, src=0)),
+                     ("reduce", lambda t: dist.reduce(t, dst=0))):
+        t = x.clone()
+        fn(t)
+        checks[name] = same(t, x)
+    t = torch.zeros_like(x)
+    dist.scatter(t, [y], src=0)
+    checks["scatter"] = same(t, y)
+    t = torch.zeros_like(x)
+    dist.reduce_scatter(t, [y])
+    checks["reduce_scatter"] = same(t, y)
+    outs = []
+    dist.alltoall(outs, [y])
+    checks["alltoall"] = len(outs) == 1 and same(outs[0], y)
+    got = dist.gather(x, [], dst=0)
+    checks["gather"] = len(got) == 1 and same(got[0], x)
+    dist.send(y, dst=0)
+    t = torch.zeros_like(y)
+    dist.recv(t, src=0)
+    checks["send_recv"] = same(t, y)
+    t = torch.zeros_like(y)
+    for task in dist.batch_isend_irecv([dist.P2POp(dist.isend, y, 0),
+                                        dist.P2POp(dist.irecv, t, 0)]):
+        task.wait()
+    checks["batch_isend_irecv"] = same(t, y)
+    g = dist.new_group([0])
+    t = x.clone()
+    dist.all_reduce(t, group=g)
+    checks["new_group_all_reduce"] = g.nranks == 1 and g.rank == 0 \
+        and "NCCL" in type(g.process_group).__name__ and same(t, x)
+    dist.barrier()
+    dist.barrier(group=g)
+    torch.cuda.synchronize()
+    checks["world_group_is_nccl"] = \
+        "NCCL" in type(C.get_group(0).process_group).__name__
+    return checks
+
+
+def all_reduce_cost() -> dict:
+    """The host's time to return from an all_reduce of one 25 MB f32
+    bucket at world 1 over NCCL, through collective.all_reduce and through
+    a raw torch.distributed.all_reduce (the mean of ALL_REDUCE_CALLS calls
+    in a row, each way twice, in turns) and the card's time of each."""
+    import torch
+    import torch.distributed as tdist
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    x = torch.ones(BUCKET_BYTES // 4, device=DEV)
+    opts = tdist.AllreduceOptions()
+    wrapper = tdist.distributed_c10d._get_default_group()
+    backend = C.get_group(0).process_group
+    # the two calls beneath them: the default group's ProcessGroup and the
+    # backend object collective.py calls
+    ways = {"collective": lambda: dist.all_reduce(x),
+            "raw": lambda: tdist.all_reduce(x),
+            "process_group": lambda: wrapper.allreduce([x], opts).wait(),
+            "backend": lambda: backend.allreduce([x], opts).wait()}
+    out = {k: {"host_us": []} for k in ways}
+    for fn in ways.values():
+        fn()
+    for _ in range(2):
+        for name, fn in ways.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ALL_REDUCE_CALLS):
+                fn()
+            out[name]["host_us"].append(
+                (time.perf_counter() - t0) / ALL_REDUCE_CALLS * 1e6)
+            torch.cuda.synchronize()
+    for name, fn in ways.items():
+        out[name]["ms"] = time_ms(fn)
+    out["bytes"] = BUCKET_BYTES
+    return out
+
+
+def launch_worker(out_path) -> int:
+    """The rank that launch_train_bf16 starts through ``python -m
+    paddle_tpu_torch.distributed.launch``: init_parallel_env (NCCL on
+    cuda:0), every collective at world 1, the 25 MB all_reduce's host
+    time, ``build_mesh(hp)`` from the launcher's environment, then
+    LAUNCH_STEPS hybrid steps at LLaMA-7B's widths with every flash launch
+    held against its plain version (the step goes on with the kernels'
+    results, so the counters count the main path); writes its record as
+    JSON to out_path."""
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.parallel import transformer as pt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    marks, t0 = {}, time.perf_counter()
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t0
+    rec, checks = {"card": nvidia_smi(), "seconds": marks}, {}
+    env = dist.init_parallel_env()
+    mark("init_parallel_env")
+    checks["nccl_world1_on_cuda0"] = (
+        dist.get_backend(), env.rank, env.world_size,
+        torch.cuda.current_device()) == ("nccl", 0, 1, 0)
+    rec["collectives"] = world1_collectives()
+    checks["collectives_world1_identity"] = all(rec["collectives"].values())
+    mark("collectives")
+    rec["all_reduce_25mb"] = all_reduce_cost()
+    mark("all_reduce_cost")
+    cfg, hp, batch = launch_config()
+    mesh = pt.build_mesh(hp)
+    mark("build_mesh")
+    try:
+        rec["mesh"] = {"device": str(mesh.device), "backend": mesh.backend,
+                       "groups": {a: type(mesh.group(a)).__name__
+                                  for a in pt.AXES}}
+        checks["mesh_from_launcher_env"] = (
+            mesh.rank, mesh.backend, str(mesh.device)) == (0, "nccl",
+                                                           "cuda:0")
+        step = pt.build_train_step(cfg, hp, mesh)
+        params = pt.shard_params(pt.init_params(cfg, hp, seed=SEED,
+                                                device=mesh.device), hp, mesh)
+        opt = pt.init_opt_state(params, hp, mesh)
+        mark("init_params")
+        log = {k: [] for k in ("fwd", "dkdv", "dq", "ctl_out_1pct",
+                               "ctl_lse_log2")}
+        reset_flash_counts()
+        with flash_patched(*held_flash(log, keep_kernels=True)):
+            rec["losses"], rec["param_checksum"] = launch_steps(
+                step, params, opt, batch)
+        rec["launches"] = flash_counts()
+        mark("steps")
+        L, M = cfg.num_hidden_layers, hp.num_microbatches
+        rec["gate"], gate_checks = flash_gate(log, L * M * LAUNCH_STEPS)
+        checks.update(gate_checks)
+        del params, opt
+    finally:
+        mesh.close()
+        dist.destroy_process_group()
+    mark("closed")
+    rec["checks"] = checks
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    return 0 if all(checks.values()) else 1
+
+
+def run_launcher(log_dir, script, *args):
+    """``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 1``
+    of script from the repository root, in a session of its own: past
+    LAUNCH_TIMEOUT_S the launcher and its workers are killed together.
+    Returns (exit code, stderr)."""
+    import os
+    import signal
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PADDLE_")}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    p = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "1", "--log_dir", log_dir, script, *args],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        _, err = p.communicate(timeout=LAUNCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        _, err = p.communicate()
+        return None, err + f"\nkilled after {LAUNCH_TIMEOUT_S} s"
+    return p.returncode, err
+
+
+def phase_launch_train_bf16(state):
+    """The hybrid trainer's ranks started by the port's launcher: one rank
+    over NCCL (launch_worker) against the in-process world-1 mesh step at
+    the same seed (hybrid_mesh, no launcher), whose losses and parameter
+    checksum it must equal bit for bit; its collectives at world 1; the
+    launcher's exit code 0, and nonzero for a worker that exits 1."""
+    import os
+    import tempfile
+    import torch
+    from paddle_tpu_torch.parallel import transformer as pt
+    t0 = time.perf_counter()
+    rec = {"phase": "launch_train_bf16", "card": nvidia_smi(),
+           "layers": CUT_LAYERS, "steps": LAUNCH_STEPS}
+    checks = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank0.json")
+        rc, err = run_launcher(tmp, os.path.abspath(__file__),
+                               "--launch-worker", out)
+        rec["launch_s"] = time.perf_counter() - t0
+        rec["launcher_rc"] = rc
+        checks["launcher_returns_0"] = rc == 0
+        worker = {}
+        if os.path.exists(out):
+            with open(out) as f:
+                worker = json.load(f)
+        if rc != 0:
+            log = os.path.join(tmp, "workerlog.0")
+            rec["worker_log_tail"] = open(log).read()[-4000:] \
+                if os.path.exists(log) else err[-4000:]
+        fail = os.path.join(tmp, "fail.py")
+        with open(fail, "w") as f:
+            f.write("import sys\nsys.exit(1)\n")
+        t1 = time.perf_counter()
+        rc_fail, _ = run_launcher(os.path.join(tmp, "fail"), fail)
+        rec["failing_launch_s"] = time.perf_counter() - t1
+        rec["failing_worker_launcher_rc"] = rc_fail
+        checks["failing_worker_fails_the_launch"] = rc_fail not in (0, None)
+    rec["worker"] = worker
+    checks.update({f"worker_{k}": v
+                   for k, v in worker.get("checks", {"ran": False}).items()})
+
+    # the in-process world-1 mesh step at the same seed, on the kernels
+    t1 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, hp, batch = launch_config()
+    mesh = hybrid_mesh(hp, DEV)
+    try:
+        step = pt.build_train_step(cfg, hp, mesh)
+        params = pt.shard_params(pt.init_params(cfg, hp, seed=SEED,
+                                                device=DEV), hp, mesh)
+        opt = pt.init_opt_state(params, hp, mesh)
+        losses, checksum = launch_steps(step, params, opt, batch)
+        del params, opt
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+    rec["in_process_s"] = time.perf_counter() - t1
+    want = {k: cfg.num_hidden_layers * hp.num_microbatches * LAUNCH_STEPS
+            for k in ("fwd", "dkdv", "dq")}
+    rec["in_process"] = {"losses": losses, "param_checksum": checksum}
+    rec["expected_launches"] = want
+    checks["losses_bit_equal_in_process"] = worker.get("losses") == losses
+    checks["params_bit_equal_in_process"] = \
+        worker.get("param_checksum") == checksum
+    checks["losses_finite"] = all(map(math.isfinite, losses))
+    checks["launches_equal_layers_x_microbatches_x_steps"] = \
+        worker.get("launches") == want
+    ar = worker.get("all_reduce_25mb", {})
+    rec["all_reduce_25mb_host_us"] = {k: v["host_us"] for k, v in ar.items()
+                                      if isinstance(v, dict)}
+    rec["seconds"] = time.perf_counter() - t0
+    rec["checks"] = checks
+    rec["ok"] = all(checks.values())
+    emit(rec)
+    state["launch_train_bf16"] = rec
     return rec["ok"]
 
 
@@ -6193,6 +6522,7 @@ def flash_records(state) -> list:
     t = cases["trainer_bfloat16"]["timing"]
     tb = state["train_bf16"]
     th = state["train_hybrid_bf16"]
+    tl = state["launch_train_bf16"]["worker"]
     recs = []
     for kern, line, fn, err_keys in (
             ("fwd", 97, "_fwd_kernel", ("out",)),
@@ -6206,10 +6536,12 @@ def flash_records(state) -> list:
                                        "flash_attention.cu",
             "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
             "tpu_kernel": f"flash_attention.py::{fn}",
-            "launches": tb["launches"][kern] + th["dense"]["launches"][kern],
+            "launches": tb["launches"][kern] + th["dense"]["launches"][kern]
+            + tl["launches"][kern],
             "launches_by_phase": {
                 "train_bf16": tb["launches"][kern],
                 "train_hybrid_bf16": th["dense"]["launches"][kern],
+                "launch_train_bf16": tl["launches"][kern],
                 "train_hybrid_bf16_remat_attn_2_steps":
                     th["remat"]["attn"]["launches_2_steps"][kern],
                 "train_hybrid_bf16_remat_full_2_steps":
@@ -6421,6 +6753,8 @@ def kernel_records(state) -> list:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--launch-worker"]:
+        return launch_worker(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -6484,6 +6818,7 @@ def main() -> int:
                      ("train_f32", phase_train_f32),
                      ("train_bf16", phase_train_bf16),
                      ("train_hybrid_bf16", phase_train_hybrid_bf16),
+                     ("launch_train_bf16", phase_launch_train_bf16),
                      ("blha_f32", phase_blha_f32),
                      ("blha_bf16", phase_blha_bf16),
                      ("fused_decoder_f32", phase_fused_decoder_f32),

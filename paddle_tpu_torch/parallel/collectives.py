@@ -3,15 +3,26 @@
 
 They are the counterparts of the ``lax`` collectives that
 paddle_tpu/parallel/transformer.py calls inside ``shard_map``, and each
-backward is the transpose JAX takes there (the step runs with
-``check_vma=False``, so ``psum`` transposes to ``psum``):
+backward is a transpose:
 
     all_gather (tiled)   <->  psum_scatter (tiled)
     psum                  ->  psum
     pmean                 ->  psum / n
+    psum_replicated       ->  the identity
     pmax                      no gradient (the reference stops it)
     ppermute(perm)        ->  ppermute(inverse perm)
     all_to_all(split, concat) -> all_to_all(concat, split)
+
+``psum`` transposes to ``psum`` where the ranks' cotangents differ and are
+summed by the transpose, e.g. an aux loss ``pmean``'d over ep = dp that
+the dp average then weighs.  Where every rank of the group goes on to
+hold the same loss, which nothing averages afterwards (the vocab-parallel
+cross entropy's sums over tp, the loss sum over cp), the cotangent of the
+sum is replicated and its transpose is the identity: that is
+``psum_replicated``.  The reference runs with ``check_vma=False`` and
+transposes those sums to ``psum`` too, so its gradients are tp x cp (x pp
+under GPipe and the interleaved schedule) times the single-device ones;
+the port's equal the single-device step's in every layout.
 
 A group is a ``ProcessGroup`` backend object (``ProcessGroupGloo`` or
 ``ProcessGroupNCCL``) built over a store, not a group registered with
@@ -25,7 +36,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather", "psum_scatter", "psum", "pmean", "pmax",
+__all__ = ["all_gather", "psum_scatter", "psum", "psum_replicated",
+           "pmean", "pmax",
            "ppermute", "all_to_all", "axis_index", "send", "recv",
            "allreduce_", "wait_all"]
 
@@ -191,6 +203,16 @@ class _Psum(torch.autograd.Function):
         return (out / ctx.scale if ctx.scale != 1 else out), None, None
 
 
+class _PsumReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _psum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class _Ppermute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, perm):
@@ -231,6 +253,12 @@ def psum_scatter(x, group, dim):
 def psum(x, group):
     """``lax.psum``: the sum over the group."""
     return _Psum.apply(x, group, 1)
+
+
+def psum_replicated(x, group):
+    """``lax.psum`` of a value every rank of the group then holds as one
+    loss: the backward passes the (replicated) cotangent through."""
+    return _PsumReplicated.apply(x, group)
 
 
 def pmean(x, group):

@@ -34,17 +34,15 @@ The parallel layout is the reference's:
   its shard and the shards are all-gathered).  MoE experts may be sharded
   over dp (``ep == dp``), tokens exchanged by ``all_to_all``.
 
-The collectives are ``torch.autograd.Function``s whose backward is the
-transpose JAX takes inside the reference's ``shard_map`` (which runs with
-``check_vma=False``, so ``psum`` transposes to ``psum``).  The gradients
-are therefore the reference's: before the clip they are tp x cp times
-the single-device ones, and pp times more under GPipe and the interleaved
-schedule (whose loss is ``psum``'d over pp inside the differentiated
-function); 1F1B seeds its own cotangents and dp averages.  So the
-returned norm and the point where the clip fires depend on the layout
-and the schedule, and Adam's eps weighs the smallest gradients by the
-factor: the trajectories are not the single-device step's, as in the
-reference.
+The collectives are ``torch.autograd.Function``s whose backward is a
+transpose (``collectives.py``).  A sum after which every rank of the
+group holds the same loss (the cross entropy's over tp, the loss's over
+cp) passes its cotangent through, and every schedule seeds the loss 1 /
+M, so the gradients, the returned norm and the parameters are the
+single-device step's in every layout and schedule.  The reference
+transposes those sums to ``psum`` (``check_vma=False``) and seeds GPipe
+and the interleaved schedule pp / M: its gradients are tp x cp (x pp)
+times these before the clip.
 
 Parameters are a dict in the JAX pytree layout: ``embed`` ``[V, H]``,
 ``norm_f`` ``[H]``, ``head`` ``[H, V]`` and ``layers.{ln1, wq, wk, wv, wo,
@@ -55,10 +53,14 @@ trainer's trees over (as numpy), ``to_numpy`` carries them back;
 ``shard_params`` / ``shard_opt_state`` cut a full tree into this rank's
 shards.
 
-A multi-GPU run, one process a card (``torchrun --nproc-per-node N``):
+A multi-GPU run, one process a card (``python -m
+paddle_tpu_torch.distributed.launch --nproc_per_node N``, or ``torchrun
+--nproc-per-node N``):
 
+    init_parallel_env()               # under the port's launcher
     hp = HybridParallelConfig(dp=2, tp=2, ...)
-    mesh = build_mesh(hp)             # RANK, WORLD_SIZE, LOCAL_RANK; NCCL
+    mesh = build_mesh(hp)             # the default group's rank and
+                                      # store, or torchrun's env; NCCL
     params = shard_params(full_params, hp, mesh)
     opt = init_opt_state(params, hp, mesh)
     step = build_train_step(cfg, hp, mesh)
@@ -82,8 +84,8 @@ from ..models.llama import LlamaConfig, resolve_device
 from ..ops import flash_attention as fa
 from .collectives import (
     _all_gather as _raw_all_gather, _psum, _psum_scatter as _raw_psum_scatter,
-    _P2PBatch, all_gather, allreduce_, pmax, psum, psum_scatter, recv, send,
-    wait_all)
+    _P2PBatch, all_gather, allreduce_, pmax, psum_replicated, psum_scatter,
+    recv, send, wait_all)
 from .moe import moe_ffn
 from .ring_attention import ring_attention
 
@@ -199,14 +201,26 @@ def _env_store(rank, world_size, timeout):
 
 def _mesh_from_layout(ranks, *, rank, world_size, store, backend, device,
                       timeout):
+    # a default process group (init_parallel_env under the port's
+    # launcher, or the caller's init_process_group) gives the rank, the
+    # world, the store and the backend; else torchrun's environment
+    up = dist.is_initialized()
     if rank is None:
-        rank = int(os.environ["RANK"])
+        rank = dist.get_rank() if up else int(os.environ["RANK"])
     if world_size is None:
-        world_size = int(os.environ["WORLD_SIZE"])
+        world_size = dist.get_world_size() if up else \
+            int(os.environ["WORLD_SIZE"])
     if world_size != ranks.size:
         raise RuntimeError(f"need {ranks.size} ranks, have {world_size}")
     if not 0 <= rank < world_size:
         raise ValueError(f"rank {rank} outside world {world_size}")
+    if up and store is None:
+        store = dist.distributed_c10d._get_default_store()
+    if up and backend is None:
+        backend = dist.get_backend()
+    if device is None and up:
+        device = "cpu" if backend == "gloo" else \
+            torch.device("cuda", torch.cuda.current_device())
     if device is None:
         device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
     device = resolve_device(device)
@@ -243,7 +257,11 @@ def build_mesh(hp: HybridParallelConfig, *, rank=None, world_size=None,
     ``arange(world).reshape(pp, dp, cp, tp)`` (the reference's axis
     order, so tp rides the innermost, fastest links).
 
-    With no arguments it reads torchrun's ``RANK``, ``WORLD_SIZE`` and
+    With no arguments, in a rank where a default process group exists
+    (``paddle_tpu_torch.distributed.init_parallel_env()`` under the port's
+    launcher, at any world size), it takes that group's rank, world,
+    store and backend, and the current CUDA device (the CPU under gloo).
+    Otherwise it reads torchrun's ``RANK``, ``WORLD_SIZE`` and
     ``LOCAL_RANK``, meets the other ranks through torchrun's store, takes
     ``cuda:LOCAL_RANK`` and NCCL.  The groups are ``ProcessGroup``
     objects over ``PrefixStore``s of ``store`` (a ``HashStore`` for a
@@ -643,7 +661,7 @@ def _scatter_seq(x, group):
 
 
 def _psum_or_id(x, group):
-    return x if group is None else psum(x, group)
+    return x if group is None else psum_replicated(x, group)
 
 
 def _rope(x, theta, pos0=0):
@@ -904,7 +922,7 @@ def _stage_apply(params, tok_mb, act_in, cfg, hp, mesh=None, *, first=True,
     ws, wc = _vocab_parallel_xent_chunked(hN, params["head"], labels, pos_w,
                                           hp.xent_chunk, mesh)
     if hp.cp > 1:
-        ws = psum(ws, mesh.group("cp"))
+        ws = psum_replicated(ws, mesh.group("cp"))
         wc = allreduce_(wc.detach().clone(), mesh.group("cp"))
     return x, ws / torch.clamp(wc, min=1.0), aux_total
 
@@ -1023,8 +1041,7 @@ def _grads_gpipe(ptree, live, tokens, cfg, hp, mesh):
     gradients summed in their dtype in that order (the reference's scan
     transpose).  On a clock of 2T ticks, T = M + pp - 1, stage s runs
     F(t - s) at tick t and B(f) at tick T + (pp - 1 - s) + (M - 1 - f).
-    The reference's loss is psum'd over pp inside the differentiated
-    function, so each stage's seed is pp / M."""
+    Each stage seeds its loss and aux terms 1 / M, as 1F1B does."""
     M, pp = hp.num_microbatches, hp.pp
     s = mesh.index("pp")
     first, last = s == 0, s == pp - 1
@@ -1047,7 +1064,7 @@ def _grads_gpipe(ptree, live, tokens, cfg, hp, mesh):
              else [])
 
     loss = torch.zeros((), dtype=torch.float32, device=dev)
-    seed = _scalar(pp / M, dev)
+    seed = _scalar(1.0 / M, dev)
     saved, grads = {}, [None] * len(live)
     for t in range(2 * T):
         f = fwd(t)
@@ -1143,7 +1160,7 @@ def _grads_vpp(ptree, live, tokens, cfg, hp, mesh):
     pp microbatches, chunks 0..vpp-1 of microbatches r*pp .. r*pp+pp-1.
     Chunk c of stage pp-1 feeds chunk c+1 of stage 0 one tick later.
     Forward over the ticks t < Tf = vpp M + pp - 1, then backward in
-    reverse (tick 2Tf - 1 - t undoes tick t), seeds pp / M as under
+    reverse (tick 2Tf - 1 - t undoes tick t), seeds 1 / M as under
     GPipe, gradients summed in their dtype."""
     M, pp, V = hp.num_microbatches, hp.pp, hp.vpp
     s = mesh.index("pp")
@@ -1172,7 +1189,7 @@ def _grads_vpp(ptree, live, tokens, cfg, hp, mesh):
             if 0 <= tf - s < V * M and takes_input(nxt, tf + 1 - nxt) else []
 
     loss = torch.zeros((), dtype=torch.float32, device=dev)
-    seed = _scalar(pp / M, dev)
+    seed = _scalar(1.0 / M, dev)
     saved, grads = {}, [None] * len(live)
     for t in range(2 * Tf):
         if t < Tf and 0 <= t - s < V * M:

@@ -8,23 +8,35 @@ as numpy) and take the same numpy tokens: ``STEPS`` steps on a fresh
 batch each, at ``LlamaConfig.tiny(vocab=64, hidden=32, layers=2, heads=4,
 ffn=64, seq=16)``, two sequences a microbatch.
 
+The port's gradients are the single-device step's in every layout; the
+JAX trainer's are ``grad_factor`` times them (tp x cp, x pp under GPipe
+and the interleaved schedule; tests/_torch_shards.py).  The JAX trainer
+runs with its clip norm and Adam's eps times the same factor
+(``jax_hp``): the clip then fires where the port's does and scales both
+to the same gradient, and Adam, whose update is unchanged when the
+gradients and eps scale together, takes the same steps.  What each
+comparison holds:
+
+- against the port's single-card step (``check_grads_world1``,
+  ``check_steps_world1``): the per-rank step's raw reduced gradients of
+  the first batch, with no factor; the losses and the parameters after
+  every step;
+- against the JAX trainer: the losses and parameters of every step
+  (``check_losses``, ``check_params``), and its first-step gradients,
+  read from its first Adam moment (m1 = (1 - b1) * the clipped gradient)
+  divided by ``grad_factor`` and held against the port's first moment,
+  gathered over the ranks, ZeRO shards included (``check_first_moments``).
+  With MoE under tp or cp the JAX trainer's aux loss is reweighed
+  (``jax_cfg_kw``) so that its gradients are the factor times the port's
+  in every term; its losses are then another objective's, and only the
+  first step's loss, from a run at the case's own config, is held.
+
 Tolerances (float32):
 - losses: every step to rtol 1e-4;
 - parameters after every step: atol lr everywhere, and atol 2e-5 at all
   but FLIPS elements (Adam moves a parameter whose gradient is zero up to
   rounding by up to 2 lr; none did at these sizes);
-- first-step gradients, ||d|| / ||ref|| <= 1e-4 a leaf: the JAX step's
-  are read from its first Adam moment (m1 = (1 - b1) * the clipped
-  gradient), held against the port's first moment, gathered over the
-  ranks (ZeRO shards included); the port's raw reduced gradients are held
-  against its own single-card gradients times the reference's factor
-  (``grad_factor``).
-
-The steps are held against the single-card step with its gradients
-multiplied by ``grad_factor`` before the clip and Adam: with the
-single-device gradients the clip fires at another norm, and Adam's eps
-weighs the smallest gradients differently (tens of elements of the
-factor-2 cases then move by more than 2e-5 even with the clip off).
+- gradients and first moments: ||d|| / ||ref|| <= 1e-4 a leaf.
 """
 import dataclasses
 import threading
@@ -67,11 +79,35 @@ def np_tree(tree):
     return jax.tree.map(lambda x: np.array(x), tree)
 
 
+def jax_hp(hp_kw):
+    """The JAX trainer's configuration for hp_kw: its clip norm and eps
+    times ``grad_factor``, so that its steps are the port's."""
+    k = grad_factor(pt.HybridParallelConfig(**hp_kw))
+    base = jt.HybridParallelConfig()
+    return jt.HybridParallelConfig(lr=LR, grad_clip_norm=base.grad_clip_norm
+                                   * k, eps=base.eps * k, **hp_kw)
+
+
+def jax_cfg_kw(hp_kw, cfg_kw):
+    """The JAX trainer's config fields for a case: with MoE under tp or
+    cp, its aux weight times tp x cp.  The reference takes the aux loss's
+    gradient on tp rank 0 and divides it by cp (``_aux_consistent``), so
+    it lacks the tp x cp of its cross entropy's; reweighed, its gradients
+    are ``grad_factor`` times the port's in every term."""
+    hp = pt.HybridParallelConfig(**hp_kw)
+    if not cfg_kw.get("moe_experts") or hp.tp * hp.cp == 1:
+        return cfg_kw
+    w = configs(cfg_kw)[0].moe_aux_weight
+    return dict(cfg_kw, moe_aux_weight=w * hp.tp * hp.cp)
+
+
 def run_jax(hp_kw, cfg_kw, tokens):
-    """The JAX trainer: (init params as numpy, losses, params after each
-    step, the first step's m)."""
+    """The JAX trainer under ``jax_hp``: (init params as numpy, losses,
+    params after each step, the first step's m divided by
+    ``grad_factor``)."""
     jcfg, _ = configs(cfg_kw)
-    hp = jt.HybridParallelConfig(lr=LR, **hp_kw)
+    hp = jax_hp(hp_kw)
+    k = grad_factor(pt.HybridParallelConfig(**hp_kw))
     mesh = jt.build_mesh(hp)
     init = np_tree(jt.init_params(jcfg, jt.HybridParallelConfig(), seed=0))
     params = jt.shard_params(jax.tree.map(jnp.asarray, init), hp, mesh)
@@ -83,7 +119,7 @@ def run_jax(hp_kw, cfg_kw, tokens):
         losses.append(float(loss))
         trees.append(dict(pt._leaves(np_tree(params))))
         if m1 is None:
-            m1 = dict(pt._leaves(np_tree(opt["m"])))
+            m1 = {n: a / k for n, a in pt._leaves(np_tree(opt["m"]))}
     return {"init": init, "losses": losses, "params": trees, "m1": m1}
 
 
@@ -111,6 +147,30 @@ def run_ranks(hp, fn):
     assert not any(t.is_alive() for t in threads), "a rank thread hung"
     assert not errs, "\n".join(errs.values())
     return out
+
+
+def first_grads(hp_kw, cfg_kw, init, tokens):
+    """The per-rank step's reduced gradients of one global batch,
+    gathered over the ranks, layers in logical order."""
+    _, cfg = configs(cfg_kw)
+    hp = pt.HybridParallelConfig(lr=LR, **hp_kw)
+    rows = len(tokens) // hp.dp
+    zd = dict(pt._leaves(pt.zero_dims(hp, pt._shapes(cfg))))
+
+    def rank(mesh):
+        params = pt.shard_params(init, hp, mesh)
+        d = mesh.index("dp")
+        toks = torch.from_numpy(tokens[d * rows:(d + 1) * rows]).long()
+        names = [n for n, _ in pt._leaves(params)]
+        _, g = pt._sharded_loss_and_grads(
+            params, toks.reshape(hp.num_microbatches, -1, SEQ), cfg, hp,
+            mesh)
+        g = pt._reduce_grads(g, names, hp, mesh, zd)
+        return leaf_arrays(pt._tree(zip(names, g)))
+
+    res = run_ranks(hp, rank)
+    specs = dict(pt._leaves(pt.opt_state_specs(hp, pt._shapes(cfg))["m"]))
+    return logical(gather(res, specs), hp)
 
 
 def leaf_arrays(tree):
@@ -169,11 +229,9 @@ def run_port(hp_kw, cfg_kw, init, tokens):
 
 def run_world1(hp_kw, cfg_kw, init, tokens):
     """The port's single-card step over the same global batches (its
-    microbatches are every dp rank's, in order), its gradients times
-    ``grad_factor``: gradients of the first batch (unscaled), losses,
-    params after each step."""
+    microbatches are every dp rank's, in order): gradients of the first
+    batch, losses, params after each step."""
     _, cfg = configs(cfg_kw)
-    factor = grad_factor(pt.HybridParallelConfig(**hp_kw))
     hp_kw = {k: v for k, v in hp_kw.items()
              if k in ("xent_chunk", "remat", "remat_policy")}
     hp = pt.HybridParallelConfig(lr=LR, num_microbatches=len(tokens[0]) // MB,
@@ -185,8 +243,7 @@ def run_world1(hp_kw, cfg_kw, init, tokens):
         loss, g = pt.loss_and_grads(params, torch.from_numpy(t).long(), cfg,
                                     hp)
         first = first or leaf_arrays(g)
-        pt._adamw_update(params, pt._tree((n, x * factor)
-                                          for n, x in pt._leaves(g)), opt, hp)
+        pt._adamw_update(params, g, opt, hp)
         losses.append(float(loss))
         trees.append(leaf_arrays(params))
     return {"grads": first, "losses": losses, "params": trees}
@@ -202,12 +259,13 @@ def assert_params_close(got, want):
     assert far <= FLIPS, far
 
 
-def assert_l2_close(got, want, scale=1.0):
-    """||got - scale * want|| / ||scale * want|| <= GRAD_L2_REL a leaf."""
+def assert_l2_close(got, want):
+    """||got - want|| / ||want|| <= GRAD_L2_REL a leaf."""
     for n, a in got.items():
-        b = scale * np.asarray(want[n], np.float32)
+        b = np.asarray(want[n], np.float32)
         ref = max(float(np.linalg.norm(b)), 1e-30)
-        assert float(np.linalg.norm(a - b)) / ref <= GRAD_L2_REL, n
+        rel = float(np.linalg.norm(a - b)) / ref
+        assert rel <= GRAD_L2_REL, (n, rel)
 
 
 class Runs:
@@ -230,8 +288,15 @@ class Runs:
 
     def jax(self, name):
         hp_kw, cfg_kw = self.cases[name]
-        return self._get("jax", name, lambda: run_jax(hp_kw, cfg_kw,
-                                                      self.tokens(name)))
+        return self._get("jax", name, lambda: run_jax(
+            hp_kw, jax_cfg_kw(hp_kw, cfg_kw), self.tokens(name)))
+
+    def jax_first_loss(self, name):
+        """The JAX trainer's first loss at the case's own config (its
+        forward; the step's update does not enter it)."""
+        hp_kw, cfg_kw = self.cases[name]
+        return self._get("jax1", name, lambda: run_jax(
+            hp_kw, cfg_kw, self.tokens(name)[:1])["losses"])
 
     def port(self, name):
         hp_kw, cfg_kw = self.cases[name]
@@ -245,8 +310,16 @@ class Runs:
 
 
 def check_losses(runs, name):
-    np.testing.assert_allclose(runs.port(name)["losses"],
-                               runs.jax(name)["losses"], rtol=LOSS_RTOL)
+    """Every step's loss; where ``jax_cfg_kw`` reweighs the JAX trainer's
+    aux loss, its losses are another objective's, so only the first,
+    from a run at the case's own config."""
+    hp_kw, cfg_kw = runs.cases[name]
+    if jax_cfg_kw(hp_kw, cfg_kw) == cfg_kw:
+        want = runs.jax(name)["losses"]
+    else:
+        want = runs.jax_first_loss(name)
+    got = runs.port(name)["losses"][:len(want)]
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
 
 
 def check_params(runs, name):
@@ -262,7 +335,7 @@ def check_grads_world1(runs, name):
     hp_kw = runs.cases[name][0]
     hp = pt.HybridParallelConfig(**hp_kw)
     assert_l2_close(logical(runs.port(name)["grads"], hp),
-                    runs.world1(name)["grads"], grad_factor(hp))
+                    runs.world1(name)["grads"])
 
 
 def check_steps_world1(runs, name):

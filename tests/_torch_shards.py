@@ -1,7 +1,7 @@
 """Shared by the hybrid trainer's tests on the CPU and on four cards
 (tests/_torch_hybrid.py, tests/test_torch_hybrid_nccl.py), without JAX:
 whole arrays gathered from every rank's shards, the interleaved
-schedule's layers back in logical order, and the reference's gradient
+schedule's layers back in logical order, and the JAX trainer's gradient
 factor."""
 import numpy as np
 
@@ -40,10 +40,11 @@ def logical(tree, hp):
 
 
 def grad_factor(hp):
-    """The reference's gradients are its single-device ones times tp * cp,
-    and times pp unless 1F1B seeds them (GPipe and the interleaved
-    schedule psum the loss over pp inside the differentiated function):
-    each psum over an axis whose ranks all hold the loss transposes to a
-    psum of their cotangents (``check_vma=False``)."""
+    """The JAX trainer's gradients over the port's (whose equal the
+    single-device step's): tp * cp, and pp too unless 1F1B seeds them.
+    The reference runs under ``check_vma=False``, where each psum over an
+    axis whose ranks all hold the loss transposes to a psum of their
+    cotangents, and GPipe and the interleaved schedule psum the loss over
+    pp inside the differentiated function."""
     pipe = 1 if hp.pp_schedule == "1f1b" else hp.pp
     return hp.tp * hp.cp * pipe

@@ -16,9 +16,8 @@ activation of 8 MiB a message, beyond NCCL's buffers) and at a small
 width in f32 for the parity of gradients and parameters.
 
 The world-1 reference runs ``num_microbatches * dp`` microbatches (every
-dp rank's, in order) and scales its gradients by the reference's factor
-(tp * cp, times pp unless 1F1B seeds the cotangents; see
-paddle_tpu_torch/parallel/transformer.py) before the clip and Adam.
+dp rank's, in order); the per-rank step's gradients, losses and
+parameters equal its own in every layout and schedule, with no factor.
 
 Tolerances: f32 losses every step to rtol 1e-4, first-step gradients to
 ||d|| / ||ref|| <= 1e-4 a leaf, parameters after the last step within
@@ -39,7 +38,7 @@ import torch
 from paddle_tpu_torch.models.llama import LlamaConfig
 from paddle_tpu_torch.parallel import transformer as pt
 from paddle_tpu_torch.parallel.collectives import _P2PBatch
-from _torch_shards import gather, grad_factor, logical
+from _torch_shards import gather, logical
 
 pytestmark = pytest.mark.cuda
 
@@ -191,9 +190,9 @@ def run_world(cases, backend="nccl"):
 
 
 def world1(case, device):
-    """The single-card step over the same global batches, its gradients
-    times ``grad_factor``: the first batch's gradients (unscaled), the
-    losses and the parameters after the last step."""
+    """The single-card step over the same global batches: the first
+    batch's gradients, the losses and the parameters after the last
+    step."""
     hp, cfg, tokens = setup(case)
     hp1 = pt.HybridParallelConfig(
         lr=LR, dtype=hp.dtype, remat=hp.remat, remat_policy=hp.remat_policy,
@@ -202,15 +201,12 @@ def world1(case, device):
     params = {n: t.to(device) for n, t in pt._leaves(full_params(cfg, hp))}
     params = pt._tree(params.items())
     opt = pt.init_opt_state(params)
-    factor = grad_factor(hp)
     rec = {"losses": []}
     for t in tokens:
         loss, g = pt.loss_and_grads(params, t.to(device), cfg, hp1)
         if "grads" not in rec and not wide(hp):
             rec["grads"] = {n: to_np(x) for n, x in pt._leaves(g)}
-        pt._adamw_update(params, pt._tree((n, x * factor)
-                                          for n, x in pt._leaves(g)),
-                         opt, hp1)
+        pt._adamw_update(params, g, opt, hp1)
         rec["losses"].append(float(loss))
     if not wide(hp):
         rec["params"] = {n: to_np(x) for n, x in pt._leaves(params)}
@@ -261,7 +257,7 @@ def test_first_step_gradients_match_the_single_card_step(runs, name):
     got = logical(gathered(ranks, name, "grads", specs), hp)
     assert moe == any("moe_w_in" in n for n in got)
     for n, a in got.items():
-        b = grad_factor(hp) * ref[name]["grads"][n]
+        b = ref[name]["grads"][n]
         rel = np.linalg.norm(a - b) / max(float(np.linalg.norm(b)), 1e-30)
         assert rel <= GRAD_L2_REL, (n, rel)
 

@@ -72,6 +72,32 @@ def test_steps_match_the_single_card_step(runs, name):
     th.check_steps_world1(runs, name)
 
 
+SCHEDULES = {
+    "gpipe": {"pp": 2, "num_microbatches": 2, "pp_schedule": "gpipe"},
+    "1f1b": {"pp": 2, "num_microbatches": 2},
+    "vpp": {"pp": 2, "vpp": 2, "pp_schedule": "vpp", "num_microbatches": 2},
+    "tp2_cp2": {"tp": 2, "cp": 2, "num_microbatches": 2},
+}
+
+
+def test_schedules_and_tp_cp_give_the_single_card_gradients():
+    """One model, one batch: GPipe, 1F1B and the interleaved schedule at
+    pp 2, and tp 2 x cp 2, give the single-card step's gradients with no
+    factor, and so each other's."""
+    cfg_kw = {"num_hidden_layers": 4}
+    jcfg, _ = th.configs(cfg_kw)
+    init = th.np_tree(jt.init_params(jcfg, jt.HybridParallelConfig(),
+                                     seed=0))
+    tokens = th.global_tokens({"num_microbatches": 2})
+    one = th.run_world1({}, cfg_kw, init, tokens[:1])["grads"]
+    got = {name: th.first_grads(hp_kw, cfg_kw, init, tokens[0])
+           for name, hp_kw in SCHEDULES.items()}
+    for name, grads in got.items():
+        th.assert_l2_close(grads, one)
+    for name in ("1f1b", "vpp"):
+        th.assert_l2_close(got[name], got["gpipe"])
+
+
 def test_zero_cuts_each_ranks_moments_about_dp_times(runs):
     full = runs.port("dp2")["m_bytes"]
     zero = runs.port("zero1_dp2")["m_bytes"]

@@ -341,6 +341,24 @@ def test_collective_forward_and_transpose(name, n):
     assert abs(lhs - rhs) <= 1e-4 * max(1.0, abs(lhs)), (lhs, rhs)
 
 
+def test_psum_replicated_passes_the_cotangent_through():
+    """The sum after which every rank holds one loss: forward the sum,
+    backward the replicated cotangent itself (d<sum x, y>/dx_r = y)."""
+    rng = np.random.RandomState(5)
+    xs = [rng.randn(4, 3).astype(np.float32) for _ in range(3)]
+    y = rng.randn(4, 3).astype(np.float32)
+
+    def rank(g):
+        x = torch.from_numpy(xs[g.rank()]).requires_grad_(True)
+        out = C.psum_replicated(x, g)
+        (out * torch.from_numpy(y)).sum().backward()
+        return out.detach().numpy(), x.grad.numpy()
+
+    for out, gx in _group_run(3, rank):
+        np.testing.assert_allclose(out, sum(xs), rtol=TOL, atol=TOL)
+        np.testing.assert_array_equal(gx, y)
+
+
 def test_pmax_takes_the_max_without_gradient():
     res = _group_run(3, lambda g: C.pmax(
         torch.tensor([float(g.rank()), -float(g.rank())],

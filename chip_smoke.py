@@ -87,6 +87,14 @@ and dtypes (controls, repeats bit for bit), and ``fused_decoder_f32`` (2
 layers, against the dense forward) and ``fused_decoder_bf16`` (32 layers:
 a gate run, then the kernels alone) serve a fused LLaMA-7B decoder built
 from ``incubate.nn.functional`` ops over ``block_multihead_attention``.
+``eager_capture_bf16`` trains through the eager surface (``import
+paddle_tpu_torch as paddle``: ``Tensor``, ``nn.Layer``, AdamW, AMP): the
+f32 MLP of the capture tests captured against eager, then a 2-layer
+decoder at LLaMA-7B's widths built from ``nn`` layers, ``fused_rms_norm``
+and causal SDPA on ``Tensor``, bf16 under ``amp.decorate`` O2 with AdamW
+and the global-norm clip: one eager step with every flash and norm launch
+held to its plain version, then eager steps and ``jit.capture_step``'s
+CUDA graph replays from the same state, compared, timed and profiled.
 Each 32- and 24-layer phase shows through the kernels' launch counters
 that a run on the kernels alone went through them.  Each
 phase prints one JSON line, and a ``run`` line the whole run's seconds
@@ -6445,6 +6453,336 @@ def phase_fused_decoder_bf16(state):
     return rec["ok"]
 
 
+# ---------------------------------------------------------------------------
+# eager_capture_bf16: the eager training surface (Tensor, nn.Layer, AdamW,
+# AMP) at LLaMA-7B width, eager and as a CUDA graph (jit.capture_step)
+# ---------------------------------------------------------------------------
+
+EAGER_LAYERS, EAGER_SEQ, EAGER_STEPS, EAGER_TIMED = 2, 2048, 3, 10
+EAGER_MLP_STEPS = 4
+# captured against eager is held bit for bit: losses, parameters and
+# master weights equal, with no tolerance
+EAGER_LR = 1e-4
+
+
+def eager_decoder(pp, cfg, layers):
+    """A LLaMA decoder built only from the port's eager surface: Embedding,
+    Linear q/k/v/o, fused_rms_norm on Tensor, causal SDPA, SwiGLU and a
+    Linear head (no rotary embedding)."""
+    from paddle_tpu_torch.incubate.nn.functional import (fused_rms_norm,
+                                                          swiglu)
+    nn, F = pp.nn, pp.nn.functional
+    hsz, nh = cfg.hidden_size, cfg.num_attention_heads
+    hd, ffn, V = hsz // nh, cfg.intermediate_size, cfg.vocab_size
+    eps = cfg.rms_norm_eps
+
+    def norm_weight(layer):
+        # around 1, not 1: the gate's rolled-weight control must move
+        return layer.create_parameter(
+            [hsz], default_initializer=nn.initializer.Normal(1.0, 0.1))
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ln1, self.ln2 = norm_weight(self), norm_weight(self)
+            for name in ("q", "k", "v", "o"):
+                setattr(self, name, nn.Linear(hsz, hsz, bias_attr=False))
+            self.gate = nn.Linear(hsz, ffn, bias_attr=False)
+            self.up = nn.Linear(hsz, ffn, bias_attr=False)
+            self.down = nn.Linear(ffn, hsz, bias_attr=False)
+
+        def forward(self, x):
+            B, S = x.shape[0], x.shape[1]
+            h = fused_rms_norm(x, self.ln1, epsilon=eps)[0]
+            q, k, v = (getattr(self, n)(h).reshape([B, S, nh, hd])
+                       for n in ("q", "k", "v"))
+            a = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            x = x + self.o(a.reshape([B, S, hsz]))
+            h = fused_rms_norm(x, self.ln2, epsilon=eps)[0]
+            return x + self.down(swiglu(self.gate(h), self.up(h)))
+
+    class Decoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(V, hsz)
+            self.blocks = nn.LayerList([Block() for _ in range(layers)])
+            self.norm = norm_weight(self)
+            self.head = nn.Linear(hsz, V, bias_attr=False)
+
+        def forward(self, ids):
+            x = self.embed(ids)
+            for b in self.blocks:
+                x = b(x)
+            return self.head(fused_rms_norm(x, self.norm, epsilon=eps)[0])
+    return Decoder()
+
+
+def eager_train_step(pp, net, opt, V, o2):
+    F = pp.nn.functional
+
+    def step(ids, labels):
+        if o2:
+            with pp.amp.auto_cast(level="O2"):
+                logits = net(ids)
+                loss = F.cross_entropy(logits.reshape([-1, V]),
+                                       labels.reshape([-1]))
+        else:
+            loss = F.mse_loss(net(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return step
+
+
+def eager_state(net, opt):
+    """Clones of everything a step changes (for running eager and
+    captured from one state)."""
+    ts = [p._data for p in net.parameters()]
+    ts += [p._master_weight for p in net.parameters()
+           if getattr(p, "_master_weight", None) is not None]
+    ts += [v for st in opt._accumulators.values() for v in st.values()]
+    return [(t, t.detach().clone()) for t in ts], opt._global_step
+
+
+def eager_restore(saved, opt):
+    import torch
+    pairs, step = saved
+    with torch.no_grad():
+        for t, c in pairs:
+            t.copy_(c)
+    opt._global_step = step
+
+
+def timed_calls(fn, n):
+    """Losses (one host read each, after the step) and wall ms a call."""
+    import torch
+    losses, times = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.numpy()))
+    return losses, times
+
+
+PROFILED_CALLS = 3
+
+
+def on_device(e) -> bool:
+    """Is a profiler event a device event (a kernel, a copy, a range)?"""
+    return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+
+def profile_eager(fn, wall_ms) -> dict:
+    """PROFILED_CALLS calls under one torch.profiler session, each
+    synchronized inside its own record_function range, 5 ms of host sleep
+    between them; a device event belongs to the call before the middle of
+    the gap that follows it (so a skew between the host's and the card's
+    clocks under 2.5 ms moves none), and the last call is the one counted
+    (a profiler's first moments can miss a call's first kernels, eager or
+    replayed).  Kernel launches of every call, and
+    of the last: all, flash by launch, fused norm; its device busy ms and
+    the idle share against the unprofiled p50 wall time."""
+    import bisect
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(PROFILED_CALLS):
+            with record_function(f"profiled_call_{i}"):
+                fn()
+                torch.cuda.synchronize()
+            time.sleep(0.005)
+    events = list(prof.events())
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in events
+                    if e.name.startswith("profiled_call_")
+                    and not on_device(e))
+    cuts = [(a[1] + b[0]) / 2 for a, b in zip(ranges, ranges[1:])]
+    calls = [[] for _ in ranges]
+    for e in events:
+        if on_device(e) and not e.name.startswith("profiled_call_"):
+            calls[bisect.bisect_right(cuts, e.time_range.start)].append(e)
+    kernels = calls[-1] if calls else []
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return {"kernel_launches": len(kernels),
+            "kernel_launches_by_call": [len(c) for c in calls],
+            "flash_launches": {kern: sum(1 for e in kernels
+                                         if flash_kernel(e.name) == kern)
+                               for kern in FLASH_KERNEL_NAMES},
+            "norm_launches": sum(1 for e in kernels
+                                 if "fused_norm" in e.name),
+            "device_busy_ms": busy_ms,
+            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms
+            else "not measured",
+            "top_kernels": [{"name": k[:90], "ms": ms, "calls": n}
+                            for k, (ms, n) in sorted(
+                                by_name.items(), key=lambda kv: kv[1][0],
+                                reverse=True)[:8]]}
+
+
+def eager_mlp(pp):
+    """(a) The JAX capture tests' MLP in f32: captured against eager over
+    EAGER_MLP_STEPS steps from one seed."""
+    import torch
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 60)
+    x = pp.Tensor(torch.randn((8, 16), generator=gen, device=DEV))
+    y = pp.Tensor(torch.randn((8, 4), generator=gen, device=DEV))
+    runs = {}
+    for tag in ("eager", "captured"):
+        pp.seed(7)
+        net = pp.nn.Sequential(pp.nn.Linear(16, 32), pp.nn.ReLU(),
+                               pp.nn.Linear(32, 4))
+        opt = pp.optimizer.AdamW(learning_rate=0.01,
+                                 parameters=net.parameters())
+        step = eager_train_step(pp, net, opt, None, False)
+        if tag == "captured":
+            step = pp.jit.capture_step(step, models=net, optimizers=opt)
+        losses = [float(step(x, y).numpy()) for _ in range(EAGER_MLP_STEPS)]
+        runs[tag] = (losses, [p._data.detach().clone()
+                              for p in net.parameters()])
+    (le, pe), (lc, pc) = runs["eager"], runs["captured"]
+    bit = le == lc and all(bool(torch.equal(a, b)) for a, b in zip(pe, pc))
+    diff = max(float((a - b).abs().max()) for a, b in zip(pe, pc))
+    return {"losses_eager": le, "losses_captured": lc, "bit_equal": bit,
+            "param_max_abs_diff": diff, "ok": bit}
+
+
+def phase_eager_capture_bf16(state):
+    """(a) eager_mlp; (b) a 2-layer decoder at LLaMA-7B's widths from the
+    eager surface, bf16 under amp.decorate O2, AdamW with
+    ClipGradByGlobalNorm: one eager step with every flash and norm launch
+    held to its plain version (controls failing), then EAGER_TIMED eager
+    steps and EAGER_TIMED captured replays from the same state; the first
+    EAGER_STEPS of each compared, one of each profiled."""
+    import statistics as st
+    import torch
+    import paddle_tpu_torch as pp
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.ops import fused_norms as fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mlp = eager_mlp(pp)
+
+    cfg = LlamaConfig.llama_7b()
+    L, V = EAGER_LAYERS, cfg.vocab_size
+    pp.seed(SEED)
+    net = pp.amp.decorate(eager_decoder(pp, cfg, L), level="O2",
+                          dtype="bfloat16")
+    opt = pp.optimizer.AdamW(learning_rate=EAGER_LR,
+                             parameters=net.parameters(),
+                             grad_clip=pp.nn.ClipGradByGlobalNorm(1.0))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 61)
+    toks = torch.randint(0, V, (1, EAGER_SEQ + 1), generator=gen,
+                         device=DEV)
+    ids, labels = pp.Tensor(toks[:, :-1]), pp.Tensor(toks[:, 1:])
+    step = eager_train_step(pp, net, opt, V, True)
+    n_params = sum(p.size for p in net.parameters())
+
+    # the held eager step
+    flog = {k: [] for k in ("fwd", "dkdv", "dq", "ctl_out_1pct",
+                            "ctl_lse_log2")}
+    nlog = {k: [] for k in ("rms", *GATE_CONTROLS)}
+    with flash_patched(*held_flash(flog)), norms_held(nlog):
+        held_loss = float(step(ids, labels).numpy())
+    fgate, fchecks = flash_gate(flog, L)
+    ngate = {"calls": len(nlog["rms"]),
+             "rms": {k: max(e[k] for e in nlog["rms"])
+                     for k in nlog["rms"][0]},
+             "controls_failing": {k: f"{sum(nlog[k])}/{len(nlog[k])}"
+                                  for k in GATE_CONTROLS}}
+
+    # eager from S, then captured from S; the first EAGER_STEPS of each
+    # compared, EAGER_TIMED of each timed, one of each profiled
+    saved = eager_state(net, opt)
+    reset_flash_counts()
+    fn.rms_launch_count = 0
+    e_losses, e_ms = timed_calls(lambda: step(ids, labels), EAGER_STEPS)
+    e3_masters = [p._master_weight.clone() for p in net.parameters()]
+    e3_bf16 = [p._data.detach().clone() for p in net.parameters()]
+    more, more_ms = timed_calls(lambda: step(ids, labels),
+                                EAGER_TIMED - EAGER_STEPS)
+    e_losses, e_ms = e_losses + more, e_ms + more_ms
+    e_launch = dict(flash_counts(), rms=fn.rms_launch_count)
+    e_prof = profile_eager(lambda: step(ids, labels), st.median(e_ms[1:]))
+    eager_restore(saved, opt)
+    cap = pp.jit.capture_step(step, models=net, optimizers=opt)
+    reset_flash_counts()
+    fn.rms_launch_count = 0
+    t0 = time.perf_counter()
+    first = float(cap(ids, labels).numpy())
+    capture_s = time.perf_counter() - t0
+    c_launch_capture = dict(flash_counts(), rms=fn.rms_launch_count)
+    c_losses, c_ms = timed_calls(lambda: cap(ids, labels), EAGER_STEPS - 1)
+    c_losses = [first] + c_losses
+    c3_masters = [p._master_weight.clone() for p in net.parameters()]
+    c3_bf16 = [p._data.detach().clone() for p in net.parameters()]
+    more, more_ms = timed_calls(lambda: cap(ids, labels),
+                                EAGER_TIMED - EAGER_STEPS)
+    c_ms = c_ms + more_ms
+    c_prof = profile_eager(lambda: cap(ids, labels), st.median(c_ms))
+    c_launch_after = dict(flash_counts(), rms=fn.rms_launch_count)
+
+    bit = c_losses == e_losses[:EAGER_STEPS] and all(
+        bool(torch.equal(a, b)) for a, b in zip(e3_masters, c3_masters)) \
+        and all(bool(torch.equal(a, b)) for a, b in zip(e3_bf16, c3_bf16))
+    master_diff = max(float((a - b).abs().max())
+                      for a, b in zip(e3_masters, c3_masters))
+    loss_rel = max(abs(a - b) / abs(a)
+                   for a, b in zip(e_losses[:EAGER_STEPS], c_losses))
+    per_step = {"fwd": L, "dkdv": L, "dq": L, "rms": 2 * L + 1}
+    checks = {
+        "mlp_captured_vs_eager": mlp["ok"],
+        "gate_held_every_call": fgate["calls"] == {
+            k: L for k in ("fwd", "dkdv", "dq")}
+        and ngate["calls"] == 2 * L + 1,
+        **fchecks,
+        "gate_norm_vs_plain": norm_within(ngate["rms"], "bfloat16"),
+        "gate_norm_controls_fail": all(
+            v.split("/")[0] == v.split("/")[1] and v != "0/0"
+            for v in ngate["controls_failing"].values()),
+        "losses_finite": all(map(math.isfinite,
+                                 [held_loss] + e_losses + c_losses + more)),
+        "eager_launches": e_launch == {k: v * EAGER_TIMED
+                                       for k, v in per_step.items()},
+        "eager_profiled_launches": e_prof["flash_launches"] == {
+            k: L for k in FLASH_KERNEL_NAMES}
+        and e_prof["norm_launches"] == per_step["rms"],
+        "replay_profiled_launches": c_prof["flash_launches"] == {
+            k: L for k in FLASH_KERNEL_NAMES}
+        and c_prof["norm_launches"] == per_step["rms"],
+        "replays_launch_nothing_from_python":
+            c_launch_after == c_launch_capture,
+        "captured_vs_eager_bit_equal": bit}
+    rec = {"phase": "eager_capture_bf16", "ok": all(checks.values()),
+           "checks": checks, "layers": L, "seq": EAGER_SEQ,
+           "params": n_params, "mlp_f32": mlp,
+           "gate": {"flash": fgate, "norm": ngate, "loss": held_loss},
+           "losses_eager": e_losses, "losses_captured": c_losses + more,
+           "bit_equal": bit, "master_max_abs_diff": master_diff,
+           "loss_max_rel_diff": loss_rel,
+           "eager_step_ms": e_ms, "eager_step_ms_p50": st.median(e_ms[1:]),
+           "captured_step_ms": c_ms, "captured_step_ms_p50": st.median(c_ms),
+           "capture_s": capture_s,
+           "launches_a_step": per_step,
+           "eager_launches": e_launch,
+           "capture_launches_warmup_and_capture": c_launch_capture,
+           "profile_eager": e_prof, "profile_captured": c_prof,
+           "register_generator_state": hasattr(torch.cuda.CUDAGraph,
+                                               "register_generator_state"),
+           "card": nvidia_smi()}
+    emit(rec)
+    state["eager_capture_bf16"] = rec
+    del net, opt, cap, saved, e3_masters, c3_masters, e3_bf16, c3_bf16
+    torch.cuda.empty_cache()
+    return rec["ok"]
+
+
 def blha_records(state) -> list:
     """The kernels line's entries of this slice's four kernels: the decode
     kernel timed at the decode phase's bf16 MHA case, the varlen kernels at
@@ -6523,6 +6861,7 @@ def flash_records(state) -> list:
     tb = state["train_bf16"]
     th = state["train_hybrid_bf16"]
     tl = state["launch_train_bf16"]["worker"]
+    ec = state["eager_capture_bf16"]
     recs = []
     for kern, line, fn, err_keys in (
             ("fwd", 97, "_fwd_kernel", ("out",)),
@@ -6537,7 +6876,7 @@ def flash_records(state) -> list:
             "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
             "tpu_kernel": f"flash_attention.py::{fn}",
             "launches": tb["launches"][kern] + th["dense"]["launches"][kern]
-            + tl["launches"][kern],
+            + tl["launches"][kern] + ec["eager_launches"][kern],
             "launches_by_phase": {
                 "train_bf16": tb["launches"][kern],
                 "train_hybrid_bf16": th["dense"]["launches"][kern],
@@ -6550,7 +6889,10 @@ def flash_records(state) -> list:
                 "train_hybrid_bf16_1f1b_driver":
                     th["drivers"]["1f1b"]["launches"][kern],
                 "train_bf16_remat": tb["remat_launches"][kern],
-                "train_f32": state["train_f32"]["launches"][kern]},
+                "train_f32": state["train_f32"]["launches"][kern],
+                "eager_capture_bf16": ec["eager_launches"][kern],
+                "eager_capture_bf16_a_replay_profiled":
+                    ec["profile_captured"]["flash_launches"][kern]},
             "max_abs_err": max(c["errors"][e]["abs"] for c in cases.values()
                                for e in err_keys),
             "max_rel_err": max(c["errors"][e].get(
@@ -6589,14 +6931,20 @@ def norm_records(state) -> list:
         t = cases[f"{kind}_R{NORM_ROWS[0]}_H{NORM_HIDDEN[0]}_xbfloat16_"
                   "wbfloat16"]
         t2 = cases[f"{kind}_R2048_H{NORM_HIDDEN[0]}_xbfloat16_wbfloat16"]
+        ec = state["eager_capture_bf16"]
         launches = (state["fused_decoder_bf16"]["launches"]["rms_norm"]
+                    + ec["eager_launches"]["rms"]
                     if kind == "rms" else fl["ln"])
         by_phase = {"norms_functional": fl[kind]}
         if kind == "rms":
             by_phase.update(
-                fused_decoder_bf16=launches,
+                fused_decoder_bf16=state["fused_decoder_bf16"]["launches"][
+                    "rms_norm"],
                 fused_decoder_f32=state["fused_decoder_f32"]["launches"][
-                    "rms_norm"])
+                    "rms_norm"],
+                eager_capture_bf16=ec["eager_launches"]["rms"],
+                eager_capture_bf16_a_replay_profiled=ec[
+                    "profile_captured"]["norm_launches"])
         recs.append({
             "name": entry, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/fused_norms.cu",
@@ -6822,7 +7170,8 @@ def main() -> int:
                      ("blha_f32", phase_blha_f32),
                      ("blha_bf16", phase_blha_bf16),
                      ("fused_decoder_f32", phase_fused_decoder_f32),
-                     ("fused_decoder_bf16", phase_fused_decoder_bf16)):
+                     ("fused_decoder_bf16", phase_fused_decoder_bf16),
+                     ("eager_capture_bf16", phase_eager_capture_bf16)):
         t = time.perf_counter()
         try:
             passed = fn(state)

@@ -8,16 +8,15 @@ shape, elapsed): the signal a hung multi-host job needs.
 
 Readiness is read without blocking from a ``torch.distributed`` work's
 ``is_completed()`` or a CUDA event's ``query()`` (the reference reads
-``jax.Array.is_ready()``, which is also accepted).  The flag is this
-module's own copy of the reference's ``comm_watchdog_timeout``: read from
-the ``FLAGS_comm_watchdog_timeout`` environment variable at import, and
-set through ``FLAGS["comm_watchdog_timeout"]``.
+``jax.Array.is_ready()``, which is also accepted).  The timeout is the
+port's flag ``comm_watchdog_timeout`` (``core.flags``), read at every
+check as the reference reads its own: ``FLAGS_comm_watchdog_timeout`` in
+the environment sets it at import, ``paddle_tpu_torch.set_flags`` after.
 """
 from __future__ import annotations
 
 import functools
 import logging
-import os
 import threading
 import time
 
@@ -27,9 +26,6 @@ from torch.utils._pytree import tree_leaves
 __all__ = ["CommTaskManager", "comm_task_manager", "watch", "watch_step"]
 
 _log = logging.getLogger("paddle_tpu_torch.distributed.watchdog")
-
-FLAGS = {"comm_watchdog_timeout":
-         float(os.environ.get("FLAGS_comm_watchdog_timeout", "0") or 0)}
 
 
 def _ready(obj) -> bool:
@@ -63,7 +59,8 @@ class CommTaskManager:
         self._stop = threading.Event()
 
     def _timeout(self) -> float:
-        return float(FLAGS["comm_watchdog_timeout"])
+        from ..core.flags import get_flag
+        return float(get_flag("comm_watchdog_timeout"))
 
     def register(self, desc, ranks, array):
         if self._timeout() <= 0:

@@ -3,12 +3,13 @@ paddle_tpu/incubate/nn/functional/fused_ops.py): ``fused_rms_norm``,
 ``fused_layer_norm``, ``fused_rotary_position_embedding``, ``swiglu``,
 ``fused_matmul_bias`` and ``fused_linear``, on torch tensors.
 
-The norms route as the JAX package's ``_norm_core`` does: RMSNorm takes
-the fused-norm kernel (``ops.fused_norms``) only with a weight, LayerNorm
-only with both weight and bias, and each only where the shape rule holds
-(float32/bfloat16 x, last axis a multiple of 128, rows a multiple of 8;
-the weight's dtype may differ from x's).  Elsewhere they compute the JAX
-package's compositions.  On CUDA tensors the kernel launches; on CPU
+The norms route by the JAX package's ``_norm_core`` shape rules (the
+port has no lowering probe, and ``FLAGS_use_pallas_kernels`` routes
+nothing): RMSNorm takes the fused-norm kernel (``ops.fused_norms``) only
+with a weight, LayerNorm only with both weight and bias, and each only
+where the shape rule holds (float32/bfloat16 x, last axis a multiple of
+128, rows a multiple of 8; the weight's dtype may differ from x's).
+Elsewhere they compute the JAX package's compositions.  On CUDA tensors the kernel launches; on CPU
 tensors its plain version runs.  The other ops are plain torch, as they
 are plain jnp in the JAX package: the products are ``torch.matmul``.
 
@@ -19,14 +20,46 @@ JAX package.
 """
 from __future__ import annotations
 
+import functools
+import inspect
+
 import torch
 
+from ....core import dispatch as _D
+from ....core.tensor import Tensor
 from ....ops import fused_norms as _fn
 
 __all__ = [
     "fused_rms_norm", "fused_layer_norm", "fused_rotary_position_embedding",
     "swiglu", "fused_matmul_bias", "fused_linear",
 ]
+
+
+def _eager(op_name):
+    """Run the torch function through the dispatcher when its first
+    argument is a ``Tensor``: the other ``Tensor`` arguments become its
+    inputs, the rest its attributes."""
+    def deco(fn):
+        sig = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def wrapper(x, *args, **kwargs):
+            if not isinstance(x, Tensor):
+                return fn(x, *args, **kwargs)
+            bound = sig.bind(x, *args, **kwargs)
+            names = list(bound.arguments)
+            tensors = [n for n in names
+                       if isinstance(bound.arguments[n], Tensor)]
+            attrs = {n: bound.arguments[n] for n in names
+                     if n not in tensors}
+
+            def run(*datas):
+                kw = dict(attrs, **dict(zip(tensors, datas)))
+                return fn(**kw)
+            return _D.apply(op_name, run,
+                            tuple(bound.arguments[n] for n in tensors))
+        return wrapper
+    return deco
 
 
 def _check_norm_axis(x, begin_norm_axis):
@@ -71,6 +104,7 @@ def _norm_core(x, weight, bias, eps, kind):
     return _fn.ln_ref(x, w, b, eps)
 
 
+@_eager('fused_rms_norm')
 def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6,
                    begin_norm_axis=-1, bias=None, residual=None,
                    quant_scale=-1, quant_round_type=0, quant_max_bound=0,
@@ -86,6 +120,7 @@ def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6,
     return out, residual_out
 
 
+@_eager('fused_layer_norm')
 def fused_layer_norm(x, norm_weight, norm_bias, epsilon=1e-5,
                      begin_norm_axis=-1, bias=None, residual=None,
                      quant_scale=-1, quant_round_type=0, quant_max_bound=0,
@@ -135,6 +170,7 @@ def _rotate(x, sin, cos, use_neox):
     return (xf * cos + rotated * sin).to(x.dtype)
 
 
+@_eager('fused_rotary_position_embedding')
 def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
                                     position_ids=None,
                                     use_neox_rotary_style=True,
@@ -151,6 +187,7 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
                  for t in (q, k, v))
 
 
+@_eager('swiglu')
 def swiglu(x, y=None, name=None):
     """silu(x) * y; with y None, x is split in half on the last axis."""
     if y is None:
@@ -158,6 +195,7 @@ def swiglu(x, y=None, name=None):
     return torch.nn.functional.silu(x.float()).to(x.dtype) * y
 
 
+@_eager('fused_matmul_bias')
 def fused_matmul_bias(x, y, bias=None, transpose_x=False, transpose_y=False,
                       name=None):
     """matmul(x, y) [+ bias], either operand optionally transposed on its
@@ -168,6 +206,7 @@ def fused_matmul_bias(x, y, bias=None, transpose_x=False, transpose_y=False,
     return out + bias if bias is not None else out
 
 
+@_eager('fused_linear')
 def fused_linear(x, weight, bias=None, transpose_weight=False, name=None):
     """x @ weight [+ bias] (the fused_gemm_epilogue op)."""
     return fused_matmul_bias(x, weight, bias, False, transpose_weight)

@@ -5,15 +5,20 @@ Layouts are Paddle's, as in the JAX package: ``[batch, seq, heads,
 head_dim]`` for ``scaled_dot_product_attention`` and ``flash_attention``,
 ``[total_tokens, heads, head_dim]`` with cumulative offsets for
 ``flash_attn_unpadded``.  Routing follows the JAX package's shape rules,
-decided from shapes alone (there is no flag and no lowering probe):
-fixed-length attention goes to the port's flash attention
-(``ops.flash_attention.attention``) wherever the JAX package would take its
-Pallas flash kernel, else to the composition ``_sdpa_ref``; varlen attention to ``ops.flash_attention_
-varlen.varlen_attention`` where ``use_varlen_kernel`` holds, else to the
-segment-masked composition ``_unpadded_impl``.  Inputs are torch tensors;
-the kernel routes run on the card for CUDA tensors and through the plain
-versions for CPU tensors.  ``sdp_kernel`` is not ported (it toggles the
-JAX package's flag registry, which the port does not have yet).
+decided from the inputs alone: the port has no lowering probe, and
+``FLAGS_use_pallas_kernels`` (kept in the registry for parity) routes
+nothing, so no setting hands a CUDA tensor to a plain version.  With no
+mask and no dropout, fixed-length attention goes to the port's flash
+attention (``ops.flash_attention.attention``) wherever the JAX package
+would take its Pallas flash kernel, else to the composition
+``_sdpa_ref``; varlen
+attention to ``ops.flash_attention_varlen.varlen_attention`` where
+``use_varlen_kernel`` holds, else to the segment-masked composition
+``_unpadded_impl``.  Inputs are ``Tensor`` (then the result is a
+``Tensor`` recorded on the autograd graph through the dispatcher) or raw
+torch tensors; the kernel routes run on the card for CUDA tensors and
+through the plain versions for CPU tensors.  ``sdp_kernel`` is not ported
+yet (ROADMAP.md Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ import math
 
 import torch
 
+from ...core import dispatch as _D
+from ...core.tensor import Tensor
 from ...ops import flash_attention as _fa
 from ...ops import flash_attention_varlen as _fav
 from ...ops.flash_attention import _repeat_kv
@@ -76,11 +83,19 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """Inputs ``[batch, seq, num_heads, head_dim]``.  Without a mask or
     dropout, shapes the flash kernels take go through
     ``ops.flash_attention.attention``; everything else through the
-    composition, which (as in the JAX package) applies no dropout."""
+    composition, which (as in the JAX package) applies no dropout.  The
+    route is chosen once, on the inputs as given, as the JAX package
+    chooses it."""
+    causal = bool(is_causal)
+    q, k = (t._data if isinstance(t, Tensor) else t for t in (query, key))
     if attn_mask is None and dropout_p == 0.0 and \
-            _flash_eligible(query, key, bool(is_causal)):
-        return _fa.attention(query, key, value, causal=bool(is_causal))
-    return _sdpa_ref(query, key, value, attn_mask, causal=bool(is_causal))
+            _flash_eligible(q, k, causal):
+        op, fn, args = "flash_attention", _fa.attention, (query, key, value)
+    else:
+        op, fn, args = "sdpa", _sdpa_ref, (query, key, value, attn_mask)
+    if isinstance(query, Tensor):
+        return _D.apply(op, fn, args, {"causal": causal})
+    return fn(*args, causal=causal)
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,

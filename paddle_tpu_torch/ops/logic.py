@@ -1,0 +1,37 @@
+"""Comparison / logical ops (counterpart of paddle_tpu/ops/logic.py): the
+predicates here, the kernel-driven comparisons from the generated
+wrappers."""
+from __future__ import annotations
+
+from ..core.tensor import Tensor
+from .generated.op_wrappers import (  # noqa: F401
+    equal, greater_equal, greater_than, isfinite, isinf, isnan, less_equal,
+    less_than, logical_and, logical_not, logical_or, not_equal,
+)
+
+__all__ = [
+    "equal", "not_equal", "less_than", "less_equal", "greater_than",
+    "greater_equal", "logical_and", "logical_or", "logical_not",
+    "is_tensor", "is_empty", "is_complex", "is_floating_point", "is_integer",
+]
+
+
+def is_tensor(x):
+    return isinstance(x, Tensor)
+
+
+def is_empty(x, name=None):
+    from .creation import full
+    return full([], x.size == 0, "bool")
+
+
+def is_complex(x):
+    return x.dtype.is_complex
+
+
+def is_floating_point(x):
+    return x.dtype.is_floating_point
+
+
+def is_integer(x):
+    return x.dtype.is_integer

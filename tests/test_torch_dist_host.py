@@ -27,6 +27,7 @@ from paddle_tpu.distributed import store as jstore
 import paddle_tpu_torch.distributed as pdist
 import paddle_tpu_torch.distributed.rpc as rpc
 from paddle_tpu_torch.distributed import collective as pcoll
+from paddle_tpu_torch.core import flags as pflags
 from paddle_tpu_torch.distributed import watchdog as pwd
 from paddle_tpu_torch.distributed.auto_parallel import process_mesh as ppm
 from paddle_tpu_torch.distributed.fleet import elastic as pel
@@ -57,11 +58,18 @@ class _Done:
         return True
 
 
+class _Flags:
+    """Sets the port's flags by item, through ``set_flags``."""
+
+    def __setitem__(self, name, value):
+        pflags.set_flags({name: value})
+
+
 @pytest.fixture
 def flag():
-    prev = pwd.FLAGS["comm_watchdog_timeout"]
-    yield pwd.FLAGS
-    pwd.FLAGS["comm_watchdog_timeout"] = prev
+    prev = pflags.get_flags(["comm_watchdog_timeout"])
+    yield _Flags()
+    pflags.set_flags(prev)
 
 
 def _wait_for(cond, timeout=WAIT_S):
@@ -131,7 +139,7 @@ def test_watch_step_dumps_on_a_stuck_step(caplog, flag, monkeypatch):
 def test_watchdog_flag_matches_the_reference_default():
     """Both read FLAGS_comm_watchdog_timeout from the environment at
     import, 0 (off) when it is unset."""
-    assert pwd.FLAGS["comm_watchdog_timeout"] == \
+    assert pflags.get_flag("comm_watchdog_timeout") == \
         float(os.environ.get("FLAGS_comm_watchdog_timeout", 0.0))
     assert pwd.CommTaskManager()._timeout() == \
         jwd.CommTaskManager()._timeout()

@@ -4,9 +4,18 @@ operations played on the JAX package's native TCPStore
 (over ``torch.distributed.TCPStore``): values, counters, the errors on
 timeouts and on a refused connection, and ``barrier_via_store`` across
 generations with ranks as threads, all equal.  Every wait, join and
-socket is bounded."""
+socket is bounded.
+
+The JAX package builds its native core (``paddle_tpu/lib/libptcore.so``)
+at first use, and under six pytest workers several can run ``make`` at
+once: one then loads the library while another's compiler is still
+writing it, fails, and marks the core unavailable for its whole life.
+The ``jax_native_core`` fixture waits for the build and loads the core
+before this file runs, and puts the module's state back after it."""
+import fcntl
 import socket
 import threading
+import time
 
 import pytest
 
@@ -16,6 +25,35 @@ from _torch_threads import torch_threads  # noqa: F401
 
 STORE_TIMEOUT_S, SHORT_S, JOIN_TIMEOUT_S = 10.0, 0.2, 30
 RANKS, GENERATIONS = 3, 3
+NATIVE_WAIT_S, NATIVE_POLL_S = 60.0, 0.5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_core():
+    """Loads the JAX package's native core, waiting up to NATIVE_WAIT_S
+    for another worker's build to finish; fails (never skips) if it
+    cannot.  Loads are serialised by an fcntl lock beside the library;
+    the module's state is restored afterwards."""
+    from paddle_tpu.core import _native as N
+    saved = (N._lib, N._load_failed)
+    N._LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
+    lock_path = N._LIB_PATH.with_name(N._LIB_PATH.name + ".lock")
+    deadline = time.monotonic() + NATIVE_WAIT_S
+    with open(lock_path, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            while N.load() is None:
+                if time.monotonic() > deadline:
+                    pytest.fail(
+                        f"the JAX package's native core did not load "
+                        f"within {NATIVE_WAIT_S:.0f} s from "
+                        f"{N._LIB_PATH} (exists: {N._LIB_PATH.exists()})")
+                time.sleep(NATIVE_POLL_S)
+                N._load_failed = False
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    yield N.peek()
+    N._lib, N._load_failed = saved
 
 
 def _outcome(fn):

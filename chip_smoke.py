@@ -94,7 +94,15 @@ decoder at LLaMA-7B's widths built from ``nn`` layers, ``fused_rms_norm``
 and causal SDPA on ``Tensor``, bf16 under ``amp.decorate`` O2 with AdamW
 and the global-norm clip: one eager step with every flash and norm launch
 held to its plain version, then eager steps and ``jit.capture_step``'s
-CUDA graph replays from the same state, compared, timed and profiled.
+CUDA graph replays from the same state, compared, timed and profiled;
+its part (a) also calls one captured step with a second batch shape, a
+broadcastable ``[1, L]`` batch after ``[B, L]``, another dtype and a
+changed Python loss weight, each held to eager bit for bit, and counts
+one capture a signature.  ``ops_sweep`` runs every op of the port's
+registry on the card against the same call on the CPU, both through the
+port (``tests/_torch_sweep_cases.py``: forward and gradient with the
+parity tests' tolerances, every output on the card; the ops that draw by
+their properties), and fails the run if any op fails.
 Each 32- and 24-layer phase shows through the kernels' launch counters
 that a run on the kernels alone went through them.  Each
 phase prints one JSON line, and a ``run`` line the whole run's seconds
@@ -6650,8 +6658,74 @@ def eager_mlp(pp):
     (le, pe), (lc, pc) = runs["eager"], runs["captured"]
     bit = le == lc and all(bool(torch.equal(a, b)) for a, b in zip(pe, pc))
     diff = max(float((a - b).abs().max()) for a, b in zip(pe, pc))
+    sig = capture_signatures(pp)
     return {"losses_eager": le, "losses_captured": lc, "bit_equal": bit,
-            "param_max_abs_diff": diff, "ok": bit}
+            "param_max_abs_diff": diff, "signatures": sig,
+            "ok": bit and all(c["ok"] for c in sig.values())}
+
+
+def signature_run(pp, calls, captured):
+    """Losses (host arrays, dtypes kept), parameters, captures and traces
+    after the calls (x, y, w) of one SGD step of the f32 MLP from one
+    seed, eagerly or through one capture_step."""
+    pp.seed(29)
+    net = pp.nn.Sequential(pp.nn.Linear(16, 32), pp.nn.ReLU(),
+                           pp.nn.Linear(32, 4))
+    opt = pp.optimizer.SGD(learning_rate=0.1, parameters=net.parameters())
+    traces = []
+
+    def step(x, y, w):
+        traces.append(1)
+        loss = pp.nn.functional.mse_loss(net(x), y) * w
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    fn = pp.jit.capture_step(step, models=net, optimizers=opt) \
+        if captured else step
+    losses = [fn(x, y, w).numpy() for x, y, w in calls]
+    return (losses, [p._data.detach().clone() for p in net.parameters()],
+            getattr(fn, "num_captures", 0), len(traces))
+
+
+def capture_signatures(pp):
+    """(a)'s signature cases: each a sequence of calls of one captured
+    step, held to the same calls run eagerly, bit for bit (loss values and
+    dtypes, parameters after the last call)."""
+    import torch
+
+    def batch(seed, rows, dtype=torch.float32):
+        gen = torch.Generator(device=DEV).manual_seed(SEED + seed)
+        return (pp.Tensor(torch.randn((rows, 16), generator=gen,
+                                      device=DEV)),
+                pp.Tensor(torch.randn((rows, 4), generator=gen, device=DEV)
+                          .to(dtype)))
+    b8, b5, b1 = batch(70, 8), batch(71, 5), batch(72, 1)
+    b64 = batch(70, 8, torch.float64)
+    cases = {
+        "second_batch_shape": ([(*b8, 1.0), (*b5, 1.0), (*b8, 1.0),
+                                (*b5, 1.0)], (2, 4)),
+        "broadcastable_batch": ([(*b8, 1.0), (*b1, 1.0), (*b8, 1.0)],
+                                (2, 4)),
+        "other_dtype": ([(*b8, 1.0), (*b64, 1.0), (*b8, 1.0)], (2, 4)),
+        "python_loss_weight": ([(*b8, 1.0), (*b8, 0.5), (*b8, 2.0),
+                                (*b8, 0.25)], (1, 2)),
+    }
+    out = {}
+    for name, (calls, want) in cases.items():
+        le, pe, _, _ = signature_run(pp, calls, False)
+        lc, pc, n, traces = signature_run(pp, calls, True)
+        bit = [a.dtype for a in le] == [a.dtype for a in lc] and all(
+            a.tobytes() == b.tobytes() for a, b in zip(le, lc)) and all(
+            bool(torch.equal(a, b)) for a, b in zip(pe, pc))
+        out[name] = {"losses_eager": [float(a) for a in le],
+                     "losses_captured": [float(a) for a in lc],
+                     "loss_dtypes": [str(a.dtype) for a in lc],
+                     "captures": n, "traces": traces,
+                     "expected_captures_traces": list(want),
+                     "bit_equal": bit,
+                     "ok": bit and (n, traces) == want}
+    return out
 
 
 def phase_eager_capture_bf16(state):
@@ -6738,6 +6812,8 @@ def phase_eager_capture_bf16(state):
     per_step = {"fwd": L, "dkdv": L, "dq": L, "rms": 2 * L + 1}
     checks = {
         "mlp_captured_vs_eager": mlp["ok"],
+        "capture_signatures": all(c["ok"]
+                                  for c in mlp["signatures"].values()),
         "gate_held_every_call": fgate["calls"] == {
             k: L for k in ("fwd", "dkdv", "dq")}
         and ngate["calls"] == 2 * L + 1,
@@ -6780,6 +6856,66 @@ def phase_eager_capture_bf16(state):
     state["eager_capture_bf16"] = rec
     del net, opt, cap, saved, e3_masters, c3_masters, e3_bf16, c3_bf16
     torch.cuda.empty_cache()
+    return rec["ok"]
+
+
+def phase_ops_sweep(state):
+    """Every op of the port's registry on the card against the same call
+    on the CPU, both through the port (tests/_torch_sweep_cases.py):
+    forward and gradient within the parity tests' tolerances, every
+    output Tensor on the card; the ops that draw held to their properties
+    on the card."""
+    import os
+    import torch
+    import paddle_tpu_torch as pp
+    # the case table lives beside the parity tests that share it
+    sys.path.insert(0, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import _torch_sweep_cases as S
+    # IEEE f32 on the card, as on the CPU: no TF32 in matmuls or cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    failures, seconds = {}, {}
+    t0 = time.perf_counter()
+    for name in sorted(S.CASES):
+        t = time.perf_counter()
+        try:
+            ref = S.run(pp, name, "cpu")
+            got = S.run(pp, name, "gpu")
+            bad = S.compare(name, ref, got)
+            off = [d for d in got.devices if d != "cuda"]
+            if off:
+                bad.append(f"outputs on {off}")
+        except Exception as e:
+            bad = [f"{type(e).__name__}: {e}"[:300]]
+        seconds[name] = time.perf_counter() - t
+        if bad:
+            failures[name] = bad
+    for name in sorted(S.RANDOM):
+        t = time.perf_counter()
+        try:
+            bad = S.check_random(pp, name, "gpu")
+        except Exception as e:
+            bad = [f"{type(e).__name__}: {e}"[:300]]
+        seconds["random:" + name] = time.perf_counter() - t
+        if bad:
+            failures["random:" + name] = bad
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    n = len(S.CASES) + len(S.RANDOM)
+    print(f"ops_sweep: {n} ops checked ({len(S.CASES)} against the CPU, "
+          f"{len(S.RANDOM)} draws by their properties) in {total:.1f} s",
+          flush=True)
+    print(f"ops_sweep: failures: {json.dumps(failures)}", flush=True)
+    slow = sorted(seconds.items(), key=lambda kv: -kv[1])[:10]
+    rec = {"phase": "ops_sweep", "ok": not failures,
+           "registry": len(S.registry(pp)), "checked": n,
+           "against_cpu": len(S.CASES), "by_properties": len(S.RANDOM),
+           "failures": failures, "seconds": total,
+           "slowest": [{"op": k, "s": v} for k, v in slow],
+           "card": nvidia_smi()}
+    emit(rec)
+    state["ops_sweep"] = rec
     return rec["ok"]
 
 
@@ -7171,7 +7307,8 @@ def main() -> int:
                      ("blha_bf16", phase_blha_bf16),
                      ("fused_decoder_f32", phase_fused_decoder_f32),
                      ("fused_decoder_bf16", phase_fused_decoder_bf16),
-                     ("eager_capture_bf16", phase_eager_capture_bf16)):
+                     ("eager_capture_bf16", phase_eager_capture_bf16),
+                     ("ops_sweep", phase_ops_sweep)):
         t = time.perf_counter()
         try:
             passed = fn(state)

@@ -65,8 +65,14 @@ def get_rng_state():
 
 
 def set_rng_state(state):
+    """Put back a get_rng_state() result.  A generator made after it was
+    taken starts again from the seed it was made from."""
     states, sd = state
     with _lock:
         _state["seed"] = sd
+        later = [g for k, g in _gens.items() if k not in states]
     for k, st in states.items():
         generator(k).set_state(st)
+    if sd is not None:
+        for g in later:
+            g.manual_seed(sd)

@@ -147,6 +147,11 @@ class Tensor:
         if g is None:
             self._grad_w = None
             return None
+        if g._is_zerotensor():
+            # a backward that knows its gradient is zero (sgn) leaves a
+            # ZeroTensor, which has no storage to read: give it one
+            g = self._data.grad = torch.zeros(g.shape, dtype=g.dtype,
+                                              device=g.device)
         w = self._grad_w
         if w is None or w._data is not g:
             w = self._grad_w = Tensor._wrap(g)

@@ -6,27 +6,37 @@
         loss = step(batch_x, batch_y)      # one CUDA graph replay
 
 On the card the user's whole step -- forward, ``loss.backward()``, grad
-clip, optimizer and GradScaler -- is captured once as a
-``torch.cuda.CUDAGraph`` and replayed on every call.  The mutable state is
-threaded through static buffers: parameters and master weights, buffers
-(BatchNorm's running statistics), optimizer slots, the optimizers' lr and
-step scalars, the scalers' scale and counters all keep their storage and
-are updated in place by the graph; the card's generator is registered
-with the graph, so dropout draws advance across replays.  Before each
-replay the call copies the batch into the static inputs and writes the
-host learning rate and step count into the optimizers' device scalars, so
-an LR scheduler stepped between calls takes effect.
+clip, optimizer and GradScaler -- is captured as a ``torch.cuda.CUDAGraph``
+and replayed.  Captures are keyed by the call's signature, as ``jax.jit``
+keeps one executable a signature: the tree's structure, each Tensor leaf's
+shape, dtype and device, and each leaf that is neither a Tensor nor a
+number by value.  A new signature is captured again; a repeated one
+replays its graph.  Python ``bool`` / ``int`` / ``float`` leaves (a loss
+weight, a flag) are not part of the key: they reach the step as 0-d
+Tensors on the step's device, filled before each replay, as the JAX
+package passes them to its jitted step as dynamic scalars; a step that
+branches on one on the host fails as a host read does.  Every key's
+graph reads and writes the same state: parameters and master weights,
+buffers (BatchNorm's running statistics), optimizer slots, the
+optimizers' lr and step scalars, the scalers' scale and counters all keep
+their storage and are updated in place; the graphs share one memory pool.
+The card's generator is registered with each graph, so dropout draws
+advance across replays.  Before each replay the call copies the batch
+into the key's static inputs and writes the host learning rate and step
+count into the optimizers' device scalars, so an LR scheduler stepped
+between calls takes effect.
 
-Warm-up runs the step once eagerly on a side stream, so every library is
-built and every lazily made buffer exists before capture; the state it
-changed is then put back, so the first call is the first step.  A capture
+Warm-up runs the step once eagerly on a side stream before each capture,
+so every library is built and every lazily made buffer exists; the state
+it changed is then put back, so the call is one step.  A capture
 failure raises: there is no eager fallback on the card.  Drop what keeps
 an earlier eager step's autograd graph alive (its loss, a clone of a
 parameter that requires grad) before the first call: torch's
 gradient-accumulation nodes remember the stream they were made on.
 
 On the CPU, ``capture_step`` runs the step eagerly under the same
-contract.  The contract (the JAX package's errors, word for word):
+contract, number leaves lifted to 0-d Tensors as on the card.  The
+contract (the JAX package's errors, word for word):
 
 - the step must not read tensors on the host (``.numpy()``, ``item()``,
   ``float()``, ``if tensor:``);
@@ -42,13 +52,14 @@ replays: count a replay's launches from a ``torch.profiler`` trace.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core import dispatch as _D
 from ..core import random_state
 from ..core.tensor import Tensor
 
-__all__ = ["capture_step", "CapturedStep"]
+__all__ = ["capture_step", "CapturedStep", "signature", "lift_scalars"]
 
 _UNCLEARED_MSG = (
     "capture_step: gradients still set after the step for {} — call "
@@ -73,10 +84,81 @@ def _map(tree, fn):
     return tree
 
 
-def _leaves(tree):
-    out = []
-    _map(tree, out.append)
-    return out
+_SCALAR_DTYPES = {"bool": torch.bool, "int": torch.int64,
+                  "float": torch.float32}
+
+
+def _scalar_kind(x):
+    """'bool' / 'int' / 'float' for a Python or numpy number leaf, else
+    None."""
+    if isinstance(x, (bool, np.bool_)):
+        return "bool"
+    if isinstance(x, (int, np.integer)):
+        return "int"
+    if isinstance(x, (float, np.floating)):
+        return "float"
+    return None
+
+
+def signature(tree):
+    """The capture key of a call's ``(args, kwargs)`` tree: its structure,
+    each Tensor leaf's shape, dtype and device, each number leaf's kind
+    (its value rides in a device scalar) and every other leaf's value."""
+    if isinstance(tree, Tensor):
+        d = tree._data
+        return ("tensor", tuple(d.shape), d.dtype, d.device)
+    kind = _scalar_kind(tree)
+    if kind is not None:
+        return ("scalar", kind)
+    if isinstance(tree, (list, tuple)):
+        return (type(tree), tuple(signature(t) for t in tree))
+    if isinstance(tree, dict):
+        return (dict, tuple((k, signature(v)) for k, v in tree.items()))
+    try:
+        hash(tree)
+        return ("value", type(tree), tree)
+    except TypeError:
+        return ("value", type(tree), repr(tree))
+
+
+def lift_scalars(tree, device, clone=False):
+    """The tree with each number leaf as a 0-d Tensor on ``device`` (and,
+    with ``clone``, each Tensor leaf as a copy): what the step receives."""
+    def go(t):
+        if isinstance(t, Tensor):
+            return Tensor(t._data.clone()) if clone else t
+        kind = _scalar_kind(t)
+        if kind is not None:
+            return Tensor(torch.tensor(t.item() if isinstance(t, np.generic)
+                                       else t, dtype=_SCALAR_DTYPES[kind],
+                                       device=device))
+        if isinstance(t, (list, tuple)):
+            return type(t)(go(e) for e in t)
+        if isinstance(t, dict):
+            return {k: go(v) for k, v in t.items()}
+        return t
+    return go(tree)
+
+
+def _feeds(tree):
+    """The Tensor and number leaves of a tree, in order."""
+    if isinstance(tree, Tensor) or _scalar_kind(tree) is not None:
+        yield tree
+    elif isinstance(tree, (list, tuple)):
+        for t in tree:
+            yield from _feeds(t)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _feeds(v)
+
+
+class _Capture:
+    """One signature's graph, static inputs and static outputs."""
+    __slots__ = ("graph", "static_in", "static_out")
+
+    def __init__(self, graph, static_in, static_out):
+        self.graph, self.static_in, self.static_out = \
+            graph, static_in, static_out
 
 
 class CapturedStep:
@@ -90,9 +172,11 @@ class CapturedStep:
         self._optimizers = _as_list(optimizers)
         self._scalers = _as_list(scalers)
         self._grad_accum = bool(grad_accumulation)
-        self._graph = None
-        self._static_in = None
-        self._static_out = None
+        self._captures: dict = {}
+        self._pool = None
+        # one side stream for every capture: the gradient-accumulation
+        # nodes a warm-up makes remember the stream they were made on
+        self._side = None
 
         seen = set()
         self._params = []
@@ -193,17 +277,18 @@ class CapturedStep:
         for p, g in zip(self._params, grads):
             p._data.grad = g
 
-    # -- the CUDA graph -------------------------------------------------------
+    # -- the CUDA graphs -------------------------------------------------------
     def _capture(self, args, kwargs):
         if self._grad_accum:
             for p in self._params:
                 if p._data.grad is None and not p.stop_gradient:
                     p._data.grad = torch.zeros_like(p._data)
-        self._static_in = _map((args, kwargs),
-                               lambda t: Tensor(t._data.clone()))
-        s_args, s_kwargs = self._static_in
+        static_in = lift_scalars((args, kwargs), self._device, clone=True)
+        s_args, s_kwargs = static_in
         snap = self._snapshot()
-        side = torch.cuda.Stream(device=self._device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(device=self._device)
+        side = self._side
         side.wait_stream(torch.cuda.current_stream(self._device))
         with torch.cuda.stream(side):
             self._fill_scalars()
@@ -215,30 +300,44 @@ class CapturedStep:
         if hasattr(graph, "register_generator_state"):
             graph.register_generator_state(
                 random_state.generator(self._device))
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
         steps = [opt._global_step for opt in self._optimizers]
-        with torch.cuda.graph(graph, stream=side):
+        with torch.cuda.graph(graph, pool=self._pool, stream=side):
             out = self._run_fn(s_args, s_kwargs)
         for opt, st in zip(self._optimizers, steps):
             opt._global_step = st
-        self._graph, self._static_out = graph, out
+        return _Capture(graph, static_in, out)
+
+    @property
+    def num_captures(self):
+        """How many signatures have been captured (0 on the CPU)."""
+        return len(self._captures)
 
     # -- call -----------------------------------------------------------------
     def __call__(self, *args, **kwargs):
         if self._device.type != "cuda":
             self._fill_scalars()
-            out = self._run_fn(args, kwargs)
+            s_args, s_kwargs = lift_scalars((args, kwargs), self._device)
+            out = self._run_fn(s_args, s_kwargs)
             return _map(out, lambda t: t.detach())
-        if self._graph is None:
-            self._capture(args, kwargs)
+        key = signature((args, kwargs))
+        cap = self._captures.get(key)
+        if cap is None:
+            cap = self._captures[key] = self._capture(args, kwargs)
         with torch.no_grad():
-            for dst, src in zip(_leaves(self._static_in),
-                                _leaves((args, kwargs))):
-                dst._data.copy_(src._data, non_blocking=True)
+            for dst, src in zip(_feeds(cap.static_in),
+                                _feeds((args, kwargs))):
+                if isinstance(src, Tensor):
+                    dst._data.copy_(src._data, non_blocking=True)
+                else:
+                    dst._data.fill_(src.item() if isinstance(src, np.generic)
+                                    else src)
         self._fill_scalars()
-        self._graph.replay()
+        cap.graph.replay()
         for opt in self._optimizers:
             opt._global_step += 1
-        return _map(self._static_out, lambda t: Tensor(t._data.clone()))
+        return _map(cap.static_out, lambda t: Tensor(t._data.clone()))
 
 
 def capture_step(fn=None, *, models=None, optimizers=None, scalers=None,

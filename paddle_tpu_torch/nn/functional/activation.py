@@ -3,6 +3,7 @@ paddle_tpu/nn/functional/activation.py): the kernel-driven ones from the
 generated wrappers, and their inplace twins."""
 from __future__ import annotations
 
+from ...ops._inplace import apply_inplace
 from ...ops.generated.op_wrappers import (  # noqa: F401
     elu, gelu, hardswish, leaky_relu, log_sigmoid, log_softmax, mish, relu,
     relu6, sigmoid, silu, softmax, softplus, softsign, swish, tanh,
@@ -15,18 +16,13 @@ __all__ = [
 ]
 
 
-def _inplace(x, out):
-    x._data, x._sg = out._data, out._sg
-    return x
-
-
 def relu_(x, name=None):
-    return _inplace(x, relu(x))
+    return apply_inplace(x, relu)
 
 
 def tanh_(x, name=None):
-    return _inplace(x, tanh(x))
+    return apply_inplace(x, tanh)
 
 
 def softmax_(x, axis=-1, dtype=None, name=None):
-    return _inplace(x, softmax(x, axis, dtype))
+    return apply_inplace(x, lambda s: softmax(s, axis, dtype))

@@ -15,8 +15,9 @@ from ..core.tensor import Tensor, to_tensor
 
 __all__ = [
     "to_tensor", "zeros", "ones", "full", "empty", "zeros_like", "ones_like",
-    "full_like", "empty_like", "arange", "linspace", "eye", "tril", "triu",
-    "assign", "clone",
+    "full_like", "empty_like", "arange", "linspace", "logspace", "eye",
+    "tril", "triu", "diag", "diagflat", "meshgrid", "assign", "clone",
+    "complex_", "polar", "tril_indices", "triu_indices",
 ]
 
 
@@ -148,3 +149,73 @@ def assign(x, output=None):
 
 def clone(x, name=None):
     return assign(x)
+
+
+def logspace(start, stop, num, base=10.0, dtype=None, name=None):
+    def val(v):
+        return v.item() if isinstance(v, Tensor) else v
+    lin = linspace(start, stop, num, "float32")._data
+    return Tensor(torch.pow(float(val(base)), lin).to(_dt(dtype)))
+
+
+def _diag(x, offset, padding_value):
+    d = torch.diag(x, offset)
+    if x.dim() == 1 and padding_value != 0:
+        mask = torch.ones_like(d, dtype=torch.bool).diagonal(offset)
+        keep = torch.zeros_like(d, dtype=torch.bool)
+        keep.diagonal(offset).copy_(mask)
+        return torch.where(keep, d, torch.full_like(d, padding_value))
+    return d
+
+
+def diag(x, offset=0, padding_value=0, name=None):
+    return D.apply("diag", _diag, (x,), {"offset": int(offset),
+                                         "padding_value": padding_value})
+
+
+def _diagflat(a, offset):
+    return torch.diagflat(a, offset)
+
+
+def diagflat(x, offset=0, name=None):
+    return D.apply("diagflat", _diagflat, (x,), {"offset": int(offset)})
+
+
+def _meshgrid(*arrs):
+    return tuple(torch.meshgrid(*arrs, indexing="ij"))
+
+
+def meshgrid(*args, **kwargs):
+    if len(args) == 1 and isinstance(args[0], (list, tuple)):
+        args = tuple(args[0])
+    return list(D.apply("meshgrid", _meshgrid, tuple(args)))
+
+
+def _complex(real, imag):
+    return torch.complex(real, imag)
+
+
+def complex_(real, imag, name=None):
+    return D.apply("complex", _complex, (real, imag))
+
+
+def _polar(a, b):
+    return torch.complex(a * torch.cos(b), a * torch.sin(b))
+
+
+def polar(abs_t, angle, name=None):
+    return D.apply("polar", _polar, (abs_t, angle))
+
+
+def _indices(rc, dtype):
+    return Tensor(torch.as_tensor(np.stack(rc)).to(
+        dtype=_dt(dtype), device=current_torch_device()))
+
+
+def tril_indices(row, col, offset=0, dtype="int64"):
+    return _indices(np.tril_indices(row, offset, col), dtype)
+
+
+def triu_indices(row, col=None, offset=0, dtype="int64"):
+    return _indices(np.triu_indices(row, offset,
+                                    col if col is not None else row), dtype)

@@ -5,15 +5,21 @@ from __future__ import annotations
 
 from ..core.tensor import Tensor
 from .generated.op_wrappers import (  # noqa: F401
-    equal, greater_equal, greater_than, isfinite, isinf, isnan, less_equal,
-    less_than, logical_and, logical_not, logical_or, not_equal,
+    allclose, bitwise_and, bitwise_not, bitwise_or, bitwise_xor, equal,
+    equal_all, greater_equal, greater_than, isclose, isfinite, isinf,
+    isnan, less_equal, less_than, logical_and, logical_not, logical_or,
+    logical_xor, not_equal,
 )
 
 __all__ = [
     "equal", "not_equal", "less_than", "less_equal", "greater_than",
     "greater_equal", "logical_and", "logical_or", "logical_not",
+    "logical_xor", "bitwise_and", "bitwise_or", "bitwise_not",
+    "bitwise_xor", "bitwise_invert", "isclose", "allclose", "equal_all",
     "is_tensor", "is_empty", "is_complex", "is_floating_point", "is_integer",
 ]
+
+bitwise_invert = bitwise_not
 
 
 def is_tensor(x):

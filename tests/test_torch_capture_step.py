@@ -315,3 +315,94 @@ def test_batchnorm_running_stats_under_capture():
         out[tag] = (losses, stats, net(x).numpy())
     close(out["jax"], out["cap"], rtol=5e-5, atol=1e-6)
     close(out["eager"], out["cap"], rtol=0, atol=0)
+
+
+def test_signature_keys_shape_dtype_structure_and_values():
+    import torch
+    from paddle_tpu_torch.jit.step import signature
+    x = pp.to_tensor(np.zeros((8, 4), np.float32))
+    key = signature(((x, 1.0), {"flag": True}))
+    # same shapes, other numbers: one key (numbers ride as device scalars)
+    assert signature(((pp.to_tensor(np.ones((8, 4), np.float32)), 0.5),
+                      {"flag": False})) == key
+    others = [
+        ((pp.to_tensor(np.zeros((1, 4), np.float32)), 1.0), {"flag": True}),
+        ((pp.to_tensor(np.zeros((8, 4), np.float64)), 1.0), {"flag": True}),
+        ((x, 1), {"flag": True}),                 # int, not float
+        ((x,), {"flag": True}),                   # fewer leaves
+        ([x, 1.0], {"flag": True}),               # list, not tuple
+        ((x, 1.0), {"other": True}),
+        ((x, 1.0), {"flag": True, "mode": "sum"}),
+    ]
+    keys = [signature(t) for t in others]
+    assert key not in keys and len(set(keys)) == len(keys)
+    # non-number leaves key by value
+    assert signature(("sum",)) != signature(("mean",))
+    assert signature(("sum",)) == signature(("sum",))
+    assert signature(x) == ("tensor", (8, 4), torch.float32,
+                            torch.device("cpu"))
+
+
+def test_lift_scalars_makes_device_tensors():
+    import torch
+    from paddle_tpu_torch.jit.step import lift_scalars
+    x = pp.to_tensor(np.ones((2, 3), np.float32))
+    (a, w, n, f, s), kw = lift_scalars(
+        ((x, 0.5, 3, True, "tag"), {"k": np.float32(2.0)}),
+        torch.device("cpu"), clone=True)
+    assert a._data is not x._data and torch.equal(a._data, x._data)
+    assert (w._data.dtype, w._data.dim(), float(w._data)) == \
+        (torch.float32, 0, 0.5)
+    assert (n._data.dtype, int(n._data)) == (torch.int64, 3)
+    assert (f._data.dtype, bool(f._data)) == (torch.bool, True)
+    assert s == "tag"
+    assert float(kw["k"]._data) == 2.0 and isinstance(kw["k"], pp.Tensor)
+
+
+def test_new_batch_shape_and_python_weight_match_the_jit_step():
+    """Batches of 8, 1, 5, 8 rows and loss weights 1, 1, 0.5, 2: the JAX
+    step retraces per shape and takes the weight as a dynamic scalar; the
+    port's step gives its losses and parameters."""
+    rng = np.random.RandomState(17)
+    batches = [(rng.randn(n, 16).astype(np.float32),
+                rng.randn(n, 4).astype(np.float32)) for n in (8, 1, 5, 8)]
+    weights = [1.0, 1.0, 0.5, 2.0]
+    jn, pn = _mlp_pair(19)
+    out = []
+    for pd, net in ((jp, jn), (pp, pn)):
+        opt = pd.optimizer.SGD(learning_rate=0.1,
+                               parameters=net.parameters())
+        F = pd.nn.functional
+
+        def step(x, y, w):
+            loss = F.mse_loss(net(x), y) * w
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        cap = pd.jit.capture_step(step, models=net, optimizers=opt)
+        losses = [float(cap(pd.to_tensor(x), pd.to_tensor(y), w).numpy())
+                  for (x, y), w in zip(batches, weights)]
+        out.append((losses, _params(net)))
+    close(out[0], out[1], **TOL)
+
+
+def test_branch_on_python_scalar_is_a_host_read():
+    xn, yn = _data_np(23)
+    for pd in (jp, pp):
+        net = _mlp(pd, 23)
+        opt = pd.optimizer.SGD(learning_rate=0.1,
+                               parameters=net.parameters())
+        F = pd.nn.functional
+
+        def step(x, y, w):
+            loss = F.mse_loss(net(x), y)
+            if w > 0.5:
+                loss = loss * 2.0
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        cap = pd.jit.capture_step(step, models=net, optimizers=opt)
+        with pytest.raises(Exception, match="host sync|Tracer|concrete"):
+            cap(pd.to_tensor(xn), pd.to_tensor(yn), 1.0)

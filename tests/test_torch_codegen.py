@@ -7,7 +7,7 @@ from pathlib import Path
 import paddle_tpu_torch as pp
 from paddle_tpu.codegen.schema import load_schema as j_load
 from paddle_tpu_torch.codegen import generate as G
-from paddle_tpu_torch.codegen.schema import load_schema as p_load
+from paddle_tpu_torch.codegen.schema import OpSpec, load_schema as p_load
 from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.generated import OP_REGISTRY
 from _torch_threads import torch_threads  # noqa: F401
@@ -41,8 +41,13 @@ def test_only_defined_ops_are_emitted():
             assert callable(getattr(K, spec.kernel.partition(":")[2])), name
         else:
             assert callable(spec.resolve()), name
-    # a kernel-driven op without a port kernel is not emitted
-    assert "lerp" not in ported and "lerp" in {s.name for s in p_load()}
+    # a kernel-driven op without a port kernel, or a hand-written op its
+    # module lacks, is not emitted
+    missing = [OpSpec("no_such_kernel", "paddle_tpu_torch.ops.generated."
+                      "op_wrappers", [], kernel="paddle_tpu_torch.ops."
+                      "kernels:no_such_kernel"),
+               OpSpec("no_such_op", "paddle_tpu_torch.ops.math", [])]
+    assert G.ported(missing) == []
 
 
 def test_tensor_methods_are_bound():

@@ -8,6 +8,7 @@ kernel.  Marked ``cuda``; without a card it skips.  On the card:
 
     python -m pytest tests/test_torch_eager_cuda.py --noconftest -q
 """
+import numpy as np
 import pytest
 import torch
 
@@ -105,6 +106,72 @@ def test_replays_one_capture(pp):
     for _ in range(3):
         cap(x, y)
     assert len(traces) == 2        # the warm-up and the capture
+
+
+def _signature_run(pp, calls, captured):
+    """Losses (host arrays, their dtypes kept) and parameters after the
+    calls ``(x, y, w)`` of one SGD step from one seed, eagerly or through
+    one capture_step; with the number of captures and traces."""
+    net = _mlp(pp, 29)
+    opt = pp.optimizer.SGD(learning_rate=0.1, parameters=net.parameters())
+    F = pp.nn.functional
+    traces = []
+
+    def step(x, y, w):
+        traces.append(1)
+        loss = F.mse_loss(net(x), y) * w
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    fn = pp.jit.capture_step(step, models=net, optimizers=opt) \
+        if captured else step
+    losses = [fn(x, y, w).numpy() for x, y, w in calls]
+    params = [p._data.detach().clone() for p in net.parameters()]
+    return losses, params, getattr(fn, "num_captures", 0), len(traces)
+
+
+def _batch(pp, seed, rows, dtype=torch.float32):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (pp.Tensor(torch.randn((rows, 16), generator=g, device="cuda")),
+            pp.Tensor(torch.randn((rows, 4), generator=g, device="cuda")
+                      .to(dtype)))
+
+
+def _signature_case(pp, calls):
+    (le, pe, _, _), (lc, pc, n, traces) = (
+        _signature_run(pp, calls, False), _signature_run(pp, calls, True))
+    assert [a.dtype for a in le] == [a.dtype for a in lc]
+    assert all(np.array_equal(a, b) for a, b in zip(le, lc)), (le, lc)
+    for a, b in zip(pe, pc):
+        assert torch.equal(a, b)
+    return n, traces
+
+
+def test_second_batch_shape_captures_again(pp):
+    b8, b5 = _batch(pp, 31, 8), _batch(pp, 32, 5)
+    n, traces = _signature_case(pp, [(*b8, 1.0), (*b5, 1.0), (*b8, 1.0),
+                                     (*b5, 1.0)])
+    assert (n, traces) == (2, 4)      # warm-up and capture per signature
+
+
+def test_broadcastable_batch_is_not_broadcast(pp):
+    b8, b1 = _batch(pp, 33, 8), _batch(pp, 34, 1)
+    n, _ = _signature_case(pp, [(*b8, 1.0), (*b1, 1.0), (*b8, 1.0)])
+    assert n == 2
+
+
+def test_other_dtype_is_not_cast(pp):
+    b32, b64 = _batch(pp, 35, 8), _batch(pp, 35, 8, torch.float64)
+    n, _ = _signature_case(pp, [(*b32, 1.0), (*b64, 1.0), (*b32, 1.0)])
+    assert n == 2
+
+
+def test_python_loss_weight_is_read_each_call(pp):
+    b = _batch(pp, 36, 8)
+    n, traces = _signature_case(pp, [(*b, 1.0), (*b, 0.5), (*b, 2.0),
+                                     (*b, 0.25)])
+    assert (n, traces) == (1, 2)
 
 
 def test_lr_scheduler_between_steps(pp):
